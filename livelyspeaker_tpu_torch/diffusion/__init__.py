@@ -1,5 +1,26 @@
-"""Diffusion schedules and the reverse sampling loop."""
+"""Diffusion schedules, the reverse sampling loop, training losses and
+timestep samplers."""
 
+from .losses import (
+    calc_bpd_loop,
+    discretized_gaussian_log_likelihood,
+    ema_update,
+    huber,
+    huber_per_sample,
+    kld_from_mu_logvar,
+    masked_l2,
+    mean_flat,
+    normal_kl,
+    sum_flat,
+    training_losses,
+    vb_terms_bpd,
+)
+from .resample import (
+    LossSecondMomentState,
+    loss_aware_sample_t,
+    loss_aware_update,
+    uniform_sample_t,
+)
 from .sampling import (
     VarType,
     extract,
@@ -7,6 +28,7 @@ from .sampling import (
     predict_eps_from_xstart,
     predict_xstart_from_eps,
     predict_xstart_from_xprev,
+    q_mean_variance,
     q_posterior_mean_variance,
     q_sample,
     sample_loop,

@@ -23,6 +23,7 @@ __all__ = [
     "VarType",
     "extract",
     "q_sample",
+    "q_mean_variance",
     "q_posterior_mean_variance",
     "predict_xstart_from_eps",
     "predict_eps_from_xstart",
@@ -50,6 +51,14 @@ def q_sample(sched: DiffusionSchedule, x_start, t, noise):
     nd = x_start.ndim
     return (extract(sched.sqrt_alphas_cumprod, t, nd) * x_start
             + extract(sched.sqrt_one_minus_alphas_cumprod, t, nd) * noise)
+
+
+def q_mean_variance(sched: DiffusionSchedule, x_start, t):
+    """Moments of q(x_t | x_0): (mean, variance, log variance)."""
+    nd = x_start.ndim
+    return (extract(sched.sqrt_alphas_cumprod, t, nd) * x_start,
+            extract(1.0 - sched.alphas_cumprod, t, nd),
+            extract(sched.log_one_minus_alphas_cumprod, t, nd))
 
 
 def q_posterior_mean_variance(sched: DiffusionSchedule, x_start, x_t, t):

@@ -8,6 +8,8 @@ with the sinusoidal-PE-table timestep embedding added at the input of every
 block. Parameter names follow the Flax tree (``block_0.ln1``, ...), so
 ``utils/convert.py`` maps JAX params one to one. This eager stack is the
 reference that the fused kernel (``ops/fused_mlp.py``) is held against.
+``TransMLP(fused_vjp=True)`` runs the stack through the training kernel
+(``ops/fused_mlp_train.py``) with the same parameters.
 """
 
 from __future__ import annotations
@@ -73,7 +75,7 @@ class TimestepEmbedder(nn.Module):
         self.fc2 = dense_default_(nn.Linear(latent_dim, latent_dim), generator)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        h = self.fc2(F.silu(self.fc1(self.pe[t])))
+        h = self.fc2(F.silu(self.fc1(self.pe[t].to(self.fc1.weight.dtype))))
         return h[:, None, :]
 
 
@@ -104,12 +106,19 @@ class MLPBlock(nn.Module):
 
 
 class TransMLP(nn.Module):
-    """Timestep embedding + ``num_layers`` mixer blocks."""
+    """Timestep embedding + ``num_layers`` mixer blocks.
+
+    ``fused_vjp=True`` routes the blocks through ``fused_transmlp_train``
+    (the training fast path: fused forward, hand-written backward; f32 only).
+    The parameters and the state_dict are the same either way."""
 
     def __init__(self, seq_len: int = 35, num_layers: int = 8, dim: int = 512,
-                 act: str = "silu", generator: Optional[torch.Generator] = None):
+                 act: str = "silu", generator: Optional[torch.Generator] = None,
+                 fused_vjp: bool = False):
         super().__init__()
         self.num_layers = num_layers
+        self.act_name = act
+        self.fused_vjp = fused_vjp
         self.embed_timestep = TimestepEmbedder(dim, generator=generator)
         for i in range(num_layers):
             self.add_module(
@@ -121,6 +130,14 @@ class TransMLP(nn.Module):
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         emb = self.embed_timestep(t)
+        if self.fused_vjp:
+            from ..ops.fused_mlp_train import (
+                fused_transmlp_train,
+                pack_transmlp_train_params,
+            )
+
+            return fused_transmlp_train(
+                x, emb[:, 0], pack_transmlp_train_params(self), self.act_name)
         for blk in self.blocks():
             x = blk(x, emb)
         return x

@@ -1,7 +1,7 @@
 """RAG, the Rhythm-Aware diffusion Generator, in PyTorch.
 
-Port of ``livelyspeaker_tpu/models/rag.py`` (eval and inference): the model
-predicts x0. One forward pass:
+Port of ``livelyspeaker_tpu/models/rag.py``: the model predicts x0. One
+forward pass:
   1. WavEncoder(audio) -> per-frame 256-d features, dropped per sample by
      ``cond_drop`` (1 = the unconditional pass of classifier-free guidance);
   2. concat [x_t | seed-masked origin_x | indicator bit | audio] per frame,
@@ -11,6 +11,9 @@ predicts x0. One forward pass:
   4. the TransMLP backbone, then the prefix tokens are stripped and a Linear
      maps back to pose space.
 Layouts are the JAX package's: x is [B, J, F, T], features are [B, T, C].
+The forward computes in x's dtype (f32, or bf16 under the trainer's
+``compute_dtype``, with bf16 copies of the parameters); the audio features
+are always f32 and are cast to it.
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ class RAGConfig:
         audio_feat_dim: int = 256,
         num_emotions: int = 0,  # 8 for BEAT
         cond_mask_prob: float = 0.1,
+        fused_train_backbone: bool = False,
+        audio_bf16: bool = False,
     ):
         self.njoints = njoints
         self.nfeats = nfeats
@@ -57,6 +62,12 @@ class RAGConfig:
         self.audio_feat_dim = audio_feat_dim
         self.num_emotions = num_emotions
         self.cond_mask_prob = cond_mask_prob
+        # the mixer stack through the fused training kernel with the
+        # hand-written backward (f32 only)
+        self.fused_train_backbone = fused_train_backbone
+        # bf16 activations for the WavEncoder's conv stack only; its
+        # parameters and returned features stay f32
+        self.audio_bf16 = audio_bf16
 
     @property
     def input_feats(self) -> int:
@@ -94,7 +105,9 @@ class RAG(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = c = cfg
-        self.audio_encoder = WavEncoder(generator=generator)
+        self.audio_encoder = WavEncoder(
+            generator=generator,
+            dtype=torch.bfloat16 if c.audio_bf16 else torch.float32)
         self.input_mapping = dense_default_(
             nn.Linear(2 * c.input_feats + 1 + c.audio_feat_dim, c.latent_dim),
             generator,
@@ -107,7 +120,8 @@ class RAG(nn.Module):
         if c.num_emotions:
             self.emotion_embedding = _embedding(c.num_emotions, c.latent_dim)
         self.backbone = TransMLP(c.seq_len, c.num_layers, c.latent_dim,
-                                 c.mlpact, generator=generator)
+                                 c.mlpact, generator=generator,
+                                 fused_vjp=c.fused_train_backbone)
         self.pose_final = dense_default_(
             nn.Linear(c.latent_dim, c.input_feats), generator)
 
@@ -159,7 +173,7 @@ class RAG(nn.Module):
             audio_feats = self.encode_audio(cond["audio"])
         drop = self._drop_mask(b, cond.get("cond_drop"), train, generator,
                                x.device)
-        audio_emb = audio_feats * (1.0 - drop)[:, None, None]
+        audio_emb = (audio_feats * (1.0 - drop)[:, None, None]).to(x.dtype)
 
         seed_mask = (torch.arange(nt, device=x.device) < c.n_pre_seq).to(x.dtype)
         origin_x = cond["origin_x"].to(x.dtype) * seed_mask
@@ -178,6 +192,7 @@ class RAG(nn.Module):
         eps = cond.get("style_eps")
         if eps is None:
             eps = randn_like_on(z_mu, generator)
+        eps = eps.to(z_mu.dtype)
         style = z_mu + eps * torch.exp(0.5 * z_logvar)
 
         prefix = [style]

@@ -23,14 +23,18 @@ from ._build import load_library
 
 __all__ = [
     "ACTIVATIONS",
+    "KERNEL_ACT_CODES",
     "pack_transmlp_params",
     "pack_out_proj",
     "fused_transmlp_reference",
     "fused_transmlp",
+    "launch_stack",
 ]
 
-# activation name -> the kernel's Act code; any other name raises
-ACTIVATIONS = {"silu": 0, "relu": 1, "gelu": 2}
+# activation name -> the kernel's Act code (csrc/transmlp_common.cuh)
+KERNEL_ACT_CODES = {"silu": 0, "relu": 1, "gelu": 2, "lrelu": 3, "lrelu01": 4, "lrelu02": 5}
+# what fused_transmlp takes, as the JAX kernel does; any other name raises
+ACTIVATIONS = {k: KERNEL_ACT_CODES[k] for k in ("silu", "relu", "gelu")}
 
 
 @torch.no_grad()
@@ -116,15 +120,15 @@ def fused_transmlp_reference(
 fused_transmlp_reference.calls = 0
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
+def _check(name: str, t: torch.Tensor, shape, device, who: str = "fused_transmlp") -> None:
     if t.dtype != torch.float32:
-        raise TypeError(f"fused_transmlp: {name} is {t.dtype}; the kernel is f32 only")
+        raise TypeError(f"{who}: {name} is {t.dtype}; the kernel is f32 only")
     if t.device != device:
-        raise ValueError(f"fused_transmlp: {name} is on {t.device}, x on {device}")
+        raise ValueError(f"{who}: {name} is on {t.device}, x on {device}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"fused_transmlp: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"fused_transmlp: {name} is not contiguous")
+        raise ValueError(f"{who}: {name} is not contiguous")
 
 
 _bound = None
@@ -156,7 +160,19 @@ def fused_transmlp(
     if x.device.type != "cuda":
         raise ValueError(f"fused_transmlp: no kernel for device {x.device}")
     _act(act_name)  # raises on a name the kernel lacks
-    act = ACTIVATIONS[act_name]
+    return launch_stack(x, emb, packed, ACTIVATIONS[act_name], out_proj)
+
+
+def launch_stack(
+    x: torch.Tensor,
+    emb: torch.Tensor,
+    packed: Dict[str, torch.Tensor],
+    act_code: int,
+    out_proj: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors with a ``KERNEL_ACT_CODES`` code
+    (the training route's no-grad calls also use the leaky relus); checks
+    every tensor and raises on what the kernel does not take."""
     b, s, d = x.shape
     emb = emb.reshape(b, d)
     num_layers = packed["token_w"].shape[0]
@@ -188,7 +204,7 @@ def fused_transmlp(
             x.data_ptr(), emb.data_ptr(), ptr("ln1_scale"), ptr("ln1_bias"),
             ptr("token_w"), ptr("token_b"), ptr("ln2_scale"), ptr("ln2_bias"),
             ptr("ch_w"), ptr("ch_b"), ow, ob, out.data_ptr(),
-            b, s, d, num_layers, f, act, stream,
+            b, s, d, num_layers, f, act_code, stream,
         )
     if err != 0:
         raise RuntimeError(

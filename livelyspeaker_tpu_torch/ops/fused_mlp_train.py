@@ -1,0 +1,363 @@
+"""The fused TransMLP stack for training: a differentiable packing, the
+plain PyTorch forward and backward, the CUDA wrappers and the autograd
+Function that joins them.
+
+Port of ``livelyspeaker_tpu/ops/pallas/fused_mlp_train.py``. The forward
+runs the K1 stack and stashes every block input, ``[L, B, S, D]``; the
+backward walks the blocks in reverse, recomputes each from its stash and
+returns dx, d(emb) and the gradient of every packed weight. On a CUDA tensor
+the kernels of ``csrc/fused_transmlp_train.cu`` run (one forward launch; a
+block, a weight-gradient and a reduce launch per layer of the backward), or
+the wrapper raises; on a CPU tensor the plain versions run. A call without
+autograd launches K1 without a stash, as the JAX package's does.
+
+Nothing is padded: the token-mix gradient is ``[L, S, S]``, where the JAX
+VJP returns ``[L, S_pad, S_pad]`` and discards the padding.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import fused_mlp
+from ._build import load_library
+
+__all__ = [
+    "TRAIN_ACTIVATIONS",
+    "PACKED_KEYS",
+    "LAUNCHES",
+    "pack_transmlp_train_params",
+    "fused_transmlp_train_forward_reference",
+    "fused_transmlp_train_backward_reference",
+    "fused_transmlp_train_forward",
+    "fused_transmlp_train_backward",
+    "fused_transmlp_train",
+]
+
+# what the training kernels take, as the JAX kernel's _act_pair does
+TRAIN_ACTIVATIONS = ("silu", "relu", "lrelu", "lrelu01", "lrelu02")
+_SLOPES = {"lrelu": 0.01, "lrelu01": 0.1, "lrelu02": 0.2}
+PACKED_KEYS = ("ln1_scale", "ln1_bias", "token_w", "token_b",
+               "ln2_scale", "ln2_bias", "ch_w", "ch_b")
+# launches of each CUDA kernel: one "fwd" per training forward, and
+# "bwd_block", "wgrad" and "reduce" once per layer of each backward
+LAUNCHES = {"fwd": 0, "bwd_block": 0, "wgrad": 0, "reduce": 0}
+
+
+def _act_pair(name: str):
+    """(act, d act) for the activations the training kernels support."""
+    if name == "silu":
+        def dact(x):
+            s = torch.sigmoid(x)
+            return s * (1.0 + x * (1.0 - s))
+        return F.silu, dact
+    if name == "relu":
+        return F.relu, lambda x: (x > 0.0).to(x.dtype)
+    if name in _SLOPES:
+        slope = _SLOPES[name]
+        return (lambda x: torch.where(x > 0.0, x, slope * x),
+                lambda x: torch.where(x > 0.0, 1.0, slope).to(x.dtype))
+    raise ValueError(
+        f"fused_transmlp_train supports {list(TRAIN_ACTIVATIONS)}, not {name!r}")
+
+
+def pack_transmlp_train_params(backbone) -> Dict[str, torch.Tensor]:
+    """A ``TransMLP``'s per-block weights stacked layer-major, as
+    ``fused_mlp.pack_transmlp_params`` stacks them (unfolded), but through
+    autograd: the gradients of the packed tensors reach every ``block_i``
+    parameter. The sampler's packing stays no-grad."""
+    blocks = backbone.blocks()
+    stack = lambda f: torch.stack([f(b) for b in blocks])
+    return {
+        "ln1_scale": stack(lambda b: b.ln1.weight),
+        "ln1_bias": stack(lambda b: b.ln1.bias),
+        "token_w": stack(lambda b: b.token_mix_kernel),
+        "token_b": stack(lambda b: b.token_mix_bias),
+        "ln2_scale": stack(lambda b: b.ln2.weight),
+        "ln2_bias": stack(lambda b: b.ln2.bias),
+        "ch_w": stack(lambda b: b.channel_mix.weight.t()),
+        "ch_b": stack(lambda b: b.channel_mix.bias),
+    }
+
+
+def _ln_fwd(x, scale, bias, eps=1e-5):
+    """LayerNorm returning (y, xhat, 1/std) for the backward."""
+    mean = x.mean(-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    xhat = (x - mean) * inv
+    return xhat * scale + bias, xhat, inv
+
+
+def _ln_bwd(g_y, xhat, inv, scale):
+    """d/dx of LayerNorm for the upstream g_y, and (d scale, d bias) summed
+    over the batch and sequence axes."""
+    g_xhat = g_y * scale
+    m1 = g_xhat.mean(-1, keepdim=True)
+    m2 = (g_xhat * xhat).mean(-1, keepdim=True)
+    g_x = inv * (g_xhat - m1 - xhat * m2)
+    return g_x, (g_y * xhat).sum((0, 1)), g_y.sum((0, 1))
+
+
+def _block_recompute(x, emb, l, packed, act):
+    """Block ``l`` from its input, returning every intermediate the backward
+    needs. x [B, S, D], emb [B, 1, D]."""
+    a = x + emb
+    h1, xhat1, inv1 = _ln_fwd(a, packed["ln1_scale"][l], packed["ln1_bias"][l])
+    m1 = (torch.einsum("ij,bjd->bid", packed["token_w"][l], h1)
+          + packed["token_b"][l][None, :, None])
+    r1 = a + act(m1)
+    h2, xhat2, inv2 = _ln_fwd(r1, packed["ln2_scale"][l], packed["ln2_bias"][l])
+    m2 = h2 @ packed["ch_w"][l] + packed["ch_b"][l]
+    return a, h1, xhat1, inv1, m1, r1, h2, xhat2, inv2, m2
+
+
+def fused_transmlp_train_forward_reference(
+    x: torch.Tensor, emb: torch.Tensor, packed: Dict[str, torch.Tensor],
+    act_name: str = "silu",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel: (out [B, S, D], stash
+    [L, B, S, D]), on any device and in any float dtype."""
+    fused_transmlp_train_forward_reference.calls += 1
+    act, _ = _act_pair(act_name)
+    b, _, d = x.shape
+    emb = emb.reshape(b, 1, d)
+    stash = []
+    for l in range(packed["token_w"].shape[0]):
+        stash.append(x)
+        _, _, _, _, _, r1, _, _, _, m2 = _block_recompute(x, emb, l, packed, act)
+        x = r1 + act(m2)
+    return x, torch.stack(stash)
+
+
+fused_transmlp_train_forward_reference.calls = 0
+
+
+def fused_transmlp_train_backward_reference(
+    stash: torch.Tensor, emb: torch.Tensor, g: torch.Tensor,
+    packed: Dict[str, torch.Tensor], act_name: str = "silu",
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """Plain version of the backward kernels, ``_bwd_kernel`` of the JAX
+    package line for line: (dx [B, S, D], d emb [B, D], packed gradients)."""
+    fused_transmlp_train_backward_reference.calls += 1
+    act, dact = _act_pair(act_name)
+    num_layers = packed["token_w"].shape[0]
+    b, _, d = g.shape
+    emb = emb.reshape(b, 1, d)
+    grads = {k: [None] * num_layers for k in PACKED_KEYS}
+    gemb = torch.zeros((b, d), dtype=g.dtype, device=g.device)
+    for l in reversed(range(num_layers)):
+        a, h1, xhat1, inv1, m1, r1, h2, xhat2, inv2, m2 = _block_recompute(
+            stash[l], emb, l, packed, act)
+        # x_out = r1 + act(m2)
+        g_m2 = g * dact(m2)
+        grads["ch_w"][l] = torch.einsum("bsk,bsn->kn", h2, g_m2)
+        grads["ch_b"][l] = g_m2.sum((0, 1))
+        g_h2 = g_m2 @ packed["ch_w"][l].t()
+        g_r1_ln, grads["ln2_scale"][l], grads["ln2_bias"][l] = _ln_bwd(
+            g_h2, xhat2, inv2, packed["ln2_scale"][l])
+        g_r1 = g + g_r1_ln
+        # r1 = a + act(m1)
+        g_m1 = g_r1 * dact(m1)
+        grads["token_w"][l] = torch.einsum("bid,bjd->ij", g_m1, h1)
+        grads["token_b"][l] = g_m1.sum((0, 2))
+        g_h1 = torch.einsum("ji,bjd->bid", packed["token_w"][l], g_m1)
+        g_a_ln, grads["ln1_scale"][l], grads["ln1_bias"][l] = _ln_bwd(
+            g_h1, xhat1, inv1, packed["ln1_scale"][l])
+        g_a = g_r1 + g_a_ln
+        # a = x_in + emb
+        gemb = gemb + g_a.sum(1)
+        g = g_a
+    return g, gemb, {k: torch.stack(v) for k, v in grads.items()}
+
+
+fused_transmlp_train_backward_reference.calls = 0
+
+
+_bound: Dict[str, object] = {}
+
+
+def _launcher(kernel: str):
+    if kernel not in _bound:
+        lib = load_library("fused_transmlp_train")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        argtypes = {
+            # x, emb, 8 weights, out, stash, B, S, D, L, act, stream
+            "fwd": [p] * 12 + [i] * 5 + [p],
+            # stash, emb, g_in, g_out, gemb, first, 9 weights, 5 scratch, part,
+            # B, S, D, act, stream
+            "bwd_block": [p] * 5 + [i] + [p] * 15 + [i] * 4 + [p],
+            # h2, gm2, wpart, R, D, nsplit, rows per split, stream
+            "wgrad": [p] * 3 + [i] * 4 + [p],
+            # wpart, nsplit, part, B, S, D, 8 gradients, stream
+            "reduce": [p, i, p, i, i, i] + [p] * 8 + [p],
+        }[kernel]
+        fn = getattr(lib, f"fused_transmlp_train_{kernel}_launch")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _bound[kernel] = fn
+    return _bound[kernel]
+
+
+def _launch(kernel: str, dev: torch.device, *args, what: str) -> None:
+    """Call the C launch function on the current stream of ``dev``; raise
+    on a non-zero cudaError."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _launcher(kernel)(*args, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_transmlp_train {kernel} kernel launch failed with cudaError {err} ({what})")
+    LAUNCHES[kernel] += 1
+
+
+def _check_cuda(who: str, x: torch.Tensor, act_name: str) -> int:
+    if x.device.type != "cuda":
+        raise ValueError(f"{who}: no kernel for device {x.device}")
+    _act_pair(act_name)
+    return fused_mlp.KERNEL_ACT_CODES[act_name]
+
+
+def _check_packed(who: str, packed, num_layers: int, s: int, d: int, dev) -> None:
+    shapes = {
+        "ln1_scale": (num_layers, d), "ln1_bias": (num_layers, d),
+        "token_w": (num_layers, s, s), "token_b": (num_layers, s),
+        "ln2_scale": (num_layers, d), "ln2_bias": (num_layers, d),
+        "ch_w": (num_layers, d, d), "ch_b": (num_layers, d),
+    }
+    for k, shp in shapes.items():
+        fused_mlp._check(k, packed[k], shp, dev, who)
+
+
+def fused_transmlp_train_forward(
+    x: torch.Tensor, emb: torch.Tensor, packed: Dict[str, torch.Tensor],
+    act_name: str = "silu",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [B, S, D], stash [L, B, S, D]). A CPU tensor runs the plain
+    version; a CUDA tensor launches the forward kernel or raises."""
+    if x.device.type == "cpu":
+        return fused_transmlp_train_forward_reference(x, emb, packed, act_name)
+    who = "fused_transmlp_train"
+    act = _check_cuda(who, x, act_name)
+    b, s, d = x.shape
+    num_layers = packed["token_w"].shape[0]
+    dev = x.device
+    emb = emb.reshape(b, d)
+    fused_mlp._check("x", x, (b, s, d), dev, who)
+    fused_mlp._check("emb", emb, (b, d), dev, who)
+    _check_packed(who, packed, num_layers, s, d, dev)
+    out = torch.empty((b, s, d), dtype=torch.float32, device=dev)
+    stash = torch.empty((num_layers, b, s, d), dtype=torch.float32, device=dev)
+    _launch("fwd", dev, x.data_ptr(), emb.data_ptr(),
+            *[packed[k].data_ptr() for k in PACKED_KEYS],
+            out.data_ptr(), stash.data_ptr(), b, s, d, num_layers, act,
+            what=f"B={b}, S={s}, D={d}, L={num_layers}")
+    return out, stash
+
+
+def _wgrad_split(rows: int) -> Tuple[int, int]:
+    """(chunks, rows per chunk) of the channel-mix weight gradient's B*S
+    rows: up to 16 chunks of at least 1024 rows, each a multiple of 16."""
+    nsplit = max(1, min(16, math.ceil(rows / 1024)))
+    per = math.ceil(math.ceil(rows / nsplit) / 16) * 16
+    return math.ceil(rows / per), per
+
+
+def fused_transmlp_train_backward(
+    stash: torch.Tensor, emb: torch.Tensor, g: torch.Tensor,
+    packed: Dict[str, torch.Tensor], act_name: str = "silu",
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """(dx, d emb, packed gradients) for the output cotangent ``g``. A CPU
+    tensor runs the plain version; a CUDA tensor launches 3 kernels per
+    layer or raises."""
+    if g.device.type == "cpu":
+        return fused_transmlp_train_backward_reference(stash, emb, g, packed, act_name)
+    who = "fused_transmlp_train backward"
+    act = _check_cuda(who, g, act_name)
+    b, s, d = g.shape
+    num_layers = packed["token_w"].shape[0]
+    dev = g.device
+    if b < 1:
+        raise ValueError(f"{who}: empty batch")
+    emb = emb.reshape(b, d)
+    fused_mlp._check("g", g, (b, s, d), dev, who)
+    fused_mlp._check("emb", emb, (b, d), dev, who)
+    fused_mlp._check("stash", stash, (num_layers, b, s, d), dev, who)
+    _check_packed(who, packed, num_layers, s, d, dev)
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    gx = torch.empty((b, s, d), **f32)
+    gemb = torch.empty((b, d), **f32)
+    grads = {k: torch.empty_like(packed[k]) for k in PACKED_KEYS}
+    m1, xhat2, gr1, h2, gm2 = torch.empty((5, b, s, d), **f32)
+    part = torch.empty((b, 5 * d + s + s * s), **f32)
+    nsplit, per = _wgrad_split(b * s)
+    wpart = torch.empty((nsplit, d, d), **f32)
+    cw_t = packed["ch_w"].transpose(1, 2).contiguous()
+
+    def at(t: torch.Tensor, l: int) -> int:  # pointer to layer l of t
+        return t.data_ptr() + l * t[0].numel() * t.element_size()
+
+    what = f"B={b}, S={s}, D={d}, L={num_layers}"
+    for l in reversed(range(num_layers)):
+        first = l == num_layers - 1
+        _launch("bwd_block", dev, at(stash, l), emb.data_ptr(),
+                (g if first else gx).data_ptr(), gx.data_ptr(), gemb.data_ptr(), int(first),
+                *[at(packed[k], l) for k in PACKED_KEYS[:7]], at(cw_t, l), at(packed["ch_b"], l),
+                m1.data_ptr(), xhat2.data_ptr(), gr1.data_ptr(), h2.data_ptr(), gm2.data_ptr(),
+                part.data_ptr(), b, s, d, act, what=f"{what}, layer {l}")
+        _launch("wgrad", dev, h2.data_ptr(), gm2.data_ptr(), wpart.data_ptr(),
+                b * s, d, nsplit, per, what=f"{what}, layer {l}")
+        _launch("reduce", dev, wpart.data_ptr(), nsplit, part.data_ptr(), b, s, d,
+                *[at(grads[k], l) for k in ("ch_w", "ch_b", "ln1_scale", "ln1_bias",
+                                             "ln2_scale", "ln2_bias", "token_w", "token_b")],
+                what=f"{what}, layer {l}")
+    return gx, gemb, grads
+
+
+class _FusedTransMLPTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, emb, act_name, *weights):
+        packed = dict(zip(PACKED_KEYS, weights))
+        out, stash = fused_transmlp_train_forward(x, emb, packed, act_name)
+        ctx.act_name = act_name
+        ctx.save_for_backward(stash, emb, *weights)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        stash, emb, *weights = ctx.saved_tensors
+        gx, gemb, grads = fused_transmlp_train_backward(
+            stash, emb, g.contiguous(), dict(zip(PACKED_KEYS, weights)), ctx.act_name)
+        return (gx, gemb, None, *[grads[k] for k in PACKED_KEYS])
+
+
+def fused_transmlp_train(
+    x: torch.Tensor,  # [B, S, D]
+    emb: torch.Tensor,  # [B, D] or [B, 1, D]
+    packed: Dict[str, torch.Tensor],
+    act_name: str = "silu",
+) -> torch.Tensor:
+    """The differentiable mixer stack, [B, S, D] -> [B, S, D], with the
+    semantics of ``TransMLP`` minus the timestep embedder. Under autograd
+    the forward stashes the block inputs and the backward is the
+    hand-written one; without autograd it is K1's stash-free stack. f32
+    only on the card (the plain version also takes float64, for gradcheck)."""
+    _act_pair(act_name)  # raises on gelu, as the JAX kernel does
+    if x.dtype in (torch.bfloat16, torch.float16):
+        raise TypeError(f"fused_transmlp_train: x is {x.dtype}; the fused backbone is f32 only")
+    b, _, d = x.shape
+    emb = emb.reshape(b, d)
+    weights = [packed[k] for k in PACKED_KEYS]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, emb, *weights)):
+        return _FusedTransMLPTrain.apply(x.contiguous(), emb.contiguous(), act_name, *weights)
+    if x.device.type == "cpu":
+        return fused_transmlp_train_forward_reference(x, emb, packed, act_name)[0]
+    _check_cuda("fused_transmlp_train", x, act_name)
+    return fused_mlp.launch_stack(x, emb, packed, fused_mlp.KERNEL_ACT_CODES[act_name])

@@ -1,4 +1,5 @@
-"""Weight bridge: a JAX/Flax parameter tree (as numpy) -> the port's state_dict.
+"""Weight bridge between a JAX/Flax parameter tree (as numpy) and the
+port's state_dict, both ways.
 
 The port's modules carry the Flax tree's names, so the state_dict key of a
 leaf is its tree path joined with dots, with the leaf renamed and re-laid
@@ -12,6 +13,9 @@ out where the two frameworks differ:
 
 The tree is the one ``load_params_npz`` (or ``params_to_flat_numpy`` in the
 JAX package) gives: nested dicts of numpy arrays.
+:func:`state_dict_to_jax_params` is the inverse; it reads each leaf's module
+type from the model, since a torch ``weight`` alone does not say which Flax
+name it had.
 """
 
 from __future__ import annotations
@@ -20,8 +24,9 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
-__all__ = ["jax_params_to_state_dict", "random_normal_params"]
+__all__ = ["jax_params_to_state_dict", "state_dict_to_jax_params", "random_normal_params"]
 
 
 def _flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -56,6 +61,36 @@ def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             np.ascontiguousarray(arr, dtype=np.float32)
         )
     return out
+
+
+def _jax_leaf(module: nn.Module, name: str, a: np.ndarray):
+    if name == "weight":
+        if isinstance(module, nn.Linear):
+            return "kernel", a.T
+        if isinstance(module, nn.Conv1d):
+            return "kernel", a.transpose(2, 1, 0)
+        if isinstance(module, nn.LayerNorm):
+            return "scale", a
+        if isinstance(module, nn.Embedding):
+            return "embedding", a
+    return name, a
+
+
+def state_dict_to_jax_params(state_dict: Mapping[str, torch.Tensor],
+                             model: nn.Module) -> Dict:
+    """The JAX ``params`` tree (nested dicts of f32 numpy arrays) of a
+    state_dict of ``model`` (its own, or one with its keys, such as an EMA);
+    the inverse of :func:`jax_params_to_state_dict`."""
+    tree: Dict = {}
+    for key, value in state_dict.items():
+        *parents, leaf = key.split(".")
+        module = model.get_submodule(".".join(parents))
+        name, arr = _jax_leaf(module, leaf, value.detach().to("cpu", torch.float32).numpy())
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = np.ascontiguousarray(arr)
+    return tree
 
 
 def random_normal_params(tree: Mapping, rng: np.random.Generator) -> Dict:

@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc, is marked ``cuda`` and skips
 without a card. The file imports no JAX, so it also runs where JAX is
@@ -11,7 +11,7 @@ import torch
 
 from livelyspeaker_tpu_torch.models.initializers import random_normal_
 from livelyspeaker_tpu_torch.models.mlp_backbone import TransMLP
-from livelyspeaker_tpu_torch.ops import fused_mlp
+from livelyspeaker_tpu_torch.ops import fused_mlp, fused_mlp_train
 
 
 @pytest.fixture
@@ -80,3 +80,98 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
         big = fused_mlp.pack_transmlp_params(_stack(cuda_device, 40, 64, 1))
         fused_mlp.fused_transmlp(torch.zeros(2, 40, 64, device=cuda_device), emb, big)
     assert fused_mlp.fused_transmlp_reference.calls == calls  # never the plain version
+
+
+def _train_case(device, seq, dim, layers, b, act="silu", seed=3):
+    """Packed weights, inputs and an output cotangent for the training kernels."""
+    g = torch.Generator().manual_seed(seed)
+    packed = {k: v.detach().contiguous() for k, v in
+              fused_mlp_train.pack_transmlp_train_params(
+                  _stack(device, seq, dim, layers, act, seed)).items()}
+    x = torch.randn(b, seq, dim, generator=g).to(device)
+    emb = torch.randn(b, dim, generator=g).to(device)
+    cot = torch.randn(b, seq, dim, generator=g).to(device)
+    return packed, x, emb, cot
+
+
+def _rel(a, b):
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq,dim,layers,b,act", [
+    (35, 512, 8, 64, "silu"),     # TED
+    (36, 512, 8, 64, "silu"),     # BEAT
+    (10, 64, 2, 5, "relu"),       # ragged batch, narrow width
+    (35, 128, 2, 3, "lrelu02"),
+])
+def test_train_kernels_match_plain(cuda_device, seq, dim, layers, b, act):
+    """Forward and stash within rel 1e-5, every gradient within rel 1e-4 of
+    its max: f32 sums over B*S rows in another order."""
+    packed, x, emb, cot = _train_case(cuda_device, seq, dim, layers, b, act)
+    launches = dict(fused_mlp_train.LAUNCHES)
+    out, stash = fused_mlp_train.fused_transmlp_train_forward(x, emb, packed, act)
+    ref, ref_stash = fused_mlp_train.fused_transmlp_train_forward_reference(x, emb, packed, act)
+    gx, gemb, grads = fused_mlp_train.fused_transmlp_train_backward(stash, emb, cot, packed, act)
+    rgx, rgemb, rgrads = fused_mlp_train.fused_transmlp_train_backward_reference(
+        ref_stash, emb, cot, packed, act)
+    torch.cuda.synchronize()
+    assert fused_mlp_train.LAUNCHES["fwd"] == launches["fwd"] + 1
+    for k in ("bwd_block", "wgrad", "reduce"):
+        assert fused_mlp_train.LAUNCHES[k] == launches[k] + layers
+    assert _rel(out, ref) <= 1e-5
+    assert _rel(stash, ref_stash) <= 1e-5
+    assert _rel(gx, rgx) <= 1e-4
+    assert _rel(gemb, rgemb) <= 1e-4
+    for k in fused_mlp_train.PACKED_KEYS:
+        assert _rel(grads[k], rgrads[k]) <= 1e-4, k
+
+
+@pytest.mark.cuda
+def test_train_function_routes_to_kernels(cuda_device):
+    """Under autograd the Function launches the training kernels; under
+    no_grad it launches K1 without a stash; the plain versions never run."""
+    packed, x, emb, cot = _train_case(cuda_device, 35, 128, 2, 4)
+    params = [v.clone().requires_grad_(True) for v in packed.values()]
+    fwd_calls = fused_mlp_train.fused_transmlp_train_forward_reference.calls
+    bwd_calls = fused_mlp_train.fused_transmlp_train_backward_reference.calls
+    launches = dict(fused_mlp_train.LAUNCHES)
+    k1 = fused_mlp.fused_transmlp.launches
+    out = fused_mlp_train.fused_transmlp_train(
+        x, emb, dict(zip(fused_mlp_train.PACKED_KEYS, params)))
+    (out * cot).sum().backward()
+    with torch.no_grad():
+        out2 = fused_mlp_train.fused_transmlp_train(x, emb, packed)
+    torch.cuda.synchronize()
+    assert fused_mlp_train.LAUNCHES["fwd"] == launches["fwd"] + 1
+    assert fused_mlp_train.LAUNCHES["reduce"] == launches["reduce"] + 2
+    assert fused_mlp.fused_transmlp.launches == k1 + 1
+    assert fused_mlp_train.fused_transmlp_train_forward_reference.calls == fwd_calls
+    assert fused_mlp_train.fused_transmlp_train_backward_reference.calls == bwd_calls
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in params)
+    assert _rel(out2, out.detach()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_train_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    packed, x, emb, cot = _train_case(cuda_device, 35, 64, 1, 2)
+    calls = fused_mlp_train.fused_transmlp_train_forward_reference.calls
+    fwd = fused_mlp_train.fused_transmlp_train_forward
+    with pytest.raises(TypeError, match="f32"):
+        fused_mlp_train.fused_transmlp_train(x.to(torch.bfloat16), emb, packed)
+    with pytest.raises(TypeError, match="f32"):
+        fwd(x.to(torch.bfloat16), emb, packed)
+    with pytest.raises(ValueError, match="contiguous"):
+        fwd(x.transpose(1, 2).contiguous().transpose(1, 2), emb, packed)
+    with pytest.raises(ValueError, match="gelu"):
+        fwd(x, emb, packed, "gelu")
+    with pytest.raises(ValueError, match="gelu"):
+        fused_mlp_train.fused_transmlp_train(x, emb, packed, "gelu")
+    big, xb, eb, _ = _train_case(cuda_device, 40, 64, 1, 2)
+    with pytest.raises(RuntimeError, match="cudaError"):  # S above the kernel's 36
+        fwd(xb, eb, big)
+    _, stash = fwd(x, emb, packed)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        fused_mlp_train.fused_transmlp_train_backward(
+            torch.zeros(1, 2, 40, 64, device=cuda_device), eb, xb.contiguous(), big)
+    assert fused_mlp_train.fused_transmlp_train_forward_reference.calls == calls
