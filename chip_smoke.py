@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-Drives the port's two paths at the full TED width (latent 512, 8 blocks,
+Drives the port's paths at the full TED width (latent 512, 8 blocks,
 1400 speakers) with seeded random weights: RAG sampling behind the serving
-batcher, and RAG training through TrainLoop with the fused backbone. Checks:
+batcher, RAG training through TrainLoop with the fused backbone, and the
+same training with the WavEncoder swapped for the fused WavEncoder stack
+(K3). Checks:
 
 1. device: a CUDA card is required (no CPU run); TF32 is off for matmul
    and cuDNN, so every comparison below is f32 against f32;
-2. build: the fused TransMLP kernel is compiled from csrc/ with nvcc;
+2. build: the three CUDA sources of csrc/ are compiled with nvcc, one
+   process each, started together;
 3. kernel against plain version: TED (S=35, F=27) and BEAT (S=36, F=282),
    D=512, L=8, 2B in {16, 512}, LN2 folded and not, with and without the
    pose projection; rel = max|kernel - plain| / max|plain| <= 1e-5, and the
@@ -35,10 +38,27 @@ batcher, and RAG training through TrainLoop with the fused backbone. Checks:
    of 64 (BEAT with kld_weight 0), with the same t, noise, style and
    condition drop: loss within rel 1e-5, every parameter gradient within
    rel 1e-4 of its max (the three conv biases before an InstanceNorm, whose
-   gradient is 0 in exact arithmetic, within 1e-4 of the largest gradient).
+   gradient is 0 in exact arithmetic, within 1e-4 of the largest gradient);
+   then the model with K2 and the K3 drop-in against the same eager model:
+   loss within rel 1e-5, every gradient outside the WavEncoder within rel
+   1e-4, and the WavEncoder's against K3's plain backward on the eager
+   model's feature cotangent (the eager encoder's own gradients are printed
+   with the number of LeakyReLU inputs whose sign the two forwards round
+   differently: the gradient jumps at the kink);
+9. the K3 kernels (six forward launches, thirteen backward) against their
+   plain versions at L = 36,267, B in {8, 512}: forward within rel 1e-5;
+   backward on the same residuals, d_wav and every weight and conv3 bias
+   gradient within rel 1e-4 of its max, the pre-IN biases within 1e-4 of
+   the largest gradient; the time of both, and of each kernel;
+10. training through K3 and K2: 7. with the WavEncoder swapped for
+   FusedWavEncoder before the TrainLoop is built: finite, decreasing
+   losses; each K3 kernel launched as often a step as one forward and one
+   backward launch it; the K3 plain versions and F.conv1d never called;
+11. one served-size TED batch (8) through RAGSampler with the K3 drop-in
+   against the same sampler on the cuDNN encoder, within rel 1e-4.
 
-With ``--profile DIR`` it then profiles 3 training steps with torch.profiler
-(a Chrome trace and a table of device time by kernel in DIR).
+With ``--profile DIR`` it then profiles 3 steps of each training run with
+torch.profiler (Chrome traces and tables of device time by kernel in DIR).
 
 Exits non-zero at the first failure. The line before the last is the
 kernels' JSON report; the last line is {"ok": true, "device": {...}}.
@@ -63,6 +83,8 @@ TRAIN_SOURCE = "livelyspeaker_tpu_torch/csrc/fused_transmlp_train.cu"
 TRAIN_REPLACES = "livelyspeaker_tpu/ops/pallas/fused_mlp_train.py:257"
 GRAD_TOL = 1e-4  # f32 sums over up to B*S = 18,432 rows in another order
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR, LAYERS = 30, 512, 1e-3, 8
+WAV_SOURCE = "livelyspeaker_tpu_torch/csrc/fused_wav.cu"
+WAV_REPLACES = "livelyspeaker_tpu/ops/pallas/fused_wav.py:468"
 ZERO_GRAD = tuple(f"audio_encoder.conv{i}.bias" for i in range(3))
 
 
@@ -89,7 +111,7 @@ def device_phase():
 def build_phase():
     from livelyspeaker_tpu_torch.ops._build import build_log, load_libraries
 
-    names = ("fused_transmlp", "fused_transmlp_train")
+    names = ("fused_transmlp", "fused_transmlp_train", "fused_wav")
     t0 = time.perf_counter()
     load_libraries(names)  # one nvcc per source, started together
     secs = time.perf_counter() - t0
@@ -278,12 +300,14 @@ def _rel(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
 
-def kernel_ms_by_name(fn, iters):
-    """Device ms per call of ``fn`` for each training kernel it launches,
-    from CUDA events recorded around every launch."""
+def kernel_ms_by_name(fn, iters, module=None):
+    """Device ms per call of ``fn`` for each kernel of ``module`` (default
+    the training kernels' ``fused_mlp_train``) it launches, from CUDA events
+    recorded around every launch."""
     from livelyspeaker_tpu_torch.ops import fused_mlp_train
 
-    launch, events = fused_mlp_train._launch, {}
+    module = module or fused_mlp_train
+    launch, events = module._launch, {}
 
     def timed(kernel, dev, *args, what):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -293,12 +317,12 @@ def kernel_ms_by_name(fn, iters):
         events.setdefault(kernel, []).append((start, end))
 
     fn()  # warm-up
-    fused_mlp_train._launch = timed
+    module._launch = timed
     try:
         for _ in range(iters):
             fn()
     finally:
-        fused_mlp_train._launch = launch
+        module._launch = launch
     torch.cuda.synchronize()
     return {k: sum(a.elapsed_time(b) for a, b in v) / iters for k, v in events.items()}
 
@@ -358,6 +382,100 @@ def train_kernel_phase(card):
     return worst, report
 
 
+def wav_kernel_phase(card):
+    """The K3 kernels against their plain versions at TED's and BEAT's
+    waveform length. The backwards run on the same residuals (the kernels'):
+    the gradient jumps at each LeakyReLU's kink, so two forwards that round
+    a pre-activation near 0 differently may take different branches."""
+    from livelyspeaker_tpu_torch.models import WavEncoder, audio_samples_for_frames
+    from livelyspeaker_tpu_torch.models.initializers import random_normal_
+    from livelyspeaker_tpu_torch.ops import fused_wav as k3
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(20)
+    enc = random_normal_(WavEncoder(), g).to(dev)
+    packed = k3.pack_wav_params(enc, differentiable=False)
+    length = audio_samples_for_frames(34)
+    worst, report = {"fwd": 0.0, "bwd": 0.0}, {}
+    for b in (8, TRAIN_BATCH):
+        wav = (0.1 * torch.randn(b, length, generator=g)).to(dev)
+        cot = torch.randn(b, k3.WavDims(length).T4, 256, generator=g).to(dev)
+        out, res = k3.fused_wav_forward(wav, packed)
+        ref, ref_res = k3.fused_wav_forward_reference(wav, packed)
+        d_wav, grads = k3.fused_wav_backward(res, cot, packed)
+        rd, rgrads = k3.fused_wav_backward_reference(res, cot, packed)
+        torch.cuda.synchronize()
+        tag = f"B={b} L={length}"
+        fwd_rel = {"out": _rel(out, ref)}
+        fwd_rel.update({k: _rel(a, r) for k, a, r in zip(res._fields, res, ref_res) if k != "wav"})
+        worst["fwd"] = max(worst["fwd"], (out - ref).abs().max().item())
+        for k, rel in fwd_rel.items():
+            check(np.isfinite(rel) and rel <= KERNEL_TOL, f"K3 forward {k} at {tag}: rel {rel:.3e}")
+        top = max(v.abs().max().item() for v in rgrads.values())
+        rels = {"d_wav": _rel(d_wav, rd)}
+        rels.update({k: _rel(grads[k], rgrads[k]) for k in k3.PACKED_KEYS if k not in ("b0", "b1", "b2")})
+        zero = {k: (grads[k] - rgrads[k]).abs().max().item() / top for k in ("b0", "b1", "b2")}
+        worst["bwd"] = max([worst["bwd"], (d_wav - rd).abs().max().item()]
+                           + [(grads[k] - rgrads[k]).abs().max().item() for k in k3.PACKED_KEYS])
+        print(f"[wav-kernel] {tag}: forward rel " + ", ".join(f"{k} {v:.1e}" for k, v in fwd_rel.items())
+              + "; gradient rel " + ", ".join(f"{k} {v:.1e}" for k, v in rels.items())
+              + "; pre-IN biases / largest gradient " + ", ".join(f"{k} {v:.1e}" for k, v in zero.items()))
+        for k, rel in rels.items():
+            check(np.isfinite(rel) and rel <= GRAD_TOL, f"K3 gradient {k} at {tag}: rel {rel:.3e}")
+        for k, v in zero.items():
+            check(np.isfinite(v) and v <= GRAD_TOL, f"K3 gradient {k} at {tag}: {v:.3e} of the largest")
+        iters = 5 if b == 8 else 3
+        fwd = lambda: k3.fused_wav_forward(wav, packed)
+        bwd = lambda: k3.fused_wav_backward(res, cot, packed, need_wav_grad=False)
+        bwd_wav = lambda: k3.fused_wav_backward(res, cot, packed)
+        plain_f = lambda: k3.fused_wav_forward_reference(wav, packed)
+        plain_b = lambda: k3.fused_wav_backward_reference(res, cot, packed, need_wav_grad=False)
+        ms = {"fwd": time_ms(fwd, iters), "bwd": time_ms(bwd, iters), "bwd+d_wav": time_ms(bwd_wav, iters)}
+        plain = {"fwd": time_ms(plain_f, iters), "bwd": time_ms(plain_b, iters)}
+        per_kernel = kernel_ms_by_name(fwd, iters, k3)
+        per_kernel.update(kernel_ms_by_name(bwd, iters, k3))
+        print(f"[wav-kernel] {tag}: kernels fwd {ms['fwd']:.3f} ms, bwd {ms['bwd']:.3f} ms "
+              f"(with d_wav {ms['bwd+d_wav']:.3f}); by kernel, ms per call: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in per_kernel.items())
+              + f"; plain fwd {plain['fwd']:.3f} ms, bwd {plain['bwd']:.3f} ms ({card})")
+        if b == TRAIN_BATCH:
+            report = {"ms": per_kernel, "plain_fwd": plain["fwd"], "plain_bwd": plain["bwd"]}
+    return worst, report
+
+
+def wav_sampler_phase():
+    """One served-size TED batch through RAGSampler with the K3 drop-in,
+    against the same sampler on the cuDNN encoder."""
+    from livelyspeaker_tpu_torch.models import RAGConfig
+    from livelyspeaker_tpu_torch.ops import fused_wav as k3
+    from livelyspeaker_tpu_torch.pipeline import RAGSampler
+    from livelyspeaker_tpu_torch.serving import ServeConfig
+
+    cfg = RAGConfig.ted()
+    model = _random_model(cfg, seed=13)
+    cond = _cond(cfg, np.random.default_rng(14), 8)
+    sc = ServeConfig()
+    outs = []
+    for swap in (False, True):
+        if swap:
+            model.audio_encoder = k3.FusedWavEncoder(model.audio_encoder)
+        sampler = RAGSampler(model, steps=sc.steps, timestep_respacing=sc.timestep_respacing,
+                             method=sc.sampler, use_fused=True)
+        _reset_counts()
+        outs.append(sampler(cond, torch.Generator(device="cuda").manual_seed(7), guidance=1.5))
+        torch.cuda.synchronize()
+        want = _expected_k3(int(swap), 0)
+        check(k3.LAUNCHES == want and _k3_plain_calls() == (0, 0),
+              f"wav-sampler: swap={swap} K3 launches {k3.LAUNCHES}, plain {_k3_plain_calls()}")
+    k3_out, cudnn = outs
+    check(k3_out.shape == (8, cfg.njoints, cfg.nfeats, cfg.nframes), "wav-sampler: shape")
+    check(bool(torch.isfinite(k3_out).all()), "wav-sampler: non-finite output")
+    rel = _rel(k3_out, cudnn)
+    print(f"[wav-sampler] K3 drop-in vs cuDNN encoder, one served TED batch "
+          f"{tuple(k3_out.shape)}: rel {rel:.3e} (tol {SLICE_TOL}); K3 launches {_expected_k3(1, 0)}")
+    check(rel <= SLICE_TOL, "wav-sampler: the K3 encoder's batch disagrees with the cuDNN one")
+
+
 def _train_batch(cfg, rng, b):
     from livelyspeaker_tpu_torch.models import audio_samples_for_frames
 
@@ -372,25 +490,49 @@ def _train_batch(cfg, rng, b):
 
 
 def _reset_counts():
-    from livelyspeaker_tpu_torch.ops import fused_mlp, fused_mlp_train as k2
+    from livelyspeaker_tpu_torch.ops import fused_mlp, fused_mlp_train as k2, fused_wav as k3
 
-    for k in k2.LAUNCHES:
-        k2.LAUNCHES[k] = 0
+    for launches in (k2.LAUNCHES, k3.LAUNCHES):
+        for k in launches:
+            launches[k] = 0
     k2.fused_transmlp_train_forward_reference.calls = 0
     k2.fused_transmlp_train_backward_reference.calls = 0
+    k3.fused_wav_forward_reference.calls = 0
+    k3.fused_wav_backward_reference.calls = 0
     fused_mlp.fused_transmlp.launches = 0
 
 
-def train_phase(card):
-    """30 full-width TED steps at batch 512 through TrainLoop.run_loop()."""
+def _k3_plain_calls():
+    from livelyspeaker_tpu_torch.ops import fused_wav as k3
+
+    return (k3.fused_wav_forward_reference.calls, k3.fused_wav_backward_reference.calls)
+
+
+def _expected_k3(forwards, backwards):
+    """K3's launch counts for that many forward and backward calls."""
+    from livelyspeaker_tpu_torch.ops import fused_wav as k3
+
+    return {k: forwards * k3.FORWARD_LAUNCHES.get(k, 0) + backwards * k3.BACKWARD_LAUNCHES.get(k, 0)
+            for k in k3.LAUNCHES}
+
+
+def train_phase(card, wav_kernels=False, beside=None):
+    """30 full-width TED steps at batch 512 through TrainLoop.run_loop();
+    with ``wav_kernels`` the WavEncoder is first swapped for the K3 drop-in.
+    ``beside``: the step numbers of the run without it, printed alongside."""
+    import torch.nn.functional as F
+
     from livelyspeaker_tpu_torch.diffusion import DiffusionSchedule
     from livelyspeaker_tpu_torch.models import RAG, RAGConfig
-    from livelyspeaker_tpu_torch.ops import fused_mlp, fused_mlp_train as k2
+    from livelyspeaker_tpu_torch.ops import fused_mlp, fused_mlp_train as k2, fused_wav as k3
     from livelyspeaker_tpu_torch.training import TrainConfig
     from livelyspeaker_tpu_torch.training.loop import TrainLoop
 
+    tag = "train-k3" if wav_kernels else "train"
     cfg = RAGConfig.ted(fused_train_backbone=True)
     model = RAG(cfg, generator=torch.Generator().manual_seed(5)).cuda()
+    if wav_kernels:
+        model.audio_encoder = k3.FusedWavEncoder(model.audio_encoder)
     sched = DiffusionSchedule.create(steps=1000, schedule="cosine")
     batch = _train_batch(cfg, np.random.default_rng(6), TRAIN_BATCH)
     loop = TrainLoop(model, sched, None, [batch] * TRAIN_STEPS, cfg=TrainConfig(lr=TRAIN_LR),
@@ -405,45 +547,93 @@ def train_phase(card):
         return state, metrics
 
     loop.step_fn = recorded
+    conv1d, conv_calls = F.conv1d, []
+
+    def counted_conv1d(*args, **kw):  # the eager WavEncoder's cuDNN convs
+        conv_calls.append(1)
+        return conv1d(*args, **kw)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    t0 = time.perf_counter()
-    loop.run_loop()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    F.conv1d = counted_conv1d
+    try:
+        t0 = time.perf_counter()
+        loop.run_loop()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        F.conv1d = conv1d
     launches = dict(k2.LAUNCHES)
+    wav_launches = dict(k3.LAUNCHES)
     plain = (k2.fused_transmlp_train_forward_reference.calls,
              k2.fused_transmlp_train_backward_reference.calls)
+    wav_plain = _k3_plain_calls()
     k1 = fused_mlp.fused_transmlp.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    check(len(losses) == TRAIN_STEPS, f"train: {len(losses)} steps ran, not {TRAIN_STEPS}")
-    check(all(np.isfinite(losses)), f"train: a loss is not finite: {losses}")
+    check(len(losses) == TRAIN_STEPS, f"{tag}: {len(losses)} steps ran, not {TRAIN_STEPS}")
+    check(all(np.isfinite(losses)), f"{tag}: a loss is not finite: {losses}")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     steady = np.diff(stamps[4:]) * 1e3  # steps 6..30, after the warm-up
-    print(f"[train] TED fused backbone, B={TRAIN_BATCH}, {TRAIN_STEPS} steps, lr {TRAIN_LR}: "
-          f"loss first-5 mean {first:.5f} last-5 mean {last:.5f}; losses "
+    stats = {"step_ms": float(steady.mean()), "clips_s": TRAIN_BATCH / steady.mean() * 1e3,
+             "peak_gib": peak_gib}
+    encoder = "K3 fused WavEncoder" if wav_kernels else "cuDNN WavEncoder"
+    print(f"[{tag}] TED fused backbone, {encoder}, B={TRAIN_BATCH}, {TRAIN_STEPS} steps, "
+          f"lr {TRAIN_LR}: loss first-5 mean {first:.5f} last-5 mean {last:.5f}; losses "
           + " ".join(f"{v:.4f}" for v in losses))
-    print(f"[train] step {steady.mean():.2f} ms (median {np.median(steady):.2f}, steps 6-30), "
-          f"{TRAIN_BATCH / steady.mean() * 1e3:.1f} clips/s, {wall:.2f} s for the whole run, "
+    print(f"[{tag}] step {steady.mean():.2f} ms (median {np.median(steady):.2f}, steps 6-30), "
+          f"{stats['clips_s']:.1f} clips/s, {wall:.2f} s for the whole run, "
           f"peak memory {peak_gib:.2f} GiB ({card})")
-    print(f"[train] launches {launches} (per step: fwd 1, each backward kernel {LAYERS}); "
-          f"plain versions {plain}; K1 {k1}")
-    check(last < first, f"train: loss did not decrease ({first:.5f} -> {last:.5f})")
-    check(launches["fwd"] == TRAIN_STEPS, f"train: forward kernel launched {launches['fwd']} times")
+    if beside is not None:
+        print(f"[{tag}] beside the cuDNN encoder's run: step {beside['step_ms']:.2f} -> "
+              f"{stats['step_ms']:.2f} ms, {beside['clips_s']:.1f} -> {stats['clips_s']:.1f} "
+              f"clips/s, peak {beside['peak_gib']:.2f} -> {peak_gib:.2f} GiB")
+    print(f"[{tag}] launches {launches} (per step: fwd 1, each backward kernel {LAYERS}); "
+          f"plain versions {plain}; K1 {k1}; K3 {wav_launches}, K3 plain versions "
+          f"{wav_plain}; F.conv1d calls {len(conv_calls)}")
+    check(last < first, f"{tag}: loss did not decrease ({first:.5f} -> {last:.5f})")
+    check(launches["fwd"] == TRAIN_STEPS, f"{tag}: forward kernel launched {launches['fwd']} times")
     for k in ("bwd_block", "wgrad", "reduce"):
-        check(launches[k] == LAYERS * TRAIN_STEPS, f"train: {k} launched {launches[k]} times")
-    check(plain == (0, 0) and k1 == 0, "train: a plain version or K1 ran on the training path")
-    return launches, model, loop
+        check(launches[k] == LAYERS * TRAIN_STEPS, f"{tag}: {k} launched {launches[k]} times")
+    check(plain == (0, 0) and k1 == 0, f"{tag}: a plain version or K1 ran on the training path")
+    want = _expected_k3(TRAIN_STEPS, TRAIN_STEPS) if wav_kernels else _expected_k3(0, 0)
+    check(wav_launches == want, f"{tag}: K3 launches {wav_launches}, expected {want}")
+    check(wav_plain == (0, 0), f"{tag}: a K3 plain version ran on the training path")
+    if wav_kernels:
+        check(not conv_calls, f"{tag}: F.conv1d ran {len(conv_calls)} times on the K3 path")
+    return launches, wav_launches, model, loop, stats
+
+
+def _kink_flips(enc, audio, res):
+    """(n, total): the inputs of the WavEncoder's three LeakyReLUs whose sign
+    differs between the eager encoder's forward (cuDNN convs) and K3's
+    (residuals ``res``), out of all of them."""
+    import torch.nn.functional as F
+
+    from livelyspeaker_tpu_torch.models.audio_encoder import _instance_norm
+    from livelyspeaker_tpu_torch.ops import fused_wav as k3
+
+    with torch.no_grad():
+        kernel = k3.lrelu_inputs(res, k3.pack_wav_params(enc, differentiable=False))
+        x, flips, total = audio[:, None], 0, 0
+        for i in range(3):
+            conv = getattr(enc, f"conv{i}")
+            x = _instance_norm(F.conv1d(x, conv.weight, conv.bias, stride=conv.stride,
+                                        padding=conv.padding))
+            flips += int(((x > 0) != (kernel[i] > 0)).sum())
+            total += x.numel()
+            x = F.leaky_relu(x, enc.leak)
+    return flips, total
 
 
 def fused_vs_eager_train_phase():
-    """The fused training loss and gradients against the eager modules."""
+    """The fused training loss and gradients against the eager modules: K2
+    alone, then K2 with the K3 drop-in."""
     from livelyspeaker_tpu_torch.diffusion import DiffusionSchedule
     from livelyspeaker_tpu_torch.models import RAG, RAGConfig
     from livelyspeaker_tpu_torch.models.initializers import random_normal_
-    from livelyspeaker_tpu_torch.ops import fused_mlp_train as k2
+    from livelyspeaker_tpu_torch.ops import fused_mlp_train as k2, fused_wav as k3
     from livelyspeaker_tpu_torch.training import TrainConfig
     from livelyspeaker_tpu_torch.training.trainer import make_loss_fn
 
@@ -453,6 +643,9 @@ def fused_vs_eager_train_phase():
         eager = random_normal_(RAG(make_cfg(), generator=g), g).cuda()
         fused = RAG(make_cfg(fused_train_backbone=True)).cuda()
         fused.load_state_dict(eager.state_dict())
+        wav3 = RAG(make_cfg(fused_train_backbone=True)).cuda()
+        wav3.load_state_dict(eager.state_dict())
+        wav3.audio_encoder = k3.FusedWavEncoder(wav3.audio_encoder)
         cfg = eager.cfg
         rng = np.random.default_rng(seed)
         b = 64
@@ -462,16 +655,21 @@ def fused_vs_eager_train_phase():
         style = torch.from_numpy(rng.normal(size=(b, 1, cfg.latent_dim)).astype(np.float32)).cuda()
         drop = torch.from_numpy((rng.random(b) < 0.1).astype(np.float32)).cuda()
         ones = torch.ones(b, device="cuda")
-        out = []
-        for m in (fused, eager):
+        out, feats = [], []
+        hook = eager.audio_encoder.register_forward_hook(lambda mod, inp, y: feats.append(y))
+        for m in (fused, eager, wav3):
             _reset_counts()
             params = dict(m.named_parameters())
             loss, _ = make_loss_fn(m, sched, TrainConfig(kld_weight=kld))(
                 batch, t, ones, None, noise, style, drop)
-            grads = torch.autograd.grad(loss, list(params.values()))
+            grads = torch.autograd.grad(loss, list(params.values()) + (feats if m is eager else []))
             torch.cuda.synchronize()
-            out.append((loss.item(), dict(zip(params, grads)), dict(k2.LAUNCHES)))
-        (lf, gf, nf), (le, ge, ne) = out
+            out.append((loss.item(), dict(zip(params, grads)), dict(k2.LAUNCHES),
+                        (dict(k3.LAUNCHES), _k3_plain_calls())))
+            if m is eager:
+                g_feats = grads[-1]  # the eager encoder's output cotangent
+        hook.remove()
+        (lf, gf, nf, _), (le, ge, ne, _), (lw, gw, nw, (kw, pw)) = out
         check(nf["fwd"] == 1 and nf["bwd_block"] == LAYERS and ne["fwd"] == 0,
               f"{tag} fused-vs-eager: launches fused {nf} eager {ne}")
         loss_rel = abs(lf - le) / abs(le)
@@ -493,11 +691,57 @@ def fused_vs_eager_train_phase():
               f"rel {grad_rel[worst_k]:.3e}")
         check(noise <= GRAD_TOL * top, f"{tag}: a conv bias before InstanceNorm has gradient "
               f"{noise:.3e}, not round-off of {top:.3e}")
+        _k3_vs_eager(tag, b, wav3, batch["audio"], (lw, gw, nw, kw, pw), (le, ge), g_feats, top)
 
 
-def profile_phase(model, loop, out_dir, card):
-    """torch.profiler over 3 training steps: device time by kernel class."""
+def _k3_vs_eager(tag, b, wav3, audio, k3_run, eager_run, g_feats, top):
+    """The K2 + K3 model's loss and gradients against the eager model's."""
+    from livelyspeaker_tpu_torch.ops import fused_wav as k3
+
+    (lw, gw, nw, kw, pw), (le, ge) = k3_run, eager_run
+    check(nw["fwd"] == 1 and nw["bwd_block"] == LAYERS and kw == _expected_k3(1, 1) and pw == (0, 0),
+          f"{tag} K3-vs-eager: launches K2 {nw} K3 {kw}, K3 plain versions {pw}")
+    loss_rel = abs(lw - le) / abs(le)
+    enc = [k for k in ge if k.startswith("audio_encoder.")]
+    rest = {k: _rel(gw[k], ge[k]) for k in ge if k not in enc}
+    worst_k = max(rest, key=rest.get)
+    # the encoder's gradients against K3's plain backward on the kernels'
+    # residuals, for the eager model's cotangent of the audio features
+    packed = k3.pack_wav_params(wav3.audio_encoder, differentiable=False)
+    _, res = k3.fused_wav_forward(audio, packed)
+    _, ref = k3.fused_wav_backward_reference(res, g_feats, packed, wav3.audio_encoder.leak,
+                                             need_wav_grad=False)
+    ref = {f"audio_encoder.conv{k[1]}.{'weight' if k[0] == 'w' else 'bias'}": v
+           for k, v in ref.items()}
+    vs_plain = {k: (gw[k] - ref[k]).abs().max().item() / (top if k in ZERO_GRAD else
+                                                          ref[k].abs().max().item())
+                for k in enc}
+    vs_eager = {k: _rel(gw[k], ge[k]) for k in enc if k not in ZERO_GRAD}
+    flips, total = _kink_flips(wav3.audio_encoder, audio, res)
+    print(f"[train-{tag.lower()}] K2+K3 vs eager, B={b}: loss {lw:.6f} vs {le:.6f} rel "
+          f"{loss_rel:.3e} (tol 1e-5); worst gradient rel outside the WavEncoder "
+          f"{rest[worst_k]:.3e} at {worst_k} (tol {GRAD_TOL}), over {len(rest)} parameters")
+    print(f"[train-{tag.lower()}] WavEncoder gradients against K3's plain backward on the "
+          f"eager feature cotangent: worst {max(vs_plain.values()):.3e} (tol {GRAD_TOL}); "
+          f"against the eager encoder: " + ", ".join(f"{k.split('.', 1)[1]} {v:.1e}"
+                                                     for k, v in vs_eager.items())
+          + f"; LeakyReLU inputs of another sign in the two forwards: {flips} of {total}")
+    check(loss_rel <= 1e-5, f"{tag}: K2+K3 loss disagrees with eager: rel {loss_rel:.3e}")
+    check(rest[worst_k] <= GRAD_TOL, f"{tag}: K2+K3 gradient of {worst_k} disagrees: "
+          f"rel {rest[worst_k]:.3e}")
+    check(max(vs_plain.values()) <= GRAD_TOL, f"{tag}: K3 encoder gradients disagree with "
+          f"the plain backward: {vs_plain}")
+    if flips == 0:  # the same LeakyReLU branches everywhere: hold the eager ones too
+        check(max(vs_eager.values()) <= GRAD_TOL, f"{tag}: K3 encoder gradients disagree "
+              f"with the eager encoder's: {vs_eager}")
+
+
+def profile_phase(model, loop, out_dir, card, name="train_step"):
+    """torch.profiler over 3 training steps: device time by kernel class,
+    into DIR/<name>_trace.json and DIR/<name>_profile.txt."""
     from torch.profiler import ProfilerActivity, profile
+
+    from livelyspeaker_tpu_torch.ops import fused_wav as k3
 
     os.makedirs(out_dir, exist_ok=True)
     batch = loop.data[0]
@@ -511,24 +755,31 @@ def profile_phase(model, loop, out_dir, card):
         loop.run_loop()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(os.path.join(out_dir, "train_step_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"{name}_trace.json"))
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     dev_time = lambda e: getattr(e, "self_device_time_total", 0.0) / 1e3  # ms
-    classes = {"K2 forward": ("::fused_transmlp_train_fwd_kernel(",),
+    classes = {"K3 WavEncoder kernels": ("::wav_",),  # before "conv", which they contain
+               "K2 forward": ("::fused_transmlp_train_fwd_kernel(",),
                "K2 backward block": ("::bwd_block_kernel(",),
                "K2 weight-gradient reductions": ("::wgrad_kernel(", "::reduce_kernel("),
-               "cuDNN conv (WavEncoder)": ("conv", "cudnn", "xmma", "wgrad_alg", "dgrad_engine"),
+               "cuDNN conv (WavEncoder)": ("cudnn", "convolve", "fprop_implicit", "wgrad_alg",
+                                           "dgrad_engine"),
+               "cuBLAS GEMM (the other layers)": ("_gemm_", "cublas"),
                "AdamW and other foreach": ("foreach", "multi_tensor")}
     sums = {k: 0.0 for k in classes}
     sums["other"] = 0.0
+    counts = dict.fromkeys(sums, 0)
     for e in kernels:
         key = next((c for c, pats in classes.items()
                     if any(p in e.key for p in pats)), "other")
         sums[key] += dev_time(e)
+        counts[key] += e.count
     busy = sum(sums.values())
-    lines = [f"3 steps, B={TRAIN_BATCH}, wall {wall_ms:.2f} ms, device busy {busy:.2f} ms ({card})"]
+    lines = [f"{name}: 3 steps, B={TRAIN_BATCH}, wall {wall_ms:.2f} ms, device busy "
+             f"{busy:.2f} ms ({card})"]
     for k, v in sums.items():
-        lines.append(f"{k}: {v / 3:.3f} ms/step, {100 * v / wall_ms:.1f}% of wall")
+        lines.append(f"{k}: {v / 3:.3f} ms/step, {100 * v / wall_ms:.1f}% of wall, "
+                     f"{counts[k]} launches")
     lines.append(f"idle: {100 * (1 - busy / wall_ms):.1f}% of wall")
     lines.append("top kernels (ms over 3 steps):")
     for e in sorted(kernels, key=dev_time, reverse=True)[:25]:
@@ -540,10 +791,13 @@ def profile_phase(model, loop, out_dir, card):
                  "(CUDA events, 3 calls)")
     model.zero_grad(set_to_none=True)
     text = "\n".join(lines)
-    with open(os.path.join(out_dir, "train_step_profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{name}_profile.txt"), "w") as f:
         f.write(text + "\n")
     for line in lines[:len(sums) + 3]:
         print(f"[profile] {line}")
+    if isinstance(model.audio_encoder, k3.FusedWavEncoder):
+        n = counts["cuDNN conv (WavEncoder)"]
+        check(n == 0, f"profile {name}: {n} cuDNN convolution kernels on the K3 path")
 
 
 def main():
@@ -557,10 +811,14 @@ def main():
     launches = serving_phase(card)
     beat_phase()
     train_worst, train_times = train_kernel_phase(card)
-    train_launches, model, loop = train_phase(card)
+    train_launches, _, model, loop, train_stats = train_phase(card)
+    wav_worst, wav_times = wav_kernel_phase(card)
+    _, wav_launches, wav_model, wav_loop, _ = train_phase(card, wav_kernels=True, beside=train_stats)
     fused_vs_eager_train_phase()
+    wav_sampler_phase()
     if args.profile:
         profile_phase(model, loop, args.profile, card)
+        profile_phase(wav_model, wav_loop, args.profile, card, name="train_step_k3")
     kernels = [{
         "name": "fused_transmlp", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
@@ -573,6 +831,14 @@ def main():
             "max_abs_err": train_worst["fwd" if k == "fwd" else "bwd"],
             "ms": train_times["ms"][k],
             "plain_ms": train_times["plain_fwd" if k == "fwd" else "plain_bwd"],
+        })
+    for k in wav_launches:
+        fwd = k in ("stats0", "conv_fwd", "stats")
+        kernels.append({
+            "name": f"fused_wav_{k}", "route": "cuda", "source": WAV_SOURCE,
+            "replaces": WAV_REPLACES, "launches": wav_launches[k],
+            "max_abs_err": wav_worst["fwd" if fwd else "bwd"], "ms": wav_times["ms"][k],
+            "plain_ms": wav_times["plain_fwd" if fwd else "plain_bwd"],
         })
     print(json.dumps({"kernels": kernels}))
     print(f"[device] {card}")

@@ -1,0 +1,740 @@
+// The WavEncoder conv stack on NVIDIA Hopper (sm_90a), f32, forward and
+// backward:
+//   conv0 (k15, stride 5, padded 1600 a side, 1 -> 32) -> IN -> LReLU
+//   -> conv1 (stride 6, 32 -> 64) -> IN -> LReLU -> conv2 (64 -> 128) -> IN
+//   -> LReLU -> conv3 (128 -> 256),
+// InstanceNorm without affine, eps 1e-5, statistics two-pass in f32.
+//
+// Replaces livelyspeaker_tpu/ops/pallas/fused_wav.py: fused_wav_encoder, the
+// Pallas TPU kernels `_fwd_a/_fwd_b/_fwd_c` and `_bwd_a/_bwd_b/_bwd_c`.
+//
+// Layouts: the waveform is [B, L]; the kernels read torch's Conv1d weights
+// as they are, [C_out, C_in, 15], and the biases [C_out]; every activation
+// they keep is time-major, [B, T, C]; the InstanceNorm statistics are
+// [B, 2, C] (mean, then 1/std).
+//
+// conv0's output, [B, T1, 32] (517 MB at B = 512 on TED), is never written.
+// conv0 has one input channel and 15 taps, so each kernel that needs an
+// element of it recomputes it from the waveform (15 FMAs), and the
+// normalisation and LeakyReLU are applied on load. Forward, six launches:
+//   wav_stats0_kernel        IN0 statistics, two passes over recomputed conv0;
+//   wav_conv_fwd_kernel<1>   conv1 over lrelu(IN0(conv0)): m1 [B, T2, 64];
+//   wav_stats_kernel         IN1 statistics of m1;
+//   wav_conv_fwd_kernel<0>   conv2 over lrelu(IN1(m1)): m2 [B, T3, 128];
+//   wav_stats_kernel         IN2 statistics of m2;
+//   wav_conv_fwd_kernel<0>   conv3 over lrelu(IN2(m2)): the output [B, T4, 256].
+// The backward keeps the waveform, m1, m2 and the three statistics, and
+// walks the stages back, per conv i = 3, 2, 1:
+//   wav_wgrad_kernel         dW_i and db_i partials over row chunks of the
+//                            (b, t) product, the input activation recomputed
+//                            on load;
+//   wav_reduce_kernel        the chunks summed in a fixed order;
+//   wav_bwd_data_kernel      g_a = conv_i^T g, times lrelu', written as gy
+//                            [B, T, C], with per-tile partial sums of gy and
+//                            gy * xhat;
+//   wav_in_bwd_kernel        (i = 3, 2) the InstanceNorm backward in place:
+//                            g_m = inv (gy - mean(gy) - xhat mean(gy xhat));
+// and for conv0 wav_wgrad0_kernel (one block a sequence: g_m0 from gy1 on
+// the fly, dW0 and db0 partials, and d_wav as a gather of at most three
+// conv0 taps a sample), then wav_reduce_kernel. IN0's backward needs the
+// sums of gy1 over all 7,891 times before any g_m0 exists, so gy1
+// [B, T1, 32] is written once by bwd_data and read once by wgrad0;
+// recomputing conv1^T g_m1 instead would cost another 41 GFLOP at B = 512.
+//
+// What differs from the TPU kernel: its weight gradients add every batch
+// tile into one VMEM block, safe only because its grid runs in order. Here
+// each block writes its own partial and wav_reduce_kernel sums them in a
+// fixed order: no float atomics, the gradients are the same from run to
+// run. The TPU's row layout, padded time axes and 0/1 masks exist for
+// Mosaic's lane rules and are not carried over.
+//
+// What bounds it: about 90 GFLOP forward and twice that backward at B = 512
+// on TED, all plain f32 FMA (no TF32, no tensor cores): the FP32 pipe and
+// the shared-memory loads that feed it. wgmma and TMA are later work.
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int kK = 15;        // taps of every conv
+constexpr int kS0 = 5;        // conv0 stride
+constexpr int kPad0 = 1600;   // conv0 padding a side
+constexpr int kS = 6;         // stride of conv1..conv3
+constexpr int kC0 = 32;       // conv0 output channels
+constexpr float kEps = 1e-5f;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float lrelu(float x, float leak) { return x > 0.0f ? x : leak * x; }
+
+// The input activation of a stage, a = lrelu(xhat), xhat = (pre - mean) * inv:
+// `pre` from a stored pre-norm tensor [B, T, C], or (kFromWav) conv0's
+// output recomputed from the waveform, T = T1 and C = 32.
+struct Src {
+  const float* pre;  // [B, T, C] (unused from the waveform)
+  const float* st;   // [B, 2, C] mean, 1/std
+  const float* wav;  // [B, L]
+  const float* w0;   // [32, 1, 15]
+  const float* b0;   // [32]
+  int L, T, C;
+};
+
+// One tap of conv0, m + w x, with the product and the sum each rounded (no
+// FMA contraction). conv0 is summed bias first, then the taps k = 0..14 in
+// order, everywhere it is computed, and the plain version sums it the same
+// way: so all of them round every conv0 output to the same bits and take
+// the same LeakyReLU branch at the kink (the gradient jumps there).
+__device__ __forceinline__ float conv0_tap(float m, float w, float x) {
+  return __fadd_rn(m, __fmul_rn(w, x));
+}
+
+// conv0's output at time tau, channel c.
+__device__ __forceinline__ float conv0_at(const Src& s, int b, int tau, int c) {
+  const float* row = s.wav + (size_t)b * s.L;
+  const float* w = s.w0 + c * kK;
+  float m = __ldg(s.b0 + c);
+  const int p0 = kS0 * tau - kPad0;
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+    const int i = p0 + k;
+    m = conv0_tap(m, __ldg(w + k), (i >= 0 && i < s.L) ? __ldg(row + i) : 0.0f);
+  }
+  return m;
+}
+
+template <bool kFromWav>
+__device__ __forceinline__ float src_xhat(const Src& s, int b, int tau, int c) {
+  const float pre = kFromWav ? conv0_at(s, b, tau, c)
+                             : __ldg(s.pre + ((size_t)b * s.T + tau) * s.C + c);
+  const float* st = s.st + (size_t)b * 2 * s.C;
+  return (pre - __ldg(st + c)) * __ldg(st + s.C + c);
+}
+
+// ---------------------------------------------------------------- statistics
+
+// IN0's mean and 1/std for one sequence a block: each thread recomputes
+// conv0 at times tid, tid + 256, ... for all 32 channels; pass 0 sums, pass
+// 1 sums squares about the mean. Warp sums, then the 8 warps in order.
+__global__ void __launch_bounds__(kThreads) wav_stats0_kernel(Src s, float* __restrict__ st) {
+  __shared__ float w_s[kC0 * kK];
+  __shared__ float b_s[kC0];
+  __shared__ float red[kWarps][kC0];
+  __shared__ float mean_s[kC0];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, b = blockIdx.x;
+  for (int i = tid; i < kC0 * kK; i += kThreads) w_s[i] = __ldg(s.w0 + i);
+  if (tid < kC0) b_s[tid] = __ldg(s.b0 + tid);
+  __syncthreads();
+  const float* row = s.wav + (size_t)b * s.L;
+  float* stb = st + (size_t)b * 2 * kC0;
+  for (int pass = 0; pass < 2; ++pass) {
+    float acc[kC0];
+#pragma unroll
+    for (int c = 0; c < kC0; ++c) acc[c] = 0.0f;
+    for (int t = tid; t < s.T; t += kThreads) {
+      float x[kK];
+      const int p0 = kS0 * t - kPad0;
+#pragma unroll
+      for (int k = 0; k < kK; ++k) {
+        const int i = p0 + k;
+        x[k] = (i >= 0 && i < s.L) ? __ldg(row + i) : 0.0f;
+      }
+#pragma unroll
+      for (int c = 0; c < kC0; ++c) {
+        float m = b_s[c];
+#pragma unroll
+        for (int k = 0; k < kK; ++k) m = conv0_tap(m, w_s[c * kK + k], x[k]);
+        if (pass == 0) {
+          acc[c] += m;
+        } else {
+          m -= mean_s[c];
+          acc[c] = fmaf(m, m, acc[c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kC0; ++c) {
+      const float v = warp_sum(acc[c]);
+      if (lane == 0) red[warp][c] = v;
+    }
+    __syncthreads();
+    if (tid < kC0) {
+      float tot = 0.0f;
+      for (int w = 0; w < kWarps; ++w) tot += red[w][tid];
+      if (pass == 0) {
+        mean_s[tid] = tot / s.T;
+        stb[tid] = tot / s.T;
+      } else {
+        stb[kC0 + tid] = 1.0f / sqrtf(tot / s.T + kEps);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The InstanceNorm statistics of a stored [B, T, C] tensor, C dividing 256:
+// thread (part, c) sums times part, part + 256/C, ...; the parts in order.
+__global__ void __launch_bounds__(kThreads)
+wav_stats_kernel(const float* __restrict__ x, int T, int C, float* __restrict__ st) {
+  __shared__ float red[kThreads];
+  __shared__ float mean_s[kThreads];
+  const int tid = threadIdx.x, c = tid % C, part = tid / C, parts = kThreads / C;
+  const float* xb = x + (size_t)blockIdx.x * T * C;
+  float* stb = st + (size_t)blockIdx.x * 2 * C;
+  for (int pass = 0; pass < 2; ++pass) {
+    const float mu = pass ? mean_s[c] : 0.0f;
+    float acc = 0.0f;
+    for (int t = part; t < T; t += parts) {
+      const float v = __ldg(xb + (size_t)t * C + c);
+      if (pass == 0) {
+        acc += v;
+      } else {
+        acc = fmaf(v - mu, v - mu, acc);
+      }
+    }
+    red[tid] = acc;
+    __syncthreads();
+    if (tid < C) {
+      float tot = 0.0f;
+      for (int p = 0; p < parts; ++p) tot += red[p * C + tid];
+      if (pass == 0) {
+        mean_s[tid] = tot / T;
+        stb[tid] = tot / T;
+      } else {
+        stb[C + tid] = 1.0f / sqrtf(tot / T + kEps);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// ------------------------------------------------------------------ forward
+
+// out[b, t, o] = bias[o] + sum_{c, k} w[o, c, k] a[b, 6t + k, c] for a tile
+// of 8 kTR times x 8 kTC output channels, each thread 8 x 8: times
+// 8 tr .. 8 tr + 7 and channels tc + kTC i. The tile's input window is
+// staged phase-split, in_s[cc][r][q] = a[6 (t0 + q) + r], so a thread's
+// eight times at tap k = r + 6j are eight consecutive floats from q = 8 tr + j:
+// three float4 loads serve the two or three taps of a residue r. Weights
+// are staged [o][c k] as torch lays them out (rows padded to an odd length:
+// no bank conflicts), kCC input channels a step.
+template <bool kFromWav, int kTR, int kTC>
+__global__ void __launch_bounds__(kTR * kTC)
+wav_conv_fwd_kernel(Src src, const float* __restrict__ w, const float* __restrict__ bias,
+                    float* __restrict__ out, int Tout, int Cout, float leak) {
+  constexpr int kNT = kTR * kTC, kTT = 8 * kTR, kTO = 8 * kTC;
+  constexpr int kCC = 256 / kTO;      // input channels staged per step
+  constexpr int kNQ = kTT + 4;        // window q < kTT + 2, padded to a float4
+  constexpr int kWR = kCC * kK + 1;   // odd row of the staged weights
+  __shared__ __align__(16) float in_s[kCC][kS][kNQ];
+  __shared__ float w_s[kTO][kWR];
+  const int tid = threadIdx.x, tr = tid / kTC, tc = tid % kTC;
+  const int t0 = blockIdx.x * kTT, o0 = blockIdx.y * kTO, b = blockIdx.z;
+  const int Cin = src.C;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  for (int c0 = 0; c0 < Cin; c0 += kCC) {
+    __syncthreads();
+    for (int idx = tid; idx < kCC * kS * kNQ; idx += kNT) {
+      const int cc = idx % kCC, u = idx / kCC, q = u / kS, r = u % kS;
+      const int tau = kS * (t0 + q) + r;
+      in_s[cc][r][q] = (q < kTT + 2 && tau < src.T)
+          ? lrelu(src_xhat<kFromWav>(src, b, tau, c0 + cc), leak) : 0.0f;
+    }
+    for (int idx = tid; idx < kTO * kCC * kK; idx += kNT) {
+      const int o = idx / (kCC * kK), ck = idx % (kCC * kK);
+      w_s[o][ck] = o0 + o < Cout ? __ldg(w + ((size_t)(o0 + o) * Cin + c0) * kK + ck) : 0.0f;
+    }
+    __syncthreads();
+    for (int cc = 0; cc < kCC; ++cc) {
+#pragma unroll
+      for (int r = 0; r < kS; ++r) {
+        float a[12];
+#pragma unroll
+        for (int v = 0; v < 3; ++v) {
+          const float4 x = *reinterpret_cast<const float4*>(&in_s[cc][r][tr * 8 + 4 * v]);
+          a[4 * v] = x.x, a[4 * v + 1] = x.y, a[4 * v + 2] = x.z, a[4 * v + 3] = x.w;
+        }
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          if (r + kS * j >= kK) continue;
+          float wr[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) wr[i] = w_s[tc + kTC * i][cc * kK + r + kS * j];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int o = 0; o < 8; ++o) acc[i][o] = fmaf(a[i + j], wr[o], acc[i][o]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int t = t0 + tr * 8 + i;
+    if (t >= Tout) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int o = o0 + tc + kTC * j;
+      if (o < Cout) out[((size_t)b * Tout + t) * Cout + o] = acc[i][j] + __ldg(bias + o);
+    }
+  }
+}
+
+// ----------------------------------------------------------------- backward
+
+constexpr int kBdThreads = kS * 32;  // one warp per residue r = tau mod 6
+
+// gy[b, tau, c] = lrelu'(xhat) * sum_{t, k: 6t + k = tau} sum_o w[o, c, k] g[b, t, o]
+// for the 6 kQT times tau of a block and 8 kCG channels, and the tile's sums
+// of gy and gy * xhat per channel into part [B, ntq, 2, Cin]. Warp r takes
+// the times tau = 6q + r, whose taps are k = r, r + 6, r + 12 (< 15), from
+// the outputs t = q, q - 1, q - 2; lane (qg, cg) eight consecutive q and the
+// channels cg + kCG i. The output cotangent is staged [o][t] (times
+// consecutive: three float4 loads serve all taps), the weights [o][c k].
+template <bool kFromWav, int kCG>
+__global__ void __launch_bounds__(kBdThreads)
+wav_bwd_data_kernel(Src src, const float* __restrict__ w, const float* __restrict__ g, int Tout,
+                    int Cout, float leak, float* __restrict__ gy, float* __restrict__ part) {
+  constexpr int kQG = 32 / kCG, kQT = 8 * kQG, kCT = 8 * kCG;
+  constexpr int kOC = 512 / kCT;       // output channels staged per step
+  constexpr int kGQ = kQT + 4;         // staged outputs t = q0 - 2 .. q0 + kQT - 1
+  constexpr int kWR = kCT * kK + 1;    // odd row of the staged weights
+  constexpr int kParts = kS * kQG;     // contributors to a channel's sums
+  __shared__ __align__(16) float g_s[kOC][kGQ];
+  __shared__ float w_s[kOC][kWR];
+  __shared__ float red[2][kParts][kCT];
+  const int tid = threadIdx.x, r = tid / 32, lane = tid % 32, qg = lane / kCG, cg = lane % kCG;
+  const int q0 = blockIdx.x * kQT, c0 = blockIdx.y * kCT, b = blockIdx.z;
+  const int Cin = src.C;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  for (int o0 = 0; o0 < Cout; o0 += kOC) {
+    __syncthreads();
+    for (int idx = tid; idx < kOC * kCT * kK; idx += kBdThreads) {
+      const int o = idx / (kCT * kK), ck = idx % (kCT * kK);
+      w_s[o][ck] = __ldg(w + ((size_t)(o0 + o) * Cin + c0) * kK + ck);
+    }
+    for (int idx = tid; idx < kGQ * kOC; idx += kBdThreads) {
+      const int tl = idx / kOC, o = idx % kOC, t = q0 - 2 + tl;
+      g_s[o][tl] = (tl < kQT + 2 && t >= 0 && t < Tout)
+          ? __ldg(g + ((size_t)b * Tout + t) * Cout + o0 + o) : 0.0f;
+    }
+    __syncthreads();
+    for (int o = 0; o < kOC; ++o) {
+      float gv[12];
+#pragma unroll
+      for (int v = 0; v < 3; ++v) {
+        const float4 x = *reinterpret_cast<const float4*>(&g_s[o][qg * 8 + 4 * v]);
+        gv[4 * v] = x.x, gv[4 * v + 1] = x.y, gv[4 * v + 2] = x.z, gv[4 * v + 3] = x.w;
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int k = r + kS * j;
+        if (k >= kK) break;
+        float wr[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) wr[c] = w_s[o][(cg + kCG * c) * kK + k];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(gv[i + 2 - j], wr[c], acc[i][c]);
+      }
+    }
+  }
+  float s1[8], s2[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) s1[c] = s2[c] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int tau = kS * (q0 + qg * 8 + i) + r;
+    if (tau >= src.T) continue;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int ch = c0 + cg + kCG * c;
+      const float xh = src_xhat<kFromWav>(src, b, tau, ch);
+      const float v = acc[i][c] * (xh > 0.0f ? 1.0f : leak);
+      gy[((size_t)b * src.T + tau) * Cin + ch] = v;
+      s1[c] += v;
+      s2[c] = fmaf(v, xh, s2[c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    red[0][r * kQG + qg][cg + kCG * c] = s1[c];
+    red[1][r * kQG + qg][cg + kCG * c] = s2[c];
+  }
+  __syncthreads();
+  if (tid < 2 * kCT) {
+    const int which = tid / kCT, c = tid % kCT;
+    float tot = 0.0f;
+    for (int p = 0; p < kParts; ++p) tot += red[which][p][c];
+    part[(((size_t)b * gridDim.x + blockIdx.x) * 2 + which) * Cin + c0 + c] = tot;
+  }
+}
+
+// The InstanceNorm backward of one sequence a block, in place over gy:
+// g_m = inv (gy - mean_t(gy) - xhat mean_t(gy xhat)), the means from the
+// tiles' partial sums (in tile order); 2 C <= 256.
+__global__ void __launch_bounds__(kThreads)
+wav_in_bwd_kernel(const float* __restrict__ pre, const float* __restrict__ st,
+              const float* __restrict__ part, int ntq, int T, int C, float* g) {
+  __shared__ float mean_s[2][kThreads / 2];
+  __shared__ float st_s[2][kThreads / 2];
+  const int tid = threadIdx.x, b = blockIdx.x;
+  if (tid < 2 * C) {
+    const int which = tid / C, c = tid % C;
+    float tot = 0.0f;
+    for (int i = 0; i < ntq; ++i) tot += __ldg(part + (((size_t)b * ntq + i) * 2 + which) * C + c);
+    mean_s[which][c] = tot / T;
+    st_s[which][c] = __ldg(st + (size_t)b * 2 * C + which * C + c);
+  }
+  __syncthreads();
+  const float* xb = pre + (size_t)b * T * C;
+  float* gb = g + (size_t)b * T * C;
+  for (int idx = tid; idx < T * C; idx += kThreads) {
+    const int c = idx % C;
+    const float inv = st_s[1][c];
+    const float xh = (__ldg(xb + idx) - st_s[0][c]) * inv;
+    gb[idx] = inv * (gb[idx] - mean_s[0][c] - xh * mean_s[1][c]);
+  }
+}
+
+constexpr int kWC = 8;                 // wgrad: input channels of a block
+constexpr int kWM = 128;               // its rows m = c k (kWC * 15 = 120 used)
+constexpr int kWN = 64;                // its output channels
+constexpr int kWK = 16;                // (b, t) rows per step
+constexpr int kWThreads = 128;         // 16 x 8 threads, 8 x 8 each
+constexpr int kWU = kS * (kWK - 1) + kK;  // input times under a step
+
+// dW[o, c, k] = sum_{b, t} a[b, 6t + k, c] g[b, t, o] and db[o] = sum g[b, t, o]
+// over the rows (b, t) of one chunk, as a [15 kWC, R] x [R, kWN] product for
+// 8 input channels (rows m = c 15 + k, torch's order) and 64 output
+// channels a block. Each step takes up to 16 rows of one sequence: the
+// activations under them (a window of 105 times x 8 channels, each
+// recomputed once) are staged, spread into the [16][m] tile, and
+// multiplied; thread (tm, tn) holds rows 4 tm + {0..3}, 64 + 4 tm + {0..3}
+// and columns 4 tn + {0..3}, 32 + 4 tn + {0..3}. Chunk z writes
+// part[z] = [dW in torch's layout, db]; db from the blocks of channel
+// chunk 0.
+template <bool kFromWav>
+__global__ void __launch_bounds__(kWThreads)
+wav_wgrad_kernel(Src src, const float* __restrict__ g, int B, int Tout, int Cout, float leak,
+                 float* __restrict__ part, int rows_per_split) {
+  __shared__ float win_s[kWU][kWC];
+  __shared__ __align__(16) float a_s[kWK][kWM];
+  __shared__ __align__(16) float g_s[kWK][kWN];
+  const int Cin = src.C, R = B * Tout;
+  const int c0 = blockIdx.x * kWC, n0 = blockIdx.y * kWN;
+  const int r_begin = blockIdx.z * rows_per_split;
+  const int r_end = min(R, r_begin + rows_per_split);
+  const int tid = threadIdx.x, tm = tid / 8, tn = tid % 8;
+  const bool bias_block = blockIdx.x == 0 && tid < kWN;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  float bsum = 0.0f;
+  for (int r0 = r_begin; r0 < r_end;) {
+    const int bb = r0 / Tout, t0 = r0 % Tout;
+    const int len = min(kWK, min(r_end - r0, Tout - t0));  // rows of one sequence
+    const int nu = kS * (len - 1) + kK;
+    __syncthreads();
+    for (int idx = tid; idx < kWU * kWC; idx += kWThreads) {
+      const int u = idx / kWC, cc = idx % kWC;
+      win_s[u][cc] = u < nu ? lrelu(src_xhat<kFromWav>(src, bb, kS * t0 + u, c0 + cc), leak) : 0.0f;
+    }
+    for (int idx = tid; idx < kWK * kWN; idx += kWThreads) {
+      const int kk = idx / kWN, n = idx % kWN;
+      g_s[kk][n] = (kk < len && n0 + n < Cout) ? __ldg(g + (size_t)(r0 + kk) * Cout + n0 + n) : 0.0f;
+    }
+    __syncthreads();
+    for (int idx = tid; idx < kWK * kWM; idx += kWThreads) {
+      const int kk = idx / kWM, m = idx % kWM, cc = m / kK, k = m % kK;
+      a_s[kk][m] = (kk < len && cc < kWC) ? win_s[kS * kk + k][cc] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kWK; ++kk) {
+      float ar[8], gr[8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 av = *reinterpret_cast<const float4*>(&a_s[kk][64 * h + 4 * tm]);
+        const float4 gv = *reinterpret_cast<const float4*>(&g_s[kk][32 * h + 4 * tn]);
+        ar[4 * h] = av.x, ar[4 * h + 1] = av.y, ar[4 * h + 2] = av.z, ar[4 * h + 3] = av.w;
+        gr[4 * h] = gv.x, gr[4 * h + 1] = gv.y, gr[4 * h + 2] = gv.z, gr[4 * h + 3] = gv.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], gr[j], acc[i][j]);
+    }
+    if (bias_block)
+      for (int kk = 0; kk < len; ++kk) bsum += g_s[kk][tid];
+    r0 += len;
+  }
+  const int M = kK * Cin;
+  float* o = part + (size_t)blockIdx.z * ((size_t)M * Cout + Cout);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = 64 * (i / 4) + 4 * tm + i % 4;
+    if (m >= kWC * kK) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + 32 * (j / 4) + 4 * tn + j % 4;
+      if (n < Cout) o[(size_t)n * M + c0 * kK + m] = acc[i][j];
+    }
+  }
+  if (bias_block && n0 + tid < Cout) o[(size_t)M * Cout + n0 + tid] = bsum;
+}
+
+constexpr int kT0 = 128;  // conv0 times per step of wgrad0
+constexpr int kW0Part = kC0 * kK + kC0;  // 512: dW0 [32, 1, 15], then db0
+
+// conv0's backward for one sequence a block, in steps of 128 times:
+// g_m0 = inv0 (gy1 - mean(gy1) - xhat0 mean(gy1 xhat0)) for the step's times
+// and the two before them (xhat0 recomputed), the step's dW0 and db0 sums
+// into registers (two outputs a thread), and d_wav for the padded samples
+// p in [5 t0, 5 (t0 + 128)): sum over t = p/5, p/5 - 1, p/5 - 2 of
+// sum_c w0[c, 0, p - 5t] g_m0[t, c]. Writes part [B, 512].
+__global__ void __launch_bounds__(kThreads)
+wav_wgrad0_kernel(Src s, const float* __restrict__ gy, const float* __restrict__ part_in, int ntq,
+              float* __restrict__ part, float* __restrict__ dwav) {
+  __shared__ float gm_s[kT0 + 2][kC0 + 1];
+  __shared__ float x_s[kS0 * (kT0 + 2) + kK];
+  __shared__ float w_s[kC0 * kK];
+  __shared__ float b_s[kC0], mean_s[kC0], inv_s[kC0], m1_s[kC0], m2_s[kC0];
+  const int tid = threadIdx.x, b = blockIdx.x, T1 = s.T;
+  for (int i = tid; i < kC0 * kK; i += kThreads) w_s[i] = __ldg(s.w0 + i);
+  if (tid < 2 * kC0) {
+    const int which = tid / kC0, c = tid % kC0;
+    float tot = 0.0f;
+    for (int i = 0; i < ntq; ++i) tot += __ldg(part_in + (((size_t)b * ntq + i) * 2 + which) * kC0 + c);
+    (which ? m2_s : m1_s)[c] = tot / T1;
+  }
+  if (tid < kC0) {
+    b_s[tid] = __ldg(s.b0 + tid);
+    mean_s[tid] = __ldg(s.st + (size_t)b * 2 * kC0 + tid);
+    inv_s[tid] = __ldg(s.st + (size_t)b * 2 * kC0 + kC0 + tid);
+  }
+  const float* row = s.wav + (size_t)b * s.L;
+  float acc[2] = {0.0f, 0.0f};
+  for (int t0 = 0; t0 < T1; t0 += kT0) {
+    __syncthreads();
+    const int p0 = kS0 * (t0 - 2) - kPad0;  // waveform index of x_s[0]
+    for (int i = tid; i < kS0 * (kT0 + 2) + kK; i += kThreads) {
+      const int wi = p0 + i;
+      x_s[i] = (wi >= 0 && wi < s.L) ? __ldg(row + wi) : 0.0f;
+    }
+    __syncthreads();
+    for (int idx = tid; idx < (kT0 + 2) * kC0; idx += kThreads) {
+      const int u = idx / kC0, c = idx % kC0, t = t0 - 2 + u;
+      float v = 0.0f;
+      if (t >= 0 && t < T1) {
+        float m = b_s[c];
+#pragma unroll
+        for (int k = 0; k < kK; ++k) m = conv0_tap(m, w_s[c * kK + k], x_s[kS0 * u + k]);
+        const float xh = (m - mean_s[c]) * inv_s[c];
+        v = inv_s[c] * (__ldg(gy + ((size_t)b * T1 + t) * kC0 + c) - m1_s[c] - xh * m2_s[c]);
+      }
+      gm_s[u][c] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = tid + h * kThreads;
+      float sum = 0.0f;
+      if (q < kC0 * kK) {
+        const int c = q / kK, k = q % kK;
+        for (int u = 2; u < kT0 + 2; ++u) sum = fmaf(gm_s[u][c], x_s[kS0 * u + k], sum);
+      } else {
+        const int c = q - kC0 * kK;
+        for (int u = 2; u < kT0 + 2; ++u) sum += gm_s[u][c];
+      }
+      acc[h] += sum;
+    }
+    if (dwav == nullptr) continue;
+    for (int i = tid; i < kS0 * kT0; i += kThreads) {
+      const int p = kS0 * t0 + i, wi = p - kPad0;
+      if (wi < 0 || wi >= s.L) continue;
+      const int tmax = p / kS0;
+      float v = 0.0f;
+      for (int t = tmax; t > tmax - 3 && t >= 0; --t) {
+        if (t >= T1) continue;
+        const int k = p - kS0 * t, u = t - t0 + 2;
+#pragma unroll 8
+        for (int c = 0; c < kC0; ++c) v = fmaf(w_s[c * kK + k], gm_s[u][c], v);
+      }
+      dwav[(size_t)b * s.L + wi] = v;
+    }
+  }
+  part[(size_t)b * kW0Part + tid] = acc[0];
+  part[(size_t)b * kW0Part + tid + kThreads] = acc[1];
+}
+
+// out[i] = sum_{j < n} part[j, i], j in order.
+__global__ void wav_reduce_kernel(const float* __restrict__ part, int n, int width,
+                              float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= width) return;
+  float s = 0.0f;
+  for (int j = 0; j < n; ++j) s += __ldg(part + (size_t)j * width + i);
+  out[i] = s;
+}
+
+Src make_src(const float* pre, const float* st, int T, int C, const float* wav,
+             const float* w0, const float* b0, int L) {
+  return Src{pre, st, wav, w0, b0, L, T, C};
+}
+
+// A stage input the kernels take: conv0's output (from_wav, C = 32), or a
+// stored tensor with C = 32, 64 or 128.
+bool src_ok(int from_wav, const float* pre, int T, int C) {
+  if (T < 1) return false;
+  if (from_wav) return C == kC0;
+  return pre != nullptr && (C == 32 || C == 64 || C == 128);
+}
+
+template <bool kFromWav, int kTR, int kTC>
+void conv_fwd(const Src& s, const float* w, const float* bias, float* out, int B, int Tout,
+              int Cout, float leak, cudaStream_t stream) {
+  dim3 grid((Tout + 8 * kTR - 1) / (8 * kTR), (Cout + 8 * kTC - 1) / (8 * kTC), B);
+  wav_conv_fwd_kernel<kFromWav, kTR, kTC><<<grid, kTR * kTC, 0, stream>>>(s, w, bias, out, Tout,
+                                                                           Cout, leak);
+}
+
+template <bool kFromWav, int kCG>
+void bwd_data(const Src& s, const float* w, const float* g, int B, int Tout, int Cout,
+              float leak, float* gy, float* part, cudaStream_t stream) {
+  constexpr int kTimes = kS * 8 * (32 / kCG);  // input times of a block
+  dim3 grid((s.T + kTimes - 1) / kTimes, s.C / (8 * kCG), B);
+  wav_bwd_data_kernel<kFromWav, kCG><<<grid, kBdThreads, 0, stream>>>(s, w, g, Tout, Cout, leak,
+                                                                       gy, part);
+}
+
+}  // namespace
+
+// Each launch function enqueues on `stream` and returns the cudaError_t of
+// its launch (0 on success); cudaErrorInvalidValue for shapes it does not take.
+// A stage input is (from_wav, pre, st, T_in, C_in) and the waveform with
+// conv0's parameters (wav, w0, b0, L), as Src describes.
+
+extern "C" int fused_wav_stats0_launch(const float* wav, const float* w0, const float* b0, int L,
+                                       int T1, int B, float* st0, void* stream) {
+  if (B < 1 || L < 1 || T1 < 1) return (int)cudaErrorInvalidValue;
+  wav_stats0_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
+      make_src(nullptr, nullptr, T1, kC0, wav, w0, b0, L), st0);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fused_wav_stats_launch(const float* x, int B, int T, int C, float* st,
+                                      void* stream) {
+  if (B < 1 || T < 1 || C < 1 || C > kThreads || kThreads % C != 0)
+    return (int)cudaErrorInvalidValue;
+  wav_stats_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(x, T, C, st);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fused_wav_conv_fwd_launch(
+    int from_wav, const float* pre, const float* st, int T_in, int C_in, const float* wav,
+    const float* w0, const float* b0, int L, const float* w, const float* bias, float* out,
+    int B, int Tout, int Cout, float leak, void* stream) {
+  if (!src_ok(from_wav, pre, T_in, C_in) || B < 1 || B > 65535 || Tout < 1 || Cout < 1 ||
+      kS * (Tout - 1) + kK > T_in)
+    return (int)cudaErrorInvalidValue;
+  const Src s = make_src(pre, st, T_in, C_in, wav, w0, b0, L);
+  const cudaStream_t st_ = (cudaStream_t)stream;
+  if (from_wav && Cout == 64)
+    conv_fwd<true, 16, 8>(s, w, bias, out, B, Tout, Cout, leak, st_);
+  else if (!from_wav && Cout == 64)
+    conv_fwd<false, 16, 8>(s, w, bias, out, B, Tout, Cout, leak, st_);
+  else if (!from_wav && Cout == 128)
+    conv_fwd<false, 16, 16>(s, w, bias, out, B, Tout, Cout, leak, st_);
+  else if (!from_wav && Cout == 256 && Tout <= 48)  // conv3 on TED and BEAT: 34 times
+    conv_fwd<false, 6, 32>(s, w, bias, out, B, Tout, Cout, leak, st_);
+  else if (!from_wav && Cout == 256)
+    conv_fwd<false, 8, 32>(s, w, bias, out, B, Tout, Cout, leak, st_);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// gy [B, T_in, C_in] and part [B, ntq, 2, C_in], ntq = ceil(T_in / 384) for
+// C_in = 32 and ceil(T_in / 192) otherwise.
+extern "C" int fused_wav_bwd_data_launch(
+    int from_wav, const float* pre, const float* st, int T_in, int C_in, const float* wav,
+    const float* w0, const float* b0, int L, const float* w, const float* g, int B, int Tout,
+    int Cout, float leak, float* gy, float* part, void* stream) {
+  if (!src_ok(from_wav, pre, T_in, C_in) || B < 1 || B > 65535 || Tout < 1 || Cout < 16 ||
+      Cout % 16 != 0 || kS * (Tout - 1) + kK > T_in)
+    return (int)cudaErrorInvalidValue;
+  const Src s = make_src(pre, st, T_in, C_in, wav, w0, b0, L);
+  const cudaStream_t st_ = (cudaStream_t)stream;
+  if (from_wav)
+    bwd_data<true, 4>(s, w, g, B, Tout, Cout, leak, gy, part, st_);
+  else if (C_in == 32)
+    bwd_data<false, 4>(s, w, g, B, Tout, Cout, leak, gy, part, st_);
+  else
+    bwd_data<false, 8>(s, w, g, B, Tout, Cout, leak, gy, part, st_);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fused_wav_in_bwd_launch(const float* pre, const float* st, const float* part,
+                                       int ntq, int B, int T, int C, float* g, void* stream) {
+  if (B < 1 || T < 1 || C < 1 || 2 * C > kThreads || ntq < 1) return (int)cudaErrorInvalidValue;
+  wav_in_bwd_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(pre, st, part, ntq, T, C, g);
+  return (int)cudaGetLastError();
+}
+
+// part [nsplit, C_out * C_in * 15 + C_out]; rows (b, t) in chunks of
+// rows_per_split.
+extern "C" int fused_wav_wgrad_launch(
+    int from_wav, const float* pre, const float* st, int T_in, int C_in, const float* wav,
+    const float* w0, const float* b0, int L, const float* g, int B, int Tout, int Cout,
+    float leak, float* part, int nsplit, int rows_per_split, void* stream) {
+  if (!src_ok(from_wav, pre, T_in, C_in) || B < 1 || Tout < 1 || Cout < 1 || nsplit < 1 ||
+      nsplit > 65535 || rows_per_split < 1 ||
+      (long long)nsplit * rows_per_split < (long long)B * Tout || kS * (Tout - 1) + kK > T_in)
+    return (int)cudaErrorInvalidValue;
+  const Src s = make_src(pre, st, T_in, C_in, wav, w0, b0, L);
+  dim3 grid(C_in / kWC, (Cout + kWN - 1) / kWN, nsplit);
+  if (from_wav)
+    wav_wgrad_kernel<true><<<grid, kWThreads, 0, (cudaStream_t)stream>>>(
+        s, g, B, Tout, Cout, leak, part, rows_per_split);
+  else
+    wav_wgrad_kernel<false><<<grid, kWThreads, 0, (cudaStream_t)stream>>>(
+        s, g, B, Tout, Cout, leak, part, rows_per_split);
+  return (int)cudaGetLastError();
+}
+
+// part [B, 512] (dW0 then db0); dwav [B, L], or null for no waveform gradient.
+extern "C" int fused_wav_wgrad0_launch(const float* wav, const float* w0, const float* b0, int L,
+                                       const float* st0, const float* gy1, const float* part_in,
+                                       int ntq, int B, int T1, float* part, float* dwav,
+                                       void* stream) {
+  if (B < 1 || L < 1 || T1 < 1 || ntq < 1) return (int)cudaErrorInvalidValue;
+  wav_wgrad0_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
+      make_src(nullptr, st0, T1, kC0, wav, w0, b0, L), gy1, part_in, ntq, part, dwav);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fused_wav_reduce_launch(const float* part, int n, int width, float* out,
+                                       void* stream) {
+  if (n < 1 || width < 1) return (int)cudaErrorInvalidValue;
+  wav_reduce_kernel<<<(width + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+      part, n, width, out);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,430 @@
+"""The fused WavEncoder conv stack: geometry, packing, the plain PyTorch
+forward and backward, the CUDA wrappers, the autograd Function that joins
+them and a drop-in module.
+
+Port of ``livelyspeaker_tpu/ops/pallas/fused_wav.py``. The stack is conv0
+(k15, stride 5, padded 1600 a side) -> InstanceNorm -> LeakyReLU -> conv1
+(stride 6) -> IN -> LReLU -> conv2 (stride 6) -> IN -> LReLU -> conv3
+(stride 6); the InstanceNorms have no affine and eps 1e-5. On a CUDA tensor
+the kernels of ``csrc/fused_wav.cu`` run (six forward launches, thirteen
+backward ones) or the wrapper raises; on a CPU tensor the plain versions
+run. Nothing in the package routes through it by default:
+``FusedWavEncoder`` swaps in for a model's ``audio_encoder``.
+
+The kernels read torch's ``Conv1d`` layout, weights ``[C_out, C_in, 15]``
+and biases ``[C_out]``, so packing is the parameters themselves, with no
+copy. What the backward keeps (the residuals): the waveform, conv1's and
+conv2's pre-norm outputs ``m1 [B, T2, 64]`` and ``m2 [B, T3, 128]``, and the
+mean and 1/std of the three InstanceNorms, ``st_i [B, 2, C_i]``. conv0's
+output is never stored: the kernels recompute it from the waveform.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..models.audio_encoder import WavEncoder
+from . import fused_mlp
+from ._build import load_library
+
+__all__ = [
+    "WavDims",
+    "WavResiduals",
+    "PACKED_KEYS",
+    "LAUNCHES",
+    "pack_wav_params",
+    "lrelu_inputs",
+    "fused_wav_forward_reference",
+    "fused_wav_backward_reference",
+    "fused_wav_forward",
+    "fused_wav_backward",
+    "fused_wav_encoder",
+    "FusedWavEncoder",
+]
+
+EPS = 1e-5
+CHANNELS = (1, 32, 64, 128, 256)
+PACKED_KEYS = ("w0", "b0", "w1", "b1", "w2", "b2", "w3", "b3")
+# launches of each CUDA kernel; a forward is stats0 1, conv_fwd 3, stats 2;
+# a backward is wgrad 3, reduce 4, bwd_data 3, in_bwd 2, wgrad0 1
+LAUNCHES = {"stats0": 0, "conv_fwd": 0, "stats": 0, "wgrad": 0, "reduce": 0,
+            "bwd_data": 0, "in_bwd": 0, "wgrad0": 0}
+FORWARD_LAUNCHES = {"stats0": 1, "conv_fwd": 3, "stats": 2}
+BACKWARD_LAUNCHES = {"wgrad": 3, "reduce": 4, "bwd_data": 3, "in_bwd": 2, "wgrad0": 1}
+
+
+def _bwd_data_tiles(t_in: int, c_in: int) -> int:
+    """Time tiles of the data-gradient kernel: 384 input times a block for
+    32 channels, 192 for more (csrc: wav_bwd_data_kernel's 6 kQT)."""
+    return math.ceil(t_in / (384 if c_in == 32 else 192))
+
+
+class WavDims:
+    """The conv chain's lengths for a waveform of ``length`` samples, as the
+    JAX package's ``WavDims`` computes them (k15, strides 5/6/6/6, conv0
+    padded 1600 a side); raises ValueError when no output frame is left.
+    The TPU kernel's row layout and padding have no counterpart here."""
+
+    def __init__(self, length: int):
+        self.L = length
+        self.T1 = (length + 3200 - 15) // 5 + 1
+        self.T2 = (self.T1 - 15) // 6 + 1
+        self.T3 = (self.T2 - 15) // 6 + 1
+        self.T4 = (self.T3 - 15) // 6 + 1
+        if self.T4 < 1:
+            raise ValueError(f"waveform too short: {length}")
+
+
+class WavResiduals(NamedTuple):
+    """What the forward keeps for the backward."""
+    wav: torch.Tensor  # [B, L]
+    m1: torch.Tensor   # [B, T2, 64] conv1's output, before IN1
+    m2: torch.Tensor   # [B, T3, 128] conv2's output, before IN2
+    st0: torch.Tensor  # [B, 2, 32] IN0 mean, 1/std
+    st1: torch.Tensor  # [B, 2, 64]
+    st2: torch.Tensor  # [B, 2, 128]
+
+
+def pack_wav_params(encoder: nn.Module, differentiable: bool = True) -> Dict[str, torch.Tensor]:
+    """A ``WavEncoder``'s conv parameters in the layout the kernels read:
+    ``w{i}`` the ``conv{i}.weight`` [C_out, C_in, 15], ``b{i}`` the bias.
+    They are the parameters themselves, so the kernels' gradients reach
+    them through autograd; ``differentiable=False`` detaches them (for
+    inference)."""
+    out = {}
+    for i in range(4):
+        conv = getattr(encoder, f"conv{i}")
+        out[f"w{i}"], out[f"b{i}"] = conv.weight, conv.bias
+    return out if differentiable else {k: v.detach() for k, v in out.items()}
+
+
+def _norm_stats(m: torch.Tensor) -> torch.Tensor:
+    """[B, C, T] -> [B, 2, C]: the InstanceNorm mean and 1/std over time,
+    two-pass, as ``models/audio_encoder.py`` takes them."""
+    mean = m.mean(-1)
+    var = ((m - mean[..., None]) ** 2).mean(-1)
+    return torch.stack([mean, torch.rsqrt(var + EPS)], dim=1)
+
+
+def _xhat(m: torch.Tensor, st: torch.Tensor) -> torch.Tensor:
+    """[B, C, T] normalised by st [B, 2, C]."""
+    return (m - st[:, 0, :, None]) * st[:, 1, :, None]
+
+
+def _conv0(wav: torch.Tensor, packed) -> torch.Tensor:
+    """conv0, [B, L] -> [B, 32, T1], summed as the kernels sum it: the bias,
+    then the 15 taps in order, each product and each sum rounded. Both
+    versions then round every output to the same bits and take the same
+    LeakyReLU branch at the kink, where the gradient jumps."""
+    x = F.pad(wav, (1600, 1600)).unfold(1, 15, 5)  # [B, T1, 15]
+    w = packed["w0"][:, 0]  # [32, 15]
+    m = packed["b0"][None, :, None].expand(wav.shape[0], -1, x.shape[1])
+    for k in range(15):
+        m = m + w[None, :, k, None] * x[:, None, :, k]
+    return m
+
+
+def fused_wav_forward_reference(
+    wav: torch.Tensor, packed: Dict[str, torch.Tensor], leak: float = 0.3,
+) -> Tuple[torch.Tensor, WavResiduals]:
+    """Plain version of the forward kernels: (out [B, T4, 256], residuals),
+    on any device and in f32 or f64."""
+    fused_wav_forward_reference.calls += 1
+    WavDims(wav.shape[1])
+    m = _conv0(wav, packed)  # [B, 32, T1]
+    stats, pre = [], []
+    for i in (1, 2, 3):
+        st = _norm_stats(m)
+        stats.append(st)
+        m = F.conv1d(F.leaky_relu(_xhat(m, st), leak), packed[f"w{i}"], packed[f"b{i}"], stride=6)
+        pre.append(m)
+    tm = lambda x: x.transpose(1, 2).contiguous()
+    return tm(m), WavResiduals(wav, tm(pre[0]), tm(pre[1]), *stats)
+
+
+fused_wav_forward_reference.calls = 0
+
+
+def lrelu_inputs(res: WavResiduals, packed: Dict[str, torch.Tensor]):
+    """The three InstanceNorm outputs the LeakyReLUs take, [B, C_i, T_i],
+    recomputed from the residuals as the backward recomputes them."""
+    return [_xhat(_conv0(res.wav, packed), res.st0),
+            _xhat(res.m1.transpose(1, 2), res.st1),
+            _xhat(res.m2.transpose(1, 2), res.st2)]
+
+
+def _norm_lrelu_backward(g_a, xh, st, leak):
+    """d/d pre of lrelu(IN(pre)) for the cotangent g_a of its output, all
+    [B, C, T]: gy = g_a lrelu'(xhat), then
+    inv (gy - mean_t(gy) - xhat mean_t(gy xhat))."""
+    gy = g_a * torch.where(xh > 0, 1.0, leak).to(g_a.dtype)
+    return st[:, 1, :, None] * (gy - gy.mean(-1, keepdim=True)
+                                - xh * (gy * xh).mean(-1, keepdim=True))
+
+
+def _conv_weight_grad(a, g, stride):
+    """dW [C_out, C_in, 15] = sum_{b,t} g[b, o, t] a[b, c, stride t + k],
+    and db, for a [B, C_in, T_in] and g [B, C_out, T_out]."""
+    win = a.unfold(2, 15, stride)[:, :, :g.shape[2]]  # [B, C_in, T_out, 15]
+    return torch.einsum("bctk,bot->ock", win, g), g.sum((0, 2))
+
+
+def fused_wav_backward_reference(
+    res: WavResiduals, g: torch.Tensor, packed: Dict[str, torch.Tensor], leak: float = 0.3,
+    need_wav_grad: bool = True,
+) -> Tuple[Optional[torch.Tensor], Dict[str, torch.Tensor]]:
+    """Plain version of the backward kernels, written out: each stage's
+    activation recomputed from the residuals, the LeakyReLU and
+    InstanceNorm backward by their formulas, the weight gradients as
+    products over unfolded windows and the input gradients as transposed
+    convolutions. (d_wav [B, L] or None, gradients keyed as ``packed``)."""
+    fused_wav_backward_reference.calls += 1
+    d = WavDims(res.wav.shape[1])
+    xh = lrelu_inputs(res, packed)
+    sts = (res.st0, res.st1, res.st2)
+    lengths = (d.T1, d.T2, d.T3, d.T4)
+    grads = {}
+    g_m = g.transpose(1, 2)  # [B, 256, T4]
+    for i in (3, 2, 1):
+        grads[f"w{i}"], grads[f"b{i}"] = _conv_weight_grad(F.leaky_relu(xh[i - 1], leak), g_m, 6)
+        extra = lengths[i - 1] - ((lengths[i] - 1) * 6 + 15)  # input times no window reaches
+        g_a = F.conv_transpose1d(g_m, packed[f"w{i}"], stride=6, output_padding=extra)
+        g_m = _norm_lrelu_backward(g_a, xh[i - 1], sts[i - 1], leak)
+    wavp = F.pad(res.wav, (1600, 1600))[:, None, :]  # [B, 1, L + 3200]
+    grads["w0"], grads["b0"] = _conv_weight_grad(wavp, g_m, 5)
+    d_wav = None
+    if need_wav_grad:
+        d_wav = F.conv_transpose1d(g_m, packed["w0"], stride=5, padding=1600,
+                                   output_padding=(d.L + 3185) % 5)[:, 0]
+    return d_wav, grads
+
+
+fused_wav_backward_reference.calls = 0
+
+
+_bound: Dict[str, object] = {}
+
+
+def _launcher(kernel: str):
+    if kernel not in _bound:
+        lib = load_library("fused_wav")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        src = [i, p, p, i, i, p, p, p, i]  # from_wav, pre, st, T_in, C_in, wav, w0, b0, L
+        argtypes = {
+            "stats0": [p, p, p, i, i, i, p],
+            "stats": [p, i, i, i, p],
+            "conv_fwd": src + [p, p, p, i, i, i, f],
+            "bwd_data": src + [p, p, i, i, i, f, p, p],
+            "in_bwd": [p, p, p, i, i, i, i, p],
+            "wgrad": src + [p, i, i, i, f, p, i, i],
+            "wgrad0": [p, p, p, i, p, p, p, i, i, i, p, p],
+            "reduce": [p, i, i, p],
+        }[kernel]
+        fn = getattr(lib, f"fused_wav_{kernel}_launch")
+        fn.argtypes = argtypes + [p]
+        fn.restype = ctypes.c_int
+        _bound[kernel] = fn
+    return _bound[kernel]
+
+
+def _launch(kernel: str, dev: torch.device, *args, what: str) -> None:
+    """Call the C launch function on the current stream of ``dev``; raise
+    on a non-zero cudaError."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _launcher(kernel)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_wav {kernel} kernel launch failed with cudaError {err} ({what})")
+    LAUNCHES[kernel] += 1
+
+
+def _check_cuda(who: str, wav: torch.Tensor, packed) -> WavDims:
+    """Raise on what the kernels do not take; the chain's lengths."""
+    if wav.device.type != "cuda":
+        raise ValueError(f"{who}: no kernel for device {wav.device}")
+    if wav.dim() != 2:
+        raise ValueError(f"{who}: wav has shape {tuple(wav.shape)}, expected [B, L]")
+    b, length = wav.shape
+    if not 1 <= b <= 65535 or length < 1:
+        raise ValueError(f"{who}: wav has shape {tuple(wav.shape)}; the kernels take "
+                         "a batch of 1..65535 and at least one sample")
+    d = WavDims(length)
+    fused_mlp._check("wav", wav, (b, length), wav.device, who)
+    for i in range(4):
+        cin, cout = CHANNELS[i], CHANNELS[i + 1]
+        fused_mlp._check(f"w{i}", packed[f"w{i}"], (cout, cin, 15), wav.device, who)
+        fused_mlp._check(f"b{i}", packed[f"b{i}"], (cout,), wav.device, who)
+    return d
+
+
+def _src(from_wav: bool, pre, st, t_in: int, c_in: int, wav, packed):
+    """The stage-input arguments of the C launch functions."""
+    return (int(from_wav), None if pre is None else pre.data_ptr(), st.data_ptr(), t_in, c_in,
+            wav.data_ptr(), packed["w0"].data_ptr(), packed["b0"].data_ptr(), wav.shape[1])
+
+
+def fused_wav_forward(
+    wav: torch.Tensor, packed: Dict[str, torch.Tensor], leak: float = 0.3,
+) -> Tuple[torch.Tensor, WavResiduals]:
+    """(out [B, T4, 256], residuals). A CPU tensor runs the plain version;
+    a CUDA tensor launches the six forward kernels or raises."""
+    if wav.device.type == "cpu":
+        return fused_wav_forward_reference(wav, packed, leak)
+    who = "fused_wav_encoder"
+    d = _check_cuda(who, wav, packed)
+    b, dev = wav.shape[0], wav.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    st0, st1, st2 = (torch.empty((b, 2, c), **f32) for c in CHANNELS[1:4])
+    m1 = torch.empty((b, d.T2, 64), **f32)
+    m2 = torch.empty((b, d.T3, 128), **f32)
+    out = torch.empty((b, d.T4, 256), **f32)
+    what = f"B={b}, L={d.L}"
+    w0, b0 = packed["w0"].data_ptr(), packed["b0"].data_ptr()
+    _launch("stats0", dev, wav.data_ptr(), w0, b0, d.L, d.T1, b, st0.data_ptr(), what=what)
+    stages = ((True, None, st0, d.T1, m1, d.T2), (False, m1, st1, d.T2, m2, d.T3),
+              (False, m2, st2, d.T3, out, d.T4))
+    for i, (from_wav, pre, st, t_in, y, t_out) in enumerate(stages, start=1):
+        if pre is not None:
+            _launch("stats", dev, pre.data_ptr(), b, t_in, CHANNELS[i], st.data_ptr(), what=what)
+        _launch("conv_fwd", dev, *_src(from_wav, pre, st, t_in, CHANNELS[i], wav, packed),
+                packed[f"w{i}"].data_ptr(), packed[f"b{i}"].data_ptr(), y.data_ptr(),
+                b, t_out, CHANNELS[i + 1], leak, what=f"{what}, conv{i}")
+    return out, WavResiduals(wav, m1, m2, st0, st1, st2)
+
+
+def _wgrad_split(rows: int, tiles: int) -> Tuple[int, int]:
+    """(chunks, rows per chunk) of a weight gradient's B*T rows: enough
+    chunks for about 528 blocks (4 an SM) and at least 256 rows each.
+    Depends on the shapes only, so the sums are taken in the same order
+    every run."""
+    nsplit = max(1, min(math.ceil(528 / tiles), math.ceil(rows / 256)))
+    per = math.ceil(rows / nsplit)
+    return math.ceil(rows / per), per
+
+
+def fused_wav_backward(
+    res: WavResiduals, g: torch.Tensor, packed: Dict[str, torch.Tensor], leak: float = 0.3,
+    need_wav_grad: bool = True,
+) -> Tuple[Optional[torch.Tensor], Dict[str, torch.Tensor]]:
+    """(d_wav [B, L] or None, gradients keyed as ``packed``) for the output
+    cotangent ``g`` [B, T4, 256]. A CPU tensor runs the plain version; a
+    CUDA tensor launches the thirteen backward kernels or raises."""
+    if g.device.type == "cpu":
+        return fused_wav_backward_reference(res, g, packed, leak, need_wav_grad)
+    who = "fused_wav_encoder backward"
+    wav = res.wav
+    d = _check_cuda(who, wav, packed)
+    b, dev = wav.shape[0], wav.device
+    lengths = (d.T1, d.T2, d.T3, d.T4)
+    fused_mlp._check("g", g, (b, d.T4, 256), dev, who)
+    for name, t, shape in (("m1", res.m1, (b, d.T2, 64)), ("m2", res.m2, (b, d.T3, 128)),
+                           ("st0", res.st0, (b, 2, 32)), ("st1", res.st1, (b, 2, 64)),
+                           ("st2", res.st2, (b, 2, 128))):
+        fused_mlp._check(name, t, shape, dev, who)
+    f32 = dict(dtype=torch.float32, device=dev)
+    what = f"B={b}, L={d.L}"
+    pres, sts = (None, res.m1, res.m2), (res.st0, res.st1, res.st2)
+    grads = {}
+
+    def reduce(part, n, i):  # part [n, C_out*C_in*15 + C_out] -> grads w{i}, b{i}
+        cout, cin = CHANNELS[i + 1], CHANNELS[i]
+        flat = torch.empty(cout * cin * 15 + cout, **f32)
+        _launch("reduce", dev, part.data_ptr(), n, flat.numel(), flat.data_ptr(),
+                what=f"{what}, conv{i}")
+        grads[f"w{i}"] = flat[:cout * cin * 15].view(cout, cin, 15)
+        grads[f"b{i}"] = flat[cout * cin * 15:]
+
+    g_m = g
+    for i in (3, 2, 1):
+        cin, cout, t_in, t_out = CHANNELS[i], CHANNELS[i + 1], lengths[i - 1], lengths[i]
+        src = _src(i == 1, pres[i - 1], sts[i - 1], t_in, cin, wav, packed)
+        tiles = cin // 8 * math.ceil(cout / 64)  # csrc: wav_wgrad_kernel's grid
+        nsplit, per = _wgrad_split(b * t_out, tiles)
+        part = torch.empty((nsplit, cout * cin * 15 + cout), **f32)
+        _launch("wgrad", dev, *src, g_m.data_ptr(), b, t_out, cout, leak, part.data_ptr(),
+                nsplit, per, what=f"{what}, conv{i}")
+        reduce(part, nsplit, i)
+        ntq = _bwd_data_tiles(t_in, cin)
+        gy = torch.empty((b, t_in, cin), **f32)
+        sums = torch.empty((b, ntq, 2, cin), **f32)
+        _launch("bwd_data", dev, *src, packed[f"w{i}"].data_ptr(), g_m.data_ptr(), b, t_out,
+                cout, leak, gy.data_ptr(), sums.data_ptr(), what=f"{what}, conv{i}")
+        if i > 1:  # the InstanceNorm backward in place: gy becomes g_m
+            _launch("in_bwd", dev, pres[i - 1].data_ptr(), sts[i - 1].data_ptr(),
+                    sums.data_ptr(), ntq, b, t_in, cin, gy.data_ptr(), what=f"{what}, IN{i - 1}")
+            g_m = gy
+    d_wav = torch.empty((b, d.L), **f32) if need_wav_grad else None
+    part0 = torch.empty((b, 32 * 15 + 32), **f32)
+    _launch("wgrad0", dev, wav.data_ptr(), packed["w0"].data_ptr(), packed["b0"].data_ptr(), d.L,
+            res.st0.data_ptr(), gy.data_ptr(), sums.data_ptr(), ntq, b, d.T1, part0.data_ptr(),
+            None if d_wav is None else d_wav.data_ptr(), what=f"{what}, conv0")
+    reduce(part0, b, 0)
+    return d_wav, grads
+
+
+class _FusedWav(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, wav, leak, *weights):
+        packed = dict(zip(PACKED_KEYS, weights))
+        out, res = fused_wav_forward(wav, packed, leak)
+        ctx.leak = leak
+        ctx.save_for_backward(*res, *weights)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        res, weights = WavResiduals(*saved[:6]), saved[6:]
+        d_wav, grads = fused_wav_backward(res, g.contiguous(), dict(zip(PACKED_KEYS, weights)),
+                                          ctx.leak, need_wav_grad=ctx.needs_input_grad[0])
+        return (d_wav, None, *[grads[k] for k in PACKED_KEYS])
+
+
+def fused_wav_encoder(
+    wav: torch.Tensor,  # [B, L] float
+    packed: Dict[str, torch.Tensor],
+    leak: float = 0.3,
+) -> torch.Tensor:
+    """The WavEncoder conv stack, [B, L] -> [B, T4, 256], differentiable
+    with the hand-written backward. f32 only on the card (the plain version
+    also takes float64). ``d_wav`` is computed only when ``wav`` needs a
+    gradient. The JAX function's ``batch_tile`` is a TPU grid parameter
+    with no counterpart here."""
+    if wav.dtype in (torch.bfloat16, torch.float16):
+        raise TypeError(f"fused_wav_encoder: wav is {wav.dtype}; the kernels are f32 only")
+    weights = [packed[k] for k in PACKED_KEYS]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (wav, *weights)):
+        return _FusedWav.apply(wav.contiguous(), leak, *weights)
+    return fused_wav_forward(wav.contiguous(), packed, leak)[0]
+
+
+class FusedWavEncoder(nn.Module):
+    """Drop-in for a ``WavEncoder`` through :func:`fused_wav_encoder`.
+
+    It holds the encoder's own ``conv0..conv3`` modules, so the state_dict
+    keys and the ``Parameter`` objects are the encoder's: an optimizer built
+    before or after ``model.audio_encoder = FusedWavEncoder(model.audio_encoder)``
+    updates the same tensors. f32 only, as the kernels are."""
+
+    def __init__(self, encoder: WavEncoder):
+        super().__init__()
+        if encoder.dtype != torch.float32:
+            raise TypeError(f"FusedWavEncoder: the encoder computes in {encoder.dtype}; "
+                            "the fused stack is f32 only")
+        self.leak = encoder.leak
+        self.dtype = torch.float32
+        for i in range(4):
+            self.add_module(f"conv{i}", getattr(encoder, f"conv{i}"))
+
+    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        if not wav.is_floating_point():
+            wav = wav.to(torch.float32) * (1.0 / 32768.0)
+        packed = pack_wav_params(self, differentiable=torch.is_grad_enabled())
+        return fused_wav_encoder(wav.to(torch.float32), packed, self.leak)

@@ -9,9 +9,10 @@ tests/test_torch_cuda.py``.
 import pytest
 import torch
 
+from livelyspeaker_tpu_torch.models import WavEncoder, audio_samples_for_frames
 from livelyspeaker_tpu_torch.models.initializers import random_normal_
 from livelyspeaker_tpu_torch.models.mlp_backbone import TransMLP
-from livelyspeaker_tpu_torch.ops import fused_mlp, fused_mlp_train
+from livelyspeaker_tpu_torch.ops import fused_mlp, fused_mlp_train, fused_wav
 
 
 @pytest.fixture
@@ -175,3 +176,103 @@ def test_train_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         fused_mlp_train.fused_transmlp_train_backward(
             torch.zeros(1, 2, 40, 64, device=cuda_device), eb, xb.contiguous(), big)
     assert fused_mlp_train.fused_transmlp_train_forward_reference.calls == calls
+
+
+def _wav_case(device, b, length, seed=4):
+    """A seeded WavEncoder (random_normal_ weights), its packed parameters,
+    a waveform and an output cotangent for the K3 kernels."""
+    g = torch.Generator().manual_seed(seed)
+    enc = random_normal_(WavEncoder(), g).to(device)
+    wav = (0.1 * torch.randn(b, length, generator=g)).to(device)
+    t4 = fused_wav.WavDims(length).T4
+    cot = torch.randn(b, t4, 256, generator=g).to(device)
+    return enc, fused_wav.pack_wav_params(enc, differentiable=False), wav, cot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,length", [
+    (3, audio_samples_for_frames(2)),   # short clip, odd batch
+    (5, 5000),                          # input times no window reaches
+    (8, audio_samples_for_frames(34)),  # TED and BEAT: L = 36,267
+])
+def test_wav_kernels_match_plain(cuda_device, b, length):
+    """Forward and residuals within rel 1e-5; d_wav and every weight and
+    conv3 bias gradient within rel 1e-4 of its max; the pre-IN biases
+    (0 in exact arithmetic) within 1e-4 of the largest gradient. The
+    backward runs twice and gives the same bits."""
+    _, packed, wav, cot = _wav_case(cuda_device, b, length)
+    launches = dict(fused_wav.LAUNCHES)
+    out, res = fused_wav.fused_wav_forward(wav, packed)
+    ref, rres = fused_wav.fused_wav_forward_reference(wav, packed)
+    d_wav, grads = fused_wav.fused_wav_backward(res, cot, packed)
+    d_wav2, grads2 = fused_wav.fused_wav_backward(res, cot, packed)
+    rd, rgrads = fused_wav.fused_wav_backward_reference(rres, cot, packed)
+    torch.cuda.synchronize()
+    for k, n in fused_wav.FORWARD_LAUNCHES.items():
+        assert fused_wav.LAUNCHES[k] == launches[k] + n, k
+    for k, n in fused_wav.BACKWARD_LAUNCHES.items():
+        assert fused_wav.LAUNCHES[k] == launches[k] + 2 * n, k
+    assert _rel(out, ref) <= 1e-5
+    for name, a, r in zip(fused_wav.WavResiduals._fields, res, rres):
+        assert _rel(a, r) <= 1e-5, name
+    assert _rel(d_wav, rd) <= 1e-4
+    assert torch.equal(d_wav, d_wav2)
+    top = max(v.abs().max().item() for v in rgrads.values())
+    for k in fused_wav.PACKED_KEYS:
+        assert torch.equal(grads[k], grads2[k]), k
+        if k in ("b0", "b1", "b2"):
+            assert (grads[k] - rgrads[k]).abs().max().item() <= 1e-4 * top, k
+        else:
+            assert _rel(grads[k], rgrads[k]) <= 1e-4, k
+
+
+@pytest.mark.cuda
+def test_wav_function_routes_to_kernels(cuda_device):
+    """Under autograd the drop-in launches the forward and backward kernels
+    once each and no plain version; d_wav's kernel work is skipped unless
+    the waveform needs a gradient; without autograd only the forward runs."""
+    enc, _, wav, _ = _wav_case(cuda_device, 4, audio_samples_for_frames(34))
+    drop_in = fused_wav.FusedWavEncoder(enc)
+    calls = (fused_wav.fused_wav_forward_reference.calls,
+             fused_wav.fused_wav_backward_reference.calls)
+    launches = dict(fused_wav.LAUNCHES)
+    out = drop_in(wav)
+    out.square().sum().backward()
+    x = wav.clone().requires_grad_(True)
+    drop_in(x).square().sum().backward()
+    with torch.no_grad():
+        out2 = drop_in(wav)
+    torch.cuda.synchronize()
+    for k, n in fused_wav.FORWARD_LAUNCHES.items():
+        assert fused_wav.LAUNCHES[k] == launches[k] + 3 * n, k
+    for k, n in fused_wav.BACKWARD_LAUNCHES.items():
+        assert fused_wav.LAUNCHES[k] == launches[k] + 2 * n, k
+    assert (fused_wav.fused_wav_forward_reference.calls,
+            fused_wav.fused_wav_backward_reference.calls) == calls
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in enc.parameters())
+    assert torch.equal(out2, out.detach())
+    eager = enc(wav)
+    assert _rel(out2, eager) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_wav_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    """A CPU/CUDA mix, a bf16 or float64 waveform, a waveform of no samples
+    (the shortest real input: conv0's padding leaves T4 >= 1 for any length
+    >= 0, so WavDims' own raise is held on the CPU) and a bf16 encoder."""
+    enc, packed, wav, _ = _wav_case(cuda_device, 2, audio_samples_for_frames(2))
+    calls = fused_wav.fused_wav_forward_reference.calls
+    with pytest.raises(ValueError, match="cpu"):
+        fused_wav.fused_wav_encoder(wav, {k: v.cpu() for k, v in packed.items()})
+    with pytest.raises(TypeError, match="f32"):
+        fused_wav.fused_wav_encoder(wav.to(torch.bfloat16), packed)
+    with pytest.raises(TypeError, match="f32"):
+        fused_wav.fused_wav_forward(wav.double(), packed)
+    with pytest.raises(ValueError, match="at least one sample"):
+        fused_wav.fused_wav_encoder(wav[:, :0], packed)
+    with pytest.raises(ValueError, match="expected"):
+        fused_wav.fused_wav_encoder(wav[None], packed)
+    with pytest.raises(TypeError, match="f32"):
+        fused_wav.FusedWavEncoder(WavEncoder(dtype=torch.bfloat16).to(cuda_device))
+    assert fused_wav.fused_wav_forward_reference.calls == calls
