@@ -13,9 +13,11 @@ same training with the WavEncoder swapped for the fused WavEncoder stack
 2. build: the three CUDA sources of csrc/ are compiled with nvcc, one
    process each, started together;
 3. kernel against plain version: TED (S=35, F=27) and BEAT (S=36, F=282),
-   D=512, L=8, 2B in {16, 512}, LN2 folded and not, with and without the
-   pose projection; rel = max|kernel - plain| / max|plain| <= 1e-5, and the
-   time per call of both;
+   D=512, L=8, 2B in {2, 16, 64, 512}, LN2 folded and not, with and
+   without the pose projection; rel = max|kernel - plain| / max|plain| <=
+   1e-5, the time per call of both, the bound (FLOPs at the f32 peak) and
+   the share of it; at 2B in {2, 16, 512} the kernel at clusters of 8 and 4
+   CTAs, timed in turns;
 4. serving: build_rag_server with the default ServeConfig (DPM-Solver++ over
    ddim20, max_batch 8, guidance 1.5) answers 24 requests from 3 threads;
    every clip is finite [9, 3, 34], the kernel ran 20 times per batch served
@@ -57,8 +59,9 @@ same training with the WavEncoder swapped for the fused WavEncoder stack
 11. one served-size TED batch (8) through RAGSampler with the K3 drop-in
    against the same sampler on the cuDNN encoder, within rel 1e-4.
 
-With ``--profile DIR`` it then profiles 3 steps of each training run with
-torch.profiler (Chrome traces and tables of device time by kernel in DIR).
+With ``--profile DIR`` it also profiles a second burst of the 24 serving
+requests and 3 steps of each training run with torch.profiler (Chrome
+traces and tables of device time by kernel, and the idle share, in DIR).
 
 Exits non-zero at the first failure. The line before the last is the
 kernels' JSON report; the last line is {"ok": true, "device": {...}}.
@@ -135,20 +138,63 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+PEAK_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM at 700 W (data sheet)
+PEAK_BYTES = 3.35e12  # HBM3, H100 SXM
+
+
+def bound(flop, nbytes):
+    """(bound_ms, bound_by): the least time the card could take for
+    ``flop`` f32 operations and ``nbytes`` of device memory traffic."""
+    t_ops, t_bytes = flop / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k1_cost(x, emb, packed, op):
+    """(FLOP, bytes) of one K1 call: the token mix, channel mix and pose
+    products (the LayerNorms, activations and residuals, under 3% at D=512,
+    are left out); every input read once, the output written once."""
+    b, s, d = x.shape
+    layers = packed["token_w"].shape[0]
+    f = op["out_w"].shape[1] if op is not None else 0
+    flop = b * (layers * (2 * s * d * d + 2 * s * s * d) + 2 * s * d * f)
+    tensors = [x, emb, *packed.values(), *(op.values() if op is not None else ())]
+    nbytes = 4 * (sum(t.numel() for t in tensors) + b * s * (f or d))
+    return flop, nbytes
+
+
+def time_turns(fns, iters, rounds=2):
+    """ms per call of each of ``fns``, timed in turns (a b b a ...) inside
+    one process; the mean of the rounds."""
+    order = list(fns) + list(fns)[::-1]
+    acc = {k: [] for k in fns}
+    for _ in range(rounds // 2 or 1):
+        for k in order:
+            acc[k].append(time_ms(fns[k], iters))
+    return {k: float(np.mean(v)) for k, v in acc.items()}
+
+
 def kernel_phase(card):
+    """K1 against its plain version at TED and BEAT, 2B in {2, 16, 64,
+    512}, LN2 folded and affine, with and without the pose projection;
+    then the cluster sizes the kernel takes at D=512, in turns."""
     from livelyspeaker_tpu_torch.models.initializers import random_normal_
     from livelyspeaker_tpu_torch.models.mlp_backbone import TransMLP
     from livelyspeaker_tpu_torch.ops import fused_mlp
 
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
-    worst_abs, main_ms, main_plain_ms = 0.0, None, None
+    worst_abs, main = 0.0, None
+    for d in (512, 256, 128):  # every cluster size the kernel takes
+        print(f"[kernel] clusters the card holds at once at D={d}, by cluster size: "
+              f"{fused_mlp.resident_clusters(d, dev)} ({card})")
+    resident = fused_mlp.resident_clusters(512, dev)
     for name, seq, feats in (("TED", 35, 27), ("BEAT", 36, 282)):
         stack = random_normal_(TransMLP(seq, 8, 512, "silu"), g).to(dev)
         pose = random_normal_(torch.nn.Linear(512, feats), g).to(dev)
-        for b2 in (16, 512):
+        for b2 in (2, 16, 64, 512):
             x = torch.randn(b2, seq, 512, generator=g).to(dev)
             emb = torch.randn(b2, 512, generator=g).to(dev)
+            geo = fused_mlp.transmlp_geometry(b2, seq, 512, resident)
             for fold in (False, True):
                 packed = fused_mlp.pack_transmlp_params(stack, fold_ln2=fold)
                 for op in (None, fused_mlp.pack_out_proj(pose)):
@@ -157,20 +203,35 @@ def kernel_phase(card):
                     torch.cuda.synchronize()
                     err = (out - ref).abs().max().item()
                     rel = err / ref.abs().max().item()
-                    iters = 20 if b2 == 16 else 5
+                    iters = 20 if b2 <= 64 else 5
                     ms = time_ms(lambda: fused_mlp.fused_transmlp(x, emb, packed, out_proj=op), iters)
                     plain = time_ms(lambda: fused_mlp.fused_transmlp_reference(
                         x, emb, packed, out_proj=op), iters)
+                    flop, nbytes = k1_cost(x, emb, packed, op)
+                    bound_ms, bound_by = bound(flop, nbytes)
                     tag = (f"{name} 2B={b2} S={seq} D=512 L=8 ln2={'folded' if fold else 'affine'} "
                            f"out={'F=%d' % feats if op else 'D'}")
-                    print(f"[kernel] {tag}: max_abs {err:.3e} max_rel {rel:.3e} "
-                          f"kernel {ms:.4f} ms plain {plain:.4f} ms ({card})")
+                    print(f"[kernel] {tag}: max_abs {err:.3e} max_rel {rel:.3e} kernel {ms:.4f} ms "
+                          f"plain {plain:.4f} ms bound {bound_ms:.4f} ms ({flop / 1e9:.3f} GFLOP, "
+                          f"{bound_by}) share {bound_ms / ms:.1%}; cluster {geo.cluster} x "
+                          f"{geo.cols} columns ({card})")
                     check(np.isfinite(rel) and rel <= KERNEL_TOL,
                           f"kernel disagrees with plain version at {tag}: rel {rel:.3e}")
                     worst_abs = max(worst_abs, err)
                     if name == "TED" and b2 == 16 and fold and op is not None:
-                        main_ms, main_plain_ms = ms, plain  # the serving call
-    return worst_abs, main_ms, main_plain_ms
+                        main = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                                "bound_by": bound_by}  # the serving call
+            # the cluster sizes D=512 allows (Dc <= 128), at the serving layout
+            packed = fused_mlp.pack_transmlp_params(stack, fold_ln2=True)
+            op = fused_mlp.pack_out_proj(pose)
+            if b2 in (2, 16, 512):
+                runs = {n: (lambda n=n: fused_mlp.launch_stack(x, emb, packed, 0, op, cluster=n))
+                        for n in (8, 4)}
+                times = time_turns(runs, 20 if b2 <= 16 else 5, rounds=4)
+                print(f"[kernel] {name} 2B={b2} folded F={feats}, by cluster size (in turns): "
+                      + ", ".join(f"{n} CTAs {t:.4f} ms" for n, t in times.items())
+                      + f"; transmlp_geometry picks {geo.cluster} ({card})")
+    return worst_abs, main
 
 
 def _random_model(cfg, seed):
@@ -224,7 +285,34 @@ def fused_vs_eager(model, cond, guidance, tag):
     check(rel <= SLICE_TOL, f"{tag}: fused path disagrees with the eager modules")
 
 
-def serving_phase(card):
+def _burst(batcher, audio, speakers, guidances, n_threads):
+    """Every request of ``audio`` submitted from ``n_threads`` client
+    threads at once; (results, errors, wall seconds, threads)."""
+    per_thread = len(audio) // n_threads
+    results, errors = [None] * len(audio), []
+
+    def client(k):
+        try:
+            reqs = []
+            for j in range(per_thread):
+                i = k * per_thread + j
+                reqs.append((i, batcher.submit(audio[i], speaker=int(speakers[i]),
+                                               guidance=float(guidances[i]))))
+            for i, r in reqs:
+                results[i] = r.wait(timeout=600)
+        except BaseException as e:  # reported by the main thread
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return results, errors, time.perf_counter() - t0, threads
+
+
+def serving_phase(card, profile_dir=None):
     from livelyspeaker_tpu_torch.models import RAGConfig
     from livelyspeaker_tpu_torch.ops import fused_mlp
     from livelyspeaker_tpu_torch.serving import ServeConfig, build_rag_server
@@ -238,36 +326,17 @@ def serving_phase(card):
              for _ in range(n_threads * per_thread)]
     speakers = rng.integers(0, cfg.n_speakers, size=len(audio))
     guidances = rng.choice([1.0, 1.5, 2.0, 2.5], size=len(audio))
-    results = [None] * len(audio)
-    errors = []
     try:
         batcher.generate(audio[0], timeout=600)  # warm-up: cuBLAS, allocator
         batcher.reset_stats()
         fused_mlp.fused_transmlp.launches = 0
         fused_mlp.fused_transmlp_reference.calls = 0
-
-        def client(k):
-            try:
-                reqs = []
-                for j in range(per_thread):
-                    i = k * per_thread + j
-                    reqs.append((i, batcher.submit(audio[i], speaker=int(speakers[i]),
-                                                   guidance=float(guidances[i]))))
-                for i, r in reqs:
-                    results[i] = r.wait(timeout=600)
-            except BaseException as e:  # reported by the main thread
-                errors.append(e)
-
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(k,)) for k in range(n_threads)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        wall = time.perf_counter() - t0
+        results, errors, wall, threads = _burst(batcher, audio, speakers, guidances, n_threads)
         launches = fused_mlp.fused_transmlp.launches
         plain_calls = fused_mlp.fused_transmlp_reference.calls
         stats = batcher.stats()
+        if profile_dir and not errors:
+            serving_profile(batcher, audio, speakers, guidances, n_threads, profile_dir, card)
     finally:
         batcher.close()
     check(not errors, f"serving: a request failed: {errors[:1]}")
@@ -286,6 +355,62 @@ def serving_phase(card):
     guidance = torch.tensor([1.0, 1.5, 2.0, 2.5] * 2, device="cuda")
     fused_vs_eager(model, _cond(cfg, rng, 8), guidance, "serving-ted")
     return launches
+
+
+def _device_table(prof, classes, wall_ms, title, steps, unit):
+    """Device time by kernel class from a torch.profiler run: lines of a
+    table (ms per ``unit``, share of wall, launches), the idle share and
+    the top kernels, and the launches of each class."""
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_time = lambda e: getattr(e, "self_device_time_total", 0.0) / 1e3  # ms
+    sums = {k: 0.0 for k in classes}
+    sums["other"] = 0.0
+    counts = dict.fromkeys(sums, 0)
+    for e in kernels:
+        key = next((c for c, pats in classes.items() if any(p in e.key for p in pats)), "other")
+        sums[key] += dev_time(e)
+        counts[key] += e.count
+    busy = sum(sums.values())
+    lines = [f"{title}, wall {wall_ms:.2f} ms, device busy {busy:.2f} ms"]
+    for k, v in sums.items():
+        lines.append(f"{k}: {v / steps:.3f} ms/{unit}, {100 * v / wall_ms:.1f}% of wall, "
+                     f"{counts[k]} launches")
+    lines.append(f"idle: {100 * (1 - busy / wall_ms):.1f}% of wall")
+    head = len(lines)
+    lines.append(f"top kernels (ms over {steps} {unit}s):")
+    for e in sorted(kernels, key=dev_time, reverse=True)[:25]:
+        lines.append(f"  {dev_time(e):9.3f}  x{e.count:<5d} {e.key[:110]}")
+    return lines, head, counts
+
+
+def serving_profile(batcher, audio, speakers, guidances, n_threads, out_dir, card):
+    """torch.profiler over one more burst of the same requests: device time
+    by kernel class and the idle share, into DIR/serving_trace.json and
+    DIR/serving_profile.txt."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    batches0 = batcher.stats()["batches_served"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        results, errors, wall, _ = _burst(batcher, audio, speakers, guidances, n_threads)
+        torch.cuda.synchronize()
+    check(not errors and all(r is not None for r in results), "serving profile: a request failed")
+    batches = batcher.stats()["batches_served"] - batches0
+    prof.export_chrome_trace(os.path.join(out_dir, "serving_trace.json"))
+    classes = {"K1 fused_transmlp": ("fused_transmlp_cluster_kernel",),
+               "cuDNN conv (WavEncoder)": ("cudnn", "convolve", "fprop_implicit"),
+               "cuBLAS GEMM": ("_gemm_", "cublas", "gemv", "gemmk")}
+    lines, head, counts = _device_table(
+        prof, classes, wall * 1e3, f"serving burst: {len(audio)} requests, {batches} batches "
+        f"({card})", batches, "batch")
+    lines.insert(1, f"{len(audio) / wall:.2f} clips/s under the profiler")
+    with open(os.path.join(out_dir, "serving_profile.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    for line in lines[:head + 1]:
+        print(f"[profile] {line}")
+    k1 = counts["K1 fused_transmlp"]
+    check(k1 == 20 * batches, f"serving profile: {k1} K1 kernels for {batches} batches")
 
 
 def beat_phase():
@@ -325,6 +450,60 @@ def kernel_ms_by_name(fn, iters, module=None):
         module._launch = launch
     torch.cuda.synchronize()
     return {k: sum(a.elapsed_time(b) for a, b in v) / iters for k, v in events.items()}
+
+
+def k2_cost(b, s, d, layers):
+    """(FLOP, bytes) of each K2 kernel over one forward and one backward
+    call (all its launches), from the shapes: the products' FLOPs (the
+    LayerNorms and activations left out); each kernel's inputs read once,
+    its outputs written once."""
+    from livelyspeaker_tpu_torch.ops import fused_mlp_train as k2
+
+    act = b * s * d  # one [B, S, D] tensor, in floats
+    weights = layers * (d * d + 5 * d + s * s + s)
+    nsplit, _ = k2._wgrad_split(b * s)
+    part = b * (5 * d + s + s * s)
+    fwd = (b * layers * (2 * s * d * d + 2 * s * s * d), 4 * (2 * act + b * d + weights + layers * act))
+    # per layer: the channel mix recomputed and g_m2 @ ch_w^T (two D x D
+    # products), the token mix, its data and weight gradients (three S x S)
+    blk = (b * (4 * s * d * d + 6 * s * s * d), 4 * (5 * act + b * d + weights // layers + part))
+    wgr = (2 * b * s * d * d, 4 * (2 * act + nsplit * d * d))
+    red = (nsplit * d * d + part, 4 * (nsplit * d * d + part + weights // layers))
+    return {"fwd": fwd, **{k: (layers * f, layers * n) for k, (f, n) in
+                           (("bwd_block", blk), ("wgrad", wgr), ("reduce", red))}}
+
+
+def k3_cost(b, length):
+    """(FLOP, bytes) of each K3 kernel over one forward and one backward
+    call without d_wav (all its launches), from the shapes: the convs'
+    FLOPs, conv0 counted once wherever a kernel recomputes it; each
+    kernel's inputs read once, its outputs written once."""
+    from livelyspeaker_tpu_torch.ops import fused_wav as k3
+
+    dims = k3.WavDims(length)
+    t = (dims.T1, dims.T2, dims.T3, dims.T4)
+    ch = k3.CHANNELS
+    conv = [2 * b * t[i] * ch[i + 1] * ch[i] * 15 for i in range(4)]  # FLOP of conv i
+    size = [b * t[i] * ch[i + 1] for i in range(4)]  # floats of conv i's output
+    wts = [ch[i + 1] * ch[i] * 15 + ch[i + 1] for i in range(4)]
+    wav = b * length
+    cost = {
+        "stats0": (conv[0], 4 * (wav + wts[0] + 2 * b * 32)),
+        "conv_fwd": (sum(conv), 4 * (wav + wts[0] + sum(wts[1:]) + sum(size[1:]) + size[1] + size[2])),
+        "stats": (3 * (size[1] + size[2]), 4 * (size[1] + size[2])),
+        "in_bwd": (6 * (size[1] + size[2]), 4 * 3 * (size[1] + size[2])),
+    }
+    # weight and data gradients of conv1..3 (conv0 recomputed for conv1);
+    # the row-chunk partials of the weight gradients, as the wrapper splits
+    nparts = [b] + [k3._wgrad_split(b * t[i], ch[i] // 8 * -(-ch[i + 1] // 64))[0]
+                    for i in (1, 2, 3)]
+    parts = sum(n * w for n, w in zip(nparts, wts))
+    inputs, cots = wav + size[1] + size[2], size[1] + size[2] + size[3]
+    cost["wgrad"] = (sum(conv), 4 * (inputs + cots + parts - nparts[0] * wts[0]))
+    cost["bwd_data"] = (sum(conv), 4 * (inputs + cots + sum(wts[1:]) + size[0] + size[1] + size[2]))
+    cost["wgrad0"] = (2 * conv[0], 4 * (wav + size[0] + nparts[0] * wts[0]))
+    cost["reduce"] = (parts, 4 * (parts + sum(wts)))
+    return cost
 
 
 def train_kernel_phase(card):
@@ -378,7 +557,11 @@ def train_kernel_phase(card):
                   + ", ".join(f"{k} {v:.3f}" for k, v in per_kernel.items())
                   + f"), plain {plain:.3f} ms (fwd {plain_fwd:.3f}) ({card})")
             if name == "TED" and b == TRAIN_BATCH:
-                report = {"ms": per_kernel, "plain_fwd": plain_fwd, "plain_bwd": plain - plain_fwd}
+                report = {"ms": per_kernel, "plain_fwd": plain_fwd, "plain_bwd": plain - plain_fwd,
+                          "bound": {k: bound(*c) for k, c in k2_cost(b, seq, 512, LAYERS).items()}}
+                print("[train-kernel] " + tag + ": bound by kernel, ms per fwd+bwd call: " + ", ".join(
+                    f"{k} {v[0]:.3f} ({v[1]}, share {v[0] / per_kernel[k]:.1%})"
+                    for k, v in report["bound"].items()) + f" ({card})")
     return worst, report
 
 
@@ -439,7 +622,11 @@ def wav_kernel_phase(card):
               + ", ".join(f"{k} {v:.3f}" for k, v in per_kernel.items())
               + f"; plain fwd {plain['fwd']:.3f} ms, bwd {plain['bwd']:.3f} ms ({card})")
         if b == TRAIN_BATCH:
-            report = {"ms": per_kernel, "plain_fwd": plain["fwd"], "plain_bwd": plain["bwd"]}
+            report = {"ms": per_kernel, "plain_fwd": plain["fwd"], "plain_bwd": plain["bwd"],
+                      "bound": {k: bound(*c) for k, c in k3_cost(b, length).items()}}
+            print(f"[wav-kernel] {tag}: bound by kernel, ms per call: " + ", ".join(
+                f"{k} {v[0]:.3f} ({v[1]}, share {v[0] / per_kernel[k]:.1%})"
+                for k, v in report["bound"].items()) + f" ({card})")
     return worst, report
 
 
@@ -756,8 +943,6 @@ def profile_phase(model, loop, out_dir, card, name="train_step"):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     prof.export_chrome_trace(os.path.join(out_dir, f"{name}_trace.json"))
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    dev_time = lambda e: getattr(e, "self_device_time_total", 0.0) / 1e3  # ms
     classes = {"K3 WavEncoder kernels": ("::wav_",),  # before "conv", which they contain
                "K2 forward": ("::fused_transmlp_train_fwd_kernel(",),
                "K2 backward block": ("::bwd_block_kernel(",),
@@ -766,34 +951,17 @@ def profile_phase(model, loop, out_dir, card, name="train_step"):
                                            "dgrad_engine"),
                "cuBLAS GEMM (the other layers)": ("_gemm_", "cublas"),
                "AdamW and other foreach": ("foreach", "multi_tensor")}
-    sums = {k: 0.0 for k in classes}
-    sums["other"] = 0.0
-    counts = dict.fromkeys(sums, 0)
-    for e in kernels:
-        key = next((c for c, pats in classes.items()
-                    if any(p in e.key for p in pats)), "other")
-        sums[key] += dev_time(e)
-        counts[key] += e.count
-    busy = sum(sums.values())
-    lines = [f"{name}: 3 steps, B={TRAIN_BATCH}, wall {wall_ms:.2f} ms, device busy "
-             f"{busy:.2f} ms ({card})"]
-    for k, v in sums.items():
-        lines.append(f"{k}: {v / 3:.3f} ms/step, {100 * v / wall_ms:.1f}% of wall, "
-                     f"{counts[k]} launches")
-    lines.append(f"idle: {100 * (1 - busy / wall_ms):.1f}% of wall")
-    lines.append("top kernels (ms over 3 steps):")
-    for e in sorted(kernels, key=dev_time, reverse=True)[:25]:
-        lines.append(f"  {dev_time(e):9.3f}  x{e.count:<5d} {e.key[:110]}")
+    lines, head, counts = _device_table(
+        prof, classes, wall_ms, f"{name}: 3 steps, B={TRAIN_BATCH} ({card})", 3, "step")
     # the WavEncoder forward and backward alone, at the step's batch
     audio = batch["audio"]
     enc = lambda: model.audio_encoder(audio).sum().backward()
-    lines.insert(len(sums) + 2, f"WavEncoder forward+backward alone: {time_ms(enc, 3):.3f} ms "
+    lines.insert(head, f"WavEncoder forward+backward alone: {time_ms(enc, 3):.3f} ms "
                  "(CUDA events, 3 calls)")
     model.zero_grad(set_to_none=True)
-    text = "\n".join(lines)
     with open(os.path.join(out_dir, f"{name}_profile.txt"), "w") as f:
-        f.write(text + "\n")
-    for line in lines[:len(sums) + 3]:
+        f.write("\n".join(lines) + "\n")
+    for line in lines[:head + 1]:
         print(f"[profile] {line}")
     if isinstance(model.audio_encoder, k3.FusedWavEncoder):
         n = counts["cuDNN conv (WavEncoder)"]
@@ -803,12 +971,13 @@ def profile_phase(model, loop, out_dir, card, name="train_step"):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="also profile 3 training steps, writing the trace and a table to DIR")
+                        help="also profile a serving burst and 3 steps of each training run, "
+                             "writing the traces and tables to DIR")
     args = parser.parse_args()
     card = device_phase()
     build_phase()
-    worst_abs, ms, plain_ms = kernel_phase(card)
-    launches = serving_phase(card)
+    worst_abs, k1 = kernel_phase(card)
+    launches = serving_phase(card, args.profile)
     beat_phase()
     train_worst, train_times = train_kernel_phase(card)
     train_launches, _, model, loop, train_stats = train_phase(card)
@@ -819,10 +988,12 @@ def main():
     if args.profile:
         profile_phase(model, loop, args.profile, card)
         profile_phase(wav_model, wav_loop, args.profile, card, name="train_step_k3")
+    # library_ms: no single PyTorch call computes any of these functions
+    # (8-block mixer stacks, a conv/InstanceNorm/LeakyReLU chain)
     kernels = [{
         "name": "fused_transmlp", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": worst_abs, **k1, "library_ms": None,
     }]
     for k in ("fwd", "bwd_block", "wgrad", "reduce"):
         kernels.append({
@@ -831,6 +1002,8 @@ def main():
             "max_abs_err": train_worst["fwd" if k == "fwd" else "bwd"],
             "ms": train_times["ms"][k],
             "plain_ms": train_times["plain_fwd" if k == "fwd" else "plain_bwd"],
+            "bound_ms": train_times["bound"][k][0], "bound_by": train_times["bound"][k][1],
+            "library_ms": None,
         })
     for k in wav_launches:
         fwd = k in ("stats0", "conv_fwd", "stats")
@@ -839,6 +1012,8 @@ def main():
             "replaces": WAV_REPLACES, "launches": wav_launches[k],
             "max_abs_err": wav_worst["fwd" if fwd else "bwd"], "ms": wav_times["ms"][k],
             "plain_ms": wav_times["plain_fwd" if fwd else "plain_bwd"],
+            "bound_ms": wav_times["bound"][k][0], "bound_by": wav_times["bound"][k][1],
+            "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))
     print(f"[device] {card}")

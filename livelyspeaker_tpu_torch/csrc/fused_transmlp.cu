@@ -1,4 +1,5 @@
-// Fused TransMLP stack for NVIDIA Hopper (sm_90a), f32.
+// Fused TransMLP stack for NVIDIA Hopper (sm_90a), f32: one sequence split
+// across a thread-block cluster.
 //
 // Replaces livelyspeaker_tpu/ops/pallas/fused_mlp.py: fused_transmlp (the
 // Pallas TPU kernel `_kernel`). For each of L blocks, on one [S, D] sequence:
@@ -9,54 +10,825 @@
 // the F real columns are written. With ln2_scale == nullptr the LN2 affine is
 // taken as folded into ch_w / ch_b (pack_transmlp_params(fold_ln2=True)).
 //
-// What bounds it on the card: at the serving shapes (S = 35 or 36, D = 512,
-// L = 8) the channel mix is 97% of the FLOPs; the activation is small
-// (36 x 512 x 4 B = 72 KB) but the per-layer weight is 1 MB, far more than a
-// block's shared memory. This design keeps the whole activation of one
-// sequence resident in shared memory for all L blocks (no device-memory
-// round trip between the 2L mixes and 2L layer norms), and streams ch_w
-// from L2 through shared memory in K-tiles of 16 rows. Each of the 256
-// threads owns a 9-row x 8-column register tile of the [36, 512] output,
-// so one K step costs 17 shared-memory reads for 72 FMAs. All arithmetic
-// is f32 FMA with f32 accumulation (no tensor cores, no TF32): the kernel
-// is bound by the FP32 pipe and by shared-memory bandwidth. One block per
-// sequence means a small batch leaves most SMs idle; wgmma, TMA and
-// splitting a sequence across a cluster are later work.
+// What bounds it: the FP32 pipe. The contract is f32 FMA with f32
+// accumulation (no tensor cores, no TF32), 67 TFLOP/s on an H100 SXM at
+// 700 W. At the serving call (2B = 16 sequences, S = 35, D = 512, L = 8,
+// LN2 folded, pose F = 27) that is 2.52 GFLOP, 37.7 us; the 9.7 MB it moves
+// would take 2.9 us at 3.35 TB/s. The channel mix is 97% of the FLOPs.
 //
-// The device code is in transmlp_common.cuh, shared with the training
-// kernels of fused_transmlp_train.cu; this file is the stash-free launch.
+// The design, and what it does about that:
+// - Cluster split. A sequence is spread over a cluster of N CTAs (the
+//   wrapper's transmlp_geometry picks N from the batch and the clusters the
+//   card holds at once). CTA r owns columns [r*Dc, (r+1)*Dc) of the
+//   activation, Dc = D/N, which stay in its shared memory for all L blocks.
+//   One CTA per sequence put the serving batch on 16 of 132 SMs; at N = 4
+//   it takes 64, at N = 8 (a batch of up to 15 clusters: an H100 SXM holds
+//   15 clusters of 8 at once, not 16) 120.
+// - The token mix is column-local: each CTA runs it on its own columns.
+// - LayerNorm needs whole rows. Each CTA takes two-pass statistics (mean,
+//   then the centred sum of squares M2) over its Dc columns, pushes them to
+//   every CTA of the cluster through distributed shared memory, and after
+//   one cluster barrier each CTA combines the N pairs with Chan's formula:
+//   mean = avg(mean_r), M2 = sum(M2_r) + Dc * sum((mean_r - mean)^2). Never
+//   E[x^2] - E[x]^2, which cancels once the bias lifts the mean.
+// - The channel mix needs whole rows of LN2(x): each CTA normalises its
+//   columns and stores them into every CTA's [S, D] copy; after a cluster
+//   barrier each CTA multiplies the full rows by its [D, Dc] slice of ch_w,
+//   so no CTA streams more than 1/N of ch_w.
+// - The product: each thread owns a 9-row x 8-column register tile; the
+//   threads of one [36, Dc] tile form a K-slice (whole warps when Dc >= 64),
+//   and the ns <= 8 K-slices split K in contiguous ranges. A warp's reads of
+//   ch_w are one 128-byte row segment shared by its four row groups, its
+//   reads of LN2(x) four float4 in distinct banks: per four K rows 17 shared
+//   loads for 288 FMAs, the next quad's loads spread over the current one's
+//   FMAs. The K-slices' partial tiles are summed through shared memory in a
+//   fixed order: the same bits every run.
+// - The weight stream is asynchronous: each K-slice has its own ring of
+//   kRing stages of kKt = 16 rows of its ch_w range. One 2-D TMA copy a
+//   stage (a tensor map over ch_w as an [L * D, D] matrix; per-row bulk
+//   copies cost a request each and starved the FMAs) completes on the
+//   stage's "full" mbarrier; the slice's threads arrive, a warp at a time,
+//   on its "empty" mbarrier when done, and the slice's first thread then
+//   refills it kRing tiles ahead, into the next layer at a layer's end, so
+//   the first tiles of a layer load during the LayerNorms and the token
+//   mix. The slices run apart: nothing waits for the whole CTA until the
+//   partial tiles are summed.
+// - The pose projection: after one more exchange of x, CTA r computes
+//   output columns [r*Fc, (r+1)*Fc) of F, Fc = ceil(F / N).
+// Per layer: 3 cluster barriers (LN1 statistics, LN2 statistics, the LN2
+// rows); 2 more for the pose projection.
+//
+// Limits: S <= 36, 16 <= D <= 512 with D % 16 == 0, F <= 512, f32 only;
+// N in {1, 2, 4, 8} with Dc = D/N a multiple of 4 and at most 128.
+// Anything else returns cudaErrorInvalidValue, and a refused launch returns
+// its own error; the wrapper raises on either.
+
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap; the encoder is reached through the runtime
+#include <cudaTypedefs.h>
+#include <stdint.h>
 
 #include "transmlp_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-__global__ void __launch_bounds__(kThreads, 1)
-fused_transmlp_kernel(const StackParams p) {
-  extern __shared__ float smem[];
-  stack_forward(p, smem);
+constexpr int kT = 256;                    // threads of a CTA: 8 warps
+constexpr int kMaxCluster = 8;             // the portable cluster size
+constexpr int kMaxCols = 128;              // Dc: columns of the activation per CTA
+constexpr int kSlicesMax = 8;              // K-slices of the channel mix
+constexpr int kKt = 16;                    // ch_w rows per K-tile
+constexpr int kRing = 3;                   // ring stages of one K-slice
+constexpr int kStagesMax = kSlicesMax * kRing;
+constexpr int kRingFloats = 24576;         // the ring, 96 KB: >= kStagesMax * kKt * ws
+                                           // for every ws (ns * ws <= 512)
+constexpr int kTileRows = kRowsPerThread;  // 9 rows of a thread's product tile,
+constexpr int kTileCols = 8;               // 8 columns
+constexpr int kTileFloats = kTileRows * kTileCols;
+constexpr int kRedStride = kTileFloats + 4;   // a thread's partial tile, padded: the
+                                              // float4 reads of 8 lanes miss each other
+constexpr int kRedFloats = kT * kRedStride;   // the K-slices' partial tiles
+constexpr int kBars = 2 * kStagesMax + 3;  // full and empty per stage, two parameter
+                                           // buffers, staging
+constexpr int kBarBytes = (kBars * 8 + 127) / 128 * 128;  // the ring starts 128-byte aligned
+
+// Row stride of a ring stage: Dc padded to whole register tiles. The
+// padding columns hold the next CTA's columns (or zeros past D); they only
+// feed outputs that are not kept.
+__host__ __device__ inline int ring_stride(int dc) {
+  return (dc + kTileCols - 1) / kTileCols * kTileCols;
+}
+
+// one layer's token mix [kSPad, kSPad], its bias [kSPad], and this CTA's
+// columns of the LN1 scale and bias, the LN2 scale and bias, the channel-mix bias
+__host__ __device__ inline int prm_floats(int dc) { return kSPad * kSPad + kSPad + 5 * dc; }
+
+struct ClusterParams {
+  CUtensorMap cw_map;   // ch_w as a [L * D, D] matrix, boxes of [kKt, ring_stride]
+  const float* x;       // [B, S, D]
+  const float* emb;     // [B, D]
+  const float* ln1_s;   // [L, D]
+  const float* ln1_b;   // [L, D]
+  const float* tw;      // [L, S, S]
+  const float* tb;      // [L, S]
+  const float* ln2_s;   // [L, D] or nullptr (folded)
+  const float* ln2_b;   // [L, D] or nullptr (folded)
+  const float* cw;      // [L, D, D], [in, out]
+  const float* cb;      // [L, D]
+  const float* ow;      // [D, F] or nullptr (no pose projection)
+  const float* ob;      // [F]
+  float* out;           // [B, S, F] with ow, else [B, S, D]
+  int S, D, L, F, N;
+};
+
+// Layout of the dynamic shared memory, in floats after the mbarriers.
+struct Smem {
+  int dp, dc;  // row stride of the full rows (D + 4: a warp's four row
+               // groups fall in different banks), Dc
+  __host__ __device__ Smem(int D, int N) : dp(D + 4), dc(D / N) {}
+  __host__ __device__ int ring() const { return 0; }  // kRing stages a K-slice
+  // [kSPad, dp] full rows; also LN1(x) [kSPad, dc] and the partial tiles
+  __host__ __device__ int a() const { return ring() + kRingFloats; }
+  __host__ __device__ int x() const {  // [kSPad, dc]
+    return a() + (kSPad * dp > kRedFloats ? kSPad * dp : kRedFloats);
+  }
+  __host__ __device__ int prm() const { return x() + kSPad * dc; }  // 2 buffers
+  __host__ __device__ int emb() const { return prm() + 2 * prm_floats(dc); }  // [dc]
+  __host__ __device__ int stats() const { return emb() + dc; }  // [2, kMaxCluster, kSPad, 2]
+  __host__ __device__ int rowstat() const { return stats() + 2 * kMaxCluster * kSPad * 2; }
+  __host__ __device__ int floats() const { return rowstat() + 2 * kSPad; }  // mean, 1/std
+  __host__ __device__ size_t bytes() const {
+    return kBarBytes + (size_t)floats() * sizeof(float);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Makes the initialised mbarriers visible to the async proxy (the TMA copies).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// One arrival that also expects `bytes` of bulk copies on the barrier.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Arrives when every earlier cp.async of this thread has landed (noinc:
+// the barrier was initialised with one count per thread).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A TMA copy of the box of `map` at (column x0, row y0) into this CTA's
+// shared memory (128-byte aligned), completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(float* dst, const CUtensorMap* map, int x0, int y0,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+        "r"(x0), "r"(y0)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// 4 bytes; src_bytes 0 writes a zero.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+struct Ctx {
+  const ClusterParams& p;
+  int rank, c0, dc, dp, ws;  // ws: ring row stride
+  size_t seq;
+  float *a_s, *x_s, *ring, *prm, *emb_s, *st, *mean_s, *inv_s;
+  // [0, kStagesMax): full; [kStagesMax, 2 kStagesMax): empty; then the two
+  // parameter buffers and the staging of the pose projection
+  uint64_t* bars;
+};
+
+// Queues layer l's small parameters into parameter buffer l % 2 (every
+// thread). The token mix's padding outside [S, S] was zeroed once and is
+// never written.
+__device__ __forceinline__ void issue_params(const Ctx& c, int l) {
+  if (l >= c.p.L) return;
+  const ClusterParams& p = c.p;
+  const int S = p.S, dc = c.dc, q4 = dc / 4;
+  float* b = c.prm + (l % 2) * prm_floats(dc);
+  const float* tw = p.tw + (size_t)l * S * S;
+  for (int i = threadIdx.x / 32; i < S; i += kT / 32)  // a warp a row
+    for (int j = threadIdx.x % 32; j < S; j += 32) cp_async4(b + i * kSPad + j, tw + i * S + j, 4);
+  if (threadIdx.x < S) cp_async4(b + kSPad * kSPad + threadIdx.x, p.tb + (size_t)l * S + threadIdx.x, 4);
+  float* v = b + kSPad * kSPad + kSPad;
+  for (int idx = threadIdx.x; idx < 5 * q4; idx += kT) {
+    const int which = idx / q4, col = (idx % q4) * 4;
+    const float* src = which == 0 ? p.ln1_s : which == 1 ? p.ln1_b : which == 2 ? p.ln2_s
+                     : which == 3 ? p.ln2_b : p.cb;
+    if (src != nullptr) cp_async16(v + which * dc + col, src + (size_t)l * p.D + c.c0 + col);
+  }
+  cp_async_arrive(&c.bars[2 * kStagesMax + l % 2]);
+}
+
+// A product [kSPad, K] x [K, ncols] over the CTA's threads, ncols a multiple
+// of 8, at most kMaxCols. Thread p of a K-slice's 4 * ncols / 8 owns rows
+// rg * 9 .. rg * 9 + 8 (rg = p % 4) and the columns col .. col + 3 and
+// half + col .. half + col + 3 (col = 4 * (p / 4), half = ncols / 2); the
+// ns <= 8 K-slices split K. Threads past ns slices idle.
+struct Tiling {
+  int per, ns, slice, p, rg, col, half;
+  bool active;
+  __device__ explicit Tiling(int ncols) {
+    per = kRowGroups * (ncols / kTileCols);
+    ns = min(kSlicesMax, kT / per);
+    slice = threadIdx.x / per;
+    p = threadIdx.x % per;
+    rg = p % kRowGroups;
+    col = (p / kRowGroups) * 4;
+    half = ncols / 2;
+    active = threadIdx.x < ns * per;
+  }
+};
+
+__device__ __forceinline__ void zero(float (&acc)[kTileRows][kTileCols]) {
+#pragma unroll
+  for (int i = 0; i < kTileRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kTileCols; ++j) acc[i][j] = 0.0f;
+}
+
+__device__ __forceinline__ void load_w(float4 (&lo)[4], float4 (&hi)[4], const float* wq,
+                                       int wstride, int half) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    lo[r] = *reinterpret_cast<const float4*>(wq + r * wstride);
+    hi[r] = *reinterpret_cast<const float4*>(wq + r * wstride + half);
+  }
+}
+
+__device__ __forceinline__ void fma_row(float (&acc)[kTileCols], float4 av, const float4 (&lo)[4],
+                                        const float4 (&hi)[4]) {
+  const float a[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    acc[0] = fmaf(a[r], lo[r].x, acc[0]);
+    acc[1] = fmaf(a[r], lo[r].y, acc[1]);
+    acc[2] = fmaf(a[r], lo[r].z, acc[2]);
+    acc[3] = fmaf(a[r], lo[r].w, acc[3]);
+    acc[4] = fmaf(a[r], hi[r].x, acc[4]);
+    acc[5] = fmaf(a[r], hi[r].y, acc[5]);
+    acc[6] = fmaf(a[r], hi[r].z, acc[6]);
+    acc[7] = fmaf(a[r], hi[r].w, acc[7]);
+  }
+}
+
+// One quad of K rows: acc += a_rows[:, k .. k+3] x (lo | hi), with the
+// next quad's ch_w rows read into (nlo | nhi) meanwhile, one float4 after
+// each of the first eight rows' FMAs, and each row of LN2(x) read one row
+// ahead: the shared-memory reads spread over the FMA stream instead of
+// stalling every warp at the top of the quad.
+__device__ __forceinline__ void quad_step(float (&acc)[kTileRows][kTileCols], const float* ak,
+                                          int dp, const float4 (&lo)[4], const float4 (&hi)[4],
+                                          float4 (&nlo)[4], float4 (&nhi)[4], const float* wn,
+                                          int wstride, int half) {
+  float4 av = *reinterpret_cast<const float4*>(ak);
+#pragma unroll
+  for (int i = 0; i < kTileRows; ++i) {
+    float4 an = av;
+    if (i + 1 < kTileRows) an = *reinterpret_cast<const float4*>(ak + (i + 1) * dp);
+    fma_row(acc[i], av, lo, hi);
+    if (i < 4) nlo[i] = *reinterpret_cast<const float4*>(wn + i * wstride);
+    else if (i < 8) nhi[i - 4] = *reinterpret_cast<const float4*>(wn + (i - 4) * wstride + half);
+    av = an;
+  }
+}
+
+// acc += a_rows[:, kbase + 4q .. +3] x w[4q .. 4q+3, {0..3, half..half+3}]
+// over the quads q = q0, q0 + step, ... < nq: per quad 8 + 9 float4 reads,
+// 288 FMAs. Two register buffers of ch_w rows take turns; the read past the
+// last quad re-reads it (nothing is left out of bounds or branched on).
+__device__ __forceinline__ void mma_quads(float (&acc)[kTileRows][kTileCols], const float* a_rows,
+                                          int dp, const float* w, int wstride, int half,
+                                          int kbase, int q0, int nq, int step) {
+  if (q0 >= nq) return;
+  const int last = q0 + (nq - 1 - q0) / step * step;
+  float4 lo[4], hi[4], lo2[4], hi2[4];
+  load_w(lo, hi, w + 4 * q0 * wstride, wstride, half);
+  for (int q = q0;;) {
+    int qn = min(q + step, last);
+    quad_step(acc, a_rows + kbase + 4 * q, dp, lo, hi, lo2, hi2, w + 4 * qn * wstride, wstride,
+              half);
+    q += step;
+    if (q >= nq) break;
+    qn = min(q + step, last);
+    quad_step(acc, a_rows + kbase + 4 * q, dp, lo2, hi2, lo, hi, w + 4 * qn * wstride, wstride,
+              half);
+    q += step;
+    if (q >= nq) break;
+  }
+}
+
+// Sums the K-slices' tiles through red (kRedFloats; thread t's tile at
+// red + t * kRedStride, row i's eight columns at + 8i) in slice order, four
+// columns at a time, and calls out(row, col, sums of col .. col + 3) for
+// each output row < S. Every thread calls it after the last product; red
+// may be what the product read: the first barrier is for that.
+template <class Out>
+__device__ __forceinline__ void reduce_slices(const Tiling& t,
+                                              const float (&acc)[kTileRows][kTileCols],
+                                              float* red, int S, Out out) {
+  __syncthreads();
+  if (t.active) {
+    float4* mine = reinterpret_cast<float4*>(red + threadIdx.x * kRedStride);
+#pragma unroll
+    for (int i = 0; i < kTileRows; ++i) {
+      mine[2 * i] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      mine[2 * i + 1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+  }
+  __syncthreads();
+  // e runs over (tile position p, quad q): row i = q / 2 of p's tile, half q % 2
+  for (int e = threadIdx.x; e < t.per * 2 * kTileRows; e += kT) {
+    const int p = e % t.per, q = e / t.per;
+    const int row = (p % kRowGroups) * kTileRows + q / 2;
+    if (row >= S) continue;
+    const float* src = red + p * kRedStride + 4 * q;
+    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int k = 0; k < t.ns; ++k) {
+      const float4 v = *reinterpret_cast<const float4*>(src + k * t.per * kRedStride);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    out(row, (q % 2 ? t.half : 0) + (p / kRowGroups) * 4, s);
+  }
+}
+
+// Row statistics of src [kSPad, dc] (rows < S) over the whole D columns of
+// the cluster, into mean_s / inv_s: eight lanes a row take the local
+// two-pass (mean, M2), lane j of the eight pushes it to CTA j's st[which];
+// after one cluster barrier each CTA combines the N pairs (Chan).
+__device__ __forceinline__ void row_stats(const Ctx& c, const float* src, int which) {
+  const int S = c.p.S, N = c.p.N, dc = c.dc, sub = threadIdx.x % 8;
+  for (int r = threadIdx.x / 8; r < (kSPad + kT / 8 - 1) / (kT / 8) * (kT / 8); r += kT / 8) {
+    const float* row = src + min(r, kSPad - 1) * dc;
+    float s = 0.0f;
+    for (int k = sub; k < dc; k += 8) s += row[k];
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const float mean = s / dc;
+    float v = 0.0f;
+    for (int k = sub; k < dc; k += 8) {
+      const float d = row[k] - mean;
+      v += d * d;
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (r < S && sub < N) {
+      float* dst = cg::this_cluster().map_shared_rank(c.st, sub);
+      *reinterpret_cast<float2*>(dst + ((which * kMaxCluster + c.rank) * kSPad + r) * 2) =
+          make_float2(mean, v);
+    }
+  }
+  cg::this_cluster().sync();
+  if (threadIdx.x < S) {
+    const float* pr = c.st + (which * kMaxCluster * kSPad + threadIdx.x) * 2;  // rank j: + j*kSPad*2
+    float m = 0.0f;
+    for (int j = 0; j < N; ++j) m += pr[j * kSPad * 2];
+    m /= N;
+    float m2 = 0.0f, spread = 0.0f;
+    for (int j = 0; j < N; ++j) {
+      const float d = pr[j * kSPad * 2] - m;
+      m2 += pr[j * kSPad * 2 + 1];
+      spread += d * d;
+    }
+    m2 += dc * spread;
+    c.mean_s[threadIdx.x] = m;
+    c.inv_s[threadIdx.x] = 1.0f / sqrtf(m2 / c.p.D + kEps);
+  }
+  __syncthreads();
+}
+
+// x[i, c] += act(sum_j tw[i, j] h[j, c] + tb[i]) on this CTA's columns;
+// tw is zero outside [S, S] and h rows >= S are zero. A thread takes two
+// adjacent columns, so each read of tw feeds two FMAs.
+template <int kAct>
+__device__ __forceinline__ void token_mix_cols(const Ctx& c, const float* h_s, const float* tw,
+                                               const float* tb) {
+  const int pairs = c.dc / 2, groups = kT / pairs;
+  if (threadIdx.x >= groups * pairs) return;
+  const int col = 2 * (threadIdx.x % pairs), grp = threadIdx.x / pairs;
+  float2 h[kSPad];
+#pragma unroll
+  for (int j = 0; j < kSPad; ++j) h[j] = *reinterpret_cast<const float2*>(h_s + j * c.dc + col);
+  for (int i = grp; i < c.p.S; i += groups) {
+    const float4* t4 = reinterpret_cast<const float4*>(tw + i * kSPad);
+    float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kSPad / 4; ++j) {
+      const float4 t = t4[j];
+      a0 = fmaf(t.x, h[4 * j].x, a0);
+      a1 = fmaf(t.x, h[4 * j].y, a1);
+      a0 = fmaf(t.y, h[4 * j + 1].x, a0);
+      a1 = fmaf(t.y, h[4 * j + 1].y, a1);
+      a0 = fmaf(t.z, h[4 * j + 2].x, a0);
+      a1 = fmaf(t.z, h[4 * j + 2].y, a1);
+      a0 = fmaf(t.w, h[4 * j + 3].x, a0);
+      a1 = fmaf(t.w, h[4 * j + 3].y, a1);
+    }
+    float2* xr = reinterpret_cast<float2*>(c.x_s + i * c.dc + col);
+    float2 x = *xr;
+    x.x += activate(a0 + tb[i], kAct);
+    x.y += activate(a1 + tb[i], kAct);
+    *xr = x;
+  }
+}
+
+// K-slice s of the channel mix takes the ch_w rows [s * rps, (s + 1) * rps)
+// of each layer, rps = D / ns rounded up to whole K-tiles, as `tiles` K-tiles
+// (fewer for the last slices when D is not a multiple of ns K-tiles).
+struct SliceRows {
+  int k0, tiles;
+  __device__ SliceRows(const Tiling& t, int D) {
+    const int rps = (D + kKt * t.ns - 1) / (kKt * t.ns) * kKt;
+    k0 = t.slice * rps;
+    tiles = max(0, min(rps, D - k0)) / kKt;
+  }
+};
+
+// One thread of K-slice t.slice: queues the slice's K-tile u (numbered
+// across layers) into its ring stage u % kRing as one TMA box of [kKt, ws]
+// of ch_w (columns past Dc are the next CTA's, or zeros past D; never read).
+__device__ __forceinline__ void issue_tile(const Ctx& c, const Tiling& t, const SliceRows& r,
+                                           int u) {
+  if (u >= c.p.L * r.tiles) return;
+  const int stage = t.slice * kRing + u % kRing, l = u / r.tiles;
+  const int k0 = r.k0 + (u % r.tiles) * kKt;
+  uint64_t* full = &c.bars[stage];
+  mbar_expect_tx(full, kKt * c.ws * sizeof(float));
+  tma_load_2d(c.ring + stage * kKt * c.ws, &c.p.cw_map, c.c0, l * c.p.D + k0, full);
+}
+
+// The threads of K-slice t.slice in this warp arrive on `bar` as one: the
+// slice's first lane in the warp, once they all have passed here.
+__device__ __forceinline__ void arrive_slice(const Tiling& t, uint64_t* bar) {
+  const int lane = threadIdx.x % 32, base = threadIdx.x - lane;
+  const int lo = max(t.slice * t.per, base), hi = min((t.slice + 1) * t.per, base + 32);
+  const unsigned mask = (hi - lo == 32 ? 0xffffffffu : ((1u << (hi - lo)) - 1)) << (lo - base);
+  __syncwarp(mask);
+  if ((int)threadIdx.x == lo)
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+                 "r"(hi - lo)
+                 : "memory");
+}
+
+// The first kRing K-tiles of every K-slice (the first thread of each).
+__device__ __forceinline__ void issue_first_tiles(const Ctx& c) {
+  const Tiling t(c.ws);
+  if (!t.active || t.p != 0) return;
+  const SliceRows r(t, c.p.D);
+  for (int u = 0; u < kRing; ++u) issue_tile(c, t, r, u);
+}
+
+// The channel mix of layer l on this CTA's columns: x += act(a_s[:, :D] @
+// ch_w slice + cb). Each K-slice multiplies its own rows of ch_w, kKt at a
+// time, from its own ring of kRing stages: its threads arrive on the
+// stage's empty barrier, a warp at a time, when done with it, and the
+// slice's first thread then refills it kRing tiles ahead (into the next
+// layer at the end of this one). The slices run apart; nothing waits for the whole CTA until
+// the partial tiles are summed.
+template <int kAct>
+__device__ __forceinline__ void channel_mix(const Ctx& c, int l, const float* cb) {
+  const Tiling t(c.ws);
+  float acc[kTileRows][kTileCols];
+  zero(acc);
+  if (t.active) {
+    const SliceRows r(t, c.p.D);
+    const float* a_rows = c.a_s + t.rg * kTileRows * c.dp;
+    for (int j = 0; j < r.tiles; ++j) {
+      const int u = l * r.tiles + j, stage = t.slice * kRing + u % kRing;
+      const uint32_t parity = (uint32_t)((u / kRing) & 1);
+      mbar_wait(&c.bars[stage], parity);
+      mma_quads(acc, a_rows, c.dp, c.ring + stage * kKt * c.ws + t.col, c.ws, t.half,
+                r.k0 + j * kKt, 0, kKt / 4, 1);
+      arrive_slice(t, &c.bars[kStagesMax + stage]);  // these threads are done with it
+      if (t.p == 0 && u + kRing < c.p.L * r.tiles) {
+        mbar_wait(&c.bars[kStagesMax + stage], parity);
+        issue_tile(c, t, r, u + kRing);
+      }
+    }
+  }
+  float* x_s = c.x_s;
+  const int dc = c.dc;
+  reduce_slices(t, acc, c.a_s, c.p.S, [&](int row, int col, float4 s) {
+    if (col >= dc) return;  // a padding quad of the ring's rows
+    float4* xr = reinterpret_cast<float4*>(x_s + row * dc + col);
+    const float4 b = *reinterpret_cast<const float4*>(cb + col);
+    float4 x = *xr;
+    x.x += activate(s.x + b.x, kAct);
+    x.y += activate(s.y + b.y, kAct);
+    x.z += activate(s.z + b.z, kAct);
+    x.w += activate(s.w + b.w, kAct);
+    *xr = x;
+  });
+}
+
+// out[row, f0 + j] = x[row, :] @ ow[:, f0 + j] + ob[f0 + j] for this CTA's
+// nf = min(Fc, F - f0) output columns, Fc = ceil(F / N), with the full rows
+// of x in a_s, in blocks of up to 128 columns. A block's [D, nb] slice of
+// ow is staged through the idle ring in K-chunks (4-byte copies: its rows
+// are not 16-byte aligned), its columns padded with zeros to a multiple of
+// 8, and multiplied as the channel mix is; the partial tiles are summed in
+// the ring.
+__device__ __forceinline__ void pose_projection(const Ctx& c, float* og) {
+  const int F = c.p.F, D = c.p.D, S = c.p.S;
+  const int fc = (F + c.p.N - 1) / c.p.N, f0 = c.rank * fc;
+  const int nf = min(F, f0 + fc) - f0;
+  uint64_t* bar = &c.bars[2 * kStagesMax + 2];
+  int phase = 0;
+  for (int j0 = 0; j0 < nf; j0 += kMaxCols) {  // uniform over the CTA
+    const int nb = min(kMaxCols, nf - j0), ncols = (nb + kTileCols - 1) / kTileCols * kTileCols;
+    const int kc = min(D, kRingFloats / ncols / 4 * 4);
+    const Tiling t(ncols);
+    float acc[kTileRows][kTileCols];
+    zero(acc);
+    const float* a_rows = c.a_s + t.rg * kTileRows * c.dp;
+    for (int k0 = 0; k0 < D; k0 += kc, ++phase) {
+      const int rows = min(kc, D - k0);
+      for (int idx = threadIdx.x; idx < rows * ncols; idx += kT) {
+        const int r = idx / ncols, j = idx % ncols;
+        const bool in = j < nb;
+        cp_async4(c.ring + idx, in ? c.p.ow + (size_t)(k0 + r) * F + f0 + j0 + j : c.p.ow,
+                  in ? 4 : 0);
+      }
+      cp_async_arrive(bar);
+      mbar_wait(bar, (uint32_t)(phase & 1));
+      if (t.active)
+        mma_quads(acc, a_rows, c.dp, c.ring + t.col, ncols, t.half, k0, t.slice, rows / 4, t.ns);
+      __syncthreads();  // the chunk is consumed
+    }
+    const float* ob = c.p.ob + f0 + j0;
+    float* o = og + f0 + j0;
+    reduce_slices(t, acc, c.ring, S, [&](int row, int col, float4 s) {
+      const float v[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (col + j < nb) o[(size_t)row * F + col + j] = v[j] + __ldg(ob + col + j);
+    });
+    __syncthreads();  // the ring is free again
+  }
+}
+
+// One instance per activation, picked at launch: the once-a-layer code
+// (token mix, K-slice sums) holds only its own activation's instructions.
+template <int kAct>
+__global__ void __launch_bounds__(kT, 1)
+fused_transmlp_cluster_kernel(const __grid_constant__ ClusterParams p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const Smem lay(p.D, p.N);
+  float* base = reinterpret_cast<float*>(smem_raw + kBarBytes);
+  const int dc = lay.dc;
+  Ctx c{p, 0, 0, dc, lay.dp, ring_stride(dc), 0,
+        base + lay.a(), base + lay.x(), base + lay.ring(), base + lay.prm(),
+        base + lay.emb(), base + lay.stats(), base + lay.rowstat(), base + lay.rowstat() + kSPad,
+        reinterpret_cast<uint64_t*>(smem_raw)};
+  c.rank = (int)cg::this_cluster().block_rank();
+  c.c0 = c.rank * dc;
+  c.seq = blockIdx.x / p.N;
+  const int tid = threadIdx.x, S = p.S, D = p.D, q4 = dc / 4;
+  const int pf = prm_floats(dc);
+
+  if (tid < kStagesMax) {
+    mbar_init(&c.bars[tid], 1);  // full: the issuing thread's expect_tx
+    const Tiling t(c.ws);
+    mbar_init(&c.bars[kStagesMax + tid], t.per);  // empty: every thread of the slice
+  } else if (tid < kStagesMax + 3) {
+    mbar_init(&c.bars[kStagesMax + tid], kT);  // parameters, staging: every thread's cp.async
+  }
+  mbar_init_fence();
+  // the token mix's padding, this CTA's columns of x, the padding rows
+  for (int idx = tid; idx < 2 * pf; idx += kT) c.prm[idx] = 0.0f;
+  const float* xg = p.x + c.seq * S * D + c.c0;
+  for (int idx = tid; idx < kSPad * dc; idx += kT) {
+    const int r = idx / dc, col = idx % dc;
+    c.x_s[idx] = r < S ? __ldg(xg + r * D + col) : 0.0f;
+  }
+  for (int idx = tid; idx < lay.x() - lay.a(); idx += kT) c.a_s[idx] = 0.0f;
+  for (int idx = tid; idx < dc; idx += kT) c.emb_s[idx] = __ldg(p.emb + c.seq * D + c.c0 + idx);
+  __syncthreads();  // barriers initialised, padding zeroed
+  issue_first_tiles(c);
+  issue_params(c, 0);
+  // the first exchange writes into the other CTAs' shared memory: they
+  // must have started and zeroed it
+  cg::this_cluster().sync();
+
+  const bool folded = p.ln2_s == nullptr;
+  float* h_s = c.a_s;  // LN1(x) [kSPad, dc]: a_s is idle until the LN2 rows arrive
+  for (int l = 0; l < p.L; ++l) {
+    const float* prm = c.prm + (l % 2) * pf;
+    const float *tw = prm, *tb = prm + kSPad * kSPad, *g1 = tb + kSPad, *b1 = g1 + dc,
+                *g2 = b1 + dc, *b2 = g2 + dc, *cb = b2 + dc;
+    for (int idx = tid; idx < S * q4; idx += kT) {
+      float4* xr = reinterpret_cast<float4*>(c.x_s) + idx;
+      const float4 e = reinterpret_cast<const float4*>(c.emb_s)[idx % q4];
+      const float4 x = *xr;
+      *xr = make_float4(x.x + e.x, x.y + e.y, x.z + e.z, x.w + e.w);
+    }
+    mbar_wait(&c.bars[2 * kStagesMax + l % 2], (uint32_t)((l / 2) & 1));
+    __syncthreads();
+    issue_params(c, l + 1);  // its buffer was last read in layer l - 1
+
+    // LN1 on this CTA's columns (padding rows zero), then the token mix
+    row_stats(c, c.x_s, 0);
+    for (int idx = tid; idx < kSPad * q4; idx += kT) {
+      const int r = idx / q4, col = (idx % q4) * 4;
+      float4 h = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (r < S) {
+        const float4 x = reinterpret_cast<const float4*>(c.x_s)[idx];
+        const float4 g = *reinterpret_cast<const float4*>(g1 + col);
+        const float4 b = *reinterpret_cast<const float4*>(b1 + col);
+        const float m = c.mean_s[r], inv = c.inv_s[r];
+        h = make_float4((x.x - m) * inv * g.x + b.x, (x.y - m) * inv * g.y + b.y,
+                        (x.z - m) * inv * g.z + b.z, (x.w - m) * inv * g.w + b.w);
+      }
+      reinterpret_cast<float4*>(h_s)[idx] = h;
+    }
+    __syncthreads();
+    token_mix_cols<kAct>(c, h_s, tw, tb);
+    __syncthreads();
+
+    // LN2: statistics, then this CTA's normalised columns into every CTA's
+    // full rows (no CTA still reads its a_s: all passed the barrier in
+    // row_stats after their last channel mix and token mix)
+    row_stats(c, c.x_s, 1);
+    for (int r = tid / q4; r < S; r += kT / q4) {
+      if (tid >= kT / q4 * q4) break;
+      const int col = (tid % q4) * 4;
+      const float4 xv = *reinterpret_cast<const float4*>(c.x_s + r * dc + col);
+      const float m = c.mean_s[r], inv = c.inv_s[r];
+      float4 v = make_float4((xv.x - m) * inv, (xv.y - m) * inv, (xv.z - m) * inv,
+                             (xv.w - m) * inv);
+      if (!folded) {
+        v.x = v.x * g2[col] + b2[col];
+        v.y = v.y * g2[col + 1] + b2[col + 1];
+        v.z = v.z * g2[col + 2] + b2[col + 2];
+        v.w = v.w * g2[col + 3] + b2[col + 3];
+      }
+      for (int j = 0; j < p.N; ++j) {
+        float* dst = cg::this_cluster().map_shared_rank(c.a_s, j);
+        *reinterpret_cast<float4*>(dst + r * c.dp + c.c0 + col) = v;
+      }
+    }
+    cg::this_cluster().sync();
+
+    channel_mix<kAct>(c, l, cb);
+    __syncthreads();
+  }
+
+  if (p.ow != nullptr) {
+    cg::this_cluster().sync();  // every CTA is done with its a_s
+    for (int r = tid / q4; r < S; r += kT / q4) {
+      if (tid >= kT / q4 * q4) break;
+      const int col = (tid % q4) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(c.x_s + r * dc + col);
+      for (int j = 0; j < p.N; ++j) {
+        float* dst = cg::this_cluster().map_shared_rank(c.a_s, j);
+        *reinterpret_cast<float4*>(dst + r * c.dp + c.c0 + col) = v;
+      }
+    }
+    cg::this_cluster().sync();
+    pose_projection(c, p.out + c.seq * S * p.F);
+  } else {
+    float* og = p.out + c.seq * S * D + c.c0;
+    for (int idx = tid; idx < S * dc; idx += kT) og[(idx / dc) * D + idx % dc] = c.x_s[idx];
+  }
+}
+
+// the 16-byte copies read these at 16-byte offsets (null: unused)
+bool aligned16(const float* p) { return (uintptr_t)p % 16 == 0; }
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* sym = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(sym);
+  }
+  return fn;
+}
+
+// ch_w [L, D, D] as the 2-D map the ring's TMA copies read.
+bool channel_map(CUtensorMap* map, const float* cw, int D, int L, int cluster) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const int dc = D / cluster;
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)L * D};
+  const cuuint64_t strides[1] = {(cuuint64_t)D * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)ring_stride(dc), (cuuint32_t)kKt};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(cw), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool geometry_ok(int D, int N) {
+  return (N == 1 || N == 2 || N == 4 || N == 8) && D % (4 * N) == 0 && D / N <= kMaxCols;
+}
+
+bool shape_ok(int D, int cluster) {
+  return D >= kKTile && D <= kMaxN && D % kKTile == 0 && geometry_ok(D, cluster);
+}
+
+using Kernel = void (*)(const ClusterParams);
+
+Kernel kernel_for(int act) {
+  switch (act) {
+    case kSilu: return fused_transmlp_cluster_kernel<kSilu>;
+    case kRelu: return fused_transmlp_cluster_kernel<kRelu>;
+    case kGelu: return fused_transmlp_cluster_kernel<kGelu>;
+    case kLrelu: return fused_transmlp_cluster_kernel<kLrelu>;
+    case kLrelu01: return fused_transmlp_cluster_kernel<kLrelu01>;
+    default: return fused_transmlp_cluster_kernel<kLrelu02>;
+  }
+}
+
+cudaLaunchConfig_t launch_config(int B, int D, int cluster, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * cluster), 1, 1);
+  cfg.blockDim = dim3(kT, 1, 1);
+  cfg.dynamicSmemBytes = Smem(D, cluster).bytes();
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
-// Launches on `stream`; returns the cudaError_t of the attribute call or the
-// launch (0 on success). ln2_s/ln2_b null: LN2 folded. ow/ob null: no pose
-// projection, out is [B, S, D].
+// Dynamic shared memory of one CTA, or 0 for a geometry the kernel refuses.
+extern "C" long long fused_transmlp_smem_bytes(int D, int cluster) {
+  return shape_ok(D, cluster) ? (long long)Smem(D, cluster).bytes() : 0;
+}
+
+// Clusters of `cluster` CTAs at width D the current card holds at once
+// (cudaOccupancyMaxActiveClusters), or minus the cudaError_t.
+extern "C" int fused_transmlp_max_clusters(int D, int cluster) {
+  if (!shape_ok(D, cluster)) return -(int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = launch_config(cluster, D, cluster, attr);
+  const Kernel kernel = kernel_for(kSilu);  // every instance has the same resources' shape
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)cfg.dynamicSmemBytes);
+  int n = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// Launches on `stream` as B clusters of `cluster` CTAs; returns the
+// cudaError_t of the attribute call or the launch (0 on success).
+// ln2_s/ln2_b null: LN2 folded. ow/ob null: no pose projection, out is
+// [B, S, D].
 extern "C" int fused_transmlp_launch(
     const float* x, const float* emb, const float* ln1_s, const float* ln1_b,
     const float* tw, const float* tb, const float* ln2_s, const float* ln2_b,
     const float* cw, const float* cb, const float* ow, const float* ob,
-    float* out, int B, int S, int D, int L, int F, int act, void* stream) {
-  if (B < 0 || S < 1 || S > kSPad || D < kKTile || D > kMaxN || D % kKTile != 0 ||
-      L < 1 || act < kSilu || act > kLrelu02 ||
-      (ow != nullptr && (F < 1 || F > kMaxN)) || ((ln2_s == nullptr) != (ln2_b == nullptr)))
+    float* out, int B, int S, int D, int L, int F, int act, int cluster, void* stream) {
+  if (B < 0 || S < 1 || S > kSPad || !shape_ok(D, cluster) || L < 1 || act < kSilu ||
+      act > kLrelu02 || (ow != nullptr && (F < 1 || F > kMaxN)) ||
+      ((ln2_s == nullptr) != (ln2_b == nullptr)) || !aligned16(cw) || !aligned16(cb) ||
+      !aligned16(ln1_s) || !aligned16(ln1_b) || !aligned16(ln2_s) || !aligned16(ln2_b))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = stack_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_transmlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = launch_config(B, D, cluster, attr);
+  const Kernel kernel = kernel_for(act);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)cfg.dynamicSmemBytes);
   if (err != cudaSuccess) return (int)err;
   if (B == 0) return 0;
-  StackParams p{x, emb, ln1_s, ln1_b, tw, tb, ln2_s, ln2_b, cw, cb, ow, ob, out,
-                nullptr, B, S, D, L, F, act};
-  fused_transmlp_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(p);
+  cfg.stream = (cudaStream_t)stream;
+  ClusterParams p{{}, x, emb, ln1_s, ln1_b, tw, tb, ln2_s, ln2_b, cw, cb, ow, ob, out,
+                  S, D, L, F, cluster};
+  if (!channel_map(&p.cw_map, cw, D, L, cluster)) return (int)cudaErrorInvalidValue;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

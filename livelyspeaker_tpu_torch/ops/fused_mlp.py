@@ -8,13 +8,15 @@ the kernel on a CUDA tensor and the plain version
 one to the other.
 
 Unlike the TPU kernel, nothing is padded: the packed token mix is [L, S, S]
-and the pose projection [D, F].
+and the pose projection [D, F]. The kernel spreads each sequence over a
+thread-block cluster; :func:`transmlp_geometry` picks the cluster from the
+shapes and the clusters the card holds at once.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -29,6 +31,10 @@ __all__ = [
     "fused_transmlp_reference",
     "fused_transmlp",
     "launch_stack",
+    "TransMLPGeometry",
+    "cluster_sizes",
+    "transmlp_geometry",
+    "resident_clusters",
 ]
 
 # activation name -> the kernel's Act code (csrc/transmlp_common.cuh)
@@ -119,6 +125,80 @@ def fused_transmlp_reference(
 
 fused_transmlp_reference.calls = 0
 
+# The kernel's limits and its shared-memory layout (csrc/fused_transmlp.cu)
+MAX_SEQ, MAX_DIM, DIM_STEP = 36, 512, 16
+_THREADS, _RING_FLOATS, _BARS, _MAX_COLS, _MAX_SLICES, _TILE = 256, 24576, 51, 128, 8, (9, 8)
+SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on an H100
+SM_SHARED = 233_472  # bytes of shared memory an SM gives its blocks
+# Clusters of N CTAs an H100 SXM (132 SMs) holds at once at the kernel's
+# shared memory, one CTA an SM (cudaOccupancyMaxActiveClusters on an NVIDIA
+# H100 80GB HBM3, as chip_smoke.py prints it): a cluster stays inside one
+# GPC, so 8-CTA clusters fill 120 SMs, not 128. The default of
+# transmlp_geometry; on a card the wrapper asks the card.
+H100_RESIDENT_CLUSTERS = {8: 15, 4: 30, 2: 66, 1: 132}
+
+
+class TransMLPGeometry(NamedTuple):
+    cluster: int  # CTAs a sequence is spread over
+    cols: int  # columns of the activation each CTA owns, D / cluster
+    k_slices: int  # K-slices of the channel mix's 9 x 8 register tiles
+    smem_bytes: int  # dynamic shared memory of one CTA
+    ctas_per_sm: int  # as the shared memory allows
+
+
+def _smem_bytes(d: int, cluster: int) -> int:
+    """Mirror of ``Smem::bytes`` in the kernel."""
+    dp, dc, spad = d + 4, d // cluster, MAX_SEQ
+    params = spad * spad + spad + 5 * dc  # one layer's token mix, biases, affines
+    floats = (_RING_FLOATS + max(spad * dp, _THREADS * (_TILE[0] * _TILE[1] + 4)) + spad * dc
+              + 2 * params + dc + 2 * 8 * spad * 2 + 2 * spad)
+    return -(-_BARS * 8 // 128) * 128 + 4 * floats
+
+
+def cluster_sizes(d: int) -> list:
+    """The cluster sizes the kernel takes at width D, largest first: N in
+    {8, 4, 2, 1} with Dc = D/N a whole number of 16-byte loads and at most
+    128 columns (the shared memory)."""
+    return [n for n in (8, 4, 2, 1) if d % (4 * n) == 0 and d // n <= _MAX_COLS]
+
+
+def _geometry(d: int, cluster: int) -> TransMLPGeometry:
+    dc = d // cluster
+    per_slice = 4 * -(-dc // _TILE[1])  # 4 row groups x the column groups of a tile
+    smem = _smem_bytes(d, cluster)
+    k_slices = min(_MAX_SLICES, _THREADS // per_slice)
+    return TransMLPGeometry(cluster, dc, k_slices, smem, SM_SHARED // (smem + 1024))
+
+
+def transmlp_geometry(b: int, s: int, d: int,
+                      resident: Optional[Dict[int, int]] = None) -> TransMLPGeometry:
+    """The kernel's launch geometry for B sequences of [S, D]; raises
+    ``ValueError`` on what the kernel does not take. ``resident`` maps a
+    cluster size to the clusters the card holds at once (default: an H100
+    SXM's, ``H100_RESIDENT_CLUSTERS``).
+
+    Of the sizes :func:`cluster_sizes` allows with Dc >= 64 (a K-slice of the
+    channel mix is then whole warps; below D = 64 one CTA takes the row),
+    it is the largest whose B clusters all run at once: the batch is spread
+    over the most SMs in one wave. A batch too large for one wave of any
+    takes the smallest, whose wide column slices pay the fewest cluster
+    barriers and LayerNorm exchanges per FLOP. At TED's and BEAT's D = 512
+    on an H100 SXM that is 8 CTAs up to 2B = 15 and 4 from 2B = 16, the
+    serving batch, on (``chip_smoke.py`` times 8 against 4)."""
+    if b < 0:
+        raise ValueError(f"fused_transmlp: batch {b} < 0")
+    if not 1 <= s <= MAX_SEQ:
+        raise ValueError(f"fused_transmlp: S={s}; the kernel takes 1 <= S <= {MAX_SEQ}")
+    if not (DIM_STEP <= d <= MAX_DIM and d % DIM_STEP == 0):
+        raise ValueError(f"fused_transmlp: D={d}; the kernel takes a multiple of "
+                         f"{DIM_STEP} in [{DIM_STEP}, {MAX_DIM}]")
+    resident = H100_RESIDENT_CLUSTERS if resident is None else resident
+    sizes = [n for n in cluster_sizes(d) if d // n >= min(64, d)]
+    for n in sizes:
+        if b <= resident.get(n, 0):
+            return _geometry(d, n)
+    return _geometry(d, sizes[-1])
+
 
 def _check(name: str, t: torch.Tensor, shape, device, who: str = "fused_transmlp") -> None:
     if t.dtype != torch.float32:
@@ -132,6 +212,7 @@ def _check(name: str, t: torch.Tensor, shape, device, who: str = "fused_transmlp
 
 
 _bound = None
+_resident: Dict[tuple, Dict[int, int]] = {}
 
 
 def _launcher():
@@ -139,10 +220,28 @@ def _launcher():
     if _bound is None:
         lib = load_library("fused_transmlp")
         fn = lib.fused_transmlp_launch
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _bound = fn
+        query = lib.fused_transmlp_max_clusters
+        query.argtypes, query.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        _bound = fn, query
     return _bound
+
+
+def resident_clusters(d: int, device: torch.device) -> Dict[int, int]:
+    """Clusters of each size the card holds at once at width D, as the CUDA
+    runtime reports them for the kernel (asked once per card and width)."""
+    key = (device.index, d)
+    if key not in _resident:
+        query = _launcher()[1]
+        with torch.cuda.device(device):
+            counts = {n: query(d, n) for n in cluster_sizes(d)}
+        bad = {n: -v for n, v in counts.items() if v < 0}
+        if bad:
+            raise RuntimeError(f"fused_transmlp: cudaOccupancyMaxActiveClusters failed "
+                               f"with cudaError {bad} (D={d})")
+        _resident[key] = counts
+    return _resident[key]
 
 
 def fused_transmlp(
@@ -169,11 +268,16 @@ def launch_stack(
     packed: Dict[str, torch.Tensor],
     act_code: int,
     out_proj: Optional[Dict[str, torch.Tensor]] = None,
+    cluster: Optional[int] = None,
 ) -> torch.Tensor:
     """Launch the kernel on CUDA tensors with a ``KERNEL_ACT_CODES`` code
     (the training route's no-grad calls also use the leaky relus); checks
-    every tensor and raises on what the kernel does not take."""
+    every tensor and raises on what the kernel does not take. ``cluster``
+    overrides :func:`transmlp_geometry`'s choice (for measurement); the
+    kernel refuses a cluster it cannot take, and the wrapper raises."""
     b, s, d = x.shape
+    if cluster is None:
+        cluster = transmlp_geometry(b, s, d, resident_clusters(d, x.device)).cluster
     emb = emb.reshape(b, d)
     num_layers = packed["token_w"].shape[0]
     folded = "ln2_scale" not in packed
@@ -189,6 +293,8 @@ def launch_stack(
         shapes.update(ln2_scale=(num_layers, d), ln2_bias=(num_layers, d))
     for k, shp in shapes.items():
         _check(k, packed[k], shp, dev)
+        if k not in ("token_w", "token_b") and packed[k].data_ptr() % 16:
+            raise ValueError(f"fused_transmlp: {k} is not 16-byte aligned")
     if out_proj is not None:
         f = out_proj["out_w"].shape[1]
         _check("out_w", out_proj["out_w"], (d, f), dev)
@@ -200,16 +306,16 @@ def launch_stack(
     ptr = lambda k: packed[k].data_ptr() if k in packed else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _launcher()(
+        err = _launcher()[0](
             x.data_ptr(), emb.data_ptr(), ptr("ln1_scale"), ptr("ln1_bias"),
             ptr("token_w"), ptr("token_b"), ptr("ln2_scale"), ptr("ln2_bias"),
             ptr("ch_w"), ptr("ch_b"), ow, ob, out.data_ptr(),
-            b, s, d, num_layers, f, act_code, stream,
+            b, s, d, num_layers, f, act_code, cluster, stream,
         )
     if err != 0:
         raise RuntimeError(
             f"fused_transmlp kernel launch failed with cudaError {err} "
-            f"(B={b}, S={s}, D={d}, L={num_layers}, F={f})"
+            f"(B={b}, S={s}, D={d}, L={num_layers}, F={f}, cluster={cluster})"
         )
     fused_transmlp.launches += 1
     return out

@@ -6,6 +6,8 @@ absent: ``python -m pytest --noconftest -p no:cacheprovider
 tests/test_torch_cuda.py``.
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -77,10 +79,124 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="lrelu"):
         fused_mlp.fused_transmlp(torch.zeros(2, 35, 64, device=cuda_device), emb, packed,
                                  "lrelu")
-    with pytest.raises(RuntimeError, match="cudaError"):  # S above the kernel's 36
+    with pytest.raises(ValueError, match="S=40"):  # S above the kernel's 36
         big = fused_mlp.pack_transmlp_params(_stack(cuda_device, 40, 64, 1))
         fused_mlp.fused_transmlp(torch.zeros(2, 40, 64, device=cuda_device), emb, big)
+    x = torch.zeros(2, 35, 64, device=cuda_device)
+    # clusters the kernel refuses: not 1, 2, 4 or 8; D % 4N != 0; Dc > 128
+    for cluster in (3, 16):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            fused_mlp.launch_stack(x, emb, packed, 0, cluster=cluster)
+    wide = fused_mlp.pack_transmlp_params(_stack(cuda_device, 35, 272, 1))
+    with pytest.raises(RuntimeError, match="cudaError"):  # 272 % 32 != 0
+        fused_mlp.launch_stack(torch.zeros(2, 35, 272, device=cuda_device),
+                               torch.zeros(2, 272, device=cuda_device), wide, 0, cluster=8)
+    with pytest.raises(RuntimeError, match="cudaError"):  # Dc = 272 > 128
+        fused_mlp.launch_stack(torch.zeros(2, 35, 272, device=cuda_device),
+                               torch.zeros(2, 272, device=cuda_device), wide, 0, cluster=1)
     assert fused_mlp.fused_transmlp_reference.calls == calls  # never the plain version
+
+
+def _k1_case(device, b, seq, dim, layers, act="silu", fold=True, feats=27, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    packed = fused_mlp.pack_transmlp_params(_stack(device, seq, dim, layers, act, seed),
+                                            fold_ln2=fold)
+    x = torch.randn(b, seq, dim, generator=g).to(device)
+    emb = torch.randn(b, dim, generator=g).to(device)
+    lin = random_normal_(torch.nn.Linear(dim, feats), g).to(device)
+    return packed, x, emb, fused_mlp.pack_out_proj(lin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [64, 128, 512])
+@pytest.mark.parametrize("seq", [10, 35, 36])
+@pytest.mark.parametrize("b2", [1, 2, 3, 16, 17, 133, 512])
+def test_kernel_cluster_batches(cuda_device, b2, seq, dim):
+    """Ragged batches, clusters that do not fill the grid, every geometry
+    transmlp_geometry picks at D in {64, 128, 512}; LN2 folded at odd
+    batches and affine at even ones; with and without the pose
+    projection. rel <= 1e-5 of max|plain|."""
+    packed, x, emb, op = _k1_case(cuda_device, b2, seq, dim, 2, fold=b2 % 2 == 1)
+    for proj in (None, op):
+        launches = fused_mlp.fused_transmlp.launches
+        out = fused_mlp.fused_transmlp(x, emb, packed, out_proj=proj)
+        ref = fused_mlp.fused_transmlp_reference(x, emb, packed, out_proj=proj)
+        torch.cuda.synchronize()
+        assert fused_mlp.fused_transmlp.launches == launches + 1
+        assert _rel(out, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,cluster", [
+    (64, 8), (128, 8), (64, 2),                # Dc = 8, 16, 32: K-slices inside a warp
+    (512, 1), (512, 2), (512, 4), (512, 8),    # Dc = 512, 256 refused below; 128, 64
+    (48, 1), (208, 2),                         # Dc = 48, 104: K-slices with no rows
+    (400, 4), (272, 4),                        # Dc = 100, 68: ring rows padded to 8s
+])
+def test_kernel_every_cluster_size(cuda_device, dim, cluster):
+    """The kernel at clusters the geometry does not pick, as launch_stack
+    takes them: each result within rel 1e-5 of the plain version, or a
+    raise where the column slice exceeds the kernel's 128."""
+    packed, x, emb, op = _k1_case(cuda_device, 5, 35, dim, 2, fold=False, feats=282)
+    for proj in (None, op):
+        if dim // cluster > 128:
+            with pytest.raises(RuntimeError, match="cudaError"):
+                fused_mlp.launch_stack(x, emb, packed, 0, proj, cluster=cluster)
+            continue
+        out = fused_mlp.launch_stack(x, emb, packed, 0, proj, cluster=cluster)
+        ref = fused_mlp.fused_transmlp_reference(x, emb, packed, out_proj=proj)
+        torch.cuda.synchronize()
+        assert _rel(out, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["lrelu", "lrelu01", "lrelu02"])
+def test_launch_stack_leaky_relu_unfolded(cuda_device, act):
+    """The training route's no-grad calls: LN2 unfolded, no pose
+    projection, the leaky-relu codes 3-5."""
+    packed, x, emb, _ = _k1_case(cuda_device, 6, 35, 512, 3, act=act, fold=False)
+    assert "ln2_scale" in packed
+    out = fused_mlp.launch_stack(x, emb, packed, fused_mlp.KERNEL_ACT_CODES[act])
+    ref = fused_mlp_train.fused_transmlp_train_forward_reference(x, emb, packed, act)[0]
+    torch.cuda.synchronize()
+    assert out.shape == x.shape
+    assert _rel(out, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_kernel_repeat_gives_same_bits(cuda_device):
+    """The K-split partials and the LN statistics are summed in a fixed
+    order: two launches give the same bits."""
+    packed, x, emb, op = _k1_case(cuda_device, 16, 35, 512, 8)
+    for proj in (None, op):
+        a = fused_mlp.fused_transmlp(x, emb, packed, out_proj=proj)
+        b = fused_mlp.fused_transmlp(x, emb, packed, out_proj=proj)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_resident_clusters_from_the_card(cuda_device):
+    """The wrapper asks the card how many clusters of each size it holds
+    at once, and the geometry picks from those counts."""
+    counts = fused_mlp.resident_clusters(512, cuda_device)
+    assert set(counts) == {8, 4} and all(n > 0 for n in counts.values())
+    assert counts[4] >= counts[8]
+    geo = fused_mlp.transmlp_geometry(counts[8], 35, 512, counts)
+    assert geo.cluster == 8
+    assert fused_mlp.transmlp_geometry(counts[8] + 1, 35, 512, counts).cluster == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [16, 48, 64, 128, 272, 400, 512])
+def test_geometry_shared_memory_matches_kernel(cuda_device, dim):
+    """transmlp_geometry's shared-memory size is the kernel's own."""
+    lib = fused_mlp.load_library("fused_transmlp")
+    fn = lib.fused_transmlp_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
+    geo = fused_mlp.transmlp_geometry(16, 35, dim)
+    assert fn(dim, geo.cluster) == geo.smem_bytes
+    assert geo.smem_bytes <= fused_mlp.SMEM_LIMIT
 
 
 def _train_case(device, seq, dim, layers, b, act="silu", seed=3):

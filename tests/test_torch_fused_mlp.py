@@ -145,3 +145,103 @@ def test_wrapper_rejects_other_devices():
     x = torch.zeros(1, 35, 64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         tfused.fused_transmlp(x, torch.zeros(1, 64), tfused.pack_transmlp_params(tm))
+
+
+# --- the kernel's launch geometry (csrc/fused_transmlp.cu), decided on the host
+
+H100 = tfused.H100_RESIDENT_CLUSTERS
+
+
+@pytest.mark.parametrize("dim", list(range(16, 513, 16)))
+def test_geometry_column_slices(dim):
+    """At every width the kernel takes, each batch size gets a cluster that
+    divides D into column slices of whole 16-byte loads, at most 128 wide,
+    in the shared memory one block may use."""
+    for b in (0, 1, 2, 15, 16, 17, 30, 31, 133, 512):
+        geo = tfused.transmlp_geometry(b, 35, dim)
+        assert geo.cluster in (1, 2, 4, 8)
+        assert geo.cluster * geo.cols == dim
+        assert (geo.cols * 4) % 16 == 0 and geo.cols <= 128
+        assert geo.cluster in tfused.cluster_sizes(dim)
+        assert 1 <= geo.k_slices <= 8
+        assert geo.smem_bytes <= tfused.SMEM_LIMIT and geo.ctas_per_sm >= 1
+
+
+@pytest.mark.parametrize("b,s,d,resident,cluster", [
+    (16, 35, 512, None, 4),     # the serving call: 16 clusters of 8 do not fit at once
+    (15, 35, 512, None, 8),     # 15 do: the batch on 120 SMs
+    (2, 35, 512, None, 8),
+    (512, 35, 512, None, 4),    # DDPM-1000 at batch 256: many waves, the widest slices
+    (64, 36, 512, None, 4),
+    (16, 35, 512, {8: 16, 4: 33}, 8),  # a card that holds 16 clusters of 8
+    (16, 35, 512, {8: 0, 4: 0}, 4),    # none at once: the widest slices
+    (3, 10, 64, None, 1),       # below 2 x 64 columns one CTA takes the row
+    (8, 35, 128, None, 2),
+    (16, 35, 272, None, 4),     # 272 / 8 is not whole loads: 4 CTAs of 68
+])
+def test_geometry_choices(b, s, d, resident, cluster):
+    geo = tfused.transmlp_geometry(b, s, d, resident)
+    assert geo.cluster == cluster
+    assert geo.cols == d // cluster
+
+
+def test_geometry_at_the_serving_and_ddpm_shapes():
+    """The choices the H100 gets at TED's and BEAT's D = 512."""
+    serve = tfused.transmlp_geometry(16, 35, 512)
+    assert (serve.cluster, serve.cols, serve.k_slices) == (4, 128, 4)
+    ddpm = tfused.transmlp_geometry(512, 35, 512)
+    assert (ddpm.cluster, ddpm.cols, ddpm.k_slices) == (4, 128, 4)
+    small = tfused.transmlp_geometry(2, 36, 512)
+    assert (small.cluster, small.cols, small.k_slices) == (8, 64, 8)
+    assert H100[8] < 16 <= H100[4]  # why 2B = 16 takes clusters of 4
+
+
+@pytest.mark.parametrize("b,s,d,match", [
+    (-1, 35, 512, "batch"),
+    (2, 0, 512, "S=0"),
+    (2, 37, 512, "S=37"),
+    (2, 35, 8, "D=8"),
+    (2, 35, 520, "D=520"),
+    (2, 35, 200, "D=200"),
+])
+def test_geometry_refuses_what_the_kernel_refuses(b, s, d, match):
+    with pytest.raises(ValueError, match=match):
+        tfused.transmlp_geometry(b, s, d)
+
+
+def test_cluster_sizes_are_the_kernels():
+    assert tfused.cluster_sizes(512) == [8, 4]
+    assert tfused.cluster_sizes(272) == [4]
+    assert tfused.cluster_sizes(64) == [8, 4, 2, 1]
+    assert tfused.cluster_sizes(48) == [4, 2, 1]
+
+
+def _sliced_ln_core(x, cluster, eps=1e-5):
+    """``_ln_core`` as the kernel computes it (csrc/fused_transmlp.cu:
+    row_stats): two-pass (mean, M2) over each of ``cluster`` column slices,
+    combined with Chan's formula, mean = avg(mean_r), M2 = sum(M2_r) + Dc *
+    sum((mean_r - mean)^2)."""
+    d = x.shape[-1]
+    parts = x.reshape(*x.shape[:-1], cluster, d // cluster)
+    mean_r = parts.mean(-1)
+    m2_r = ((parts - mean_r[..., None]) ** 2).sum(-1)
+    mean = mean_r.mean(-1, keepdim=True)
+    m2 = m2_r.sum(-1, keepdim=True) + (d // cluster) * ((mean_r - mean) ** 2).sum(-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(m2 / d + eps)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_sliced_ln_statistics_match_two_pass(cluster):
+    """The kernel's LayerNorm statistics: two-pass (mean, M2) per column
+    slice, combined with Chan's formula, against the two-pass ``_ln_core``
+    on rows with a large mean and a small spread (f64: the comparison is of
+    the algebra, not of the rounding). E[x^2] - E[x]^2 on the same rows
+    loses the spread."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(1e4 + 1e-3 * rng.normal(size=(3, 35, 512)))
+    ref = tfused._ln_core(x)
+    out = _sliced_ln_core(x, cluster)
+    assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-6
+    mean = x.mean(-1, keepdim=True)
+    naive = (x - mean) * torch.rsqrt((x * x).mean(-1, keepdim=True) - mean * mean + 1e-5)
+    assert ((naive - ref).abs().max() / ref.abs().max()).item() > 1e-3
