@@ -24,11 +24,14 @@ same training with the WavEncoder swapped for the fused WavEncoder stack
    and the plain version never; then one served-size batch through the
    fused sampler agrees with the eager modules (cuBLAS) within rel 1e-4;
 5. one BEAT batch (emotion conditioning) the same way;
-6. the training kernels (forward with stash; per layer of the backward a
-   block, a weight-gradient and a reduce kernel) against their plain
-   versions at TED (S=35) and BEAT (S=36), D=512, L=8, silu, B in {64, 512}:
-   forward and stash within rel 1e-5, every gradient within rel 1e-4 of its
-   max|plain|, and the time per fwd+bwd call of both;
+6. the training kernels (the cluster kernel with a stash as the forward; per
+   layer of the backward a cluster block kernel, a weight-gradient and a
+   reduce kernel) against their plain versions at TED (S=35) and BEAT
+   (S=36), D=512, L=8, silu, B in {64, 512}: forward and stash within rel
+   1e-5, every gradient within rel 1e-4 of its max|plain|, a second run with
+   the same bits, the time per fwd+bwd call of both, the forward and the
+   block kernel at clusters of 8 and 4 CTAs in turns, and the time of the
+   one torch.matmul that computes the weight-gradient kernel's product;
 7. training: TrainLoop.run_loop() on RAGConfig.ted(fused_train_backbone=True)
    (its own seeded init), DDPM-1000 cosine, 30 steps at batch 512 on one
    fixed seeded batch, the default TrainConfig but lr 1e-3: every loss is
@@ -83,6 +86,7 @@ KERNEL_REPLACES = "livelyspeaker_tpu/ops/pallas/fused_mlp.py:215"
 KERNEL_TOL = 1e-5  # f32 sums in another order than cuBLAS, over 8 blocks
 SLICE_TOL = 1e-4  # 20 solver steps of the above, relative to max|x|
 TRAIN_SOURCE = "livelyspeaker_tpu_torch/csrc/fused_transmlp_train.cu"
+TRAIN_FWD_SOURCE = KERNEL_SOURCE  # the cluster kernel, with a stash pointer
 TRAIN_REPLACES = "livelyspeaker_tpu/ops/pallas/fused_mlp_train.py:257"
 GRAD_TOL = 1e-4  # f32 sums over up to B*S = 18,432 rows in another order
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR, LAYERS = 30, 512, 1e-3, 8
@@ -465,8 +469,11 @@ def k2_cost(b, s, d, layers):
     part = b * (5 * d + s + s * s)
     fwd = (b * layers * (2 * s * d * d + 2 * s * s * d), 4 * (2 * act + b * d + weights + layers * act))
     # per layer: the channel mix recomputed and g_m2 @ ch_w^T (two D x D
-    # products), the token mix, its data and weight gradients (three S x S)
-    blk = (b * (4 * s * d * d + 6 * s * s * d), 4 * (5 * act + b * d + weights // layers + part))
+    # products), the token mix, its data and weight gradients (three S x S);
+    # it reads the stash, g and emb and writes g_a, h2 and g_m2 (its two
+    # scratch tensors, read by the weight-gradient kernel), d emb and part
+    blk = (b * (4 * s * d * d + 6 * s * s * d),
+           4 * (5 * act + 2 * b * d + weights // layers + part))
     wgr = (2 * b * s * d * d, 4 * (2 * act + nsplit * d * d))
     red = (nsplit * d * d + part, 4 * (nsplit * d * d + part + weights // layers))
     return {"fwd": fwd, **{k: (layers * f, layers * n) for k, (f, n) in
@@ -510,7 +517,7 @@ def train_kernel_phase(card):
     """The training kernels against their plain versions."""
     from livelyspeaker_tpu_torch.models.initializers import random_normal_
     from livelyspeaker_tpu_torch.models.mlp_backbone import TransMLP
-    from livelyspeaker_tpu_torch.ops import fused_mlp_train as k2
+    from livelyspeaker_tpu_torch.ops import fused_mlp, fused_mlp_train as k2
 
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(10)
@@ -529,8 +536,13 @@ def train_kernel_phase(card):
             gx, gemb, grads = k2.fused_transmlp_train_backward(stash, emb, cot, packed)
             rgx, rgemb, rgrads = k2.fused_transmlp_train_backward_reference(
                 ref_stash, emb, cot, packed)
+            again = k2.fused_transmlp_train_backward(
+                k2.fused_transmlp_train_forward(x, emb, packed)[1], emb, cot, packed)
             torch.cuda.synchronize()
             tag = f"{name} B={b} S={seq} D=512 L={LAYERS} silu"
+            same = (torch.equal(gx, again[0]) and torch.equal(gemb, again[1])
+                    and all(torch.equal(grads[k], again[2][k]) for k in k2.PACKED_KEYS))
+            check(same, f"train kernels at {tag}: a second run gave other bits")
             errs = {"out": (out, ref), "stash": (stash, ref_stash)}
             for k, (a, r) in errs.items():
                 rel = _rel(a, r)
@@ -556,8 +568,31 @@ def train_kernel_phase(card):
             print(f"[train-kernel] {tag}: fwd+bwd kernels {ms:.3f} ms ("
                   + ", ".join(f"{k} {v:.3f}" for k, v in per_kernel.items())
                   + f"), plain {plain:.3f} ms (fwd {plain_fwd:.3f}) ({card})")
+            by_cluster = {}
+            picks = (fused_mlp.transmlp_geometry(
+                         b, seq, 512, fused_mlp.resident_clusters(512, dev)).cluster,
+                     k2.backward_geometry(
+                         b, seq, 512, k2.backward_resident_clusters(512, dev)).cluster)
+            for n in (8, 4):
+                run = lambda n=n: k2.fused_transmlp_train_backward(
+                    k2.fused_transmlp_train_forward(x, emb, packed, cluster=n)[1], emb, cot,
+                    packed, cluster=n)
+                by_cluster[n] = kernel_ms_by_name(run, iters)
+            print(f"[train-kernel] {tag}, by cluster size: " + ", ".join(
+                f"{n} CTAs fwd {v['fwd']:.3f} bwd_block {v['bwd_block']:.3f} ms"
+                for n, v in by_cluster.items())
+                + f"; the geometry picks {picks[0]} and {picks[1]} ({card})")
             if name == "TED" and b == TRAIN_BATCH:
+                # the weight-gradient kernel's function as one library call
+                # (cuBLAS, f32, TF32 off), once per layer as the kernel runs
+                h2 = torch.randn(b * seq, 512, generator=g).to(dev)
+                gm2 = torch.randn(b * seq, 512, generator=g).to(dev)
+                library_wgrad = LAYERS * time_ms(lambda: torch.matmul(h2.t(), gm2), 20)
+                print(f"[train-kernel] {tag}: wgrad {per_kernel['wgrad']:.3f} ms (with reduce "
+                      f"{per_kernel['wgrad'] + per_kernel['reduce']:.3f}) against {LAYERS} calls of "
+                      f"torch.matmul(h2.T, g_m2) at [{b * seq}, 512]: {library_wgrad:.3f} ms ({card})")
                 report = {"ms": per_kernel, "plain_fwd": plain_fwd, "plain_bwd": plain - plain_fwd,
+                          "library": {"wgrad": library_wgrad},
                           "bound": {k: bound(*c) for k, c in k2_cost(b, seq, 512, LAYERS).items()}}
                 print("[train-kernel] " + tag + ": bound by kernel, ms per fwd+bwd call: " + ", ".join(
                     f"{k} {v[0]:.3f} ({v[1]}, share {v[0] / per_kernel[k]:.1%})"
@@ -944,8 +979,8 @@ def profile_phase(model, loop, out_dir, card, name="train_step"):
         wall_ms = (time.perf_counter() - t0) * 1e3
     prof.export_chrome_trace(os.path.join(out_dir, f"{name}_trace.json"))
     classes = {"K3 WavEncoder kernels": ("::wav_",),  # before "conv", which they contain
-               "K2 forward": ("::fused_transmlp_train_fwd_kernel(",),
-               "K2 backward block": ("::bwd_block_kernel(",),
+               "K2 forward": ("fused_transmlp_cluster_kernel",),
+               "K2 backward block": ("bwd_block_kernel",),
                "K2 weight-gradient reductions": ("::wgrad_kernel(", "::reduce_kernel("),
                "cuDNN conv (WavEncoder)": ("cudnn", "convolve", "fprop_implicit", "wgrad_alg",
                                            "dgrad_engine"),
@@ -988,8 +1023,10 @@ def main():
     if args.profile:
         profile_phase(model, loop, args.profile, card)
         profile_phase(wav_model, wav_loop, args.profile, card, name="train_step_k3")
-    # library_ms: no single PyTorch call computes any of these functions
-    # (8-block mixer stacks, a conv/InstanceNorm/LeakyReLU chain)
+    # library_ms: one torch.matmul computes the K2 weight-gradient kernel's
+    # product; no single PyTorch call computes any other of these functions
+    # (8-block mixer stacks and their backward, a conv/InstanceNorm/LeakyReLU
+    # chain)
     kernels = [{
         "name": "fused_transmlp", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
@@ -997,13 +1034,14 @@ def main():
     }]
     for k in ("fwd", "bwd_block", "wgrad", "reduce"):
         kernels.append({
-            "name": f"fused_transmlp_train_{k}", "route": "cuda", "source": TRAIN_SOURCE,
+            "name": f"fused_transmlp_train_{k}", "route": "cuda",
+            "source": TRAIN_FWD_SOURCE if k == "fwd" else TRAIN_SOURCE,
             "replaces": TRAIN_REPLACES, "launches": train_launches[k],
             "max_abs_err": train_worst["fwd" if k == "fwd" else "bwd"],
             "ms": train_times["ms"][k],
             "plain_ms": train_times["plain_fwd" if k == "fwd" else "plain_bwd"],
             "bound_ms": train_times["bound"][k][0], "bound_by": train_times["bound"][k][1],
-            "library_ms": None,
+            "library_ms": train_times["library"].get(k),
         })
     for k in wav_launches:
         fwd = k in ("stats0", "conv_fwd", "stats")

@@ -47,6 +47,7 @@ B2S, NS = (2, 16, 512), (8, 4)  # batches (2B) and cluster sizes
 # (anchor in the source, text put in its place); every anchor must be found
 PATCHES = [
     ("  int S, D, L, F, N;\n};", "  int S, D, L, F, N;\n  long long* prof;\n};\n"
+     "long long* g_prof = nullptr;  // set through k1_phases_set before a launch\n"
      "#define PROF(i) do { if (threadIdx.x == 0) { long long _t = clock64(); "
      "p.prof[blockIdx.x * 16 + (i)] += _t - _tl; _tl = _t; } } while (0)"),
     ("  if (tid < kStagesMax) {\n    mbar_init",
@@ -63,9 +64,9 @@ PATCHES = [
     ("og[(idx / dc) * D + idx % dc] = c.x_s[idx];\n  }\n}",
      "og[(idx / dc) * D + idx % dc] = c.x_s[idx];\n  }\n  __syncthreads();\n  PROF(10);\n}"),
     # inside the channel mix: thread 0 sums its own steps, written once a layer
-    ("  if (t.active) {\n    const SliceRows r(t, c.p.D);",
+    ("  if (t.active) {\n    const SliceRows r(t, c.p.D, kKt);",
      "  long long _q = clock64(), _w = 0, _m = 0, _a = 0;\n"
-     "  if (t.active) {\n    const SliceRows r(t, c.p.D);"),
+     "  if (t.active) {\n    const SliceRows r(t, c.p.D, kKt);"),
     ("      mbar_wait(&c.bars[stage], parity);\n      mma_quads(",
      "      mbar_wait(&c.bars[stage], parity);\n"
      "      { long long _t = clock64(); _w += _t - _q; _q = _t; }\n      MMA mma_quads("),
@@ -81,10 +82,10 @@ PATCHES = [
      "    pr[5] += _w; pr[6] += _m; pr[7] += _a; pr[8] += clock64() - _q;\n  }\n"),
     ("  mbar_expect_tx(full, kKt * c.ws * sizeof(float));\n  tma_load_2d(",
      "  COPY mbar_expect_tx(full, kKt * c.ws * sizeof(float));\n  COPY tma_load_2d("),
-    ("    float* out, int B, int S, int D, int L, int F, int act, int cluster, void* stream) {",
-     "    float* out, int B, int S, int D, int L, int F, int act, int cluster, void* stream,\n"
-     "    long long* prof) {"),
-    ("                  S, D, L, F, cluster};", "                  S, D, L, F, cluster, prof};"),
+    ("                  S, D, L, F, cluster};", "                  S, D, L, F, cluster, g_prof};"),
+    ("// Dynamic shared memory of one CTA, or 0 for a geometry the kernel refuses.",
+     'extern "C" void k1_phases_set(long long* prof) { g_prof = prof; }\n'
+     "// Dynamic shared memory of one CTA, or 0 for a geometry the kernel refuses."),
     ('#include "transmlp_common.cuh"', '#include "transmlp_common.cuh"\n'
      "#ifdef K1_NO_PRODUCT\n#define MMA if (false)\n#else\n#define MMA\n#endif\n"
      "#ifdef K1_NO_COPY\n#define COPY if (false)\n#else\n#define COPY\n#endif"),
@@ -122,7 +123,8 @@ def build():
             raise SystemExit(f"k1_phases: nvcc failed on {name}:\n{log[-4000:]}")
         lib = ctypes.CDLL(str(so))
         lib.fused_transmlp_launch.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
-                                              + [ctypes.c_void_p] * 2)
+                                              + [ctypes.c_void_p])
+        lib.k1_phases_set.argtypes, lib.k1_phases_set.restype = [ctypes.c_void_p], None
         libs[name] = lib
     return libs
 
@@ -157,11 +159,12 @@ def main():
     def launch(lib, x, emb, n, prof):
         b = x.shape[0]
         out = torch.empty(b, 35, 27, device=dev)
+        lib.k1_phases_set(prof.data_ptr())
         err = lib.fused_transmlp_launch(
             x.data_ptr(), emb.data_ptr(), ptr("ln1_scale"), ptr("ln1_bias"), ptr("token_w"),
             ptr("token_b"), None, None, ptr("ch_w"), ptr("ch_b"), op["out_w"].data_ptr(),
             op["out_b"].data_ptr(), out.data_ptr(), b, 35, 512, 8, 27, 0, n,
-            torch.cuda.current_stream().cuda_stream, prof.data_ptr())
+            torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise SystemExit(f"k1_phases: launch failed with cudaError {err}")
         return out

@@ -10,6 +10,11 @@
 // the F real columns are written. With ln2_scale == nullptr the LN2 affine is
 // taken as folded into ch_w / ch_b (pack_transmlp_params(fold_ln2=True)).
 //
+// The same kernel is the training forward (the Pallas `_fwd_kernel` of
+// livelyspeaker_tpu/ops/pallas/fused_mlp_train.py: fused_transmlp_train):
+// with a stash pointer, CTA r also writes its columns of every block's input
+// to stash [L, B, S, D], with streaming stores that keep ch_w in L2.
+//
 // What bounds it: the FP32 pipe. The contract is f32 FMA with f32
 // accumulation (no tensor cores, no TF32), 67 TFLOP/s on an H100 SXM at
 // 700 W. At the serving call (2B = 16 sequences, S = 35, D = 512, L = 8,
@@ -63,42 +68,18 @@
 // Anything else returns cudaErrorInvalidValue, and a refused launch returns
 // its own error; the wrapper raises on either.
 
-#include <cooperative_groups.h>
-#include <cuda.h>  // CUtensorMap; the encoder is reached through the runtime
-#include <cudaTypedefs.h>
-#include <stdint.h>
-
 #include "transmlp_common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kT = 256;                    // threads of a CTA: 8 warps
-constexpr int kMaxCluster = 8;             // the portable cluster size
-constexpr int kMaxCols = 128;              // Dc: columns of the activation per CTA
-constexpr int kSlicesMax = 8;              // K-slices of the channel mix
 constexpr int kKt = 16;                    // ch_w rows per K-tile
 constexpr int kRing = 3;                   // ring stages of one K-slice
 constexpr int kStagesMax = kSlicesMax * kRing;
 constexpr int kRingFloats = 24576;         // the ring, 96 KB: >= kStagesMax * kKt * ws
                                            // for every ws (ns * ws <= 512)
-constexpr int kTileRows = kRowsPerThread;  // 9 rows of a thread's product tile,
-constexpr int kTileCols = 8;               // 8 columns
-constexpr int kTileFloats = kTileRows * kTileCols;
-constexpr int kRedStride = kTileFloats + 4;   // a thread's partial tile, padded: the
-                                              // float4 reads of 8 lanes miss each other
-constexpr int kRedFloats = kT * kRedStride;   // the K-slices' partial tiles
 constexpr int kBars = 2 * kStagesMax + 3;  // full and empty per stage, two parameter
                                            // buffers, staging
 constexpr int kBarBytes = (kBars * 8 + 127) / 128 * 128;  // the ring starts 128-byte aligned
-
-// Row stride of a ring stage: Dc padded to whole register tiles. The
-// padding columns hold the next CTA's columns (or zeros past D); they only
-// feed outputs that are not kept.
-__host__ __device__ inline int ring_stride(int dc) {
-  return (dc + kTileCols - 1) / kTileCols * kTileCols;
-}
 
 // one layer's token mix [kSPad, kSPad], its bias [kSPad], and this CTA's
 // columns of the LN1 scale and bias, the LN2 scale and bias, the channel-mix bias
@@ -119,6 +100,7 @@ struct ClusterParams {
   const float* ow;      // [D, F] or nullptr (no pose projection)
   const float* ob;      // [F]
   float* out;           // [B, S, F] with ow, else [B, S, D]
+  float* stash;         // [L, B, S, D] block inputs, or nullptr
   int S, D, L, F, N;
 };
 
@@ -143,57 +125,11 @@ struct Smem {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-// Makes the initialised mbarriers visible to the async proxy (the TMA copies).
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-// One arrival that also expects `bytes` of bulk copies on the barrier.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
 // Arrives when every earlier cp.async of this thread has landed (noinc:
 // the barrier was initialised with one count per thread).
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];" ::"r"(smem_addr(bar))
                : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// A TMA copy of the box of `map` at (column x0, row y0) into this CTA's
-// shared memory (128-byte aligned), completing on `bar`.
-__device__ __forceinline__ void tma_load_2d(float* dst, const CUtensorMap* map, int x0, int y0,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];"
-      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
-        "r"(x0), "r"(y0)
-      : "memory");
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -240,184 +176,11 @@ __device__ __forceinline__ void issue_params(const Ctx& c, int l) {
   cp_async_arrive(&c.bars[2 * kStagesMax + l % 2]);
 }
 
-// A product [kSPad, K] x [K, ncols] over the CTA's threads, ncols a multiple
-// of 8, at most kMaxCols. Thread p of a K-slice's 4 * ncols / 8 owns rows
-// rg * 9 .. rg * 9 + 8 (rg = p % 4) and the columns col .. col + 3 and
-// half + col .. half + col + 3 (col = 4 * (p / 4), half = ncols / 2); the
-// ns <= 8 K-slices split K. Threads past ns slices idle.
-struct Tiling {
-  int per, ns, slice, p, rg, col, half;
-  bool active;
-  __device__ explicit Tiling(int ncols) {
-    per = kRowGroups * (ncols / kTileCols);
-    ns = min(kSlicesMax, kT / per);
-    slice = threadIdx.x / per;
-    p = threadIdx.x % per;
-    rg = p % kRowGroups;
-    col = (p / kRowGroups) * 4;
-    half = ncols / 2;
-    active = threadIdx.x < ns * per;
-  }
-};
-
-__device__ __forceinline__ void zero(float (&acc)[kTileRows][kTileCols]) {
-#pragma unroll
-  for (int i = 0; i < kTileRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kTileCols; ++j) acc[i][j] = 0.0f;
-}
-
-__device__ __forceinline__ void load_w(float4 (&lo)[4], float4 (&hi)[4], const float* wq,
-                                       int wstride, int half) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    lo[r] = *reinterpret_cast<const float4*>(wq + r * wstride);
-    hi[r] = *reinterpret_cast<const float4*>(wq + r * wstride + half);
-  }
-}
-
-__device__ __forceinline__ void fma_row(float (&acc)[kTileCols], float4 av, const float4 (&lo)[4],
-                                        const float4 (&hi)[4]) {
-  const float a[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    acc[0] = fmaf(a[r], lo[r].x, acc[0]);
-    acc[1] = fmaf(a[r], lo[r].y, acc[1]);
-    acc[2] = fmaf(a[r], lo[r].z, acc[2]);
-    acc[3] = fmaf(a[r], lo[r].w, acc[3]);
-    acc[4] = fmaf(a[r], hi[r].x, acc[4]);
-    acc[5] = fmaf(a[r], hi[r].y, acc[5]);
-    acc[6] = fmaf(a[r], hi[r].z, acc[6]);
-    acc[7] = fmaf(a[r], hi[r].w, acc[7]);
-  }
-}
-
-// One quad of K rows: acc += a_rows[:, k .. k+3] x (lo | hi), with the
-// next quad's ch_w rows read into (nlo | nhi) meanwhile, one float4 after
-// each of the first eight rows' FMAs, and each row of LN2(x) read one row
-// ahead: the shared-memory reads spread over the FMA stream instead of
-// stalling every warp at the top of the quad.
-__device__ __forceinline__ void quad_step(float (&acc)[kTileRows][kTileCols], const float* ak,
-                                          int dp, const float4 (&lo)[4], const float4 (&hi)[4],
-                                          float4 (&nlo)[4], float4 (&nhi)[4], const float* wn,
-                                          int wstride, int half) {
-  float4 av = *reinterpret_cast<const float4*>(ak);
-#pragma unroll
-  for (int i = 0; i < kTileRows; ++i) {
-    float4 an = av;
-    if (i + 1 < kTileRows) an = *reinterpret_cast<const float4*>(ak + (i + 1) * dp);
-    fma_row(acc[i], av, lo, hi);
-    if (i < 4) nlo[i] = *reinterpret_cast<const float4*>(wn + i * wstride);
-    else if (i < 8) nhi[i - 4] = *reinterpret_cast<const float4*>(wn + (i - 4) * wstride + half);
-    av = an;
-  }
-}
-
-// acc += a_rows[:, kbase + 4q .. +3] x w[4q .. 4q+3, {0..3, half..half+3}]
-// over the quads q = q0, q0 + step, ... < nq: per quad 8 + 9 float4 reads,
-// 288 FMAs. Two register buffers of ch_w rows take turns; the read past the
-// last quad re-reads it (nothing is left out of bounds or branched on).
-__device__ __forceinline__ void mma_quads(float (&acc)[kTileRows][kTileCols], const float* a_rows,
-                                          int dp, const float* w, int wstride, int half,
-                                          int kbase, int q0, int nq, int step) {
-  if (q0 >= nq) return;
-  const int last = q0 + (nq - 1 - q0) / step * step;
-  float4 lo[4], hi[4], lo2[4], hi2[4];
-  load_w(lo, hi, w + 4 * q0 * wstride, wstride, half);
-  for (int q = q0;;) {
-    int qn = min(q + step, last);
-    quad_step(acc, a_rows + kbase + 4 * q, dp, lo, hi, lo2, hi2, w + 4 * qn * wstride, wstride,
-              half);
-    q += step;
-    if (q >= nq) break;
-    qn = min(q + step, last);
-    quad_step(acc, a_rows + kbase + 4 * q, dp, lo2, hi2, lo, hi, w + 4 * qn * wstride, wstride,
-              half);
-    q += step;
-    if (q >= nq) break;
-  }
-}
-
-// Sums the K-slices' tiles through red (kRedFloats; thread t's tile at
-// red + t * kRedStride, row i's eight columns at + 8i) in slice order, four
-// columns at a time, and calls out(row, col, sums of col .. col + 3) for
-// each output row < S. Every thread calls it after the last product; red
-// may be what the product read: the first barrier is for that.
-template <class Out>
-__device__ __forceinline__ void reduce_slices(const Tiling& t,
-                                              const float (&acc)[kTileRows][kTileCols],
-                                              float* red, int S, Out out) {
-  __syncthreads();
-  if (t.active) {
-    float4* mine = reinterpret_cast<float4*>(red + threadIdx.x * kRedStride);
-#pragma unroll
-    for (int i = 0; i < kTileRows; ++i) {
-      mine[2 * i] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      mine[2 * i + 1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-    }
-  }
-  __syncthreads();
-  // e runs over (tile position p, quad q): row i = q / 2 of p's tile, half q % 2
-  for (int e = threadIdx.x; e < t.per * 2 * kTileRows; e += kT) {
-    const int p = e % t.per, q = e / t.per;
-    const int row = (p % kRowGroups) * kTileRows + q / 2;
-    if (row >= S) continue;
-    const float* src = red + p * kRedStride + 4 * q;
-    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    for (int k = 0; k < t.ns; ++k) {
-      const float4 v = *reinterpret_cast<const float4*>(src + k * t.per * kRedStride);
-      s.x += v.x;
-      s.y += v.y;
-      s.z += v.z;
-      s.w += v.w;
-    }
-    out(row, (q % 2 ? t.half : 0) + (p / kRowGroups) * 4, s);
-  }
-}
-
-// Row statistics of src [kSPad, dc] (rows < S) over the whole D columns of
-// the cluster, into mean_s / inv_s: eight lanes a row take the local
-// two-pass (mean, M2), lane j of the eight pushes it to CTA j's st[which];
-// after one cluster barrier each CTA combines the N pairs (Chan).
+// Row statistics of src [kSPad, dc] over the whole D columns of the cluster,
+// into mean_s / inv_s, through exchange buffer `which` (one cluster barrier).
 __device__ __forceinline__ void row_stats(const Ctx& c, const float* src, int which) {
-  const int S = c.p.S, N = c.p.N, dc = c.dc, sub = threadIdx.x % 8;
-  for (int r = threadIdx.x / 8; r < (kSPad + kT / 8 - 1) / (kT / 8) * (kT / 8); r += kT / 8) {
-    const float* row = src + min(r, kSPad - 1) * dc;
-    float s = 0.0f;
-    for (int k = sub; k < dc; k += 8) s += row[k];
-#pragma unroll
-    for (int o = 4; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float mean = s / dc;
-    float v = 0.0f;
-    for (int k = sub; k < dc; k += 8) {
-      const float d = row[k] - mean;
-      v += d * d;
-    }
-#pragma unroll
-    for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (r < S && sub < N) {
-      float* dst = cg::this_cluster().map_shared_rank(c.st, sub);
-      *reinterpret_cast<float2*>(dst + ((which * kMaxCluster + c.rank) * kSPad + r) * 2) =
-          make_float2(mean, v);
-    }
-  }
-  cg::this_cluster().sync();
-  if (threadIdx.x < S) {
-    const float* pr = c.st + (which * kMaxCluster * kSPad + threadIdx.x) * 2;  // rank j: + j*kSPad*2
-    float m = 0.0f;
-    for (int j = 0; j < N; ++j) m += pr[j * kSPad * 2];
-    m /= N;
-    float m2 = 0.0f, spread = 0.0f;
-    for (int j = 0; j < N; ++j) {
-      const float d = pr[j * kSPad * 2] - m;
-      m2 += pr[j * kSPad * 2 + 1];
-      spread += d * d;
-    }
-    m2 += dc * spread;
-    c.mean_s[threadIdx.x] = m;
-    c.inv_s[threadIdx.x] = 1.0f / sqrtf(m2 / c.p.D + kEps);
-  }
-  __syncthreads();
+  cluster_row_stats(src, c.p.S, c.p.N, c.p.D, c.dc, c.rank,
+                    c.st + which * kMaxCluster * kSPad * 2, c.mean_s, c.inv_s);
 }
 
 // x[i, c] += act(sum_j tw[i, j] h[j, c] + tb[i]) on this CTA's columns;
@@ -455,18 +218,6 @@ __device__ __forceinline__ void token_mix_cols(const Ctx& c, const float* h_s, c
   }
 }
 
-// K-slice s of the channel mix takes the ch_w rows [s * rps, (s + 1) * rps)
-// of each layer, rps = D / ns rounded up to whole K-tiles, as `tiles` K-tiles
-// (fewer for the last slices when D is not a multiple of ns K-tiles).
-struct SliceRows {
-  int k0, tiles;
-  __device__ SliceRows(const Tiling& t, int D) {
-    const int rps = (D + kKt * t.ns - 1) / (kKt * t.ns) * kKt;
-    k0 = t.slice * rps;
-    tiles = max(0, min(rps, D - k0)) / kKt;
-  }
-};
-
 // One thread of K-slice t.slice: queues the slice's K-tile u (numbered
 // across layers) into its ring stage u % kRing as one TMA box of [kKt, ws]
 // of ch_w (columns past Dc are the next CTA's, or zeros past D; never read).
@@ -480,24 +231,11 @@ __device__ __forceinline__ void issue_tile(const Ctx& c, const Tiling& t, const 
   tma_load_2d(c.ring + stage * kKt * c.ws, &c.p.cw_map, c.c0, l * c.p.D + k0, full);
 }
 
-// The threads of K-slice t.slice in this warp arrive on `bar` as one: the
-// slice's first lane in the warp, once they all have passed here.
-__device__ __forceinline__ void arrive_slice(const Tiling& t, uint64_t* bar) {
-  const int lane = threadIdx.x % 32, base = threadIdx.x - lane;
-  const int lo = max(t.slice * t.per, base), hi = min((t.slice + 1) * t.per, base + 32);
-  const unsigned mask = (hi - lo == 32 ? 0xffffffffu : ((1u << (hi - lo)) - 1)) << (lo - base);
-  __syncwarp(mask);
-  if ((int)threadIdx.x == lo)
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-                 "r"(hi - lo)
-                 : "memory");
-}
-
 // The first kRing K-tiles of every K-slice (the first thread of each).
 __device__ __forceinline__ void issue_first_tiles(const Ctx& c) {
   const Tiling t(c.ws);
   if (!t.active || t.p != 0) return;
-  const SliceRows r(t, c.p.D);
+  const SliceRows r(t, c.p.D, kKt);
   for (int u = 0; u < kRing; ++u) issue_tile(c, t, r, u);
 }
 
@@ -514,7 +252,7 @@ __device__ __forceinline__ void channel_mix(const Ctx& c, int l, const float* cb
   float acc[kTileRows][kTileCols];
   zero(acc);
   if (t.active) {
-    const SliceRows r(t, c.p.D);
+    const SliceRows r(t, c.p.D, kKt);
     const float* a_rows = c.a_s + t.rg * kTileRows * c.dp;
     for (int j = 0; j < r.tiles; ++j) {
       const int u = l * r.tiles + j, stage = t.slice * kRing + u % kRing;
@@ -639,10 +377,15 @@ fused_transmlp_cluster_kernel(const __grid_constant__ ClusterParams p) {
     const float* prm = c.prm + (l % 2) * pf;
     const float *tw = prm, *tb = prm + kSPad * kSPad, *g1 = tb + kSPad, *b1 = g1 + dc,
                 *g2 = b1 + dc, *b2 = g2 + dc, *cb = b2 + dc;
+    float* sg = p.stash == nullptr
+                    ? nullptr
+                    : p.stash + (((size_t)l * (gridDim.x / p.N) + c.seq) * S) * D + c.c0;
     for (int idx = tid; idx < S * q4; idx += kT) {
       float4* xr = reinterpret_cast<float4*>(c.x_s) + idx;
       const float4 e = reinterpret_cast<const float4*>(c.emb_s)[idx % q4];
       const float4 x = *xr;
+      if (sg != nullptr)
+        __stcs(reinterpret_cast<float4*>(sg + (size_t)(idx / q4) * D) + idx % q4, x);
       *xr = make_float4(x.x + e.x, x.y + e.y, x.z + e.z, x.w + e.w);
     }
     mbar_wait(&c.bars[2 * kStagesMax + l % 2], (uint32_t)((l / 2) & 1));
@@ -715,45 +458,7 @@ fused_transmlp_cluster_kernel(const __grid_constant__ ClusterParams p) {
   }
 }
 
-// the 16-byte copies read these at 16-byte offsets (null: unused)
-bool aligned16(const float* p) { return (uintptr_t)p % 16 == 0; }
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* sym = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(sym);
-  }
-  return fn;
-}
-
-// ch_w [L, D, D] as the 2-D map the ring's TMA copies read.
-bool channel_map(CUtensorMap* map, const float* cw, int D, int L, int cluster) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const int dc = D / cluster;
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)L * D};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * sizeof(float)};
-  const cuuint32_t box[2] = {(cuuint32_t)ring_stride(dc), (cuuint32_t)kKt};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(cw), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-bool geometry_ok(int D, int N) {
-  return (N == 1 || N == 2 || N == 4 || N == 8) && D % (4 * N) == 0 && D / N <= kMaxCols;
-}
-
-bool shape_ok(int D, int cluster) {
-  return D >= kKTile && D <= kMaxN && D % kKTile == 0 && geometry_ok(D, cluster);
-}
+bool shape_ok(int D, int cluster) { return cluster_ok(D, cluster); }
 
 using Kernel = void (*)(const ClusterParams);
 
@@ -768,18 +473,35 @@ Kernel kernel_for(int act) {
   }
 }
 
-cudaLaunchConfig_t launch_config(int B, int D, int cluster, cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(B * cluster), 1, 1);
-  cfg.blockDim = dim3(kT, 1, 1);
-  cfg.dynamicSmemBytes = Smem(D, cluster).bytes();
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
+// Launches on `stream` as B clusters of `cluster` CTAs; returns the
+// cudaError_t of the attribute call or the launch (0 on success).
+int launch(const float* x, const float* emb, const float* ln1_s, const float* ln1_b,
+           const float* tw, const float* tb, const float* ln2_s, const float* ln2_b,
+           const float* cw, const float* cb, const float* ow, const float* ob, float* out,
+           float* stash, int B, int S, int D, int L, int F, int act, int cluster,
+           void* stream) {
+  if (B < 0 || S < 1 || S > kSPad || !shape_ok(D, cluster) || L < 1 || act < kSilu ||
+      act > kLrelu02 || (ow != nullptr && (F < 1 || F > kMaxN)) ||
+      ((ln2_s == nullptr) != (ln2_b == nullptr)) || !aligned16(cw) || !aligned16(cb) ||
+      !aligned16(ln1_s) || !aligned16(ln1_b) || !aligned16(ln2_s) || !aligned16(ln2_b) ||
+      !aligned16(stash))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cluster_launch_config(&cfg, attr, B, cluster, Smem(D, cluster).bytes());
+  const Kernel kernel = kernel_for(act);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)cfg.dynamicSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  if (B == 0) return 0;
+  cfg.stream = (cudaStream_t)stream;
+  ClusterParams p{{}, x, emb, ln1_s, ln1_b, tw, tb, ln2_s, ln2_b, cw, cb, ow, ob, out, stash,
+                  S, D, L, F, cluster};
+  if (!weight_map(&p.cw_map, cw, (long long)L * D, D, D / cluster, kKt))
+    return (int)cudaErrorInvalidValue;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -794,7 +516,8 @@ extern "C" long long fused_transmlp_smem_bytes(int D, int cluster) {
 extern "C" int fused_transmlp_max_clusters(int D, int cluster) {
   if (!shape_ok(D, cluster)) return -(int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = launch_config(cluster, D, cluster, attr);
+  cudaLaunchConfig_t cfg;
+  cluster_launch_config(&cfg, attr, cluster, cluster, Smem(D, cluster).bytes());
   const Kernel kernel = kernel_for(kSilu);  // every instance has the same resources' shape
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)cfg.dynamicSmemBytes);
@@ -803,32 +526,26 @@ extern "C" int fused_transmlp_max_clusters(int D, int cluster) {
   return err == cudaSuccess ? n : -(int)err;
 }
 
-// Launches on `stream` as B clusters of `cluster` CTAs; returns the
-// cudaError_t of the attribute call or the launch (0 on success).
-// ln2_s/ln2_b null: LN2 folded. ow/ob null: no pose projection, out is
-// [B, S, D].
+// The sampling forward. ln2_s/ln2_b null: LN2 folded. ow/ob null: no pose
+// projection, out is [B, S, D].
 extern "C" int fused_transmlp_launch(
     const float* x, const float* emb, const float* ln1_s, const float* ln1_b,
     const float* tw, const float* tb, const float* ln2_s, const float* ln2_b,
     const float* cw, const float* cb, const float* ow, const float* ob,
     float* out, int B, int S, int D, int L, int F, int act, int cluster, void* stream) {
-  if (B < 0 || S < 1 || S > kSPad || !shape_ok(D, cluster) || L < 1 || act < kSilu ||
-      act > kLrelu02 || (ow != nullptr && (F < 1 || F > kMaxN)) ||
-      ((ln2_s == nullptr) != (ln2_b == nullptr)) || !aligned16(cw) || !aligned16(cb) ||
-      !aligned16(ln1_s) || !aligned16(ln1_b) || !aligned16(ln2_s) || !aligned16(ln2_b))
+  return launch(x, emb, ln1_s, ln1_b, tw, tb, ln2_s, ln2_b, cw, cb, ow, ob, out, nullptr,
+                B, S, D, L, F, act, cluster, stream);
+}
+
+// The training forward: the stack with the LN2 affine and no pose
+// projection, out [B, S, D], and every block's input to stash [L, B, S, D].
+extern "C" int fused_transmlp_stash_launch(
+    const float* x, const float* emb, const float* ln1_s, const float* ln1_b,
+    const float* tw, const float* tb, const float* ln2_s, const float* ln2_b,
+    const float* cw, const float* cb, float* out, float* stash,
+    int B, int S, int D, int L, int act, int cluster, void* stream) {
+  if (ln2_s == nullptr || ln2_b == nullptr || stash == nullptr || act == kGelu)
     return (int)cudaErrorInvalidValue;
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = launch_config(B, D, cluster, attr);
-  const Kernel kernel = kernel_for(act);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)cfg.dynamicSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  if (B == 0) return 0;
-  cfg.stream = (cudaStream_t)stream;
-  ClusterParams p{{}, x, emb, ln1_s, ln1_b, tw, tb, ln2_s, ln2_b, cw, cb, ow, ob, out,
-                  S, D, L, F, cluster};
-  if (!channel_map(&p.cw_map, cw, D, L, cluster)) return (int)cudaErrorInvalidValue;
-  err = cudaLaunchKernelEx(&cfg, kernel, p);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch(x, emb, ln1_s, ln1_b, tw, tb, ln2_s, ln2_b, cw, cb, nullptr, nullptr, out,
+                stash, B, S, D, L, D, act, cluster, stream);
 }

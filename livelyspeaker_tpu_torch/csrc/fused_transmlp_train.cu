@@ -1,48 +1,90 @@
-// Fused TransMLP stack for training on NVIDIA Hopper (sm_90a), f32: the
-// forward with a stash of every block input, and its backward.
+// The backward of the fused TransMLP stack for training on NVIDIA Hopper
+// (sm_90a), f32: one sequence split across a thread-block cluster, every
+// intermediate of a block kept on chip.
 //
-// Replaces livelyspeaker_tpu/ops/pallas/fused_mlp_train.py:
-// fused_transmlp_train, the Pallas TPU kernels `_fwd_kernel` (forward and
-// stash) and `_bwd_kernel` (backward). Per block, on one [S, D] sequence:
+// Replaces the backward of livelyspeaker_tpu/ops/pallas/fused_mlp_train.py:
+// fused_transmlp_train, the Pallas TPU kernel `_bwd_kernel`. (Its forward,
+// `_fwd_kernel`, is the cluster kernel of fused_transmlp.cu with a stash
+// pointer.) Per block, on one [S, D] sequence:
 //   a  = x + emb
 //   m1 = token_w @ LN1(a) + token_b,   r1 = a + act(m1)
 //   m2 = LN2(r1) @ ch_w + ch_b,        y  = r1 + act(m2)
 //
-// Forward (fused_transmlp_train_fwd_kernel): K1's stack_forward, which also
-// writes each block input to stash [L, B, S, D] (no padding; K1's layout).
-//
-// Backward, one layer at a time from the last, three launches per layer:
-// 1. bwd_block_kernel, one block of 256 threads per sequence: recomputes
-//    the block from its stashed input (LN statistics, m1, r1, h2, m2), and
-//    walks it back: g_m2 = g * act'(m2), g_h2 = g_m2 @ ch_w^T, the LN2
-//    backward, g_m1, g_h1 = token_w^T @ g_m1, the LN1 backward. It writes
-//    the input cotangent g_a (in place over g), adds sum_s g_a to d(emb),
-//    writes h2 and g_m2 to device memory for the channel-mix weight
-//    gradient, and writes this sequence's share of every other parameter
-//    gradient to a per-sequence row of `part`.
+// One layer at a time from the last, three launches per layer:
+// 1. bwd_block_kernel, one cluster of N CTAs per sequence: recomputes the
+//    block from its stashed input and walks it back: g_m2 = g * act'(m2),
+//    g_h2 = g_m2 @ ch_w^T, the LN2 backward, g_m1, g_h1 = token_w^T @ g_m1,
+//    the LN1 backward. It writes the input cotangent g_a (in place over g),
+//    adds sum_s g_a to d(emb), writes h2 and g_m2 to device memory for the
+//    channel-mix weight gradient, and writes this sequence's share of every
+//    other parameter gradient to a per-sequence row of `part`.
 // 2. wgrad_kernel: d ch_w = h2^T g_m2 over all B*S rows, a [D, B*S] x
 //    [B*S, D] product in 64 x 64 output tiles, the rows split into chunks
 //    whose partial sums go to `wpart`.
 // 3. reduce_kernel: sums `wpart` over the chunks and `part` over the batch,
 //    in a fixed order, into this layer's rows of the gradients.
 //
-// What differs from the TPU kernel, and why:
-// - The TPU kernel adds each batch tile's weight gradients into one output
-//   block, which is safe there only because grid steps run in order. Blocks
-//   on this card run in parallel, so each sequence (and each row chunk of
-//   the channel-mix product) writes its own partial and a second pass sums
-//   them: no atomics, and the sums are the same from run to run.
-// - The TPU kernel keeps some 20 [S, D] tiles of one batch tile in VMEM. A
-//   block here has 227 KB of shared memory, three such tiles. Two tiles
-//   live in shared memory at a time; m1, xhat2, g_r1, h2 and g_m2 go to
-//   device memory ([B, S, D] scratch each, mostly L2-resident while a layer
-//   runs), and h1 and xhat1 are recomputed from the stash.
+// What bounds it: the FP32 pipe (f32 FMA, f32 accumulation, no tensor
+// cores, no TF32; 67 TFLOP/s on an H100 SXM at 700 W). At TED training
+// shapes (B = 512, S = 35, D = 512, L = 8) the block kernel's two
+// [S, D] x [D, D] products per sequence are 18.8 GFLOP a layer, 0.28 ms;
+// what it must move (stash, g, g_a, h2, g_m2) is 188 MB a layer, 0.056 ms.
 //
-// What bounds it: at TED training shapes (B = 512, S = 35, D = 512, L = 8)
-// the two [S, D] x [D, D] products per sequence and the [D, B*S] x [B*S, D]
-// weight-gradient product are some 28 GFLOP per layer, all f32 FMA without
-// tensor cores: the FP32 pipe is the bound. The scratch traffic is five
-// [B, S, D] tiles a layer (37 MB each). wgmma and TMA are later work.
+// The design of the block kernel, and what it does about that:
+// - Cluster split, as in fused_transmlp.cu: CTA r owns the columns
+//   [r*Dc, (r+1)*Dc), Dc = D/N, of every [S, D] intermediate. At Dc = 128 a
+//   [36, Dc] tile is 18 KB, so a, xhat1, act'(m1), r1, xhat2, g_m2, g_h2,
+//   g_r1, g_m1, h1 and g_h1 all live in four tiles and the full-rows buffer
+//   of shared memory, each computed once; only h2 and g_m2 go to device
+//   memory, once, for wgrad_kernel.
+// - Both products stream their weights (ch_w, then its transpose) through
+//   one ring of kBRing stages of kBKt rows per K-slice: 2-D TMA copies with
+//   full/empty mbarriers and warp-level arrivals, into 9 x 8 register tiles
+//   (transmlp_common.cuh). The tiles are numbered across the two products,
+//   so the second product's first tiles load during the first one's
+//   epilogue. Each product needs whole rows of its left operand (h2, then
+//   g_m2): every CTA stores its columns into every CTA's [S, D + 4] buffer
+//   through distributed shared memory.
+// - One CTA an SM leaves nothing to hide the latency of device memory
+//   behind, so all that is read from it before the products is requested
+//   together at the start: the first weight tiles, the block input, this
+//   CTA's columns of g (TMA copies; g waits in the tile that g_m2 takes over)
+//   and the small parameters.
+// - Row reductions cross the cluster: LN2's forward statistics with the
+//   two-pass (mean, M2) exchange and Chan's combine; the LayerNorm
+//   backward's sum_k gx and sum_k gx * xhat as one pair per row and CTA,
+//   added in CTA order.
+// - The token mix, g_m1, g_h1 and the column sums (d ln1, d ln2, d ch_b,
+//   d emb) are column-local. d token_w and d token_b sum over columns: each
+//   CTA computes its partial (a thread a 3 x 3 tile of outputs over Dc, the
+//   start of its walk over Dc skewed so that a quarter-warp's float4 reads
+//   fall in different banks) and pushes slice j of it to CTA j, which adds
+//   the N slices in CTA order and writes its part of the row of `part`:
+//   reduce_kernel and the layout of `part` stay as they were, and the sums
+//   are the same bits from run to run.
+// - The partial tiles of a product's K-slices are summed through the
+//   full-rows buffer, so a cluster barrier stands between a product's
+//   epilogue and the next gather into that buffer. Per launch: 7 cluster
+//   barriers (the start, whose wait stands behind LN1 and the token mix;
+//   LN2's statistics, the h2 rows, the end of the first epilogue, the g_m2
+//   rows, the two LayerNorm backwards). LN1's statistics need none: every
+//   CTA fetches the sequence's whole block input (one TMA copy into the
+//   idle full rows) and takes the statistics of whole rows.
+//
+// What differs from the TPU kernel, and why: the TPU kernel adds each batch
+// tile's weight gradients into one output block, which is safe there only
+// because grid steps run in order. Blocks on this card run in parallel, so
+// each sequence (and each row chunk of the channel-mix product) writes its
+// own partial and a second pass sums them: no atomics.
+//
+// Limits: S <= 36, 16 <= D <= 512 with D % 16 == 0, f32, silu / relu / the
+// leaky relus; N in {1, 2, 4, 8} with Dc = D/N a multiple of 4 and at most
+// 128. Anything else returns cudaErrorInvalidValue.
+//
+// With -DK2_PHASES (k2_phases.py) thread 0 of every CTA adds the cycles of
+// each phase into a per-CTA record; the shipped build has none of it.
+
+#include <initializer_list>
 
 #include "transmlp_common.cuh"
 
@@ -51,36 +93,63 @@ namespace {
 constexpr int kWT = 64;  // wgrad output tile (rows and columns)
 constexpr int kWK = 16;  // wgrad rows staged per step
 
-__global__ void __launch_bounds__(kThreads, 1)
-fused_transmlp_train_fwd_kernel(const StackParams p) {
-  extern __shared__ float smem[];
-  stack_forward(p, smem);
-}
+constexpr int kBKt = 8;                         // weight rows per K-tile
+constexpr int kBRing = 3;                       // ring stages of one K-slice
+constexpr int kBStages = kSlicesMax * kBRing;
+constexpr int kBRingFloats = kBStages * kBKt * 64;  // 48 KB: >= kBStages * kBKt * ws
+                                                    // for every ws (ns * ws <= 512)
+constexpr int kBBarBytes = ((2 * kBStages + 2) * 8 + 127) / 128 * 128;  // full and empty per
+                                                                        // stage, x, g
+constexpr int kTwp = kSPad * kSPad + kSPad;     // a CTA's padded d token_w, then d token_b
+constexpr int kTwgFloats = kTwp + 4 * kMaxCluster;  // >= N * twp_chunk(N)
+constexpr int kPhases = 24;                     // counters a CTA with -DK2_PHASES
+
+// CTA j of the cluster sums the flat range [j * chunk, (j + 1) * chunk) of
+// the N partial (d token_w, d token_b).
+__host__ __device__ inline int twp_chunk(int N) { return ((kTwp + N - 1) / N + 3) / 4 * 4; }
 
 struct BwdParams {
+  CUtensorMap cw_map;   // this layer's ch_w [D, D] ([in, out]), boxes of [kBKt, ring_stride]
+  CUtensorMap cwt_map;  // its transpose
   const float* stash;   // [B, S, D] block inputs of this layer
   const float* emb;     // [B, D]
   const float* g_in;    // [B, S, D] cotangent of this layer's output
   float* g_out;         // [B, S, D] cotangent of its input; may alias g_in
   float* gemb;          // [B, D], summed over the layers
-  int first;            // 1 on the first layer walked: gemb is set, not added
   const float* ln1_s;   // [D] of this layer, likewise below
   const float* ln1_b;
   const float* tw;      // [S, S]
   const float* tb;      // [S]
   const float* ln2_s;
   const float* ln2_b;
-  const float* cw;      // [D, D], [in, out]
-  const float* cw_t;    // [D, D], cw transposed
   const float* cb;
-  float* m1_g;          // [B, S, D] scratch: token-mix pre-activation
-  float* xhat2_g;       // [B, S, D] scratch: LN2's normalised input
-  float* gr1_g;         // [B, S, D] scratch: cotangent of r1
   float* h2_g;          // [B, S, D] LN2 output, for the weight gradient
   float* gm2_g;         // [B, S, D] g_m2, for the weight gradient
   float* part;          // [B, P] per-sequence gradient partials
-  int S, D, act;
+  long long* prof;      // [CTAs, kPhases] with -DK2_PHASES, else unused
+  int first;            // 1 on the first layer walked: gemb is set, not added
+  int S, D, N;
 };
+
+#ifdef K2_PHASES
+#define PROF(i)                                  \
+  do {                                           \
+    if (threadIdx.x == 0) {                      \
+      const long long _t = clock64();            \
+      p.prof[blockIdx.x * kPhases + (i)] += _t - _tl; \
+      _tl = _t;                                  \
+    }                                            \
+  } while (0)
+#define PROF_LAP(var)              \
+  do {                             \
+    const long long _t = clock64(); \
+    var += _t - _q;                \
+    _q = _t;                       \
+  } while (0)
+#else
+#define PROF(i)
+#define PROF_LAP(var)
+#endif
 
 // Offsets into one row of `part`.
 __host__ __device__ inline int part_size(int S, int D) { return 5 * D + S + S * S; }
@@ -88,205 +157,597 @@ enum PartOff { kDs1 = 0, kDb1 = 1, kDs2 = 2, kDb2 = 3, kDcb = 4 };  // times D
 __host__ __device__ inline int dtb_off(int D) { return 5 * D; }
 __host__ __device__ inline int dtw_off(int S, int D) { return 5 * D + S; }
 
-inline size_t bwd_smem_bytes(int D) {
-  return (size_t)(2 * kSPad * D + kKTile * kMaxN + kSPad * kSPad + 3 * kSPad) *
-         sizeof(float);
+// Layout of the block kernel's dynamic shared memory, in floats after the
+// mbarriers.
+struct BwdSmem {
+  int dp, dc;  // row stride of the full rows (D + 4), Dc
+  __host__ __device__ BwdSmem(int D, int N) : dp(D + 4), dc(D / N) {}
+  __host__ __device__ int ring() const { return 0; }
+  // [kSPad, dp] full rows of h2, then g_m2; also h1 and g_h1 [kSPad, dc]
+  // and the K-slices' partial tiles
+  __host__ __device__ int full() const { return ring() + kBRingFloats; }
+  __host__ __device__ int tile(int i) const {  // four [kSPad, dc] tiles
+    return full() + (kSPad * dp > kRedFloats ? kSPad * dp : kRedFloats) + i * kSPad * dc;
+  }
+  __host__ __device__ int tw() const { return tile(4); }          // [kSPad, kSPad]
+  __host__ __device__ int twt() const { return tw() + kSPad * kSPad; }  // transposed
+  // token_b [kSPad], then this CTA's columns of the LN1 scale and bias, the
+  // LN2 scale and bias and the channel-mix bias
+  __host__ __device__ int vec() const { return twt() + kSPad * kSPad; }
+  __host__ __device__ int stats() const { return vec() + kSPad + 5 * dc; }  // [2, kMaxCluster, kSPad, 2]
+  // mean1, 1/std1, mean2, 1/std2 and the LayerNorm backward's two row means
+  __host__ __device__ int rowstat() const { return stats() + 2 * kMaxCluster * kSPad * 2; }
+  __host__ __device__ int twg() const { return rowstat() + 6 * kSPad; }  // [N, twp_chunk]
+  __host__ __device__ int floats() const { return twg() + kTwgFloats; }
+  __host__ __device__ size_t bytes() const {
+    return kBBarBytes + (size_t)floats() * sizeof(float);
+  }
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+
+// f(r, col) for the rows r < nrows and this thread's four columns col ..
+// col + 3 of a [*, 4 * q4] tile: the column is fixed per thread, kT / q4
+// rows go at once.
+template <class F>
+__device__ __forceinline__ void for_rows(int q4, int nrows, F f) {
+  const int per = kT / q4;
+  if ((int)threadIdx.x >= per * q4) return;
+  const int col = (threadIdx.x % q4) * 4;
+  for (int r = threadIdx.x / q4; r < nrows; r += per) f(r, col);
 }
 
-// The LayerNorm backward of the rows i < S, one warp a row: for g_y in
-// gy_s, scale s, and the normalised input xhat(i, k) given by `xhat`,
-//   out[i] = resid[i] + inv[i] * (g_y*s - mean(g_y*s) - xhat * mean(g_y*s*xhat)).
-template <typename XhatFn>
-__device__ void ln_backward_rows(const float* gy_s, const float* __restrict__ s,
-                                 const float* inv, XhatFn xhat,
-                                 const float* resid_g, float* out_s, int S, int D) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < S; r += kWarps) {
-    float s1 = 0.0f, s2 = 0.0f;
-    for (int k = lane; k < D; k += 32) {
-      const float gx = gy_s[r * D + k] * __ldg(s + k);
-      s1 += gx;
-      s2 += gx * xhat(r, k);
+// f(i, col, sum_j w[i, j] src[j, col], sum_j w[i, j] src[j, col + 1]) for
+// this thread's column pair and the rows i < S of its group; w is
+// [kSPad, kSPad], zero outside [S, S], and src [kSPad, dc] with finite rows
+// >= S.
+template <class F>
+__device__ __forceinline__ void token_dot(const float* src, const float* w, int S, int dc, F f) {
+  const int pairs = dc / 2, groups = kT / pairs;
+  if ((int)threadIdx.x >= groups * pairs) return;
+  const int col = 2 * (threadIdx.x % pairs), grp = threadIdx.x / pairs;
+  float2 h[kSPad];
+#pragma unroll
+  for (int j = 0; j < kSPad; ++j) h[j] = *reinterpret_cast<const float2*>(src + j * dc + col);
+  for (int i = grp; i < S; i += groups) {
+    const float4* w4 = reinterpret_cast<const float4*>(w + i * kSPad);
+    float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kSPad / 4; ++j) {
+      const float4 t = w4[j];
+      a0 = fmaf(t.x, h[4 * j].x, a0);
+      a1 = fmaf(t.x, h[4 * j].y, a1);
+      a0 = fmaf(t.y, h[4 * j + 1].x, a0);
+      a1 = fmaf(t.y, h[4 * j + 1].y, a1);
+      a0 = fmaf(t.z, h[4 * j + 2].x, a0);
+      a1 = fmaf(t.z, h[4 * j + 2].y, a1);
+      a0 = fmaf(t.w, h[4 * j + 3].x, a0);
+      a1 = fmaf(t.w, h[4 * j + 3].y, a1);
     }
-    const float m1 = warp_sum(s1) / D, m2 = warp_sum(s2) / D;
-    for (int k = lane; k < D; k += 32) {
-      const float gx = gy_s[r * D + k] * __ldg(s + k);
-      out_s[r * D + k] = resid_g[r * D + k] + inv[r] * (gx - m1 - xhat(r, k) * m2);
+    f(i, col, a0, a1);
+  }
+}
+
+// For each row r < S the two sums over this CTA's columns of f(r, col) (a
+// float2 for the four columns col .. col + 3), eight lanes a row, pushed to
+// slot `rank` of every CTA's st [kMaxCluster, kSPad, 2].
+template <class F>
+__device__ __forceinline__ void push_row_sums(int S, int N, int q4, int rank, float* st, F f) {
+  const int sub = threadIdx.x % 8;
+  for (int r = threadIdx.x / 8; r < (kSPad + kT / 8 - 1) / (kT / 8) * (kT / 8); r += kT / 8) {
+    const int rr = min(r, kSPad - 1);
+    float a = 0.0f, b = 0.0f;
+    for (int k4 = sub; k4 < q4; k4 += 8) {
+      const float2 v = f(rr, 4 * k4);
+      a += v.x;
+      b += v.y;
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, o);
+      b += __shfl_xor_sync(0xffffffffu, b, o);
+    }
+    if (r < S && sub < N) {
+      float* dst = cg::this_cluster().map_shared_rank(st, sub);
+      *reinterpret_cast<float2*>(dst + (rank * kSPad + r) * 2) = make_float2(a, b);
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-bwd_block_kernel(const BwdParams p) {
-  extern __shared__ float smem[];
-  const int S = p.S, D = p.D, P = part_size(S, D);
-  float* t0 = smem;                     // [kSPad, D]
-  float* t1 = t0 + kSPad * D;           // [kSPad, D]
-  float* w_s = t1 + kSPad * D;          // [kKTile, kMaxN] weight tile
-  float* tw_s = w_s + kKTile * kMaxN;   // [kSPad, kSPad] token mix
-  float* mean1 = tw_s + kSPad * kSPad;  // [kSPad] LN1 statistics
-  float* inv1 = mean1 + kSPad;
-  float* inv2 = inv1 + kSPad;           // [kSPad] LN2's 1/std
+// After the cluster barrier: the N pairs of each row added in CTA order and
+// divided by D.
+__device__ __forceinline__ void combine_row_sums(int S, int N, int D, const float* st,
+                                                 float* mean_a, float* mean_b) {
+  if ((int)threadIdx.x < S) {
+    const float* pr = st + threadIdx.x * 2;
+    float a = 0.0f, b = 0.0f;
+    for (int j = 0; j < N; ++j) {
+      a += pr[j * kSPad * 2];
+      b += pr[j * kSPad * 2 + 1];
+    }
+    mean_a[threadIdx.x] = a / D;
+    mean_b[threadIdx.x] = b / D;
+  }
+  __syncthreads();
+}
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rg = tid / kColGroups, cg = tid % kColGroups;
-  const size_t b = blockIdx.x, off = b * S * D;
-  const float* __restrict__ xg = p.stash + off;
-  const float* __restrict__ eg = p.emb + b * D;
-  const float* g_in = p.g_in + off;
-  float* part = p.part + b * P;
-  auto xhat1 = [&](int r, int k) {
-    return (__ldg(xg + r * D + k) + __ldg(eg + k) - mean1[r]) * inv1[r];
+// store(w, d, sum over the rows r < S of f(w, r, d)) for each of the nsum
+// sums w and each column d < dc: a thread a (sum, column), four partial
+// sums over the rows.
+template <class F, class G>
+__device__ __forceinline__ void col_sums(int nsum, int S, int dc, F f, G store) {
+  const int groups = kT / dc;
+  if ((int)threadIdx.x >= groups * dc) return;
+  const int d = threadIdx.x % dc;
+  for (int w = threadIdx.x / dc; w < nsum; w += groups) {
+    float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+    int r = 0;
+    for (; r + 3 < S; r += 4) {
+      s0 += f(w, r, d);
+      s1 += f(w, r + 1, d);
+      s2 += f(w, r + 2, d);
+      s3 += f(w, r + 3, d);
+    }
+    for (; r < S; ++r) s0 += f(w, r, d);
+    store(w, d, (s0 + s1) + (s2 + s3));
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// LN1's statistics of the rows of a = x + emb over all D columns, a warp a
+// row, two-pass, from this sequence's whole [S, D] block input in shared
+// memory (xs, one TMA copy); this CTA's columns [c0, c0 + dc) of a go to
+// a_tile. Every CTA of the cluster reads the whole rows: that costs L2
+// reads and saves an exchange and a cluster barrier.
+constexpr int kRowFloat4s = kMaxN / 4 / 32;  // float4 of a row a lane holds
+
+__device__ __forceinline__ void ln1_from_rows(const float* xs, const float4 (&e)[kRowFloat4s],
+                                              int S, int D, float* mean_s, float* inv_s,
+                                              float* a_tile, int c0, int dc) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n4 = D / 4;
+  for (int r = warp; r < S; r += kT / 32) {
+    float4 v[kRowFloat4s];
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kRowFloat4s; ++k) {
+      const int c4 = lane + 32 * k;
+      if (c4 >= n4) continue;
+      const float4 x = ld4(xs + r * D + 4 * c4);
+      v[k] = make_float4(x.x + e[k].x, x.y + e[k].y, x.z + e[k].z, x.w + e[k].w);
+      s += (v[k].x + v[k].y) + (v[k].z + v[k].w);
+      const int col = 4 * c4 - c0;
+      if (col >= 0 && col < dc) st4(a_tile + r * dc + col, v[k]);
+    }
+    const float mean = warp_sum(s) / D;
+    float m2 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kRowFloat4s; ++k) {
+      if (lane + 32 * k >= n4) continue;
+      const float dx = v[k].x - mean, dy = v[k].y - mean, dz = v[k].z - mean,
+                  dw = v[k].w - mean;
+      m2 += (dx * dx + dy * dy) + (dz * dz + dw * dw);
+    }
+    m2 = warp_sum(m2);
+    if (lane == 0) {
+      mean_s[r] = mean;
+      inv_s[r] = 1.0f / sqrtf(m2 / D + kEps);
+    }
+  }
+}
+
+// (act(v), d act / d v)
+__device__ __forceinline__ float2 act_pair(float v, int act) {
+  if (act == kSilu) {
+    const float s = 1.0f / (1.0f + expf(-v));
+    return make_float2(v * s, s * (1.0f + v * (1.0f - s)));
+  }
+  return make_float2(activate(v, act), dactivate(v, act));
+}
+
+struct Ring {
+  const BwdParams& p;
+  float* ring;
+  uint64_t* bars;  // [0, kBStages): full; [kBStages, 2 kBStages): empty
+  int ws, c0;      // ring row stride, this CTA's first column
+};
+
+// One thread of K-slice t.slice: queues the slice's K-tile u into its ring
+// stage u % kBRing as one TMA box of [kBKt, ws]; the tiles of ch_w (the
+// first product) are numbered before those of its transpose (the second).
+__device__ __forceinline__ void issue_tile(const Ring& g, const Tiling& t, const SliceRows& r,
+                                           int u) {
+  if (u >= 2 * r.tiles) return;
+  const int stage = t.slice * kBRing + u % kBRing;
+  const bool second = u >= r.tiles;
+  const int k0 = r.k0 + (second ? u - r.tiles : u) * kBKt;
+  uint64_t* full = &g.bars[stage];
+  mbar_expect_tx(full, kBKt * g.ws * sizeof(float));
+  tma_load_2d(g.ring + stage * kBKt * g.ws, second ? &g.p.cwt_map : &g.p.cw_map, g.c0, k0, full);
+}
+
+// acc = a[:, :D] @ w[:, this CTA's columns], w = ch_w (which = 0) or its
+// transpose (1), a the full rows [kSPad, dp]. Each K-slice multiplies its
+// own rows of w, kBKt at a time, from its own ring: its threads arrive on
+// the stage's empty barrier, a warp at a time, when done with it, and the
+// slice's first thread then refills it kBRing tiles ahead.
+__device__ __forceinline__ void product(const Ring& g, const Tiling& t, const SliceRows& r,
+                                        int which, const float* a, int dp,
+                                        float (&acc)[kTileRows][kTileCols], long long* lap) {
+  zero(acc);
+  if (!t.active) return;
+#ifdef K2_PHASES
+  long long _q = clock64();
+#endif
+  const float* a_rows = a + t.rg * kTileRows * dp;
+  for (int j = 0; j < r.tiles; ++j) {
+    const int u = which * r.tiles + j, stage = t.slice * kBRing + u % kBRing;
+    const uint32_t parity = (uint32_t)((u / kBRing) & 1);
+    mbar_wait(&g.bars[stage], parity);
+    PROF_LAP(lap[0]);
+    mma_quads(acc, a_rows, dp, g.ring + stage * kBKt * g.ws + t.col, g.ws, t.half,
+              r.k0 + j * kBKt, 0, kBKt / 4, 1);
+    PROF_LAP(lap[1]);
+    arrive_slice(t, &g.bars[kBStages + stage]);  // these threads are done with it
+    if (t.p == 0 && u + kBRing < 2 * r.tiles) {
+      mbar_wait(&g.bars[kBStages + stage], parity);
+      issue_tile(g, t, r, u + kBRing);
+    }
+    PROF_LAP(lap[2]);
+  }
+}
+
+// One instance per activation, picked at launch.
+template <int kAct>
+__global__ void __launch_bounds__(kT, 1)
+bwd_block_kernel(const __grid_constant__ BwdParams p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const BwdSmem lay(p.D, p.N);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+  float* base = reinterpret_cast<float*>(smem_raw + kBBarBytes);
+  const int S = p.S, D = p.D, N = p.N, dc = lay.dc, dp = lay.dp, q4 = dc / 4;
+  const int tid = threadIdx.x;
+  const int rank = (int)cg::this_cluster().block_rank(), c0 = rank * dc;
+  const size_t b = blockIdx.x / N, off = b * S * D + c0;  // this CTA's columns of sequence b
+  float* ring = base + lay.ring();
+  float* full = base + lay.full();
+  float* hs = full;                  // h1, later g_h1: [kSPad, dc] while the rows are idle
+  float* t1 = base + lay.tile(0);    // a, r1, xhat2, h1
+  float* t2 = base + lay.tile(1);    // xhat1
+  float* t3 = base + lay.tile(2);    // act'(m1), g_m1
+  float* t4 = base + lay.tile(3);    // g_m2, g_h2, g_r1, g_a
+  float* tw_s = base + lay.tw();
+  float* twt_s = base + lay.twt();
+  float* tb_s = base + lay.vec();
+  float *g1 = tb_s + kSPad, *b1 = g1 + dc, *g2 = b1 + dc, *b2 = g2 + dc, *cb = b2 + dc;
+  float* st0 = base + lay.stats();
+  float* st1 = st0 + kMaxCluster * kSPad * 2;
+  float* mean1 = base + lay.rowstat();
+  float *inv1 = mean1 + kSPad, *mean2 = inv1 + kSPad, *inv2 = mean2 + kSPad, *ra = inv2 + kSPad,
+        *rb = ra + kSPad;
+  float* twg = base + lay.twg();
+  float* part = p.part + b * part_size(S, D);
+  const Tiling t(ring_stride(dc));
+  const SliceRows sr(t, D, kBKt);
+  const Ring rg{p, ring, bars, ring_stride(dc), c0};
+#ifdef K2_PHASES
+  long long _tl = clock64();
+#endif
+  long long lap[3] = {0, 0, 0};
+
+  // the start barrier's arrival: its wait stands before the first store
+  // into another CTA's shared memory (each must have started by then)
+  cluster_arrive();
+  uint64_t *xbar = &bars[2 * kBStages], *gbar = xbar + 1;
+  if (tid < kBStages) {
+    mbar_init(&bars[tid], 1);                  // full: the issuing thread's expect_tx
+    mbar_init(&bars[kBStages + tid], t.per);   // empty: every thread of the slice
+  } else if (tid == kBStages) {
+    mbar_init(xbar, 1);
+    mbar_init(gbar, 1);
+  }
+  mbar_init_fence();
+  __syncthreads();
+  // Everything read from device memory before the products, issued together
+  // (one latency, not four): the first weight tiles; the sequence's whole
+  // block input, one TMA copy into the idle full rows as [S, D]; this CTA's
+  // columns of the cotangent g, a TMA copy a row into t4, where the first
+  // epilogue finds it; the token mix (a warp a row, zero outside [S, S]),
+  // its bias, this CTA's columns of the vectors, emb.
+  if (t.active && t.p == 0)
+    for (int u = 0; u < kBRing; ++u) issue_tile(rg, t, sr, u);
+  if (tid == 0) {
+    mbar_expect_tx(xbar, S * D * sizeof(float));
+    tma_load_1d(full, p.stash + b * S * D, S * D * sizeof(float), xbar);
+    mbar_expect_tx(gbar, S * dc * sizeof(float));
+  }
+  if (tid < S)
+    tma_load_1d(t4 + tid * dc, p.g_in + off + (size_t)tid * D, dc * sizeof(float), gbar);
+  PROF(18);
+
+  constexpr int kTwRounds = (kSPad + kT / 32 - 1) / (kT / 32);
+  float twv[kTwRounds][2];
+#pragma unroll
+  for (int i = 0; i < kTwRounds; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int row = tid / 32 + (kT / 32) * i, j = tid % 32 + 32 * jj;
+      twv[i][jj] = (row < S && j < S) ? __ldg(p.tw + row * S + j) : 0.0f;
+    }
+  const float tbv = tid < S ? __ldg(p.tb + tid) : 0.0f;
+  float4 vec = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (tid < 5 * q4) {  // q4 <= 32: one float4 a thread
+    const int which = tid / q4, col = (tid % q4) * 4;
+    const float* src = which == 0 ? p.ln1_s : which == 1 ? p.ln1_b : which == 2 ? p.ln2_s
+                     : which == 3 ? p.ln2_b : p.cb;
+    vec = __ldg(reinterpret_cast<const float4*>(src + c0 + col));
+  }
+  float4 e[kRowFloat4s];
+#pragma unroll
+  for (int k = 0; k < kRowFloat4s; ++k) {
+    const int c4 = tid % 32 + 32 * k;
+    e[k] = c4 < D / 4 ? __ldg(reinterpret_cast<const float4*>(p.emb + b * D) + c4)
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  // what is read before it is written: rows >= S of the four tiles (of h1:
+  // below; rows >= S of the full rows only feed product rows never read)
+  for (int idx = tid; idx < (kSPad - S) * dc; idx += kT) {
+    t1[S * dc + idx] = 0.0f;
+    t2[S * dc + idx] = 0.0f;
+    t3[S * dc + idx] = 0.0f;
+    t4[S * dc + idx] = 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < kTwRounds; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int row = tid / 32 + (kT / 32) * i, j = tid % 32 + 32 * jj;
+      if (row < kSPad && j < kSPad) {
+        tw_s[row * kSPad + j] = twv[i][jj];
+        twt_s[j * kSPad + row] = twv[i][jj];
+      }
+    }
+  if (tid < kSPad) tb_s[tid] = tbv;
+  if (tid < 5 * q4) st4(g1 + (tid / q4) * dc + (tid % q4) * 4, vec);
+  // LN1's statistics, and t1 = a = x + emb
+  mbar_wait(xbar, 0);
+  ln1_from_rows(full, e, S, D, mean1, inv1, t1, c0, dc);
+  __syncthreads();
+  PROF(0);
+
+  // LN1: t2 = xhat1, hs = h1 (zero in its rows >= S, over the block input);
+  // then the token mix: t1 = r1, t3 = act'(m1)
+  for_rows(q4, kSPad, [&](int r, int col) {
+    if (r >= S) {
+      st4(hs + r * dc + col, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+      return;
+    }
+    const float4 a = ld4(t1 + r * dc + col), g = ld4(g1 + col), be = ld4(b1 + col);
+    const float m = mean1[r], inv = inv1[r];
+    const float4 xh = make_float4((a.x - m) * inv, (a.y - m) * inv, (a.z - m) * inv,
+                                  (a.w - m) * inv);
+    st4(t2 + r * dc + col, xh);
+    st4(hs + r * dc + col, make_float4(xh.x * g.x + be.x, xh.y * g.y + be.y, xh.z * g.z + be.z,
+                                       xh.w * g.w + be.w));
+  });
+  __syncthreads();
+  PROF(1);
+  token_dot(hs, tw_s, S, dc, [&](int i, int col, float a0, float a1) {
+    const float2 u0 = act_pair(a0 + tb_s[i], kAct), u1 = act_pair(a1 + tb_s[i], kAct);
+    float2* xr = reinterpret_cast<float2*>(t1 + i * dc + col);
+    const float2 x = *xr;
+    *xr = make_float2(x.x + u0.x, x.y + u1.x);
+    *reinterpret_cast<float2*>(t3 + i * dc + col) = make_float2(u0.y, u1.y);
+  });
+  __syncthreads();
+  PROF(2);
+
+  // LN2: t1 = xhat2; h2 to device memory and into every CTA's full rows (no
+  // CTA still reads its hs: all passed the barrier in the statistics)
+  cluster_wait();  // the start barrier
+  cluster_row_stats(t1, S, N, D, dc, rank, st1, mean2, inv2);
+  PROF(3);
+  for_rows(q4, S, [&](int r, int col) {
+    const float4 x = ld4(t1 + r * dc + col), g = ld4(g2 + col), be = ld4(b2 + col);
+    const float m = mean2[r], inv = inv2[r];
+    const float4 xh = make_float4((x.x - m) * inv, (x.y - m) * inv, (x.z - m) * inv,
+                                  (x.w - m) * inv);
+    st4(t1 + r * dc + col, xh);
+    const float4 h = make_float4(xh.x * g.x + be.x, xh.y * g.y + be.y, xh.z * g.z + be.z,
+                                 xh.w * g.w + be.w);
+    st4(p.h2_g + off + (size_t)r * D + col, h);
+    for (int j = 0; j < N; ++j)
+      st4(cg::this_cluster().map_shared_rank(full, j) + r * dp + c0 + col, h);
+  });
+  cg::this_cluster().sync();
+  PROF(4);
+
+  // m2 = h2 @ ch_w + ch_b on this CTA's columns; t4 = g_m2 = g * act'(m2)
+  // over g, also to device memory
+  float acc[kTileRows][kTileCols];
+  product(rg, t, sr, 0, full, dp, acc, lap);
+  PROF(5);
+  mbar_wait(gbar, 0);
+  reduce_slices(t, acc, full, S, [&](int row, int col, float4 s) {
+    if (col >= dc) return;  // a padding quad of the ring's rows
+    const float4 bi = ld4(cb + col), g = ld4(t4 + row * dc + col);
+    const float4 gm = make_float4(g.x * dactivate(s.x + bi.x, kAct), g.y * dactivate(s.y + bi.y, kAct),
+                                  g.z * dactivate(s.z + bi.z, kAct), g.w * dactivate(s.w + bi.w, kAct));
+    st4(t4 + row * dc + col, gm);
+    st4(p.gm2_g + off + (size_t)row * D + col, gm);
+  });
+  PROF(19);
+  // every CTA is done with its partial tiles before any g_m2 row arrives
+  cg::this_cluster().sync();
+  PROF(6);
+  for_rows(q4, S, [&](int r, int col) {
+    const float4 v = ld4(t4 + r * dc + col);
+    for (int j = 0; j < N; ++j)
+      st4(cg::this_cluster().map_shared_rank(full, j) + r * dp + c0 + col, v);
+  });
+  col_sums(1, S, dc, [&](int, int r, int d) { return t4[r * dc + d]; },
+           [&](int, int d, float s) { part[kDcb * D + c0 + d] = s; });
+  cg::this_cluster().sync();
+  PROF(7);
+
+  // t4 = g_h2 = g_m2 @ ch_w^T on this CTA's columns
+  product(rg, t, sr, 1, full, dp, acc, lap);
+  PROF(8);
+  reduce_slices(t, acc, full, S, [&](int row, int col, float4 s) {
+    if (col < dc) st4(t4 + row * dc + col, s);
+  });
+  __syncthreads();
+  PROF(9);
+
+  // LN2 backward: d ln2; t4 = g_r1 = g + LN2'(g_h2), t3 = g_m1 = g_r1 *
+  // act'(m1), t1 = h1
+  push_row_sums(S, N, q4, rank, st0, [&](int r, int col) {
+    const float4 gy = ld4(t4 + r * dc + col), g = ld4(g2 + col), xh = ld4(t1 + r * dc + col);
+    const float4 gx = make_float4(gy.x * g.x, gy.y * g.y, gy.z * g.z, gy.w * g.w);
+    return make_float2((gx.x + gx.y) + (gx.z + gx.w),
+                       (gx.x * xh.x + gx.y * xh.y) + (gx.z * xh.z + gx.w * xh.w));
+  });
+  col_sums(2, S, dc,
+           [&](int w, int r, int d) {
+             const float gy = t4[r * dc + d];
+             return w == 0 ? gy * t1[r * dc + d] : gy;
+           },
+           [&](int w, int d, float s) { part[(w == 0 ? kDs2 : kDb2) * D + c0 + d] = s; });
+  cg::this_cluster().sync();
+  combine_row_sums(S, N, D, st0, ra, rb);
+  PROF(10);
+  for_rows(q4, S, [&](int r, int col) {
+    const float4 gy = ld4(t4 + r * dc + col), g = ld4(g2 + col), xh = ld4(t1 + r * dc + col);
+    const float4 go = ld4(p.g_in + off + (size_t)r * D + col), d1 = ld4(t3 + r * dc + col);
+    const float inv = inv2[r], ma = ra[r], mb = rb[r];
+    const float4 gr = make_float4(go.x + inv * (gy.x * g.x - ma - xh.x * mb),
+                                  go.y + inv * (gy.y * g.y - ma - xh.y * mb),
+                                  go.z + inv * (gy.z * g.z - ma - xh.z * mb),
+                                  go.w + inv * (gy.w * g.w - ma - xh.w * mb));
+    st4(t4 + r * dc + col, gr);
+    st4(t3 + r * dc + col, make_float4(gr.x * d1.x, gr.y * d1.y, gr.z * d1.z, gr.w * d1.w));
+    const float4 x1 = ld4(t2 + r * dc + col), s1 = ld4(g1 + col), be = ld4(b1 + col);
+    st4(t1 + r * dc + col, make_float4(x1.x * s1.x + be.x, x1.y * s1.y + be.y,
+                                       x1.z * s1.z + be.z, x1.w * s1.w + be.w));
+  });
+  __syncthreads();
+  PROF(11);
+
+  // d token_w[i, j] = sum_d g_m1[i, d] h1[j, d] and d token_b[i] = sum_d
+  // g_m1[i, d] over this CTA's columns, each value pushed to the CTA that
+  // sums its flat index
+  const int chunk = twp_chunk(N);
+  auto push_twp = [&](int f, float v) {
+    const int owner = f / chunk;
+    cg::this_cluster().map_shared_rank(twg, owner)[rank * chunk + f - owner * chunk] = v;
   };
-  auto xhat2 = [&](int r, int k) { return p.xhat2_g[off + r * D + k]; };
+  if (tid < 144) {  // 12 x 12 threads, a 3 x 3 tile of outputs each
+    const int ti = tid / 12, tj = tid % 12;
+    float a[3][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+    const float* gp = t3 + 3 * ti * dc;
+    const float* hp = t1 + 3 * tj * dc;
+    int d = (4 * tj) % dc;  // skewed: a quarter-warp's reads fall in different banks
+    for (int n = 0; n < q4; ++n) {
+      float4 gv[3], hv[3];
+#pragma unroll
+      for (int x = 0; x < 3; ++x) {
+        gv[x] = ld4(gp + x * dc + d);
+        hv[x] = ld4(hp + x * dc + d);
+      }
+#pragma unroll
+      for (int x = 0; x < 3; ++x)
+#pragma unroll
+        for (int y = 0; y < 3; ++y) {
+          a[x][y] = fmaf(gv[x].x, hv[y].x, a[x][y]);
+          a[x][y] = fmaf(gv[x].y, hv[y].y, a[x][y]);
+          a[x][y] = fmaf(gv[x].z, hv[y].z, a[x][y]);
+          a[x][y] = fmaf(gv[x].w, hv[y].w, a[x][y]);
+        }
+      d += 4;
+      if (d >= dc) d = 0;
+    }
+#pragma unroll
+    for (int x = 0; x < 3; ++x)
+#pragma unroll
+      for (int y = 0; y < 3; ++y) push_twp((3 * ti + x) * kSPad + 3 * tj + y, a[x][y]);
+  } else if (tid < 144 + kSPad) {
+    const int i = tid - 144;
+    float s = 0.0f;
+    int d = (4 * i) % dc;
+    for (int n = 0; n < q4; ++n) {
+      const float4 v = ld4(t3 + i * dc + d);
+      s += (v.x + v.y) + (v.z + v.w);
+      d += 4;
+      if (d >= dc) d = 0;
+    }
+    push_twp(kSPad * kSPad + i, s);
+  }
+  PROF(20);
+  // hs = g_h1 = token_w^T @ g_m1 (the full rows are idle from here on)
+  token_dot(t3, twt_s, S, dc, [&](int i, int col, float a0, float a1) {
+    *reinterpret_cast<float2*>(hs + i * dc + col) = make_float2(a0, a1);
+  });
+  __syncthreads();
+  PROF(12);
 
-  // t0 = a = x + emb, t1 = 0, tw_s = token mix (zero outside [S, S])
-  for (int idx = tid; idx < kSPad * D; idx += kThreads) {
-    t0[idx] = idx < S * D ? __ldg(xg + idx) + __ldg(eg + idx % D) : 0.0f;
-    t1[idx] = 0.0f;
-  }
-  for (int idx = tid; idx < kSPad * kSPad; idx += kThreads) {
-    const int i = idx / kSPad, j = idx % kSPad;
-    tw_s[idx] = (i < S && j < S) ? __ldg(p.tw + i * S + j) : 0.0f;
-  }
-  __syncthreads();
-  // t1 = h1 = LN1(a); then m1 to scratch and t0 = r1 = a + act(m1)
-  layer_norm_rows(t0, t1, S, D, p.ln1_s, p.ln1_b, mean1, inv1);
-  __syncthreads();
-  token_mix(t1, tw_s, p.tb, t0, S, D, p.act, p.m1_g + off);
-  __syncthreads();
-  // t1 = h2 = LN2(r1), with xhat2 and h2 to device memory
-  layer_norm_rows(t0, t1, S, D, p.ln2_s, p.ln2_b, nullptr, inv2, p.xhat2_g + off,
-                  p.h2_g + off);
-  // m2 = h2 @ cw + cb; t0 = g_m2 = g * act'(m2), also to device memory
-  float acc[kRowsPerThread][kColsPerThread];
-  matmul_tile(t1, p.cw, D, D, w_s, acc);
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int row = rg * kRowsPerThread + i;
-#pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) {
-      const int col = cg + kColGroups * c;
-      if (row < S && col < D) {
-        const float gm = g_in[row * D + col] * dactivate(acc[i][c] + __ldg(p.cb + col), p.act);
-        t0[row * D + col] = gm;
-        p.gm2_g[off + row * D + col] = gm;
-      }
-    }
-  }
-  __syncthreads();
-  for (int d = tid; d < D; d += kThreads) {
+  // LN1 backward: d ln1; t4 = g_a = g_r1 + LN1'(g_h1), to device memory
+  push_row_sums(S, N, q4, rank, st1, [&](int r, int col) {
+    const float4 gy = ld4(hs + r * dc + col), g = ld4(g1 + col), xh = ld4(t2 + r * dc + col);
+    const float4 gx = make_float4(gy.x * g.x, gy.y * g.y, gy.z * g.z, gy.w * g.w);
+    return make_float2((gx.x + gx.y) + (gx.z + gx.w),
+                       (gx.x * xh.x + gx.y * xh.y) + (gx.z * xh.z + gx.w * xh.w));
+  });
+  col_sums(2, S, dc,
+           [&](int w, int r, int d) {
+             const float gy = hs[r * dc + d];
+             return w == 0 ? gy * t2[r * dc + d] : gy;
+           },
+           [&](int w, int d, float s) { part[(w == 0 ? kDs1 : kDb1) * D + c0 + d] = s; });
+  cg::this_cluster().sync();
+  combine_row_sums(S, N, D, st1, ra, rb);
+  PROF(13);
+  for_rows(q4, S, [&](int r, int col) {
+    const float4 gy = ld4(hs + r * dc + col), g = ld4(g1 + col), xh = ld4(t2 + r * dc + col);
+    const float4 gr = ld4(t4 + r * dc + col);
+    const float inv = inv1[r], ma = ra[r], mb = rb[r];
+    const float4 ga = make_float4(gr.x + inv * (gy.x * g.x - ma - xh.x * mb),
+                                  gr.y + inv * (gy.y * g.y - ma - xh.y * mb),
+                                  gr.z + inv * (gy.z * g.z - ma - xh.z * mb),
+                                  gr.w + inv * (gy.w * g.w - ma - xh.w * mb));
+    st4(t4 + r * dc + col, ga);
+    st4(p.g_out + off + (size_t)r * D + col, ga);
+  });
+  // this CTA's range of d token_w and d token_b: the N partials in CTA order
+  for (int e = tid; e < chunk; e += kT) {
+    const int f = rank * chunk + e;
+    if (f >= kTwp) break;
     float s = 0.0f;
-    for (int i = 0; i < S; ++i) s += t0[i * D + d];
-    part[kDcb * D + d] = s;
-  }
-  // t1 = g_h2 = g_m2 @ cw^T
-  matmul_tile(t0, p.cw_t, D, D, w_s, acc);
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int row = rg * kRowsPerThread + i;
-#pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) {
-      const int col = cg + kColGroups * c;
-      if (row < S && col < D) t1[row * D + col] = acc[i][c];
+    for (int j = 0; j < N; ++j) s += twg[j * chunk + e];
+    if (f >= kSPad * kSPad) {
+      if (f - kSPad * kSPad < S) part[dtb_off(D) + f - kSPad * kSPad] = s;
+    } else {
+      const int i = f / kSPad, j = f % kSPad;
+      if (i < S && j < S) part[dtw_off(S, D) + i * S + j] = s;
     }
   }
   __syncthreads();
-  // LN2 backward: d ln2 partials, and t0 = g_r1 = g + LN2'(g_h2)
-  for (int d = tid; d < D; d += kThreads) {
-    float ss = 0.0f, sb = 0.0f;
-    for (int i = 0; i < S; ++i) {
-      const float gy = t1[i * D + d];
-      ss += gy * xhat2(i, d);
-      sb += gy;
-    }
-    part[kDs2 * D + d] = ss;
-    part[kDb2 * D + d] = sb;
-  }
-  ln_backward_rows(t1, p.ln2_s, inv2, xhat2, g_in, t0, S, D);
-  __syncthreads();
-  // g_r1 to device memory; t1 = g_m1 = g_r1 * act'(m1); t0 = h1 (recomputed)
-  for (int idx = tid; idx < S * D; idx += kThreads) {
-    const int r = idx / D, k = idx % D;
-    const float gr1 = t0[idx];
-    p.gr1_g[off + idx] = gr1;
-    t1[idx] = gr1 * dactivate(p.m1_g[off + idx], p.act);
-    t0[idx] = xhat1(r, k) * __ldg(p.ln1_s + k) + __ldg(p.ln1_b + k);
-  }
-  __syncthreads();
-  // d token_b: row sums of g_m1. d token_w[i, j] = sum_d g_m1[i, d] h1[j, d],
-  // one warp per 6 x 6 output tile, the lanes over d.
-  for (int r = warp; r < S; r += kWarps) {
-    float s = 0.0f;
-    for (int k = lane; k < D; k += 32) s += t1[r * D + k];
-    s = warp_sum(s);
-    if (lane == 0) part[dtb_off(D) + r] = s;
-  }
-  constexpr int kT = 6, kTiles = kSPad / kT;
-  for (int tile = warp; tile < kTiles * kTiles; tile += kWarps) {
-    const int i0 = (tile / kTiles) * kT, j0 = (tile % kTiles) * kT;
-    if (i0 >= S || j0 >= S) continue;
-    float a6[kT][kT];
-#pragma unroll
-    for (int i = 0; i < kT; ++i)
-#pragma unroll
-      for (int j = 0; j < kT; ++j) a6[i][j] = 0.0f;
-    for (int k = lane; k < D; k += 32) {
-      float gi[kT], hj[kT];
-#pragma unroll
-      for (int i = 0; i < kT; ++i) gi[i] = t1[(i0 + i) * D + k];
-#pragma unroll
-      for (int j = 0; j < kT; ++j) hj[j] = t0[(j0 + j) * D + k];
-#pragma unroll
-      for (int i = 0; i < kT; ++i)
-#pragma unroll
-        for (int j = 0; j < kT; ++j) a6[i][j] = fmaf(gi[i], hj[j], a6[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < kT; ++i)
-#pragma unroll
-      for (int j = 0; j < kT; ++j) {
-        const float s = warp_sum(a6[i][j]);
-        if (lane == 0 && i0 + i < S && j0 + j < S)
-          part[dtw_off(S, D) + (i0 + i) * S + (j0 + j)] = s;
-      }
-  }
-  __syncthreads();
-  // t0 = g_h1 = token_w^T @ g_m1
-  for (int d = tid; d < D; d += kThreads) {
-    float col[kSPad];
-#pragma unroll
-    for (int j = 0; j < kSPad; ++j) col[j] = t1[j * D + d];
-    for (int i = 0; i < S; ++i) {
-      float acc1 = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kSPad; ++j) acc1 = fmaf(tw_s[j * kSPad + i], col[j], acc1);
-      t0[i * D + d] = acc1;
-    }
-  }
-  __syncthreads();
-  // LN1 backward: d ln1 partials, and t1 = g_a = g_r1 + LN1'(g_h1)
-  for (int d = tid; d < D; d += kThreads) {
-    float ss = 0.0f, sb = 0.0f;
-    for (int i = 0; i < S; ++i) {
-      const float gy = t0[i * D + d];
-      ss += gy * xhat1(i, d);
-      sb += gy;
-    }
-    part[kDs1 * D + d] = ss;
-    part[kDb1 * D + d] = sb;
-  }
-  ln_backward_rows(t0, p.ln1_s, inv1, xhat1, p.gr1_g + off, t1, S, D);
-  __syncthreads();
-  // d emb += sum_s g_a; the input cotangent over g
-  float* ge = p.gemb + b * D;
-  for (int d = tid; d < D; d += kThreads) {
-    float s = 0.0f;
-    for (int i = 0; i < S; ++i) s += t1[i * D + d];
-    ge[d] = p.first ? s : ge[d] + s;
-  }
-  float* g_out = p.g_out + off;
-  for (int idx = tid; idx < S * D; idx += kThreads) g_out[idx] = t1[idx];
+  // d emb += sum_s g_a
+  float* ge = p.gemb + b * D + c0;
+  const int first = p.first;
+  col_sums(1, S, dc, [&](int, int r, int d) { return t4[r * dc + d]; },
+           [&](int, int d, float s) { ge[d] = first ? s : ge[d] + s; });
+  PROF(14);
+#ifdef K2_PHASES
+  if (tid == 0)
+    for (int i = 0; i < 3; ++i) p.prof[blockIdx.x * kPhases + 15 + i] += lap[i];
+#endif
 }
 
 // out[split, k, n] = sum over rows r of this split of a[r, k] * c[r, n];
@@ -366,54 +827,86 @@ __global__ void reduce_kernel(const float* __restrict__ wpart, int nsplit,
   }
 }
 
-bool shape_ok(int B, int S, int D) {
-  return B >= 0 && S >= 1 && S <= kSPad && D >= kKTile && D <= kMaxN && D % kKTile == 0;
-}
-
 bool train_act_ok(int act) { return act == kSilu || act == kRelu || (act >= kLrelu && act <= kLrelu02); }
+
+using BwdKernel = void (*)(const BwdParams);
+
+BwdKernel bwd_kernel_for(int act) {
+  switch (act) {
+    case kSilu: return bwd_block_kernel<kSilu>;
+    case kRelu: return bwd_block_kernel<kRelu>;
+    case kLrelu: return bwd_block_kernel<kLrelu>;
+    case kLrelu01: return bwd_block_kernel<kLrelu01>;
+    default: return bwd_block_kernel<kLrelu02>;
+  }
+}
 
 }  // namespace
 
 // Each launch function enqueues on `stream` and returns the cudaError_t of
 // its attribute call or launch (0 on success).
 
-// The stack with the stash: out [B, S, D], stash [L, B, S, D].
-extern "C" int fused_transmlp_train_fwd_launch(
-    const float* x, const float* emb, const float* ln1_s, const float* ln1_b,
-    const float* tw, const float* tb, const float* ln2_s, const float* ln2_b,
-    const float* cw, const float* cb, float* out, float* stash,
-    int B, int S, int D, int L, int act, void* stream) {
-  if (!shape_ok(B, S, D) || L < 1 || !train_act_ok(act) || ln2_s == nullptr ||
-      ln2_b == nullptr || stash == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = stack_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_transmlp_train_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (B == 0) return 0;
-  StackParams p{x, emb, ln1_s, ln1_b, tw, tb, ln2_s, ln2_b, cw, cb, nullptr, nullptr,
-                out, stash, B, S, D, L, D, act};
-  fused_transmlp_train_fwd_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+// Dynamic shared memory of one CTA of the block kernel, or 0 for a geometry
+// it refuses.
+extern "C" long long fused_transmlp_train_bwd_smem_bytes(int D, int cluster) {
+  return cluster_ok(D, cluster) ? (long long)BwdSmem(D, cluster).bytes() : 0;
 }
 
-// Step 1 of one layer's backward. Weight pointers are this layer's; the
-// scratch buffers are [B, S, D] each and part is [B, 5D + S + S*S].
+// Clusters of `cluster` CTAs of the block kernel at width D the current
+// card holds at once (cudaOccupancyMaxActiveClusters), or minus the
+// cudaError_t.
+extern "C" int fused_transmlp_train_bwd_max_clusters(int D, int cluster) {
+  if (!cluster_ok(D, cluster)) return -(int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cluster_launch_config(&cfg, attr, cluster, cluster, BwdSmem(D, cluster).bytes());
+  const BwdKernel kernel = bwd_kernel_for(kSilu);  // every instance takes the same resources
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)cfg.dynamicSmemBytes);
+  int n = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// Step 1 of one layer's backward, as B clusters of `cluster` CTAs. Weight
+// pointers are this layer's (cw_t: ch_w transposed); h2 and gm2 are
+// [B, S, D] each and part is [B, 5D + S + S*S].
 extern "C" int fused_transmlp_train_bwd_block_launch(
     const float* stash, const float* emb, const float* g_in, float* g_out, float* gemb,
     int first, const float* ln1_s, const float* ln1_b, const float* tw, const float* tb,
     const float* ln2_s, const float* ln2_b, const float* cw, const float* cw_t,
-    const float* cb, float* m1, float* xhat2, float* gr1, float* h2, float* gm2,
-    float* part, int B, int S, int D, int act, void* stream) {
-  if (!shape_ok(B, S, D) || !train_act_ok(act)) return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const float* cb, float* h2, float* gm2, float* part, int B, int S, int D, int act,
+    int cluster, void* stream
+#ifdef K2_PHASES
+    , long long* prof
+#endif
+) {
+  if (B < 0 || S < 1 || S > kSPad || !cluster_ok(D, cluster) || !train_act_ok(act))
+    return (int)cudaErrorInvalidValue;
+  for (const void* q : {(const void*)stash, (const void*)emb, (const void*)g_in,
+                        (const void*)g_out, (const void*)ln1_s, (const void*)ln1_b,
+                        (const void*)ln2_s, (const void*)ln2_b, (const void*)cw,
+                        (const void*)cw_t, (const void*)cb, (const void*)h2, (const void*)gm2})
+    if (q == nullptr || !aligned16(q)) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cluster_launch_config(&cfg, attr, B, cluster, BwdSmem(D, cluster).bytes());
+  const BwdKernel kernel = bwd_kernel_for(act);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)cfg.dynamicSmemBytes);
   if (err != cudaSuccess) return (int)err;
   if (B == 0) return 0;
-  BwdParams p{stash, emb, g_in, g_out, gemb, first, ln1_s, ln1_b, tw, tb, ln2_s, ln2_b,
-              cw, cw_t, cb, m1, xhat2, gr1, h2, gm2, part, S, D, act};
-  bwd_block_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(p);
+  cfg.stream = (cudaStream_t)stream;
+  BwdParams p{{}, {}, stash, emb, g_in, g_out, gemb, ln1_s, ln1_b, tw, tb, ln2_s, ln2_b, cb,
+              h2, gm2, part, nullptr, first, S, D, cluster};
+#ifdef K2_PHASES
+  p.prof = prof;
+#endif
+  if (!weight_map(&p.cw_map, cw, D, D, D / cluster, kBKt) ||
+      !weight_map(&p.cwt_map, cw_t, D, D, D / cluster, kBKt))
+    return (int)cudaErrorInvalidValue;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -436,7 +929,8 @@ extern "C" int fused_transmlp_train_reduce_launch(
     const float* wpart, int nsplit, const float* part, int B, int S, int D,
     float* dcw, float* dcb, float* ds1, float* db1, float* ds2, float* db2,
     float* dtw, float* dtb, void* stream) {
-  if (B < 1 || !shape_ok(B, S, D) || nsplit < 1) return (int)cudaErrorInvalidValue;
+  if (B < 1 || S < 1 || S > kSPad || D < kKTile || D > kMaxN || D % kKTile != 0 || nsplit < 1)
+    return (int)cudaErrorInvalidValue;
   const int n = D * D + part_size(S, D);
   reduce_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
       wpart, nsplit, part, B, S, D, dcw, dcb, ds1, db1, ds2, db2, dtw, dtb);

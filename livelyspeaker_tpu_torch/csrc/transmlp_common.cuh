@@ -1,31 +1,53 @@
-// Device code shared by the fused TransMLP forward (fused_transmlp.cu) and
-// its training forward and backward (fused_transmlp_train.cu): the block
-// shape, the activations and their derivatives, the row LayerNorm, the
-// token mix and the register-tiled channel-mix product, and the whole
-// L-block forward of one sequence with an optional stash of block inputs.
+// Device code shared by the fused TransMLP stack (fused_transmlp.cu: the
+// sampling forward and the training forward with its stash) and the
+// training backward (fused_transmlp_train.cu). Both spread one [S, D]
+// sequence over a thread-block cluster of N CTAs of kT threads, CTA r owning
+// the columns [r * D/N, (r + 1) * D/N). What is here:
+// - the limits (S <= kSPad = 36, D <= kMaxN = 512), the activations and
+//   their derivatives;
+// - mbarrier and TMA wrappers, and the encoder of a 2-D tensor map over a
+//   row-major weight matrix;
+// - the [kSPad, K] x [K, ncols] product in 9 x 8 register tiles whose
+//   threads form K-slices (Tiling, SliceRows, mma_quads), the slices'
+//   warp-level arrival on an mbarrier, and the fixed-order sum of the
+//   slices' partial tiles through shared memory (reduce_slices);
+// - the LayerNorm row statistics across the cluster (two-pass per CTA, one
+//   exchange through distributed shared memory, Chan's combine).
 //
-// One block of kThreads threads works on one [S, D] sequence held in shared
-// memory, S <= kSPad = 36 and D <= kMaxN = 512. Rows S..kSPad-1 of every
-// shared tile are kept zero, so they only ever feed rows that are not
+// Rows S..kSPad-1 of every shared tile only ever feed rows that are not
 // written back.
 
 #pragma once
 
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap; the encoder is reached through the runtime
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowGroups = 4;                         // thread rows of the tile
-constexpr int kColGroups = kThreads / kRowGroups;     // 64 thread columns
+constexpr int kT = 256;                               // threads of a CTA: 8 warps
+constexpr int kThreads = kT;
+constexpr int kRowGroups = 4;                         // thread rows of a product tile
 constexpr int kRowsPerThread = 9;
 constexpr int kSPad = kRowGroups * kRowsPerThread;    // 36: largest S
-constexpr int kColsPerThread = 8;
-constexpr int kMaxN = kColGroups * kColsPerThread;    // 512: largest D and F
-constexpr int kKTile = 16;
+constexpr int kMaxN = 512;                            // largest D and F
+constexpr int kKTile = 16;                            // D is a multiple of this
 constexpr float kEps = 1e-5f;
+
+constexpr int kMaxCluster = 8;             // the portable cluster size
+constexpr int kMaxCols = 128;              // Dc: columns of the activation per CTA
+constexpr int kSlicesMax = 8;              // K-slices of a product
+constexpr int kTileRows = kRowsPerThread;  // 9 rows of a thread's product tile,
+constexpr int kTileCols = 8;               // 8 columns
+constexpr int kTileFloats = kTileRows * kTileCols;
+constexpr int kRedStride = kTileFloats + 4;   // a thread's partial tile, padded: the
+                                              // float4 reads of 8 lanes miss each other
+constexpr int kRedFloats = kT * kRedStride;   // the K-slices' partial tiles
 
 // Activation codes, as the Python wrappers number them. gelu has no
 // derivative here: the training kernels reject it, as the JAX package does.
@@ -56,200 +78,338 @@ __device__ __forceinline__ float dactivate(float v, int act) {
   return v > 0.0f ? 1.0f : leak_slope(act);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// Row stride of a ring stage: Dc padded to whole register tiles. The
+// padding columns hold the next CTA's columns (or zeros past D); they only
+// feed outputs that are not kept.
+__host__ __device__ inline int ring_stride(int dc) {
+  return (dc + kTileCols - 1) / kTileCols * kTileCols;
 }
 
-// dst[r] = LN(src[r]) (* g + b when g != nullptr), rows r < S; one warp a row,
-// two-pass statistics in f32. Optionally also records each row's mean and
-// 1/std (shared memory) and writes the normalised row xhat and the result to
-// device memory ([S, D] row-major).
-__device__ void layer_norm_rows(const float* src, float* dst, int S, int D,
-                                const float* __restrict__ g,
-                                const float* __restrict__ b,
-                                float* mean_out = nullptr, float* inv_out = nullptr,
-                                float* xhat_g = nullptr, float* y_g = nullptr) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < S; r += kWarps) {
-    const float* row = src + r * D;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Makes the initialised mbarriers visible to the async proxy (the TMA copies).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// One arrival that also expects `bytes` of bulk copies on the barrier.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A TMA copy of the box of `map` at (column x0, row y0) into this CTA's
+// shared memory (128-byte aligned), completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(float* dst, const CUtensorMap* map, int x0, int y0,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+        "r"(x0), "r"(y0)
+      : "memory");
+}
+
+// A TMA copy of `bytes` contiguous bytes (a multiple of 16, both ends
+// 16-byte aligned) into this CTA's shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_1d(float* dst, const float* src, uint32_t bytes,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A product [kSPad, K] x [K, ncols] over the CTA's threads, ncols a multiple
+// of 8, at most kMaxCols. Thread p of a K-slice's 4 * ncols / 8 owns rows
+// rg * 9 .. rg * 9 + 8 (rg = p % 4) and the columns col .. col + 3 and
+// half + col .. half + col + 3 (col = 4 * (p / 4), half = ncols / 2); the
+// ns <= 8 K-slices split K. Threads past ns slices idle.
+struct Tiling {
+  int per, ns, slice, p, rg, col, half;
+  bool active;
+  __device__ explicit Tiling(int ncols) {
+    per = kRowGroups * (ncols / kTileCols);
+    ns = min(kSlicesMax, kT / per);
+    slice = threadIdx.x / per;
+    p = threadIdx.x % per;
+    rg = p % kRowGroups;
+    col = (p / kRowGroups) * 4;
+    half = ncols / 2;
+    active = threadIdx.x < ns * per;
+  }
+};
+
+__device__ __forceinline__ void zero(float (&acc)[kTileRows][kTileCols]) {
+#pragma unroll
+  for (int i = 0; i < kTileRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kTileCols; ++j) acc[i][j] = 0.0f;
+}
+
+__device__ __forceinline__ void load_w(float4 (&lo)[4], float4 (&hi)[4], const float* wq,
+                                       int wstride, int half) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    lo[r] = *reinterpret_cast<const float4*>(wq + r * wstride);
+    hi[r] = *reinterpret_cast<const float4*>(wq + r * wstride + half);
+  }
+}
+
+__device__ __forceinline__ void fma_row(float (&acc)[kTileCols], float4 av, const float4 (&lo)[4],
+                                        const float4 (&hi)[4]) {
+  const float a[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    acc[0] = fmaf(a[r], lo[r].x, acc[0]);
+    acc[1] = fmaf(a[r], lo[r].y, acc[1]);
+    acc[2] = fmaf(a[r], lo[r].z, acc[2]);
+    acc[3] = fmaf(a[r], lo[r].w, acc[3]);
+    acc[4] = fmaf(a[r], hi[r].x, acc[4]);
+    acc[5] = fmaf(a[r], hi[r].y, acc[5]);
+    acc[6] = fmaf(a[r], hi[r].z, acc[6]);
+    acc[7] = fmaf(a[r], hi[r].w, acc[7]);
+  }
+}
+
+// One quad of K rows: acc += a_rows[:, k .. k+3] x (lo | hi), with the
+// next quad's weight rows read into (nlo | nhi) meanwhile, one float4 after
+// each of the first eight rows' FMAs, and each row of the left operand read
+// one row ahead: the shared-memory reads spread over the FMA stream instead
+// of stalling every warp at the top of the quad.
+__device__ __forceinline__ void quad_step(float (&acc)[kTileRows][kTileCols], const float* ak,
+                                          int dp, const float4 (&lo)[4], const float4 (&hi)[4],
+                                          float4 (&nlo)[4], float4 (&nhi)[4], const float* wn,
+                                          int wstride, int half) {
+  float4 av = *reinterpret_cast<const float4*>(ak);
+#pragma unroll
+  for (int i = 0; i < kTileRows; ++i) {
+    float4 an = av;
+    if (i + 1 < kTileRows) an = *reinterpret_cast<const float4*>(ak + (i + 1) * dp);
+    fma_row(acc[i], av, lo, hi);
+    if (i < 4) nlo[i] = *reinterpret_cast<const float4*>(wn + i * wstride);
+    else if (i < 8) nhi[i - 4] = *reinterpret_cast<const float4*>(wn + (i - 4) * wstride + half);
+    av = an;
+  }
+}
+
+// acc += a_rows[:, kbase + 4q .. +3] x w[4q .. 4q+3, {0..3, half..half+3}]
+// over the quads q = q0, q0 + step, ... < nq: per quad 8 + 9 float4 reads,
+// 288 FMAs. Two register buffers of weight rows take turns; the read past
+// the last quad re-reads it (nothing is left out of bounds or branched on).
+__device__ __forceinline__ void mma_quads(float (&acc)[kTileRows][kTileCols], const float* a_rows,
+                                          int dp, const float* w, int wstride, int half,
+                                          int kbase, int q0, int nq, int step) {
+  if (q0 >= nq) return;
+  const int last = q0 + (nq - 1 - q0) / step * step;
+  float4 lo[4], hi[4], lo2[4], hi2[4];
+  load_w(lo, hi, w + 4 * q0 * wstride, wstride, half);
+  for (int q = q0;;) {
+    int qn = min(q + step, last);
+    quad_step(acc, a_rows + kbase + 4 * q, dp, lo, hi, lo2, hi2, w + 4 * qn * wstride, wstride,
+              half);
+    q += step;
+    if (q >= nq) break;
+    qn = min(q + step, last);
+    quad_step(acc, a_rows + kbase + 4 * q, dp, lo2, hi2, lo, hi, w + 4 * qn * wstride, wstride,
+              half);
+    q += step;
+    if (q >= nq) break;
+  }
+}
+
+// Sums the K-slices' tiles through red (kRedFloats; thread t's tile at
+// red + t * kRedStride, row i's eight columns at + 8i) in slice order, four
+// columns at a time, and calls out(row, col, sums of col .. col + 3) for
+// each output row < S. Every thread calls it after the last product; red
+// may be what the product read: the first barrier is for that.
+template <class Out>
+__device__ __forceinline__ void reduce_slices(const Tiling& t,
+                                              const float (&acc)[kTileRows][kTileCols],
+                                              float* red, int S, Out out) {
+  __syncthreads();
+  if (t.active) {
+    float4* mine = reinterpret_cast<float4*>(red + threadIdx.x * kRedStride);
+#pragma unroll
+    for (int i = 0; i < kTileRows; ++i) {
+      mine[2 * i] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      mine[2 * i + 1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+  }
+  __syncthreads();
+  // e runs over (tile position p, quad q): row i = q / 2 of p's tile, half q % 2
+  for (int e = threadIdx.x; e < t.per * 2 * kTileRows; e += kT) {
+    const int p = e % t.per, q = e / t.per;
+    const int row = (p % kRowGroups) * kTileRows + q / 2;
+    if (row >= S) continue;
+    const float* src = red + p * kRedStride + 4 * q;
+    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int k = 0; k < t.ns; ++k) {
+      const float4 v = *reinterpret_cast<const float4*>(src + k * t.per * kRedStride);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    out(row, (q % 2 ? t.half : 0) + (p / kRowGroups) * 4, s);
+  }
+}
+
+// K-slice s of a product over K = D rows of a weight matrix takes the rows
+// [s * rps, (s + 1) * rps), rps = D / ns rounded up to whole K-tiles of kt
+// rows, as `tiles` K-tiles (fewer for the last slices when D is not a
+// multiple of ns K-tiles).
+struct SliceRows {
+  int k0, tiles;
+  __device__ SliceRows(const Tiling& t, int D, int kt) {
+    const int rps = (D + kt * t.ns - 1) / (kt * t.ns) * kt;
+    k0 = t.slice * rps;
+    tiles = max(0, min(rps, D - k0)) / kt;
+  }
+};
+
+// The threads of K-slice t.slice in this warp arrive on `bar` as one: the
+// slice's first lane in the warp, once they all have passed here.
+__device__ __forceinline__ void arrive_slice(const Tiling& t, uint64_t* bar) {
+  const int lane = threadIdx.x % 32, base = threadIdx.x - lane;
+  const int lo = max(t.slice * t.per, base), hi = min((t.slice + 1) * t.per, base + 32);
+  const unsigned mask = (hi - lo == 32 ? 0xffffffffu : ((1u << (hi - lo)) - 1)) << (lo - base);
+  __syncwarp(mask);
+  if ((int)threadIdx.x == lo)
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+                 "r"(hi - lo)
+                 : "memory");
+}
+
+// cg::this_cluster().sync() in its two halves: work that touches no other
+// CTA's shared memory can stand between them.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// Row statistics of src [kSPad, dc] (rows < S) over the whole D columns of
+// the cluster, into mean_s / inv_s: eight lanes a row take the local
+// two-pass (mean, M2), lane j of the eight pushes it to CTA j's st (slot
+// `rank` of [kMaxCluster, kSPad, 2]); after one cluster barrier each CTA
+// combines the N pairs (Chan).
+__device__ __forceinline__ void cluster_row_stats(const float* src, int S, int N, int D, int dc,
+                                                  int rank, float* st, float* mean_s,
+                                                  float* inv_s) {
+  const int sub = threadIdx.x % 8;
+  for (int r = threadIdx.x / 8; r < (kSPad + kT / 8 - 1) / (kT / 8) * (kT / 8); r += kT / 8) {
+    const float* row = src + min(r, kSPad - 1) * dc;
     float s = 0.0f;
-    for (int k = lane; k < D; k += 32) s += row[k];
-    const float mean = warp_sum(s) / D;
+    for (int k = sub; k < dc; k += 8) s += row[k];
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const float mean = s / dc;
     float v = 0.0f;
-    for (int k = lane; k < D; k += 32) {
+    for (int k = sub; k < dc; k += 8) {
       const float d = row[k] - mean;
       v += d * d;
     }
-    const float inv = 1.0f / sqrtf(warp_sum(v) / D + kEps);
-    if (lane == 0 && mean_out != nullptr) mean_out[r] = mean;
-    if (lane == 0 && inv_out != nullptr) inv_out[r] = inv;
-    for (int k = lane; k < D; k += 32) {
-      const float xh = (row[k] - mean) * inv;
-      float y = xh;
-      if (g != nullptr) y = y * __ldg(g + k) + __ldg(b + k);
-      dst[r * D + k] = y;
-      if (xhat_g != nullptr) xhat_g[r * D + k] = xh;
-      if (y_g != nullptr) y_g[r * D + k] = y;
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (r < S && sub < N) {
+      float* dst = cg::this_cluster().map_shared_rank(st, sub);
+      *reinterpret_cast<float2*>(dst + (rank * kSPad + r) * 2) = make_float2(mean, v);
     }
   }
-}
-
-// x[i, d] += act(sum_j tw[i, j] h[j, d] + tb[i]) for i < S. tw_s is the
-// [kSPad, kSPad] token mix, zero outside [S, S]; h rows >= S are zero. With
-// m_g != nullptr the pre-activation is also written there ([S, D]).
-__device__ void token_mix(const float* h_s, const float* tw_s,
-                          const float* __restrict__ tb, float* x_s, int S,
-                          int D, int act, float* m_g = nullptr) {
-  for (int d = threadIdx.x; d < D; d += kThreads) {
-    float col[kSPad];
-#pragma unroll
-    for (int j = 0; j < kSPad; ++j) col[j] = h_s[j * D + d];
-    for (int i = 0; i < S; ++i) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kSPad; ++j) acc = fmaf(tw_s[i * kSPad + j], col[j], acc);
-      const float m = acc + __ldg(tb + i);
-      if (m_g != nullptr) m_g[i * D + d] = m;
-      x_s[i * D + d] += activate(m, act);
+  cg::this_cluster().sync();
+  if (threadIdx.x < S) {
+    const float* pr = st + threadIdx.x * 2;  // rank j: + j * kSPad * 2
+    float m = 0.0f;
+    for (int j = 0; j < N; ++j) m += pr[j * kSPad * 2];
+    m /= N;
+    float m2 = 0.0f, spread = 0.0f;
+    for (int j = 0; j < N; ++j) {
+      const float d = pr[j * kSPad * 2] - m;
+      m2 += pr[j * kSPad * 2 + 1];
+      spread += d * d;
     }
-  }
-}
-
-// acc[i][c] = sum_k a_s[row_i, k] w[k, col_c] over k < K, for this thread's
-// rows row_i = rg * kRowsPerThread + i and columns col_c = cg + kColGroups*c;
-// w is [K, N] in device memory, staged in K-tiles through w_s. Starts with a
-// __syncthreads(), so a_s may have been written just before the call.
-__device__ void matmul_tile(const float* a_s, const float* __restrict__ w,
-                            int K, int N, float* w_s,
-                            float (&acc)[kRowsPerThread][kColsPerThread]) {
-  const int tid = threadIdx.x;
-  const int rg = tid / kColGroups, cg = tid % kColGroups;
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) acc[i][c] = 0.0f;
-  const float* a_row = a_s + rg * kRowsPerThread * K;
-  for (int k0 = 0; k0 < K; k0 += kKTile) {
-    __syncthreads();  // the previous tile is consumed and a_s is complete
-    for (int idx = tid; idx < kKTile * kMaxN; idx += kThreads) {
-      const int r = idx / kMaxN, c = idx % kMaxN, k = k0 + r;
-      w_s[idx] = (k < K && c < N) ? __ldg(w + (size_t)k * N + c) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kKTile; ++kk) {
-      float av[kRowsPerThread], wv[kColsPerThread];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) av[i] = a_row[i * K + k0 + kk];
-#pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c)
-        wv[c] = w_s[kk * kMaxN + cg + kColGroups * c];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-        for (int c = 0; c < kColsPerThread; ++c)
-          acc[i][c] = fmaf(av[i], wv[c], acc[i][c]);
-    }
-  }
-}
-
-struct StackParams {
-  const float* x;       // [B, S, D]
-  const float* emb;     // [B, D]
-  const float* ln1_s;   // [L, D]
-  const float* ln1_b;   // [L, D]
-  const float* tw;      // [L, S, S]
-  const float* tb;      // [L, S]
-  const float* ln2_s;   // [L, D] or nullptr (folded)
-  const float* ln2_b;   // [L, D] or nullptr (folded)
-  const float* cw;      // [L, D, D], [in, out]
-  const float* cb;      // [L, D]
-  const float* ow;      // [D, F] or nullptr (no pose projection)
-  const float* ob;      // [F]
-  float* out;           // [B, S, F] with ow, else [B, S, D]
-  float* stash;         // [L, B, S, D] block inputs, or nullptr
-  int B, S, D, L, F, act;
-};
-
-// Dynamic shared memory of stack_forward.
-inline size_t stack_smem_bytes(int D) {
-  return (size_t)(2 * kSPad * D + kKTile * kMaxN + kSPad * kSPad) * sizeof(float);
-}
-
-// The L-block stack (and the pose projection) for sequence blockIdx.x.
-__device__ void stack_forward(const StackParams& p, float* smem) {
-  const int S = p.S, D = p.D;
-  float* x_s = smem;                    // [kSPad, D] activation
-  float* h_s = x_s + kSPad * D;         // [kSPad, D] normalised activation
-  float* w_s = h_s + kSPad * D;         // [kKTile, kMaxN] weight tile
-  float* tw_s = w_s + kKTile * kMaxN;   // [kSPad, kSPad] token mix
-
-  const int tid = threadIdx.x;
-  const int rg = tid / kColGroups, cg = tid % kColGroups;
-  const size_t b = blockIdx.x;
-  const float* __restrict__ xg = p.x + b * S * D;
-  const float* __restrict__ eg = p.emb + b * D;
-
-  for (int idx = tid; idx < kSPad * D; idx += kThreads) {
-    x_s[idx] = idx < S * D ? __ldg(xg + idx) : 0.0f;
-    h_s[idx] = 0.0f;
+    m2 += dc * spread;
+    mean_s[threadIdx.x] = m;
+    inv_s[threadIdx.x] = 1.0f / sqrtf(m2 / D + kEps);
   }
   __syncthreads();
+}
 
-  float acc[kRowsPerThread][kColsPerThread];
-  for (int l = 0; l < p.L; ++l) {
-    float* sg = p.stash != nullptr ? p.stash + ((size_t)l * p.B + b) * S * D : nullptr;
-    for (int idx = tid; idx < S * D; idx += kThreads) {
-      const float v = x_s[idx];
-      if (sg != nullptr) __stcs(sg + idx, v);  // streamed: keep ch_w in L2
-      x_s[idx] = v + __ldg(eg + idx % D);
-    }
-    const float* tw = p.tw + (size_t)l * S * S;
-    for (int idx = tid; idx < kSPad * kSPad; idx += kThreads) {
-      const int i = idx / kSPad, j = idx % kSPad;
-      tw_s[idx] = (i < S && j < S) ? __ldg(tw + i * S + j) : 0.0f;
-    }
-    __syncthreads();
-    layer_norm_rows(x_s, h_s, S, D, p.ln1_s + l * D, p.ln1_b + l * D);
-    __syncthreads();
-    token_mix(h_s, tw_s, p.tb + l * S, x_s, S, D, p.act);
-    __syncthreads();
-    const bool folded = p.ln2_s == nullptr;
-    layer_norm_rows(x_s, h_s, S, D, folded ? nullptr : p.ln2_s + l * D,
-                    folded ? nullptr : p.ln2_b + l * D);
-    matmul_tile(h_s, p.cw + (size_t)l * D * D, D, D, w_s, acc);
-    const float* cb = p.cb + l * D;
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int row = rg * kRowsPerThread + i;
-#pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c) {
-        const int col = cg + kColGroups * c;
-        if (row < S && col < D)
-          x_s[row * D + col] += activate(acc[i][c] + __ldg(cb + col), p.act);
-      }
-    }
-    __syncthreads();
-  }
+// the 16-byte copies read these at 16-byte offsets (null: unused)
+inline bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
-  if (p.ow != nullptr) {
-    matmul_tile(x_s, p.ow, D, p.F, w_s, acc);
-    float* og = p.out + b * S * p.F;
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int row = rg * kRowsPerThread + i;
-#pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c) {
-        const int col = cg + kColGroups * c;
-        if (row < S && col < p.F) og[row * p.F + col] = acc[i][c] + __ldg(p.ob + col);
-      }
-    }
-  } else {
-    float* og = p.out + b * S * D;
-    for (int idx = tid; idx < S * D; idx += kThreads) og[idx] = x_s[idx];
+// cuTensorMapEncodeTiled, reached through the runtime (nothing links libcuda)
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* sym = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(sym);
   }
+  return fn;
+}
+
+// A row-major f32 [rows, D] weight matrix as the 2-D map a ring's TMA
+// copies read, in boxes of [box_rows, ring_stride(dc)].
+inline bool weight_map(CUtensorMap* map, const float* w, long long rows, int D, int dc,
+                       int box_rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)D * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)ring_stride(dc), (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(w), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The cluster sizes a kernel takes at width D: N in {1, 2, 4, 8}, Dc = D/N
+// a whole number of 16-byte loads and at most kMaxCols.
+inline bool cluster_ok(int D, int N) {
+  return D >= kKTile && D <= kMaxN && D % kKTile == 0 &&
+         (N == 1 || N == 2 || N == 4 || N == 8) && D % (4 * N) == 0 && D / N <= kMaxCols;
+}
+
+inline void cluster_launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int B,
+                                  int cluster, size_t smem) {
+  *cfg = {};
+  cfg->gridDim = dim3((unsigned)(B * cluster), 1, 1);
+  cfg->blockDim = dim3(kT, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
 }
 
 }  // namespace

@@ -162,20 +162,23 @@ def cluster_sizes(d: int) -> list:
     return [n for n in (8, 4, 2, 1) if d % (4 * n) == 0 and d // n <= _MAX_COLS]
 
 
-def _geometry(d: int, cluster: int) -> TransMLPGeometry:
+def _geometry(d: int, cluster: int, smem_bytes=_smem_bytes) -> TransMLPGeometry:
     dc = d // cluster
     per_slice = 4 * -(-dc // _TILE[1])  # 4 row groups x the column groups of a tile
-    smem = _smem_bytes(d, cluster)
+    smem = smem_bytes(d, cluster)
     k_slices = min(_MAX_SLICES, _THREADS // per_slice)
     return TransMLPGeometry(cluster, dc, k_slices, smem, SM_SHARED // (smem + 1024))
 
 
 def transmlp_geometry(b: int, s: int, d: int,
-                      resident: Optional[Dict[int, int]] = None) -> TransMLPGeometry:
+                      resident: Optional[Dict[int, int]] = None,
+                      smem_bytes=_smem_bytes) -> TransMLPGeometry:
     """The kernel's launch geometry for B sequences of [S, D]; raises
     ``ValueError`` on what the kernel does not take. ``resident`` maps a
     cluster size to the clusters the card holds at once (default: an H100
-    SXM's, ``H100_RESIDENT_CLUSTERS``).
+    SXM's, ``H100_RESIDENT_CLUSTERS``). ``smem_bytes(d, cluster)`` is the
+    kernel's shared memory (default: the forward's; the training backward
+    block kernel, which splits a sequence the same way, passes its own).
 
     Of the sizes :func:`cluster_sizes` allows with Dc >= 64 (a K-slice of the
     channel mix is then whole warps; below D = 64 one CTA takes the row),
@@ -196,8 +199,8 @@ def transmlp_geometry(b: int, s: int, d: int,
     sizes = [n for n in cluster_sizes(d) if d // n >= min(64, d)]
     for n in sizes:
         if b <= resident.get(n, 0):
-            return _geometry(d, n)
-    return _geometry(d, sizes[-1])
+            return _geometry(d, n, smem_bytes)
+    return _geometry(d, sizes[-1], smem_bytes)
 
 
 def _check(name: str, t: torch.Tensor, shape, device, who: str = "fused_transmlp") -> None:
@@ -222,9 +225,13 @@ def _launcher():
         fn = lib.fused_transmlp_launch
         fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        # x, emb, 8 weights, out, stash, B, S, D, L, act, cluster, stream
+        lib.fused_transmlp_stash_launch.argtypes = (
+            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.fused_transmlp_stash_launch.restype = ctypes.c_int
         query = lib.fused_transmlp_max_clusters
         query.argtypes, query.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-        _bound = fn, query
+        _bound = fn, query, lib.fused_transmlp_stash_launch
     return _bound
 
 

@@ -6,10 +6,14 @@ Port of ``livelyspeaker_tpu/ops/pallas/fused_mlp_train.py``. The forward
 runs the K1 stack and stashes every block input, ``[L, B, S, D]``; the
 backward walks the blocks in reverse, recomputes each from its stash and
 returns dx, d(emb) and the gradient of every packed weight. On a CUDA tensor
-the kernels of ``csrc/fused_transmlp_train.cu`` run (one forward launch; a
-block, a weight-gradient and a reduce launch per layer of the backward), or
-the wrapper raises; on a CPU tensor the plain versions run. A call without
-autograd launches K1 without a stash, as the JAX package's does.
+the kernels run or the wrapper raises: the forward is one launch of the
+cluster kernel of ``csrc/fused_transmlp.cu`` with a stash pointer; the
+backward is a block, a weight-gradient and a reduce launch per layer
+(``csrc/fused_transmlp_train.cu``). The block kernel spreads each sequence
+over a thread-block cluster as the forward does; :func:`backward_geometry`
+picks the cluster from the shapes and the clusters the card holds at once.
+On a CPU tensor the plain versions run. A call without autograd launches K1
+without a stash, as the JAX package's does.
 
 Nothing is padded: the token-mix gradient is ``[L, S, S]``, where the JAX
 VJP returns ``[L, S_pad, S_pad]`` and discards the padding.
@@ -19,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +41,8 @@ __all__ = [
     "fused_transmlp_train_forward",
     "fused_transmlp_train_backward",
     "fused_transmlp_train",
+    "backward_geometry",
+    "backward_resident_clusters",
 ]
 
 # what the training kernels take, as the JAX kernel's _act_pair does
@@ -180,28 +186,76 @@ fused_transmlp_train_backward_reference.calls = 0
 
 
 _bound: Dict[str, object] = {}
+_resident: Dict[tuple, Dict[int, int]] = {}
+
+# The block kernel's shared-memory layout (BwdSmem in csrc/fused_transmlp_train.cu)
+_BWD_RING_FLOATS, _BWD_BAR_BYTES = 12288, 512
+_TWP = fused_mlp.MAX_SEQ * fused_mlp.MAX_SEQ + fused_mlp.MAX_SEQ  # d token_w, d token_b
+
+
+def _bwd_smem_bytes(d: int, cluster: int) -> int:
+    """Mirror of ``BwdSmem::bytes`` in the kernel."""
+    dp, dc, spad = d + 4, d // cluster, fused_mlp.MAX_SEQ
+    floats = (_BWD_RING_FLOATS + max(spad * dp, 256 * 76)  # ring; full rows / partial tiles
+              + 4 * spad * dc + 2 * spad * spad  # four tiles; token mix and its transpose
+              + spad + 5 * dc  # token_b; LN affines, ch_b
+              + 2 * 8 * spad * 2 + 6 * spad  # exchange buffers; row statistics
+              + _TWP + 4 * 8)  # the gathered d token_w / d token_b slices
+    return _BWD_BAR_BYTES + 4 * floats
+
+
+def backward_geometry(b: int, s: int, d: int,
+                      resident: Optional[Dict[int, int]] = None) -> fused_mlp.TransMLPGeometry:
+    """The backward block kernel's launch geometry for B sequences of
+    [S, D]: the forward's rule (``fused_mlp.transmlp_geometry``: the largest
+    cluster whose batch runs in one wave, else the widest column slices) on
+    the block kernel's own shared memory; raises ``ValueError`` on what the
+    kernel does not take."""
+    return fused_mlp.transmlp_geometry(b, s, d, resident, _bwd_smem_bytes)
 
 
 def _launcher(kernel: str):
+    """The C function of ``kernel``, bound on first use: the forward is the
+    cluster kernel of ``fused_transmlp.cu`` with a stash; the backward's
+    three kernels and the block kernel's cluster count are in
+    ``fused_transmlp_train.cu``."""
+    if kernel == "fwd":
+        return fused_mlp._launcher()[2]
     if kernel not in _bound:
-        lib = load_library("fused_transmlp_train")
         p, i = ctypes.c_void_p, ctypes.c_int
-        argtypes = {
-            # x, emb, 8 weights, out, stash, B, S, D, L, act, stream
-            "fwd": [p] * 12 + [i] * 5 + [p],
-            # stash, emb, g_in, g_out, gemb, first, 9 weights, 5 scratch, part,
-            # B, S, D, act, stream
-            "bwd_block": [p] * 5 + [i] + [p] * 15 + [i] * 4 + [p],
+        name, argtypes = {
+            # stash, emb, g_in, g_out, gemb, first, 9 weights, h2, gm2, part,
+            # B, S, D, act, cluster, stream
+            "bwd_block": ("bwd_block_launch", [p] * 5 + [i] + [p] * 12 + [i] * 5 + [p]),
             # h2, gm2, wpart, R, D, nsplit, rows per split, stream
-            "wgrad": [p] * 3 + [i] * 4 + [p],
+            "wgrad": ("wgrad_launch", [p] * 3 + [i] * 4 + [p]),
             # wpart, nsplit, part, B, S, D, 8 gradients, stream
-            "reduce": [p, i, p, i, i, i] + [p] * 8 + [p],
+            "reduce": ("reduce_launch", [p, i, p, i, i, i] + [p] * 8 + [p]),
+            # D, cluster
+            "bwd_max_clusters": ("bwd_max_clusters", [i, i]),
         }[kernel]
-        fn = getattr(lib, f"fused_transmlp_train_{kernel}_launch")
+        fn = getattr(load_library("fused_transmlp_train"), f"fused_transmlp_train_{name}")
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _bound[kernel] = fn
     return _bound[kernel]
+
+
+def backward_resident_clusters(d: int, device: torch.device) -> Dict[int, int]:
+    """Clusters of each size the card holds at once at width D, as the CUDA
+    runtime reports them for the block kernel (asked once per card and
+    width)."""
+    key = (device.index, d)
+    if key not in _resident:
+        query = _launcher("bwd_max_clusters")
+        with torch.cuda.device(device):
+            counts = {n: query(d, n) for n in fused_mlp.cluster_sizes(d)}
+        bad = {n: -v for n, v in counts.items() if v < 0}
+        if bad:
+            raise RuntimeError("fused_transmlp_train: cudaOccupancyMaxActiveClusters failed "
+                               f"with cudaError {bad} (D={d})")
+        _resident[key] = counts
+    return _resident[key]
 
 
 def _launch(kernel: str, dev: torch.device, *args, what: str) -> None:
@@ -236,10 +290,12 @@ def _check_packed(who: str, packed, num_layers: int, s: int, d: int, dev) -> Non
 
 def fused_transmlp_train_forward(
     x: torch.Tensor, emb: torch.Tensor, packed: Dict[str, torch.Tensor],
-    act_name: str = "silu",
+    act_name: str = "silu", cluster: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B, S, D], stash [L, B, S, D]). A CPU tensor runs the plain
-    version; a CUDA tensor launches the forward kernel or raises."""
+    version; a CUDA tensor launches the cluster kernel with a stash pointer
+    or raises. ``cluster`` overrides ``fused_mlp.transmlp_geometry``'s choice
+    (for measurement)."""
     if x.device.type == "cpu":
         return fused_transmlp_train_forward_reference(x, emb, packed, act_name)
     who = "fused_transmlp_train"
@@ -251,12 +307,15 @@ def fused_transmlp_train_forward(
     fused_mlp._check("x", x, (b, s, d), dev, who)
     fused_mlp._check("emb", emb, (b, d), dev, who)
     _check_packed(who, packed, num_layers, s, d, dev)
+    if cluster is None:
+        cluster = fused_mlp.transmlp_geometry(
+            b, s, d, fused_mlp.resident_clusters(d, dev)).cluster
     out = torch.empty((b, s, d), dtype=torch.float32, device=dev)
     stash = torch.empty((num_layers, b, s, d), dtype=torch.float32, device=dev)
     _launch("fwd", dev, x.data_ptr(), emb.data_ptr(),
             *[packed[k].data_ptr() for k in PACKED_KEYS],
-            out.data_ptr(), stash.data_ptr(), b, s, d, num_layers, act,
-            what=f"B={b}, S={s}, D={d}, L={num_layers}")
+            out.data_ptr(), stash.data_ptr(), b, s, d, num_layers, act, cluster,
+            what=f"B={b}, S={s}, D={d}, L={num_layers}, cluster={cluster}")
     return out, stash
 
 
@@ -271,10 +330,12 @@ def _wgrad_split(rows: int) -> Tuple[int, int]:
 def fused_transmlp_train_backward(
     stash: torch.Tensor, emb: torch.Tensor, g: torch.Tensor,
     packed: Dict[str, torch.Tensor], act_name: str = "silu",
+    cluster: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """(dx, d emb, packed gradients) for the output cotangent ``g``. A CPU
     tensor runs the plain version; a CUDA tensor launches 3 kernels per
-    layer or raises."""
+    layer or raises. ``cluster`` overrides :func:`backward_geometry`'s
+    choice for the block kernel (for measurement)."""
     if g.device.type == "cpu":
         return fused_transmlp_train_backward_reference(stash, emb, g, packed, act_name)
     who = "fused_transmlp_train backward"
@@ -289,28 +350,30 @@ def fused_transmlp_train_backward(
     fused_mlp._check("emb", emb, (b, d), dev, who)
     fused_mlp._check("stash", stash, (num_layers, b, s, d), dev, who)
     _check_packed(who, packed, num_layers, s, d, dev)
+    if cluster is None:
+        cluster = backward_geometry(b, s, d, backward_resident_clusters(d, dev)).cluster
 
     f32 = dict(dtype=torch.float32, device=dev)
     gx = torch.empty((b, s, d), **f32)
     gemb = torch.empty((b, d), **f32)
     grads = {k: torch.empty_like(packed[k]) for k in PACKED_KEYS}
-    m1, xhat2, gr1, h2, gm2 = torch.empty((5, b, s, d), **f32)
+    h2, gm2 = torch.empty((2, b, s, d), **f32)  # for the weight-gradient kernel
     part = torch.empty((b, 5 * d + s + s * s), **f32)
     nsplit, per = _wgrad_split(b * s)
     wpart = torch.empty((nsplit, d, d), **f32)
-    cw_t = packed["ch_w"].transpose(1, 2).contiguous()
+    cw_t = packed["ch_w"].transpose(1, 2).contiguous()  # once a backward, every layer's
 
     def at(t: torch.Tensor, l: int) -> int:  # pointer to layer l of t
         return t.data_ptr() + l * t[0].numel() * t.element_size()
 
-    what = f"B={b}, S={s}, D={d}, L={num_layers}"
+    what = f"B={b}, S={s}, D={d}, L={num_layers}, cluster={cluster}"
     for l in reversed(range(num_layers)):
         first = l == num_layers - 1
         _launch("bwd_block", dev, at(stash, l), emb.data_ptr(),
                 (g if first else gx).data_ptr(), gx.data_ptr(), gemb.data_ptr(), int(first),
                 *[at(packed[k], l) for k in PACKED_KEYS[:7]], at(cw_t, l), at(packed["ch_b"], l),
-                m1.data_ptr(), xhat2.data_ptr(), gr1.data_ptr(), h2.data_ptr(), gm2.data_ptr(),
-                part.data_ptr(), b, s, d, act, what=f"{what}, layer {l}")
+                h2.data_ptr(), gm2.data_ptr(), part.data_ptr(), b, s, d, act, cluster,
+                what=f"{what}, layer {l}")
         _launch("wgrad", dev, h2.data_ptr(), gm2.data_ptr(), wpart.data_ptr(),
                 b * s, d, nsplit, per, what=f"{what}, layer {l}")
         _launch("reduce", dev, wpart.data_ptr(), nsplit, part.data_ptr(), b, s, d,

@@ -7,7 +7,7 @@ weights live in the model; :meth:`RAGSampler.update_params` swaps them.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Union
 
 import torch
 
@@ -16,12 +16,17 @@ from .diffusion.schedule import DiffusionSchedule
 from .models.cfg import make_cfg_denoiser, make_guidance_schedule
 from .models.fast_rag import make_fused_cfg_denoiser
 from .models.rag import RAG
+from .utils.device import place_model
 
 __all__ = ["RAGSampler"]
 
 
 class RAGSampler:
-    """CFG sampling of a :class:`RAG` on the device its parameters are on.
+    """CFG sampling of a :class:`RAG`, on the card unless the caller asks
+    otherwise: with ``device=None`` the model is moved to ``cuda`` (one
+    already on a CUDA device stays there) and construction raises where
+    there is none; ``device="cpu"``, or any explicit device, is taken as
+    given, and on the CPU the fused path runs its plain PyTorch version.
 
     ``use_fused=True`` runs each denoise step through the fused TransMLP
     kernel (``models/fast_rag.py``); ``False`` runs the eager modules.
@@ -40,13 +45,14 @@ class RAGSampler:
         method: str = "ddim",
         use_fused: bool = False,
         guidance_schedule: Optional[str] = None,
+        device: Optional[Union[str, torch.device]] = None,
     ):
         torch.backends.cudnn.allow_tf32 = False
+        self.device = place_model(model, device, "RAGSampler")
         self.model = model.eval()
         self.method = method
         self.use_fused = use_fused
         self.guidance_schedule = guidance_schedule
-        self.device = next(model.parameters()).device
         sched = DiffusionSchedule.create(
             steps=steps, schedule=schedule, timestep_respacing=timestep_respacing
         )

@@ -352,8 +352,12 @@ class GestureBatcher:
             r.done.set()
 
 
-def build_rag_server(model, cfg: Optional[ServeConfig] = None) -> GestureBatcher:
-    """Wire a RAG model (on its device) into a ready-to-serve batcher."""
+def build_rag_server(model, cfg: Optional[ServeConfig] = None, *,
+                     device=None) -> GestureBatcher:
+    """Wire a RAG model into a ready-to-serve batcher on the card:
+    ``device=None`` moves the model to ``cuda`` (or leaves it on the CUDA
+    device it is on) and raises where there is none; ``device="cpu"``
+    serves on the CPU with the plain versions of the kernels."""
     cfg = cfg or ServeConfig()
     if cfg.data_parallel != 1:
         raise ValueError("the port serves from one device: data_parallel must be 1")
@@ -363,5 +367,6 @@ def build_rag_server(model, cfg: Optional[ServeConfig] = None) -> GestureBatcher
         timestep_respacing=cfg.timestep_respacing,
         method=cfg.sampler,
         use_fused=cfg.use_fused,
+        device=device,
     )
     return GestureBatcher(sampler, cfg)

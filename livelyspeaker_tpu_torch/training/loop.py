@@ -12,13 +12,14 @@ a resumed run replays the draws of an uninterrupted one.
 from __future__ import annotations
 
 import time
-from typing import Dict, Iterable, Mapping, Optional
+from typing import Dict, Iterable, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from .checkpoints import CheckpointManager, save_args, save_params_npz
 from .logging import KVLogger, NoPlatform, TrainPlatform, log_loss_quartiles
+from ..utils.device import place_model
 from .trainer import TrainConfig, TrainState, init_train_state, make_optimizer, make_train_step
 
 __all__ = ["TrainLoop", "step_generator"]
@@ -33,7 +34,12 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 class TrainLoop:
     """Trains ``model`` in place. ``params``, when given, is a state_dict
     copied into the model first (so that several loops can start from one
-    snapshot); ``data`` is any iterable of batches (see ``make_train_step``)."""
+    snapshot); ``data`` is any iterable of batches (see ``make_train_step``).
+
+    The loop runs on the card unless the caller asks otherwise: with
+    ``device=None`` the model is moved to ``cuda`` (one already on a CUDA
+    device stays there) and construction raises where there is none;
+    ``device="cpu"``, or any explicit device, is taken as given."""
 
     def __init__(
         self,
@@ -52,7 +58,9 @@ class TrainLoop:
         seed: int = 233,
         args_to_save: Optional[Dict] = None,
         resume: bool = False,
+        device: Optional[Union[str, torch.device]] = None,
     ):
+        self.device = place_model(model, device, "TrainLoop")
         self.model = model.train()
         self.sched = sched
         self.data = data
@@ -65,7 +73,6 @@ class TrainLoop:
         self.logger = KVLogger(save_dir)
         self.platform = platform or NoPlatform(save_dir or ".")
         self.seed = seed
-        self.device = next(model.parameters()).device
 
         if params is not None:
             model.load_state_dict(params)

@@ -36,7 +36,7 @@ def _server(max_batch=4, max_wait_ms=100.0, pipeline_depth=1):
                       timestep_respacing="ddim5", sampler="ddim",
                       pipeline_depth=pipeline_depth)
     model = _model()
-    return build_rag_server(model, cfg), model.cfg
+    return build_rag_server(model, cfg, device="cpu"), model.cfg
 
 
 def test_batcher_coalesces_and_pads():
@@ -216,7 +216,7 @@ def test_reload_params_swaps_and_validates():
 
 def test_build_rag_server_is_single_device():
     with pytest.raises(ValueError, match="data_parallel"):
-        build_rag_server(_model(), ServeConfig(data_parallel=2))
+        build_rag_server(_model(), ServeConfig(data_parallel=2), device="cpu")
 
 
 def test_port_imports_without_jax_triton_or_nvcc():

@@ -319,7 +319,7 @@ def _loop(model, batches, save_dir, epochs, **kw):
     return TrainLoop(model, DiffusionSchedule.create(steps=20), kw.pop("params", None), batches,
                      cfg=kw.pop("cfg", TrainConfig(lr=1e-3)), save_dir=save_dir,
                      num_epochs=epochs, log_interval=kw.pop("log_interval", 1000),
-                     save_after_epoch=-1, save_every_epochs=1, seed=7, **kw)
+                     save_after_epoch=-1, save_every_epochs=1, seed=7, device="cpu", **kw)
 
 
 def test_resume_is_bit_exact(tmp_path):
