@@ -25,13 +25,14 @@ same training with the WavEncoder swapped for the fused WavEncoder stack
    fused sampler agrees with the eager modules (cuBLAS) within rel 1e-4;
 5. one BEAT batch (emotion conditioning) the same way;
 6. the training kernels (the cluster kernel with a stash as the forward; per
-   layer of the backward a cluster block kernel, a weight-gradient and a
-   reduce kernel) against their plain versions at TED (S=35) and BEAT
-   (S=36), D=512, L=8, silu, B in {64, 512}: forward and stash within rel
-   1e-5, every gradient within rel 1e-4 of its max|plain|, a second run with
-   the same bits, the time per fwd+bwd call of both, the forward and the
-   block kernel at clusters of 8 and 4 CTAs in turns, and the time of the
-   one torch.matmul that computes the weight-gradient kernel's product;
+   layer of the backward a cluster block kernel, a 3xTF32 tensor-core
+   weight-gradient kernel and a reduce kernel) against their plain versions
+   at TED (S=35) and BEAT (S=36), D=512, L=8, silu, B in {64, 512}: forward
+   and stash within rel 1e-5, every gradient within rel 1e-4 of its
+   max|plain|, a second run with the same bits, the time per fwd+bwd call of
+   both, the forward and the block kernel at clusters of 8 and 4 CTAs in
+   turns; then the weight-gradient and reduce kernels alone, 8 launches,
+   against 8 calls of torch.matmul(h2.T, g_m2) and of part.sum(0), in turns;
 7. training: TrainLoop.run_loop() on RAGConfig.ted(fused_train_backbone=True)
    (its own seeded init), DDPM-1000 cosine, 30 steps at batch 512 on one
    fixed seeded batch, the default TrainConfig but lr 1e-3: every loss is
@@ -64,7 +65,8 @@ same training with the WavEncoder swapped for the fused WavEncoder stack
 
 With ``--profile DIR`` it also profiles a second burst of the 24 serving
 requests and 3 steps of each training run with torch.profiler (Chrome
-traces and tables of device time by kernel, and the idle share, in DIR).
+traces and tables of device time by kernel, and the idle share, in DIR),
+and prints the kernels cuBLAS runs for the weight-gradient product.
 
 Exits non-zero at the first failure. The line before the last is the
 kernels' JSON report; the last line is {"ok": true, "device": {...}}.
@@ -143,13 +145,15 @@ def time_ms(fn, iters):
 
 
 PEAK_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM at 700 W (data sheet)
+PEAK_TF32 = 495e12  # TF32 on the tensor cores, dense, H100 SXM at 700 W
 PEAK_BYTES = 3.35e12  # HBM3, H100 SXM
 
 
-def bound(flop, nbytes):
+def bound(flop, nbytes, peak=PEAK_FLOPS):
     """(bound_ms, bound_by): the least time the card could take for
-    ``flop`` f32 operations and ``nbytes`` of device memory traffic."""
-    t_ops, t_bytes = flop / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    ``flop`` operations at ``peak`` (default f32 outside the tensor cores)
+    and ``nbytes`` of device memory traffic."""
+    t_ops, t_bytes = flop / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -191,6 +195,10 @@ def kernel_phase(card):
     for d in (512, 256, 128):  # every cluster size the kernel takes
         print(f"[kernel] clusters the card holds at once at D={d}, by cluster size: "
               f"{fused_mlp.resident_clusters(d, dev)} ({card})")
+    from livelyspeaker_tpu_torch.ops import fused_mlp_train as k2
+
+    print(f"[kernel] clusters of the K2 weight-gradient kernel the card holds at once, by "
+          f"cluster size: {k2.wgrad_resident_clusters(dev)} ({card})")
     resident = fused_mlp.resident_clusters(512, dev)
     for name, seq, feats in (("TED", 35, 27), ("BEAT", 36, 282)):
         stack = random_normal_(TransMLP(seq, 8, 512, "silu"), g).to(dev)
@@ -457,15 +465,13 @@ def kernel_ms_by_name(fn, iters, module=None):
 
 
 def k2_cost(b, s, d, layers):
-    """(FLOP, bytes) of each K2 kernel over one forward and one backward
-    call (all its launches), from the shapes: the products' FLOPs (the
-    LayerNorms and activations left out); each kernel's inputs read once,
-    its outputs written once."""
-    from livelyspeaker_tpu_torch.ops import fused_mlp_train as k2
-
+    """(operations, bytes, peak) of each K2 kernel over one forward and one
+    backward call (all its launches), from the shapes: the products' FLOPs
+    (the LayerNorms and activations left out) at the f32 peak, except the
+    weight-gradient kernel's three TF32 products (3xTF32) at the TF32 peak;
+    each kernel's inputs read once, its outputs written once."""
     act = b * s * d  # one [B, S, D] tensor, in floats
     weights = layers * (d * d + 5 * d + s * s + s)
-    nsplit, _ = k2._wgrad_split(b * s)
     part = b * (5 * d + s + s * s)
     fwd = (b * layers * (2 * s * d * d + 2 * s * s * d), 4 * (2 * act + b * d + weights + layers * act))
     # per layer: the channel mix recomputed and g_m2 @ ch_w^T (two D x D
@@ -474,10 +480,110 @@ def k2_cost(b, s, d, layers):
     # scratch tensors, read by the weight-gradient kernel), d emb and part
     blk = (b * (4 * s * d * d + 6 * s * s * d),
            4 * (5 * act + 2 * b * d + weights // layers + part))
-    wgr = (2 * b * s * d * d, 4 * (2 * act + nsplit * d * d))
-    red = (nsplit * d * d + part, 4 * (nsplit * d * d + part + weights // layers))
-    return {"fwd": fwd, **{k: (layers * f, layers * n) for k, (f, n) in
-                           (("bwd_block", blk), ("wgrad", wgr), ("reduce", red))}}
+    wgr = (3 * 2 * b * s * d * d, 4 * (2 * act + d * d))  # reads h2, g_m2; writes d ch_w
+    red = (part, 4 * (part + 5 * d + s + s * s))  # reads part; writes 7 gradients
+    cost = {"fwd": fwd + (PEAK_FLOPS,)}
+    for k, (f, n), peak in (("bwd_block", blk, PEAK_FLOPS), ("wgrad", wgr, PEAK_TF32),
+                            ("reduce", red, PEAK_FLOPS)):
+        cost[k] = (layers * f, layers * n, peak)
+    return cost
+
+
+def graphed(fn):
+    """``fn``'s launches captured once in a CUDA graph; the returned
+    function replays them, so that CUDA events around it time the device
+    and not the host's Python between the launches."""
+    fn()  # warm-up: builds, binds, allocates outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def wgrad_reduce_turns(card, name, seq, b):
+    """The weight-gradient and reduce kernels alone, LAYERS launches each,
+    against one PyTorch call that computes the same function, LAYERS times:
+    torch.matmul(h2.T, g_m2) (cuBLAS, f32, TF32 off) and part.sum(0); each
+    sequence of launches replayed from a CUDA graph, timed in turns
+    (kernel, library, library, kernel). Each result is checked first.
+    Returns {kernel: (kernel ms, library ms)}."""
+    from livelyspeaker_tpu_torch.ops import fused_mlp_train as k2
+
+    g = torch.Generator().manual_seed(40 + b + seq)
+    d, rows = 512, b * seq
+    h2 = torch.randn(rows, d, generator=g).cuda()
+    gm2 = torch.randn(rows, d, generator=g).cuda()
+    part = torch.randn(b, 5 * d + seq + seq * seq, generator=g).cuda()
+    dcw = k2.channel_mix_wgrad(h2, gm2)
+    sums = k2.reduce_partials(part, seq, d)
+    wrel = _rel(dcw.double(), h2.double().t() @ gm2.double())
+    want = k2.reduce_partials(part.double().cpu(), seq, d)
+    rrel = max(_rel(sums[k].double().cpu(), want[k]) for k in want)
+    check(wrel <= GRAD_TOL and rrel <= GRAD_TOL,
+          f"{name} B={b}: wgrad rel {wrel:.3e}, reduce rel {rrel:.3e} against f64")
+    times = {
+        "wgrad": time_turns({
+            "kernel": graphed(lambda: [k2.channel_mix_wgrad(h2, gm2, out=dcw)
+                                       for _ in range(LAYERS)]),
+            "library": graphed(lambda: [torch.matmul(h2.t(), gm2) for _ in range(LAYERS)])}, 10),
+        "reduce": time_turns({
+            "kernel": graphed(lambda: [k2.reduce_partials(part, seq, d, sums)
+                                       for _ in range(LAYERS)]),
+            "library": graphed(lambda: [part.sum(0) for _ in range(LAYERS)])}, 20),
+    }
+    geo = k2.wgrad_geometry(rows, d, k2.wgrad_resident_clusters(torch.device("cuda")))
+    print(f"[train-kernel] {name} B={b} S={seq} D={d}, {LAYERS} launches in turns: wgrad "
+          f"{times['wgrad']['kernel']:.4f} ms (rel {wrel:.1e} against f64; {geo.tiles} tiles x "
+          f"clusters of {geo.cluster}) against torch.matmul(h2.T, g_m2) "
+          f"{times['wgrad']['library']:.4f} ms; reduce {times['reduce']['kernel']:.4f} ms (rel "
+          f"{rrel:.1e}) against part.sum(0) {times['reduce']['library']:.4f} ms; CUDA graphs "
+          f"({card})")
+    return {k: (v["kernel"], v["library"]) for k, v in times.items()}
+
+
+def wgrad_library_probe(card, out_dir):
+    """What cuBLAS runs for the weight-gradient product at TED B=512
+    (torch.matmul(h2.T, g_m2), [17920, 512] each, f32, TF32 off): its time
+    per call (CUDA events) and, from a torch.profiler trace of three calls,
+    each kernel's name, grid, block and device time. Then the library time
+    of the sums the reduce kernel computed: part.sum(0) on [B, 5D + S + S^2]
+    and, for the weight-gradient partials of the design before this one,
+    wpart.sum(0) on [min(16, ceil(B*S / 1024)), D, D], at TED and BEAT, B in
+    {64, 512}. The trace goes to DIR/cublas_wgrad_trace.json."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    g = torch.Generator().manual_seed(30)
+    rows, d = TRAIN_BATCH * 35, 512
+    h2 = torch.randn(rows, d, generator=g).cuda()
+    gm2 = torch.randn(rows, d, generator=g).cuda()
+    mm = lambda: torch.matmul(h2.t(), gm2)
+    ms = time_ms(mm, 20)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            mm()
+        torch.cuda.synchronize()
+    path = os.path.join(out_dir, "cublas_wgrad_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    print(f"[cublas] torch.matmul(h2.T, g_m2) at [{rows}, {d}] f32, TF32 off: {ms:.4f} ms a "
+          f"call ({card}); {len(kernels)} kernels in 3 calls:")
+    for e in kernels:
+        args = e.get("args", {})
+        print(f"[cublas]   {e['name']} grid {args.get('grid')} block {args.get('block')} "
+              f"smem {args.get('shared memory')} regs {args.get('registers per thread')} "
+              f"{e.get('dur')} us")
+    for name, s in (("TED", 35), ("BEAT", 36)):
+        for b in (64, TRAIN_BATCH):
+            part = torch.randn(b, 5 * d + s + s * s, generator=g).cuda()
+            nsplit = min(16, -(-b * s // 1024))
+            wpart = torch.randn(nsplit, d, d, generator=g).cuda()
+            t = time_turns({"part": lambda: part.sum(0), "wpart": lambda: wpart.sum(0)}, 50)
+            print(f"[cublas] {name} B={b}: part.sum(0) on {list(part.shape)} {t['part']:.4f} ms, "
+                  f"wpart.sum(0) on {list(wpart.shape)} {t['wpart']:.4f} ms a call ({card})")
 
 
 def k3_cost(b, length):
@@ -582,21 +688,18 @@ def train_kernel_phase(card):
                 f"{n} CTAs fwd {v['fwd']:.3f} bwd_block {v['bwd_block']:.3f} ms"
                 for n, v in by_cluster.items())
                 + f"; the geometry picks {picks[0]} and {picks[1]} ({card})")
+            turns = wgrad_reduce_turns(card, name, seq, b)
             if name == "TED" and b == TRAIN_BATCH:
-                # the weight-gradient kernel's function as one library call
-                # (cuBLAS, f32, TF32 off), once per layer as the kernel runs
-                h2 = torch.randn(b * seq, 512, generator=g).to(dev)
-                gm2 = torch.randn(b * seq, 512, generator=g).to(dev)
-                library_wgrad = LAYERS * time_ms(lambda: torch.matmul(h2.t(), gm2), 20)
-                print(f"[train-kernel] {tag}: wgrad {per_kernel['wgrad']:.3f} ms (with reduce "
-                      f"{per_kernel['wgrad'] + per_kernel['reduce']:.3f}) against {LAYERS} calls of "
-                      f"torch.matmul(h2.T, g_m2) at [{b * seq}, 512]: {library_wgrad:.3f} ms ({card})")
-                report = {"ms": per_kernel, "plain_fwd": plain_fwd, "plain_bwd": plain - plain_fwd,
-                          "library": {"wgrad": library_wgrad},
+                # wgrad and reduce: device time of their launches alone, from
+                # the same graph replays as the library calls they are held to
+                report = {"ms": {**per_kernel, **{k: v[0] for k, v in turns.items()}},
+                          "plain_fwd": plain_fwd, "plain_bwd": plain - plain_fwd,
+                          "library": {k: v[1] for k, v in turns.items()},
                           "bound": {k: bound(*c) for k, c in k2_cost(b, seq, 512, LAYERS).items()}}
-                print("[train-kernel] " + tag + ": bound by kernel, ms per fwd+bwd call: " + ", ".join(
-                    f"{k} {v[0]:.3f} ({v[1]}, share {v[0] / per_kernel[k]:.1%})"
-                    for k, v in report["bound"].items()) + f" ({card})")
+                print("[train-kernel] " + tag + ": bound by kernel, ms per fwd+bwd call (wgrad: "
+                      "its three TF32 products at 495 TFLOP/s): " + ", ".join(
+                          f"{k} {v[0]:.3f} ({v[1]}, share {v[0] / report['ms'][k]:.1%})"
+                          for k, v in report["bound"].items()) + f" ({card})")
     return worst, report
 
 
@@ -1021,12 +1124,13 @@ def main():
     fused_vs_eager_train_phase()
     wav_sampler_phase()
     if args.profile:
+        wgrad_library_probe(card, args.profile)
         profile_phase(model, loop, args.profile, card)
         profile_phase(wav_model, wav_loop, args.profile, card, name="train_step_k3")
     # library_ms: one torch.matmul computes the K2 weight-gradient kernel's
-    # product; no single PyTorch call computes any other of these functions
-    # (8-block mixer stacks and their backward, a conv/InstanceNorm/LeakyReLU
-    # chain)
+    # product and one torch.sum the reduce kernel's sums; no single PyTorch
+    # call computes any other of these functions (8-block mixer stacks and
+    # their backward, a conv/InstanceNorm/LeakyReLU chain)
     kernels = [{
         "name": "fused_transmlp", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,

@@ -19,13 +19,15 @@
 //    channel-mix weight gradient, and writes this sequence's share of every
 //    other parameter gradient to a per-sequence row of `part`.
 // 2. wgrad_kernel: d ch_w = h2^T g_m2 over all B*S rows, a [D, B*S] x
-//    [B*S, D] product in 64 x 64 output tiles, the rows split into chunks
-//    whose partial sums go to `wpart`.
-// 3. reduce_kernel: sums `wpart` over the chunks and `part` over the batch,
-//    in a fixed order, into this layer's rows of the gradients.
+//    [B*S, D] product on the tensor cores in 3xTF32 (f32-accurate), each
+//    128 x 128 output tile split by rows over a cluster whose CTAs add their
+//    partial tiles in CTA order through distributed shared memory and write
+//    d ch_w once.
+// 3. reduce_kernel: sums `part` over the batch, in a fixed order, into this
+//    layer's other gradients.
 //
-// What bounds it: the FP32 pipe (f32 FMA, f32 accumulation, no tensor
-// cores, no TF32; 67 TFLOP/s on an H100 SXM at 700 W). At TED training
+// What bounds the block kernel: the FP32 pipe (f32 FMA, f32 accumulation,
+// no tensor cores, no TF32; 67 TFLOP/s on an H100 SXM at 700 W). At TED training
 // shapes (B = 512, S = 35, D = 512, L = 8) the block kernel's two
 // [S, D] x [D, D] products per sequence are 18.8 GFLOP a layer, 0.28 ms;
 // what it must move (stash, g, g_a, h2, g_m2) is 188 MB a layer, 0.056 ms.
@@ -60,8 +62,8 @@
 //   start of its walk over Dc skewed so that a quarter-warp's float4 reads
 //   fall in different banks) and pushes slice j of it to CTA j, which adds
 //   the N slices in CTA order and writes its part of the row of `part`:
-//   reduce_kernel and the layout of `part` stay as they were, and the sums
-//   are the same bits from run to run.
+//   one row a sequence, as reduce_kernel reads it, and the same bits from
+//   run to run.
 // - The partial tiles of a product's K-slices are summed through the
 //   full-rows buffer, so a cluster barrier stands between a product's
 //   epilogue and the next gather into that buffer. Per launch: 7 cluster
@@ -74,8 +76,9 @@
 // What differs from the TPU kernel, and why: the TPU kernel adds each batch
 // tile's weight gradients into one output block, which is safe there only
 // because grid steps run in order. Blocks on this card run in parallel, so
-// each sequence (and each row chunk of the channel-mix product) writes its
-// own partial and a second pass sums them: no atomics.
+// each sequence writes its own partial and a second pass sums them, and the
+// channel-mix product's row splits are summed inside their cluster: no
+// atomics.
 //
 // Limits: S <= 36, 16 <= D <= 512 with D % 16 == 0, f32, silu / relu / the
 // leaky relus; N in {1, 2, 4, 8} with Dc = D/N a multiple of 4 and at most
@@ -89,9 +92,6 @@
 #include "transmlp_common.cuh"
 
 namespace {
-
-constexpr int kWT = 64;  // wgrad output tile (rows and columns)
-constexpr int kWK = 16;  // wgrad rows staged per step
 
 constexpr int kBKt = 8;                         // weight rows per K-tile
 constexpr int kBRing = 3;                       // ring stages of one K-slice
@@ -750,80 +750,280 @@ bwd_block_kernel(const __grid_constant__ BwdParams p) {
 #endif
 }
 
-// out[split, k, n] = sum over rows r of this split of a[r, k] * c[r, n];
-// a and c are [R, D]. 256 threads, each a 4 x 4 tile of the 64 x 64 output.
-__global__ void __launch_bounds__(kThreads)
-wgrad_kernel(const float* __restrict__ a, const float* __restrict__ c,
-             float* __restrict__ out, int R, int D, int rows_per_split) {
-  __shared__ __align__(16) float a_s[kWK][kWT];
-  __shared__ __align__(16) float c_s[kWK][kWT];
-  const int k0 = blockIdx.x * kWT, n0 = blockIdx.y * kWT;
-  const int r_begin = blockIdx.z * rows_per_split;
-  const int r_end = min(R, r_begin + rows_per_split);
-  const int tid = threadIdx.x, tk = tid / 16, tn = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  for (int r0 = r_begin; r0 < r_end; r0 += kWK) {
-    for (int idx = tid; idx < kWK * kWT; idx += kThreads) {
-      const int rr = idx / kWT, cc = idx % kWT, r = r0 + rr;
-      const bool in = r < r_end;
-      a_s[rr][cc] = (in && k0 + cc < D) ? __ldg(a + (size_t)r * D + k0 + cc) : 0.0f;
-      c_s[rr][cc] = (in && n0 + cc < D) ? __ldg(c + (size_t)r * D + n0 + cc) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kWK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&a_s[kk][tk * 4]);
-      const float4 cv = *reinterpret_cast<const float4*>(&c_s[kk][tn * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float cr[4] = {cv.x, cv.y, cv.z, cv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], cr[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* o = out + (size_t)blockIdx.z * D * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + tk * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tn * 4 + j;
-      if (k < D && n < D) o[(size_t)k * D + n] = acc[i][j];
-    }
-  }
+// ---- the channel-mix weight gradient: d ch_w = h2^T g_m2 in 3xTF32 ----
+//
+// dcw[m, n] = sum_r a[r, m] * c[r, n] over the R rows of a = h2 and c = g_m2
+// ([R, D] each, row-major): a product whose reduction runs over the rows.
+// What bounds it: the tensor cores, 3 * 2 R D^2 TF32 FLOP at 495 TFLOP/s
+// (0.057 ms a layer at TED B = 512, R = 17,920), far above its 73 MB of
+// reads at 3.35 TB/s (0.022 ms). The FP32 pipe would cap the same product at
+// 67 TFLOP/s (0.14 ms a layer).
+//
+// 3xTF32: each operand is split, x = hi + lo with hi = rna_tf32(x) and lo =
+// rna_tf32(x - hi) (split_tf32), and each 16 x 8 x 8 step runs the three
+// mma.sync products lo.hi + hi.lo + hi.hi (lo.lo is below f32's rounding).
+// One pass of TF32 would leave relative errors of about 3e-4. Every 32-row
+// stage is summed in a fresh accumulator and then added into the running f32
+// sum with an ordinary (round-to-nearest) add, so no long chain of sums
+// stays inside the tensor cores' accumulation.
+//
+// Design:
+// - A CTA owns a 128 x 128 tile of dcw (16 warps of 32 x 32: four warps a
+//   scheduler to hide the loads and splits behind the other warps' mma)
+//   and a range of rows. The N CTAs of a cluster share the tile and split
+//   the rows at boundaries fixed by R and N: CTA j takes the 32-row steps
+//   [j * steps / N, (j + 1) * steps / N), steps = ceil(R / 32).
+// - Rows stream through a ring of kWStages stages of 32 rows of both
+//   operands' tile columns, kWStages - 1 steps ahead: 16-byte cp.async
+//   copies, zero-filled past R and past D (the ragged edges add zeros),
+//   each thread arriving on the stage's full mbarrier when its copies land
+//   (noinc); each warp arrives on the stage's empty mbarrier when done with
+//   it, and the stage is refilled once all have. The split is done in
+//   registers as the fragments are loaded.
+// - A stage row is 136 floats (= 8 mod 32). The fragments' rows and
+//   columns are permuted against the tile's so that a thread's elements lie
+//   side by side: A's rows g and g + 8 are the tile columns 2g and 2g + 1
+//   (one 8-byte load), B's column g of its four n-fragments the columns
+//   4g .. 4g + 3 (one 16-byte load); a warp's loads hit every bank once.
+// - After the last stage each CTA leaves its partial tile in its own shared
+//   memory; after a cluster barrier CTA j adds the N partials of its stripe
+//   of rows of the tile in CTA order through distributed shared memory and
+//   writes dcw once. No atomics, no partials in device memory, the same
+//   bits every run.
+
+constexpr int kWThreads = 512;                // 16 warps
+constexpr int kWTile = 128;                   // output tile, rows and columns
+constexpr int kWStep = 32;                    // rows a ring stage holds
+constexpr int kWStages = 4;
+constexpr int kWStride = kWTile + 8;          // a stage row, padded (= 8 mod 32)
+constexpr int kWStageFloats = 2 * kWStep * kWStride;      // a's rows, then c's
+constexpr int kWChunks = 2 * kWStep * kWTile / 4 / kWThreads;  // 16-byte copies a thread
+constexpr int kWBarBytes = 128;               // full and empty per stage
+constexpr size_t kWSmemBytes = kWBarBytes + (size_t)kWStages * kWStageFloats * sizeof(float);
+static_assert(kWTile * kWStride <= kWStages * kWStageFloats, "the partial tile reuses the ring");
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero; the low 13 bits cleared), in two integer operations: half a
+// TF32 ulp added to the magnitude, then truncated. The instruction itself
+// becomes about four (a NaN test and a select besides); the operands here
+// are finite, and a NaN still reaches the product through lo.
+__device__ __forceinline__ float to_tf32(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
 }
 
-// One thread per gradient element of the layer: d ch_w from `wpart` summed
-// over the splits, every other gradient from `part` summed over the batch.
-__global__ void reduce_kernel(const float* __restrict__ wpart, int nsplit,
-                              const float* __restrict__ part, int B, int S, int D,
-                              float* dcw, float* dcb, float* ds1, float* db1,
-                              float* ds2, float* db2, float* dtw, float* dtb) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int DD = D * D, P = part_size(S, D);
-  if (idx < DD) {
-    float s = 0.0f;
-    for (int k = 0; k < nsplit; ++k) s += wpart[(size_t)k * DD + idx];
-    dcw[idx] = s;
-    return;
+// x = hi + lo, both TF32
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - hi);
+}
+
+// d += a b, a 16 x 8 (row) and b 8 x 8 (col) TF32 fragments, d 16 x 8 f32
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const float (&a)[4], const float (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])), "r"(__float_as_uint(a[2])),
+        "r"(__float_as_uint(a[3])), "r"(__float_as_uint(b[0])), "r"(__float_as_uint(b[1])));
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes when !in
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// an arrival on bar once this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__global__ void __launch_bounds__(kWThreads, 1)
+wgrad_kernel(const float* __restrict__ a, const float* __restrict__ c, float* __restrict__ dcw,
+             int R, int D, int N) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* empty = full + kWStages;
+  float* ring = reinterpret_cast<float*>(smem_raw + kWBarBytes);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int tiles_n = (D + kWTile - 1) / kWTile, tile = blockIdx.x / N;
+  const int m0 = tile / tiles_n * kWTile, n0 = tile % tiles_n * kWTile;
+  const int steps = (R + kWStep - 1) / kWStep;
+  const int s_begin = (int)((long long)rank * steps / N);
+  const int nsteps = (int)((long long)(rank + 1) * steps / N) - s_begin;
+  if (tid < kWStages) {
+    mbar_init(&full[tid], kWThreads);      // every thread's cp.async arrival
+    mbar_init(&empty[tid], kWThreads / 32);  // every warp's
   }
-  const int q = idx - DD;
-  if (q >= P) return;
-  float s = 0.0f;
-  for (int b = 0; b < B; ++b) s += part[(size_t)b * P + q];
+  mbar_init_fence();
+  __syncthreads();
+
+  // Step i of this CTA into its stage: thread tid copies the 16-byte chunks
+  // tid + kWThreads * k, k < kWChunks: a's 32 x 128 tile columns, then c's.
+  auto issue = [&](int i) {
+    float* st = ring + (i % kWStages) * kWStageFloats;
+    const int r0 = (s_begin + i) * kWStep;
+#pragma unroll
+    for (int k = 0; k < kWChunks; ++k) {
+      const int chunk = tid + k * kWThreads, which = chunk / (kWStep * kWTile / 4);
+      const int row = chunk / (kWTile / 4) % kWStep, col = chunk % (kWTile / 4) * 4;
+      const int r = r0 + row, gc = (which ? n0 : m0) + col;
+      const bool in = r < R && gc < D;
+      const float* src = (which ? c : a) + (in ? (size_t)r * D + gc : 0);
+      cp_async16(st + (which * kWStep + row) * kWStride + col, src, in);
+    }
+    cp_async_arrive(&full[i % kWStages]);
+  };
+
+  // warp (wm, wn) owns rows wm * 32 + [0, 32) and columns wn * 32 + [0, 32)
+  // of the tile: 2 x 4 fragments of 16 x 8. Fragment x's row r is the tile
+  // row wm * 32 + 16 x + (r < 8 ? 2r : 2(r - 8) + 1); fragment y's column q
+  // the tile column wn * 32 + 4q + y.
+  const int wm = warp / 4, wn = warp % 4, g = lane / 4, t = lane % 4;
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  for (int i = 0; i < kWStages - 1 && i < nsteps; ++i) issue(i);
+  for (int i = 0; i < nsteps; ++i) {
+    // refill the stage of step i - 1 once every warp is done with it
+    const int j = i + kWStages - 1;
+    if (j < nsteps) {
+      if (j >= kWStages) mbar_wait(&empty[j % kWStages], (uint32_t)((j / kWStages - 1) & 1));
+      issue(j);
+    }
+    mbar_wait(&full[i % kWStages], (uint32_t)((i / kWStages) & 1));
+    const float* st = ring + (i % kWStages) * kWStageFloats;
+    const float* as = st + wm * 32 + 2 * g;
+    const float* bs = st + kWStep * kWStride + wn * 32 + 4 * g;
+    float part[2][4][4];
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[x][y][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kWStep; kk += 8) {
+      // b0 = (k t, column q = g), b1 = (k t + 4, g) of each n-fragment;
+      // a0..a3 = (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+      const int k0 = (kk + t) * kWStride, k4 = (kk + t + 4) * kWStride;
+      const float4 b0 = ld4(bs + k0), b1 = ld4(bs + k4);
+      const float bv[4][2] = {{b0.x, b1.x}, {b0.y, b1.y}, {b0.z, b1.z}, {b0.w, b1.w}};
+      float bhi[4][2], blo[4][2];
+#pragma unroll
+      for (int y = 0; y < 4; ++y)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) split_tf32(bv[y][e], bhi[y][e], blo[y][e]);
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const float2 a01 = ld2(as + k0 + 16 * x), a23 = ld2(as + k4 + 16 * x);
+        const float av[4] = {a01.x, a01.y, a23.x, a23.y};
+        float ahi[4], alo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(av[e], ahi[e], alo[e]);
+#pragma unroll
+        for (int y = 0; y < 4; ++y) {
+          mma_tf32(part[x][y], alo, bhi[y]);
+          mma_tf32(part[x][y], ahi, blo[y]);
+          mma_tf32(part[x][y], ahi, bhi[y]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[i % kWStages]);
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[x][y][e] += part[x][y][e];
+  }
+
+  // the partial tile [kWTile, kWStride] over the ring (every copy issued
+  // was waited for; the barrier is for the other warps' reads). acc[x][y][e]
+  // is the tile's (wm * 32 + 16 x + 2g + e / 2, wn * 32 + 8t + 4 (e % 2) + y).
+  __syncthreads();
+  float* ct = ring;
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      st4(ct + (wm * 32 + 16 * x + 2 * g + e / 2) * kWStride + wn * 32 + 8 * t + 4 * (e % 2),
+          make_float4(acc[x][0][e], acc[x][1][e], acc[x][2][e], acc[x][3][e]));
+  cg::this_cluster().sync();
+  // CTA rank's stripe of rows, the N partials added in CTA order
+  const int stripe = (kWTile + N - 1) / N, lo = rank * stripe;
+  const int hi = min(min(kWTile, lo + stripe), D - m0), c4s = min(kWTile, D - n0) / 4;
+  for (int e = tid; e < max(0, hi - lo) * (kWTile / 4); e += kWThreads) {
+    const int row = lo + e / (kWTile / 4), c4 = e % (kWTile / 4);
+    if (c4 >= c4s) continue;
+    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int q = 0; q < N; ++q) {
+      const float4 v = ld4(cg::this_cluster().map_shared_rank(ct, q) + row * kWStride + 4 * c4);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    st4(dcw + (size_t)(m0 + row) * D + n0 + 4 * c4, s);
+  }
+  cg::this_cluster().sync();  // no CTA leaves while another reads its tile
+}
+
+// ---- the other gradients of the layer: part [B, P] summed over the batch ----
+//
+// What bounds it: reading part once (7.8 MB at TED B = 512, 2.3 us at
+// 3.35 TB/s). A CTA owns 32 adjacent columns (a lane each: a warp's loads
+// are one 128-byte row segment); warp w of 16 sums the rows [w * per,
+// (w + 1) * per), per = ceil(B / 16), eight loads in flight a lane; the
+// warps' sums are added in warp order. The same bits every run.
+constexpr int kRCols = 32, kRThreads = 512;
+
+__global__ void __launch_bounds__(kRThreads)
+reduce_kernel(const float* __restrict__ part, int B, int S, int D, float* ds1, float* db1,
+              float* ds2, float* db2, float* dcb, float* dtb, float* dtw) {
+  __shared__ float red[kRThreads / 32][kRCols];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, P = part_size(S, D);
+  const int q = blockIdx.x * kRCols + lane;
+  const int per = (B + kRThreads / 32 - 1) / (kRThreads / 32);
+  const int b0 = min(B, warp * per), b1 = min(B, b0 + per);
+  float s[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (q < P) {
+    const float* col = part + q;
+    int b = b0;
+    for (; b + 8 <= b1; b += 8)
+#pragma unroll
+      for (int u = 0; u < 8; ++u) s[u] += __ldg(col + (size_t)(b + u) * P);
+    for (; b < b1; ++b) s[0] += __ldg(col + (size_t)b * P);
+  }
+  red[warp][lane] = ((s[0] + s[1]) + (s[2] + s[3])) + ((s[4] + s[5]) + (s[6] + s[7]));
+  __syncthreads();
+  if (warp != 0 || q >= P) return;
+  float v = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kRThreads / 32; ++w) v += red[w][lane];
   if (q >= dtw_off(S, D)) {
-    dtw[q - dtw_off(S, D)] = s;
+    dtw[q - dtw_off(S, D)] = v;
   } else if (q >= dtb_off(D)) {
-    dtb[q - dtb_off(D)] = s;
+    dtb[q - dtb_off(D)] = v;
   } else {
     float* dst[5] = {ds1, db1, ds2, db2, dcb};
-    dst[q / D][q % D] = s;
+    dst[q / D][q % D] = v;
   }
 }
 
@@ -910,29 +1110,56 @@ extern "C" int fused_transmlp_train_bwd_block_launch(
   return (int)cudaGetLastError();
 }
 
-// Step 2: wpart [nsplit, D, D] from h2, gm2 [R, D], R = B*S rows in
-// chunks of rows_per_split (a multiple of 16).
-extern "C" int fused_transmlp_train_wgrad_launch(
-    const float* h2, const float* gm2, float* wpart, int R, int D, int nsplit,
-    int rows_per_split, void* stream) {
-  if (R < 1 || D < 1 || nsplit < 1 || rows_per_split < 1 || rows_per_split % kWK != 0 ||
-      (long long)nsplit * rows_per_split < R)
+// Clusters of `cluster` CTAs of the weight-gradient kernel the current card
+// holds at once (cudaOccupancyMaxActiveClusters), or minus the cudaError_t.
+extern "C" int fused_transmlp_train_wgrad_max_clusters(int cluster) {
+  if (cluster < 1 || cluster > kMaxCluster) return -(int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cluster_launch_config(&cfg, attr, 1, cluster, kWSmemBytes);
+  cfg.blockDim = dim3(kWThreads, 1, 1);
+  cudaError_t err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kWSmemBytes);
+  int n = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, wgrad_kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// Step 2: dcw [D, D] = h2^T gm2 over the R rows of h2, gm2 [R, D], as
+// ceil(D / 128)^2 clusters of `cluster` CTAs that split the rows.
+extern "C" int fused_transmlp_train_wgrad_launch(const float* h2, const float* gm2, float* dcw,
+                                                 int R, int D, int cluster, void* stream) {
+  if (R < 1 || D < kKTile || D > kMaxN || D % kKTile != 0 || cluster < 1 ||
+      cluster > kMaxCluster)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((D + kWT - 1) / kWT, (D + kWT - 1) / kWT, nsplit);
-  wgrad_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(h2, gm2, wpart, R, D,
-                                                            rows_per_split);
+  for (const void* q : {(const void*)h2, (const void*)gm2, (const void*)dcw})
+    if (q == nullptr || !aligned16(q)) return (int)cudaErrorInvalidValue;
+  const int tiles = (D + kWTile - 1) / kWTile;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cluster_launch_config(&cfg, attr, tiles * tiles, cluster, kWSmemBytes);
+  cfg.blockDim = dim3(kWThreads, 1, 1);
+  cudaError_t err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kWSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  cfg.stream = (cudaStream_t)stream;
+  err = cudaLaunchKernelEx(&cfg, wgrad_kernel, h2, gm2, dcw, R, D, cluster);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// Step 3: this layer's gradients from wpart and part.
+// Step 3: this layer's other gradients, part [B, 5D + S + S*S] summed over B,
+// in the order of part's row.
 extern "C" int fused_transmlp_train_reduce_launch(
-    const float* wpart, int nsplit, const float* part, int B, int S, int D,
-    float* dcw, float* dcb, float* ds1, float* db1, float* ds2, float* db2,
-    float* dtw, float* dtb, void* stream) {
-  if (B < 1 || S < 1 || S > kSPad || D < kKTile || D > kMaxN || D % kKTile != 0 || nsplit < 1)
+    const float* part, int B, int S, int D, float* ds1, float* db1, float* ds2, float* db2,
+    float* dcb, float* dtb, float* dtw, void* stream) {
+  if (B < 1 || S < 1 || S > kSPad || D < kKTile || D > kMaxN || D % kKTile != 0)
     return (int)cudaErrorInvalidValue;
-  const int n = D * D + part_size(S, D);
-  reduce_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-      wpart, nsplit, part, B, S, D, dcw, dcb, ds1, db1, ds2, db2, dtw, dtb);
+  for (const void* q : {(const void*)part, (const void*)ds1, (const void*)db1, (const void*)ds2,
+                        (const void*)db2, (const void*)dcb, (const void*)dtb, (const void*)dtw})
+    if (q == nullptr) return (int)cudaErrorInvalidValue;
+  const int ctas = (part_size(S, D) + kRCols - 1) / kRCols;
+  reduce_kernel<<<ctas, kRThreads, 0, (cudaStream_t)stream>>>(part, B, S, D, ds1, db1, ds2, db2,
+                                                              dcb, dtb, dtw);
   return (int)cudaGetLastError();
 }

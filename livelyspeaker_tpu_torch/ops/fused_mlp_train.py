@@ -12,6 +12,9 @@ backward is a block, a weight-gradient and a reduce launch per layer
 (``csrc/fused_transmlp_train.cu``). The block kernel spreads each sequence
 over a thread-block cluster as the forward does; :func:`backward_geometry`
 picks the cluster from the shapes and the clusters the card holds at once.
+The weight-gradient kernel computes ``d ch_w = h2^T g_m2`` on the tensor
+cores in 3xTF32, each output tile's rows split over a cluster that sums its
+partials on chip; :func:`wgrad_geometry` picks that cluster.
 On a CPU tensor the plain versions run. A call without autograd launches K1
 without a stash, as the JAX package's does.
 
@@ -23,7 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +46,11 @@ __all__ = [
     "fused_transmlp_train",
     "backward_geometry",
     "backward_resident_clusters",
+    "WgradGeometry",
+    "wgrad_geometry",
+    "wgrad_resident_clusters",
+    "channel_mix_wgrad",
+    "reduce_partials",
 ]
 
 # what the training kernels take, as the JAX kernel's _act_pair does
@@ -217,8 +225,8 @@ def backward_geometry(b: int, s: int, d: int,
 def _launcher(kernel: str):
     """The C function of ``kernel``, bound on first use: the forward is the
     cluster kernel of ``fused_transmlp.cu`` with a stash; the backward's
-    three kernels and the block kernel's cluster count are in
-    ``fused_transmlp_train.cu``."""
+    three kernels and the cluster counts of the block and weight-gradient
+    kernels are in ``fused_transmlp_train.cu``."""
     if kernel == "fwd":
         return fused_mlp._launcher()[2]
     if kernel not in _bound:
@@ -227,12 +235,14 @@ def _launcher(kernel: str):
             # stash, emb, g_in, g_out, gemb, first, 9 weights, h2, gm2, part,
             # B, S, D, act, cluster, stream
             "bwd_block": ("bwd_block_launch", [p] * 5 + [i] + [p] * 12 + [i] * 5 + [p]),
-            # h2, gm2, wpart, R, D, nsplit, rows per split, stream
-            "wgrad": ("wgrad_launch", [p] * 3 + [i] * 4 + [p]),
-            # wpart, nsplit, part, B, S, D, 8 gradients, stream
-            "reduce": ("reduce_launch", [p, i, p, i, i, i] + [p] * 8 + [p]),
+            # h2, gm2, dcw, R, D, cluster, stream
+            "wgrad": ("wgrad_launch", [p] * 3 + [i] * 3 + [p]),
+            # part, B, S, D, 7 gradients, stream
+            "reduce": ("reduce_launch", [p, i, i, i] + [p] * 7 + [p]),
             # D, cluster
             "bwd_max_clusters": ("bwd_max_clusters", [i, i]),
+            # cluster
+            "wgrad_max_clusters": ("wgrad_max_clusters", [i]),
         }[kernel]
         fn = getattr(load_library("fused_transmlp_train"), f"fused_transmlp_train_{name}")
         fn.argtypes = argtypes
@@ -254,6 +264,65 @@ def backward_resident_clusters(d: int, device: torch.device) -> Dict[int, int]:
         if bad:
             raise RuntimeError("fused_transmlp_train: cudaOccupancyMaxActiveClusters failed "
                                f"with cudaError {bad} (D={d})")
+        _resident[key] = counts
+    return _resident[key]
+
+
+# The weight-gradient kernel (wgrad_kernel in csrc/fused_transmlp_train.cu):
+# 128 x 128 output tiles, rows in ring stages of 32
+WGRAD_TILE, WGRAD_STEP, WGRAD_MAX_CLUSTER = 128, 32, 8
+# Clusters of N CTAs of it an H100 SXM holds at once (one CTA an SM, a
+# cluster inside one GPC): cudaOccupancyMaxActiveClusters on an NVIDIA H100
+# 80GB HBM3, as chip_smoke.py prints it. The default of wgrad_geometry; on a
+# card the wrapper asks the card. The 16 tiles at D = 512 take clusters of 6.
+H100_WGRAD_RESIDENT_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+
+
+class WgradGeometry(NamedTuple):
+    tiles: int  # 128 x 128 output tiles, one cluster each
+    cluster: int  # CTAs that split a tile's rows
+    bounds: Tuple[int, ...]  # row boundaries: CTA j takes [bounds[j], bounds[j + 1])
+
+
+def wgrad_geometry(rows: int, d: int,
+                   resident: Optional[Dict[int, int]] = None) -> WgradGeometry:
+    """The weight-gradient kernel's launch geometry for ``d ch_w = h2^T g_m2``
+    over ``rows`` rows of width D; raises ``ValueError`` on what the kernel
+    does not take. ``resident`` maps a cluster size to the clusters the card
+    holds at once (default: an H100 SXM's, ``H100_WGRAD_RESIDENT_CLUSTERS``).
+
+    Each of the ceil(D/128)^2 output tiles is one cluster of N CTAs. N is the
+    largest size up to 8 whose clusters all run in one wave and that gives
+    every CTA at least one 32-row step: the rows are spread over the most
+    SMs. CTA j takes the steps [j * steps // N, (j + 1) * steps // N), steps
+    = ceil(rows / 32): boundaries fixed by the rows and N, as the kernel
+    computes them."""
+    if rows < 1:
+        raise ValueError(f"fused_transmlp_train wgrad: {rows} rows; the kernel takes >= 1")
+    if not (fused_mlp.DIM_STEP <= d <= fused_mlp.MAX_DIM and d % fused_mlp.DIM_STEP == 0):
+        raise ValueError(f"fused_transmlp_train wgrad: D={d}; the kernel takes a multiple of "
+                         f"{fused_mlp.DIM_STEP} in [{fused_mlp.DIM_STEP}, {fused_mlp.MAX_DIM}]")
+    resident = H100_WGRAD_RESIDENT_CLUSTERS if resident is None else resident
+    tiles = ((d + WGRAD_TILE - 1) // WGRAD_TILE) ** 2
+    steps = -(-rows // WGRAD_STEP)
+    cluster = next((n for n in range(WGRAD_MAX_CLUSTER, 0, -1)
+                    if n <= steps and tiles <= resident.get(n, 0)), 1)
+    bounds = tuple(min(rows, j * steps // cluster * WGRAD_STEP) for j in range(cluster + 1))
+    return WgradGeometry(tiles, cluster, bounds)
+
+
+def wgrad_resident_clusters(device: torch.device) -> Dict[int, int]:
+    """Clusters of each size 1..8 of the weight-gradient kernel the card
+    holds at once, as the CUDA runtime reports them (asked once per card)."""
+    key = (device.index, "wgrad")
+    if key not in _resident:
+        query = _launcher("wgrad_max_clusters")
+        with torch.cuda.device(device):
+            counts = {n: query(n) for n in range(1, WGRAD_MAX_CLUSTER + 1)}
+        bad = {n: -v for n, v in counts.items() if v < 0}
+        if bad:
+            raise RuntimeError("fused_transmlp_train wgrad: cudaOccupancyMaxActiveClusters "
+                               f"failed with cudaError {bad}")
         _resident[key] = counts
     return _resident[key]
 
@@ -319,12 +388,63 @@ def fused_transmlp_train_forward(
     return out, stash
 
 
-def _wgrad_split(rows: int) -> Tuple[int, int]:
-    """(chunks, rows per chunk) of the channel-mix weight gradient's B*S
-    rows: up to 16 chunks of at least 1024 rows, each a multiple of 16."""
-    nsplit = max(1, min(16, math.ceil(rows / 1024)))
-    per = math.ceil(math.ceil(rows / nsplit) / 16) * 16
-    return math.ceil(rows / per), per
+def _part_layout(s: int, d: int) -> Dict[str, Tuple[int, ...]]:
+    """The gradients a row of ``part`` holds, in its order (and the reduce
+    launch's): d ln1 and d ln2 scale and bias and d ch_b [D], d token_b
+    [S], d token_w [S, S]."""
+    return {"ln1_scale": (d,), "ln1_bias": (d,), "ln2_scale": (d,), "ln2_bias": (d,),
+            "ch_b": (d,), "token_b": (s,), "token_w": (s, s)}
+
+
+def channel_mix_wgrad(h2: torch.Tensor, gm2: torch.Tensor, out: Optional[torch.Tensor] = None,
+                      cluster: Optional[int] = None) -> torch.Tensor:
+    """``d ch_w = h2^T g_m2`` [D, D] for h2, g_m2 [R, D]: the weight-gradient
+    kernel on CUDA tensors (into ``out`` if given), the plain product on CPU
+    tensors. ``cluster`` overrides :func:`wgrad_geometry`'s choice (for
+    measurement); the kernel refuses a size outside 1..8 and the wrapper
+    raises."""
+    if h2.device.type == "cpu":
+        return torch.einsum("rk,rn->kn", h2, gm2)
+    who = "fused_transmlp_train wgrad"
+    if h2.device.type != "cuda":
+        raise ValueError(f"{who}: no kernel for device {h2.device}")
+    rows, d = h2.shape
+    dev = h2.device
+    fused_mlp._check("h2", h2, (rows, d), dev, who)
+    fused_mlp._check("g_m2", gm2, (rows, d), dev, who)
+    if out is None:
+        out = torch.empty((d, d), dtype=torch.float32, device=dev)
+    fused_mlp._check("out", out, (d, d), dev, who)
+    if cluster is None:
+        cluster = wgrad_geometry(rows, d, wgrad_resident_clusters(dev)).cluster
+    _launch("wgrad", dev, h2.data_ptr(), gm2.data_ptr(), out.data_ptr(), rows, d, cluster,
+            what=f"R={rows}, D={d}, cluster={cluster}")
+    return out
+
+
+def reduce_partials(part: torch.Tensor, s: int, d: int,
+                    out: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+    """The per-sequence partials ``part`` [B, 5D + S + S^2] summed over the
+    batch into the gradients of :func:`_part_layout`: the reduce kernel on a
+    CUDA tensor (into ``out``'s tensors if given), the plain sum on a CPU
+    tensor."""
+    layout = _part_layout(s, d)
+    if part.device.type == "cpu":
+        sums = part.sum(0).split([math.prod(shp) for shp in layout.values()])
+        return {k: v.reshape(shp) for (k, shp), v in zip(layout.items(), sums)}
+    who = "fused_transmlp_train reduce"
+    if part.device.type != "cuda":
+        raise ValueError(f"{who}: no kernel for device {part.device}")
+    b = part.shape[0]
+    dev = part.device
+    fused_mlp._check("part", part, (b, 5 * d + s + s * s), dev, who)
+    if out is None:
+        out = {k: torch.empty(shp, dtype=torch.float32, device=dev) for k, shp in layout.items()}
+    for k, shp in layout.items():
+        fused_mlp._check(k, out[k], shp, dev, who)
+    _launch("reduce", dev, part.data_ptr(), b, s, d, *[out[k].data_ptr() for k in layout],
+            what=f"B={b}, S={s}, D={d}")
+    return out
 
 
 def fused_transmlp_train_backward(
@@ -335,7 +455,8 @@ def fused_transmlp_train_backward(
     """(dx, d emb, packed gradients) for the output cotangent ``g``. A CPU
     tensor runs the plain version; a CUDA tensor launches 3 kernels per
     layer or raises. ``cluster`` overrides :func:`backward_geometry`'s
-    choice for the block kernel (for measurement)."""
+    choice for the block kernel (for measurement); the weight-gradient
+    kernel's cluster is :func:`wgrad_geometry`'s."""
     if g.device.type == "cpu":
         return fused_transmlp_train_backward_reference(stash, emb, g, packed, act_name)
     who = "fused_transmlp_train backward"
@@ -359,8 +480,6 @@ def fused_transmlp_train_backward(
     grads = {k: torch.empty_like(packed[k]) for k in PACKED_KEYS}
     h2, gm2 = torch.empty((2, b, s, d), **f32)  # for the weight-gradient kernel
     part = torch.empty((b, 5 * d + s + s * s), **f32)
-    nsplit, per = _wgrad_split(b * s)
-    wpart = torch.empty((nsplit, d, d), **f32)
     cw_t = packed["ch_w"].transpose(1, 2).contiguous()  # once a backward, every layer's
 
     def at(t: torch.Tensor, l: int) -> int:  # pointer to layer l of t
@@ -374,12 +493,8 @@ def fused_transmlp_train_backward(
                 *[at(packed[k], l) for k in PACKED_KEYS[:7]], at(cw_t, l), at(packed["ch_b"], l),
                 h2.data_ptr(), gm2.data_ptr(), part.data_ptr(), b, s, d, act, cluster,
                 what=f"{what}, layer {l}")
-        _launch("wgrad", dev, h2.data_ptr(), gm2.data_ptr(), wpart.data_ptr(),
-                b * s, d, nsplit, per, what=f"{what}, layer {l}")
-        _launch("reduce", dev, wpart.data_ptr(), nsplit, part.data_ptr(), b, s, d,
-                *[at(grads[k], l) for k in ("ch_w", "ch_b", "ln1_scale", "ln1_bias",
-                                             "ln2_scale", "ln2_bias", "token_w", "token_b")],
-                what=f"{what}, layer {l}")
+        channel_mix_wgrad(h2.view(b * s, d), gm2.view(b * s, d), grads["ch_w"][l])
+        reduce_partials(part, s, d, {k: grads[k][l] for k in _part_layout(s, d)})
     return gx, gemb, grads
 
 

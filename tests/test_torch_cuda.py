@@ -341,6 +341,97 @@ def test_backward_geometry_matches_kernel(cuda_device, dim):
         assert geo.smem_bytes <= fused_mlp.SMEM_LIMIT
 
 
+WGRAD_DIMS = [16, 48, 64, 128, 208, 272, 400, 512]
+WGRAD_TOL = 2e-6  # 3xTF32 is f32-accurate: f32 sums over up to 18,432 rows
+
+
+def _wgrad_operands(device, rows, dim, seed):
+    g = torch.Generator().manual_seed(seed)
+    h2 = torch.randn(rows, dim, generator=g).to(device)
+    gm2 = torch.randn(rows, dim, generator=g).to(device)
+    return h2, gm2, h2.double().t() @ gm2.double()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [10, 105, 2240, 17920, 18432])
+@pytest.mark.parametrize("dim", WGRAD_DIMS)
+def test_wgrad_kernel_matches_f64(cuda_device, dim, rows):
+    """d ch_w = h2^T g_m2 on the tensor cores in 3xTF32, at every width the
+    block kernel takes and row counts from a ragged handful to BEAT's
+    B*S at B=512: within WGRAD_TOL of max|f64 product|, one launch, and the
+    same bits on a second run (the cluster adds its partials in CTA order)."""
+    h2, gm2, ref = _wgrad_operands(cuda_device, rows, dim, seed=dim + rows)
+    launches = fused_mlp_train.LAUNCHES["wgrad"]
+    out = fused_mlp_train.channel_mix_wgrad(h2, gm2)
+    again = fused_mlp_train.channel_mix_wgrad(h2, gm2)
+    torch.cuda.synchronize()
+    assert fused_mlp_train.LAUNCHES["wgrad"] == launches + 2
+    assert _rel(out.double(), ref) <= WGRAD_TOL
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", range(1, 9))
+@pytest.mark.parametrize("rows,dim", [(105, 208), (2240, 512)])
+def test_wgrad_kernel_every_cluster_size(cuda_device, rows, dim, cluster):
+    """Every cluster size the kernel takes, forced: at 105 rows (four
+    32-row steps) the larger clusters have CTAs with no rows."""
+    h2, gm2, ref = _wgrad_operands(cuda_device, rows, dim, seed=cluster)
+    out = fused_mlp_train.channel_mix_wgrad(h2, gm2, cluster=cluster)
+    torch.cuda.synchronize()
+    assert _rel(out.double(), ref) <= WGRAD_TOL
+
+
+@pytest.mark.cuda
+def test_wgrad_resident_clusters_from_the_card(cuda_device):
+    """The card reports how many clusters of each size 1..8 of the kernel it
+    holds at once; at TED's and BEAT's shapes the geometry's grid runs in
+    one wave of them."""
+    counts = fused_mlp_train.wgrad_resident_clusters(cuda_device)
+    assert set(counts) == set(range(1, 9)) and all(n > 0 for n in counts.values())
+    for rows in (64 * 35, 512 * 35, 512 * 36):
+        geo = fused_mlp_train.wgrad_geometry(rows, 512, counts)
+        assert geo.tiles <= counts[geo.cluster]
+
+
+@pytest.mark.cuda
+def test_wgrad_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    h2, gm2, _ = _wgrad_operands(cuda_device, 64, 64, seed=0)
+    for cluster in (0, 9):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            fused_mlp_train.channel_mix_wgrad(h2, gm2, cluster=cluster)
+    wide, _, _ = _wgrad_operands(cuda_device, 64, 520, seed=0)
+    with pytest.raises(ValueError, match="D=520"):
+        fused_mlp_train.channel_mix_wgrad(wide, wide)
+    with pytest.raises(RuntimeError, match="cudaError"):  # D=520 forced past the geometry
+        fused_mlp_train.channel_mix_wgrad(wide, wide, cluster=1)
+    with pytest.raises(TypeError, match="f32"):
+        fused_mlp_train.channel_mix_wgrad(h2.double(), gm2.double())
+    with pytest.raises(ValueError, match="shape"):
+        fused_mlp_train.channel_mix_wgrad(h2, gm2[:, :32].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,seq,dim", [(1, 35, 512), (5, 10, 64), (7, 36, 16), (64, 35, 512),
+                                       (512, 35, 512), (512, 36, 512), (333, 2, 48)])
+def test_reduce_kernel_matches_sum(cuda_device, b, seq, dim):
+    """The batch sum of part into the seven gradients, against part.sum(0)
+    in f64 (within 1e-6 of each max: f32 sums of up to 512 terms in another
+    order); the same bits on a second run."""
+    g = torch.Generator().manual_seed(b + seq + dim)
+    part = torch.randn(b, 5 * dim + seq + seq * seq, generator=g).to(cuda_device)
+    launches = fused_mlp_train.LAUNCHES["reduce"]
+    out = fused_mlp_train.reduce_partials(part, seq, dim)
+    again = fused_mlp_train.reduce_partials(part, seq, dim)
+    want = fused_mlp_train.reduce_partials(part.double().cpu(), seq, dim)
+    torch.cuda.synchronize()
+    assert fused_mlp_train.LAUNCHES["reduce"] == launches + 2
+    for k, ref in want.items():
+        assert out[k].shape == ref.shape, k
+        assert _rel(out[k].double().cpu(), ref) <= 1e-6, k
+        assert torch.equal(out[k], again[k]), k
+
+
 @pytest.mark.cuda
 def test_train_function_routes_to_kernels(cuda_device):
     """Under autograd the Function launches the training kernels; under
