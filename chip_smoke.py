@@ -55,7 +55,10 @@ same training with the WavEncoder swapped for the fused WavEncoder stack
    plain versions at L = 36,267, B in {8, 512}: forward within rel 1e-5;
    backward on the same residuals, d_wav and every weight and conv3 bias
    gradient within rel 1e-4 of its max, the pre-IN biases within 1e-4 of
-   the largest gradient; the time of both, and of each kernel;
+   the largest gradient; the time of both, and of each kernel; then the
+   weight-gradient kernel (3xTF32 on the tensor cores) conv by conv against
+   the f64 weight gradient and timed against cuDNN's weight gradient of the
+   same conv on the materialised activation, in turns, with its bound;
 10. training through K3 and K2: 7. with the WavEncoder swapped for
    FusedWavEncoder before the TrainLoop is built: finite, decreasing
    losses; each K3 kernel launched as often a step as one forward and one
@@ -586,11 +589,32 @@ def wgrad_library_probe(card, out_dir):
                   f"wpart.sum(0) on {list(wpart.shape)} {t['wpart']:.4f} ms a call ({card})")
 
 
+def k3_wgrad_cost(b, length, i):
+    """(operations, bytes, peak) of conv i's weight-gradient launch: the
+    [15 C_in, B T_i] x [B T_i, C_out] product as 3xTF32, three TF32
+    products at the TF32 peak, and for conv1 conv0's recompute as f32
+    outside the tensor cores (counted in TF32-peak time); it reads its
+    input and statistics and the cotangent once, and writes its partials."""
+    from livelyspeaker_tpu_torch.ops import fused_wav as k3
+
+    dims = k3.WavDims(length)
+    t = (dims.T1, dims.T2, dims.T3, dims.T4)
+    cin, cout = k3.CHANNELS[i], k3.CHANNELS[i + 1]
+    flop = 3 * 2 * b * t[i] * 15 * cin * cout
+    if i == 1:
+        flop += 2 * b * t[0] * 32 * 15 * PEAK_TF32 / PEAK_FLOPS
+    nsplit = k3.wgrad_geometry(b, t[i], cin, cout).nsplit
+    inputs = b * length if i == 1 else b * t[i - 1] * cin
+    nbytes = 4 * (inputs + 2 * b * cin + b * t[i] * cout + nsplit * (cout * cin * 15 + cout))
+    return flop, nbytes, PEAK_TF32
+
+
 def k3_cost(b, length):
-    """(FLOP, bytes) of each K3 kernel over one forward and one backward
-    call without d_wav (all its launches), from the shapes: the convs'
-    FLOPs, conv0 counted once wherever a kernel recomputes it; each
-    kernel's inputs read once, its outputs written once."""
+    """(FLOP, bytes[, peak]) of each K3 kernel over one forward and one
+    backward call without d_wav (all its launches), from the shapes: the
+    convs' FLOPs at the f32 peak, conv0 counted once wherever a kernel
+    recomputes it, but the weight gradient's as k3_wgrad_cost counts them;
+    each kernel's inputs read once, its outputs written once."""
     from livelyspeaker_tpu_torch.ops import fused_wav as k3
 
     dims = k3.WavDims(length)
@@ -607,16 +631,75 @@ def k3_cost(b, length):
         "in_bwd": (6 * (size[1] + size[2]), 4 * 3 * (size[1] + size[2])),
     }
     # weight and data gradients of conv1..3 (conv0 recomputed for conv1);
-    # the row-chunk partials of the weight gradients, as the wrapper splits
-    nparts = [b] + [k3._wgrad_split(b * t[i], ch[i] // 8 * -(-ch[i + 1] // 64))[0]
-                    for i in (1, 2, 3)]
+    # the row-chunk partials of the weight gradients, as the wrapper splits;
+    # the weight gradient's three TF32 products at the TF32 peak, conv1's
+    # conv0 recompute at the f32 one (k3_wgrad_cost)
+    nparts = [b] + [k3.wgrad_geometry(b, t[i], ch[i], ch[i + 1]).nsplit for i in (1, 2, 3)]
     parts = sum(n * w for n, w in zip(nparts, wts))
     inputs, cots = wav + size[1] + size[2], size[1] + size[2] + size[3]
-    cost["wgrad"] = (sum(conv), 4 * (inputs + cots + parts - nparts[0] * wts[0]))
+    wgrad = [k3_wgrad_cost(b, length, i) for i in (1, 2, 3)]
+    cost["wgrad"] = (sum(c[0] for c in wgrad), sum(c[1] for c in wgrad), PEAK_TF32)
     cost["bwd_data"] = (sum(conv), 4 * (inputs + cots + sum(wts[1:]) + size[0] + size[1] + size[2]))
     cost["wgrad0"] = (2 * conv[0], 4 * (wav + size[0] + nparts[0] * wts[0]))
     cost["reduce"] = (parts, 4 * (parts + sum(wts)))
     return cost
+
+
+def wav_wgrad_turns(card, b, iters=10):
+    """K3's weight-gradient kernel alone, conv by conv, at TED's waveform
+    length: one launch over conv i's B*T_i rows (``wgrad_partials``),
+    against cuDNN's weight gradient of the same conv on the materialised
+    activation a = lrelu(IN(pre)) laid out [B, C, T]
+    (aten.convolution_backward, f32, TF32 off), which does no InstanceNorm,
+    LeakyReLU or conv0 recompute. Each is replayed from a CUDA graph, timed
+    in turns (kernel, cuDNN, cuDNN, kernel). The kernel's partials, summed,
+    are held first against the plain weight gradient in f64 and a second
+    launch against the first's bits. Returns {i: (kernel ms, cuDNN ms)}."""
+    import torch.nn.functional as F
+
+    from livelyspeaker_tpu_torch.models import WavEncoder, audio_samples_for_frames
+    from livelyspeaker_tpu_torch.models.initializers import random_normal_
+    from livelyspeaker_tpu_torch.ops import fused_wav as k3
+
+    g = torch.Generator().manual_seed(50 + b)
+    enc = random_normal_(WavEncoder(), g).cuda()
+    packed = k3.pack_wav_params(enc, differentiable=False)
+    length = audio_samples_for_frames(34)
+    wav = (0.1 * torch.randn(b, length, generator=g)).cuda()
+    _, res = k3.fused_wav_forward(wav, packed)
+    xh = k3.lrelu_inputs(res, packed)
+    dims = k3.WavDims(length)
+    t = (dims.T1, dims.T2, dims.T3, dims.T4)
+    out = {}
+    for i in (1, 2, 3):
+        cout = k3.CHANNELS[i + 1]
+        cot = torch.randn(b, t[i], cout, generator=g).cuda()
+        a = F.leaky_relu(xh[i - 1], 0.3).contiguous()  # [B, C_in, T_in]
+        gt = cot.transpose(1, 2).contiguous()  # [B, C_out, T_out]
+        w = packed[f"w{i}"]
+        part = k3.wgrad_partials(i, res, cot, packed)
+        dw, db = k3.reduce_partials(part, i)
+        same = torch.equal(part, k3.wgrad_partials(i, res, cot, packed))
+        rw, rb = k3._conv_weight_grad(a.double(), gt.double(), 6)
+        rel = max(_rel(dw.double(), rw), _rel(db.double(), rb))
+        cudnn = lambda: torch.ops.aten.convolution_backward(
+            gt, a, w, [cout], [6], [0], [1], False, [0], 1, [False, True, True])
+        crel = _rel(cudnn()[1].double(), rw)
+        del rw, rb
+        check(same and rel <= GRAD_TOL, f"K3 wgrad conv{i} B={b}: rel {rel:.3e} against f64, "
+              f"same bits on a second launch: {same}")
+        times = time_turns({"kernel": graphed(lambda: k3.wgrad_partials(i, res, cot, packed)),
+                            "cudnn": graphed(cudnn)}, iters)
+        flop, nbytes, peak = k3_wgrad_cost(b, length, i)
+        bound_ms = bound(flop, nbytes, peak)[0]
+        out[i] = (times["kernel"], times["cudnn"])
+        print(f"[wav-wgrad] conv{i} B={b} rows {b * t[i]}, {part.shape[0]} splits: kernel "
+              f"{times['kernel']:.4f} ms (rel {rel:.1e} against f64), bound {bound_ms:.4f} ms "
+              f"(share {bound_ms / times['kernel']:.1%}); cuDNN weight gradient "
+              f"{times['cudnn']:.4f} ms (rel {crel:.1e}); CUDA graphs, in turns ({card})")
+    print(f"[wav-wgrad] B={b}: the three convs {sum(v[0] for v in out.values()):.4f} ms, cuDNN "
+          f"{sum(v[1] for v in out.values()):.4f} ms ({card})")
+    return out
 
 
 def train_kernel_phase(card):
@@ -759,10 +842,12 @@ def wav_kernel_phase(card):
               f"(with d_wav {ms['bwd+d_wav']:.3f}); by kernel, ms per call: "
               + ", ".join(f"{k} {v:.3f}" for k, v in per_kernel.items())
               + f"; plain fwd {plain['fwd']:.3f} ms, bwd {plain['bwd']:.3f} ms ({card})")
+        wav_wgrad_turns(card, b)
         if b == TRAIN_BATCH:
             report = {"ms": per_kernel, "plain_fwd": plain["fwd"], "plain_bwd": plain["bwd"],
                       "bound": {k: bound(*c) for k, c in k3_cost(b, length).items()}}
-            print(f"[wav-kernel] {tag}: bound by kernel, ms per call: " + ", ".join(
+            print(f"[wav-kernel] {tag}: bound by kernel, ms per call (wgrad: its three TF32 "
+                  "products at 495 TFLOP/s and conv0's recompute at 67): " + ", ".join(
                 f"{k} {v[0]:.3f} ({v[1]}, share {v[0] / per_kernel[k]:.1%})"
                 for k, v in report["bound"].items()) + f" ({card})")
     return worst, report
@@ -1130,7 +1215,8 @@ def main():
     # library_ms: one torch.matmul computes the K2 weight-gradient kernel's
     # product and one torch.sum the reduce kernel's sums; no single PyTorch
     # call computes any other of these functions (8-block mixer stacks and
-    # their backward, a conv/InstanceNorm/LeakyReLU chain)
+    # their backward, a conv/InstanceNorm/LeakyReLU chain; cuDNN's weight
+    # gradient, printed beside K3's, takes the activation already normalised)
     kernels = [{
         "name": "fused_transmlp", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,

@@ -125,25 +125,6 @@ struct Smem {
   }
 };
 
-// Arrives when every earlier cp.async of this thread has landed (noinc:
-// the barrier was initialised with one count per thread).
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-// 4 bytes; src_bytes 0 writes a zero.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
 struct Ctx {
   const ClusterParams& p;
   int rank, c0, dc, dp, ws;  // ws: ring row stride
@@ -164,14 +145,14 @@ __device__ __forceinline__ void issue_params(const Ctx& c, int l) {
   float* b = c.prm + (l % 2) * prm_floats(dc);
   const float* tw = p.tw + (size_t)l * S * S;
   for (int i = threadIdx.x / 32; i < S; i += kT / 32)  // a warp a row
-    for (int j = threadIdx.x % 32; j < S; j += 32) cp_async4(b + i * kSPad + j, tw + i * S + j, 4);
-  if (threadIdx.x < S) cp_async4(b + kSPad * kSPad + threadIdx.x, p.tb + (size_t)l * S + threadIdx.x, 4);
+    for (int j = threadIdx.x % 32; j < S; j += 32) cp_async4(b + i * kSPad + j, tw + i * S + j, true);
+  if (threadIdx.x < S) cp_async4(b + kSPad * kSPad + threadIdx.x, p.tb + (size_t)l * S + threadIdx.x, true);
   float* v = b + kSPad * kSPad + kSPad;
   for (int idx = threadIdx.x; idx < 5 * q4; idx += kT) {
     const int which = idx / q4, col = (idx % q4) * 4;
     const float* src = which == 0 ? p.ln1_s : which == 1 ? p.ln1_b : which == 2 ? p.ln2_s
                      : which == 3 ? p.ln2_b : p.cb;
-    if (src != nullptr) cp_async16(v + which * dc + col, src + (size_t)l * p.D + c.c0 + col);
+    if (src != nullptr) cp_async16(v + which * dc + col, src + (size_t)l * p.D + c.c0 + col, true);
   }
   cp_async_arrive(&c.bars[2 * kStagesMax + l % 2]);
 }
@@ -307,8 +288,7 @@ __device__ __forceinline__ void pose_projection(const Ctx& c, float* og) {
       for (int idx = threadIdx.x; idx < rows * ncols; idx += kT) {
         const int r = idx / ncols, j = idx % ncols;
         const bool in = j < nb;
-        cp_async4(c.ring + idx, in ? c.p.ow + (size_t)(k0 + r) * F + f0 + j0 + j : c.p.ow,
-                  in ? 4 : 0);
+        cp_async4(c.ring + idx, in ? c.p.ow + (size_t)(k0 + r) * F + f0 + j0 + j : c.p.ow, in);
       }
       cp_async_arrive(bar);
       mbar_wait(bar, (uint32_t)(phase & 1));

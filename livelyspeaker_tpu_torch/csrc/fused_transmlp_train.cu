@@ -802,51 +802,6 @@ constexpr int kWBarBytes = 128;               // full and empty per stage
 constexpr size_t kWSmemBytes = kWBarBytes + (size_t)kWStages * kWStageFloats * sizeof(float);
 static_assert(kWTile * kWStride <= kWStages * kWStageFloats, "the partial tile reuses the ring");
 
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
-// from zero; the low 13 bits cleared), in two integer operations: half a
-// TF32 ulp added to the magnitude, then truncated. The instruction itself
-// becomes about four (a NaN test and a select besides); the operands here
-// are finite, and a NaN still reaches the product through lo.
-__device__ __forceinline__ float to_tf32(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
-}
-
-// x = hi + lo, both TF32
-__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - hi);
-}
-
-// d += a b, a 16 x 8 (row) and b 8 x 8 (col) TF32 fragments, d 16 x 8 f32
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const float (&a)[4], const float (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])), "r"(__float_as_uint(a[2])),
-        "r"(__float_as_uint(a[3])), "r"(__float_as_uint(b[0])), "r"(__float_as_uint(b[1])));
-}
-
-// 16 bytes from global to shared memory, or 16 zero bytes when !in
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(in ? 16 : 0)
-               : "memory");
-}
-
-// an arrival on bar once this thread's earlier cp.async copies have landed
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
 __global__ void __launch_bounds__(kWThreads, 1)
 wgrad_kernel(const float* __restrict__ a, const float* __restrict__ c, float* __restrict__ dcw,
              int R, int D, int N) {

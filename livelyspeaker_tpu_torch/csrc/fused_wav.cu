@@ -26,8 +26,8 @@
 // The backward keeps the waveform, m1, m2 and the three statistics, and
 // walks the stages back, per conv i = 3, 2, 1:
 //   wav_wgrad_kernel         dW_i and db_i partials over row chunks of the
-//                            (b, t) product, the input activation recomputed
-//                            on load;
+//                            (b, t) product on the tensor cores (3xTF32),
+//                            the input activation recomputed on load;
 //   wav_reduce_kernel        the chunks summed in a fixed order;
 //   wav_bwd_data_kernel      g_a = conv_i^T g, times lrelu', written as gy
 //                            [B, T, C], with per-tile partial sums of gy and
@@ -49,11 +49,17 @@
 // Mosaic's lane rules and are not carried over.
 //
 // What bounds it: about 90 GFLOP forward and twice that backward at B = 512
-// on TED, all plain f32 FMA (no TF32, no tensor cores): the FP32 pipe and
-// the shared-memory loads that feed it. wgmma and TMA are later work.
+// on TED. The weight gradient runs on the tensor cores in 3xTF32 (mma.sync,
+// tf32_mma.cuh); the other kernels are plain f32 FMA, bound by the FP32
+// pipe and the shared-memory loads that feed it. wgmma and TMA are later
+// work.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "tf32_mma.cuh"  // cp.async, the 3xTF32 mma.sync
 
 namespace {
 
@@ -412,93 +418,332 @@ wav_in_bwd_kernel(const float* __restrict__ pre, const float* __restrict__ st,
   }
 }
 
-constexpr int kWC = 8;                 // wgrad: input channels of a block
-constexpr int kWM = 128;               // its rows m = c k (kWC * 15 = 120 used)
-constexpr int kWN = 64;                // its output channels
-constexpr int kWK = 16;                // (b, t) rows per step
-constexpr int kWThreads = 128;         // 16 x 8 threads, 8 x 8 each
-constexpr int kWU = kS * (kWK - 1) + kK;  // input times under a step
+// ---- the weight gradient of conv1..3 on the tensor cores in 3xTF32 ----
+//
+// Replaces the weight-gradient sums of livelyspeaker_tpu/ops/pallas/
+// fused_wav.py: _conv_rows_bwd (dw_ref[c] += ..., :326), called from
+// _bwd_c, _bwd_b and _bwd_a.
+//
+// dW[o, c, k] = sum_{b, t} a[b, 6t + k, c] g[b, t, o] and db[o] = sum g[b, t, o]:
+// a [15 C_in, R] x [R, C_out] product whose reduction runs over the R = B T
+// rows (b, t), a = lrelu(IN(pre)) recomputed on load. What bounds it: the
+// tensor cores, 3 x 2 R 15 C_in C_out TF32 FLOP at 495 TFLOP/s (0.47 ms for
+// the three convs at TED B = 512), plus conv1's recompute of conv0 on the
+// FP32 pipe (0.06 ms). The split into TF32 halves and the three products
+// are tf32_mma.cuh's; the row order of the sums is fixed by the shapes.
+//
+// Design:
+// - A CTA owns an output tile of 16 input channels x 15 taps (240 rows,
+//   exactly 15 m16 fragments: fragment x is tap x, its rows the 16
+//   channels) by 64 output channels, and a range of rows fixed by
+//   rows_per_split (ops/fused_wav.py: wgrad_geometry): one wave of the
+//   card, its partial written to part[split] and summed by
+//   wav_reduce_kernel in split order. No atomics, the same bits every run.
+// - Rows go in stages of up to 32. A stage may span up to kGSeg sequence
+//   segments (every segment of n rows stages the 6n + 9 input times under
+//   it once), so a stage ends early only past kGSeg segments, i.e. when
+//   T_out < 11. No im2col: each row keeps the window offset of its tap 0.
+// - Raw stages arrive by cp.async in a ring of kGRing, kGRing - 1 stages
+//   ahead: the pre-norm window [times][16 channels] (conv1: the waveform
+//   samples under it, 4-byte copies zero-filled in conv0's padding), g
+//   [32][64], zero-filled past the stage's rows, and each segment's
+//   statistics of the tile's channels.
+// - In the same interval as the products of stage i, the warps turn raw
+//   stage i + 1 into a split stage (two buffers, so one barrier a stage;
+//   one row of warps does it before its products, the others after, so
+//   the tensor cores have work while the splits run): conv1 first computes
+//   conv0 from the staged samples (bias first, taps in order, no
+//   contraction: the bits of every other K3 kernel), then each value is
+//   normalised, put through the LeakyReLU and split into TF32 hi and lo,
+//   once; g is split once. The tiles of channel group 0 add g's columns
+//   into db in four row groups, summed in order at the end.
+// - 12 warps, 3 (taps 5w .. 5w + 4) x 4 (16 output channels each). A's
+//   rows g and g + 8 are the channels 2g and 2g + 1 (one 8-byte load), B's
+//   column g of the warp's two n-fragments the tile columns 2g and 2g + 1
+//   (one 8-byte load); window times are 20 floats apart (6 x 20 = 24 mod
+//   32) and g rows 72 (8 mod 32): no bank conflicts within a segment.
+//   Each stage's products go into a fresh accumulator that is then added
+//   into the running f32 sum.
 
-// dW[o, c, k] = sum_{b, t} a[b, 6t + k, c] g[b, t, o] and db[o] = sum g[b, t, o]
-// over the rows (b, t) of one chunk, as a [15 kWC, R] x [R, kWN] product for
-// 8 input channels (rows m = c 15 + k, torch's order) and 64 output
-// channels a block. Each step takes up to 16 rows of one sequence: the
-// activations under them (a window of 105 times x 8 channels, each
-// recomputed once) are staged, spread into the [16][m] tile, and
-// multiplied; thread (tm, tn) holds rows 4 tm + {0..3}, 64 + 4 tm + {0..3}
-// and columns 4 tn + {0..3}, 32 + 4 tn + {0..3}. Chunk z writes
-// part[z] = [dW in torch's layout, db]; db from the blocks of channel
-// chunk 0.
+constexpr int kGC = 16;          // input channels of a tile: 15 m16 fragments of 16 rows
+constexpr int kGN = 64;          // output channels of a tile
+constexpr int kGRows = 32;       // rows (b, t) of a stage
+constexpr int kGSeg = 4;         // sequence segments a stage may span
+constexpr int kGWin = kS * kGRows + (kK - kS) * kGSeg;  // 228 window times a stage at most
+constexpr int kGRing = 3;        // raw stages in flight
+constexpr int kGWarpsM = 3, kGWarpsN = 4, kGThreads = 32 * kGWarpsM * kGWarpsN;
+constexpr int kGTaps = kK / kGWarpsM;  // taps (m-fragments) of a warp
+constexpr int kGWinStride = 20;  // a time of the split window: 16 channels, padded
+constexpr int kGGStride = 72;    // a row of the split g: 64 columns, padded
+constexpr int kGRawFloats = kGWin * kGC + kGRows * kGN + kGSeg * 2 * kGC;  // window, g, stats
+constexpr int kGSplitFloats = 2 * kGWin * kGWinStride + 2 * kGRows * kGGStride + kGRows;
+constexpr size_t kGSmemBytes = (size_t)(kGRing * kGRawFloats + 2 * kGSplitFloats) * sizeof(float);
+static_assert(kS0 * kGWin + (kK - kS0) * kGSeg <= kGWin * kGC,
+              "conv1's samples fit the raw window");
+static_assert(kGThreads % kGC == 0, "a thread keeps one channel in the window pass");
+constexpr int kGBiasParts = 4;   // row groups of the bias sums, added in order at the end
+static_assert(kGBiasParts * kGN <= kGThreads && kGRows % kGBiasParts == 0, "bias sums");
+
+// A run of rows of one sequence in a stage: sequence b, times t .. t + n - 1,
+// rows j .. j + n - 1 of the stage, window times u .. u + 6n + 8.
+struct Seg {
+  int b, t, n, j, u;
+};
+
+// The segments of the stage that starts at row r0: up to 32 rows, at most
+// kGSeg sequences, not past hi. Returns their count; the stage ends at
+// r0 + seg[count - 1].j + seg[count - 1].n.
+__device__ __forceinline__ int stage_segs(int r0, int hi, int T, Seg (&seg)[kGSeg]) {
+  const int lim = min(r0 + kGRows, hi);
+  int r = r0, u = 0, ns = 0;
+#pragma unroll
+  for (int s = 0; s < kGSeg; ++s) {
+    if (r >= lim) break;
+    const int b = r / T, t = r - b * T, n = min(T - t, lim - r);
+    seg[s] = Seg{b, t, n, r - r0, u};
+    u += kS * n + kK - kS;
+    r += n;
+    ns = s + 1;
+  }
+  return ns;
+}
+
+// part[split] = [dW in torch's layout, db] over the rows of one split; the
+// grid is (tiles, splits), tile = channel group * (C_out / 64) + column group.
 template <bool kFromWav>
-__global__ void __launch_bounds__(kWThreads)
+__global__ void __launch_bounds__(kGThreads, 1)
 wav_wgrad_kernel(Src src, const float* __restrict__ g, int B, int Tout, int Cout, float leak,
                  float* __restrict__ part, int rows_per_split) {
-  __shared__ float win_s[kWU][kWC];
-  __shared__ __align__(16) float a_s[kWK][kWM];
-  __shared__ __align__(16) float g_s[kWK][kWN];
-  const int Cin = src.C, R = B * Tout;
-  const int c0 = blockIdx.x * kWC, n0 = blockIdx.y * kWN;
-  const int r_begin = blockIdx.z * rows_per_split;
-  const int r_end = min(R, r_begin + rows_per_split);
-  const int tid = threadIdx.x, tm = tid / 8, tn = tid % 8;
-  const bool bias_block = blockIdx.x == 0 && tid < kWN;
-  float acc[8][8];
+  extern __shared__ __align__(16) float smem[];
+  float* const raw = smem;                               // kGRing raw stages
+  float* const split = smem + kGRing * kGRawFloats;      // two split stages
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int Cin = src.C, T = Tout, tiles_n = Cout / kGN;
+  const int c0 = blockIdx.x / tiles_n * kGC, n0 = blockIdx.x % tiles_n * kGN;
+  const int lo = blockIdx.y * rows_per_split, hi = min(B * Tout, lo + rows_per_split);
+  const bool bias_cta = c0 == 0;
+
+  // the window pass: this thread's channel and, for conv1, its conv0 weights
+  const int wc = tid % kGC;
+  float w0r[kK], b0r = 0.0f;
+  if constexpr (kFromWav) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  float bsum = 0.0f;
-  for (int r0 = r_begin; r0 < r_end;) {
-    const int bb = r0 / Tout, t0 = r0 % Tout;
-    const int len = min(kWK, min(r_end - r0, Tout - t0));  // rows of one sequence
-    const int nu = kS * (len - 1) + kK;
-    __syncthreads();
-    for (int idx = tid; idx < kWU * kWC; idx += kWThreads) {
-      const int u = idx / kWC, cc = idx % kWC;
-      win_s[u][cc] = u < nu ? lrelu(src_xhat<kFromWav>(src, bb, kS * t0 + u, c0 + cc), leak) : 0.0f;
-    }
-    for (int idx = tid; idx < kWK * kWN; idx += kWThreads) {
-      const int kk = idx / kWN, n = idx % kWN;
-      g_s[kk][n] = (kk < len && n0 + n < Cout) ? __ldg(g + (size_t)(r0 + kk) * Cout + n0 + n) : 0.0f;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < kWK * kWM; idx += kWThreads) {
-      const int kk = idx / kWM, m = idx % kWM, cc = m / kK, k = m % kK;
-      a_s[kk][m] = (kk < len && cc < kWC) ? win_s[kS * kk + k][cc] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kWK; ++kk) {
-      float ar[8], gr[8];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float4 av = *reinterpret_cast<const float4*>(&a_s[kk][64 * h + 4 * tm]);
-        const float4 gv = *reinterpret_cast<const float4*>(&g_s[kk][32 * h + 4 * tn]);
-        ar[4 * h] = av.x, ar[4 * h + 1] = av.y, ar[4 * h + 2] = av.z, ar[4 * h + 3] = av.w;
-        gr[4 * h] = gv.x, gr[4 * h + 1] = gv.y, gr[4 * h + 2] = gv.z, gr[4 * h + 3] = gv.w;
+    for (int k = 0; k < kK; ++k) w0r[k] = __ldg(src.w0 + (c0 + wc) * kK + k);
+    b0r = __ldg(src.b0 + c0 + wc);
+  }
+
+  // raw stage at r0 into slot; returns the next stage's first row
+  auto issue = [&](int r0, float* slot) {
+    Seg seg[kGSeg];
+    const int ns = stage_segs(r0, hi, T, seg);
+    float* win = slot;
+    for (int s = 0; s < ns; ++s) {
+      const Seg& q = seg[s];
+      if constexpr (kFromWav) {  // samples 30t - 1600 .. under conv0 times 6t .. 6(t + n - 1) + 14
+        const int count = kS0 * (kS * q.n + kK - kS - 1) + kK;
+        const float* row = src.wav + (size_t)q.b * src.L;
+        const int p0 = kS0 * kS * q.t - kPad0;
+        float* dst = win + kS0 * q.u + (kK - kS0) * s;
+        for (int j = tid; j < count; j += kGThreads) {
+          const int wi = p0 + j;
+          const bool in = wi >= 0 && wi < src.L;
+          cp_async4(dst + j, row + (in ? wi : 0), in);
+        }
+      } else {
+        const int chunks = (kS * q.n + kK - kS) * (kGC / 4);
+        const float* base = src.pre + ((size_t)q.b * src.T + kS * q.t) * Cin + c0;
+        for (int j = tid; j < chunks; j += kGThreads) {
+          const int u = j / (kGC / 4), v = j % (kGC / 4);
+          cp_async16(win + (q.u + u) * kGC + 4 * v, base + (size_t)u * Cin + 4 * v, true);
+        }
       }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], gr[j], acc[i][j]);
     }
-    if (bias_block)
-      for (int kk = 0; kk < len; ++kk) bsum += g_s[kk][tid];
-    r0 += len;
+    const int end = r0 + seg[ns - 1].j + seg[ns - 1].n;
+    float* gs = slot + kGWin * kGC;
+    for (int j = tid; j < kGRows * kGN / 4; j += kGThreads) {
+      const int row = j / (kGN / 4), v = j % (kGN / 4), r = r0 + row;
+      const bool in = r < end;
+      cp_async16(gs + row * kGN + 4 * v, g + (in ? (size_t)r * Cout + n0 + 4 * v : 0), in);
+    }
+    // each segment's mean and 1/std of the tile's channels: [kGSeg][2][16]
+    if (tid < ns * 2 * kGC / 4) {
+      const int s = tid / (2 * kGC / 4), which = tid / (kGC / 4) % 2, v = tid % (kGC / 4);
+      cp_async16(gs + kGRows * kGN + (s * 2 + which) * kGC + 4 * v,
+                 src.st + ((size_t)seg[s].b * 2 + which) * Cin + c0 + 4 * v, true);
+    }
+    return end;
+  };
+
+  float bsum = 0.0f;
+  // raw stage at r0 in slot -> split stage sb; returns the next stage's first row
+  auto transform = [&](int r0, const float* slot, float* sb) {
+    Seg seg[kGSeg];
+    const int ns = stage_segs(r0, hi, T, seg);
+    float* whi = sb;
+    float* wlo = whi + kGWin * kGWinStride;
+    float* ghi = wlo + kGWin * kGWinStride;
+    float* glo = ghi + kGRows * kGGStride;
+    int* off = reinterpret_cast<int*>(glo + kGRows * kGGStride);
+    const float* win = slot;
+    for (int s = 0; s < ns; ++s) {
+      const Seg& q = seg[s];
+      const float* st = slot + kGWin * kGC + kGRows * kGN + s * 2 * kGC + wc;
+      const float mean = st[0], inv = st[kGC];
+      const int nu = kS * q.n + kK - kS;
+      for (int u = tid / kGC; u < nu; u += kGThreads / kGC) {
+        float x;
+        if constexpr (kFromWav) {
+          const float* xs = win + kS0 * (q.u + u) + (kK - kS0) * s;
+          x = b0r;
+#pragma unroll
+          for (int k = 0; k < kK; ++k) x = conv0_tap(x, w0r[k], xs[k]);
+        } else {
+          x = win[(q.u + u) * kGC + wc];
+        }
+        float h, l;
+        split_tf32(lrelu((x - mean) * inv, leak), h, l);
+        whi[(q.u + u) * kGWinStride + wc] = h;
+        wlo[(q.u + u) * kGWinStride + wc] = l;
+      }
+    }
+    if (tid < kGRows) {  // row tid's window time of tap 0 (0 for rows past the stage)
+      int o = 0;
+      for (int s = 0; s < ns; ++s)
+        if (tid >= seg[s].j && tid < seg[s].j + seg[s].n) o = seg[s].u + kS * (tid - seg[s].j);
+      off[tid] = o;
+    }
+    const float* gs = slot + kGWin * kGC;
+    for (int j = tid; j < kGRows * kGN; j += kGThreads) {
+      const int row = j / kGN, col = j % kGN;
+      float h, l;
+      split_tf32(gs[j], h, l);
+      ghi[row * kGGStride + col] = h;
+      glo[row * kGGStride + col] = l;
+    }
+    if (bias_cta && tid < kGBiasParts * kGN) {  // rows past the stage are zeros
+      const float* col = gs + tid / kGN * (kGRows / kGBiasParts) * kGN + tid % kGN;
+      float v = 0.0f;
+#pragma unroll
+      for (int row = 0; row < kGRows / kGBiasParts; ++row) v += col[row * kGN];
+      bsum += v;
+    }
+    return r0 + seg[ns - 1].j + seg[ns - 1].n;
+  };
+
+  // warp (wm, wn): taps kGTaps wm + x, tile columns 16 wn + 2q + y for its
+  // n-fragment y's column q
+  const int wm = warp / kGWarpsN, wn = warp % kGWarpsN, gq = lane / 4, tq = lane % 4;
+  float acc[kGTaps][2][4];
+#pragma unroll
+  for (int x = 0; x < kGTaps; ++x)
+#pragma unroll
+    for (int y = 0; y < 2; ++y)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[x][y][e] = 0.0f;
+
+  auto products = [&](const float* sb) {
+    const float* whi = sb;
+    const float* wlo = whi + kGWin * kGWinStride;
+    const float* ghi = wlo + kGWin * kGWinStride;
+    const float* glo = ghi + kGRows * kGGStride;
+    const int* off = reinterpret_cast<const int*>(glo + kGRows * kGGStride);
+    float p[kGTaps][2][4];
+#pragma unroll
+    for (int x = 0; x < kGTaps; ++x)
+#pragma unroll
+      for (int y = 0; y < 2; ++y)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[x][y][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kGRows; kk += 8) {
+      // b0 = (row kk + tq, column gq), b1 = (kk + tq + 4, gq); a0..a3 =
+      // (channel 2gq, row kk + tq), (2gq + 1, kk + tq), (2gq, kk + tq + 4),
+      // (2gq + 1, kk + tq + 4) at the fragment's tap
+      const int r0 = kk + tq, r4 = kk + tq + 4;
+      const int col = wn * 16 + 2 * gq;
+      const float2 bh0 = ld2(ghi + r0 * kGGStride + col), bh4 = ld2(ghi + r4 * kGGStride + col);
+      const float2 bl0 = ld2(glo + r0 * kGGStride + col), bl4 = ld2(glo + r4 * kGGStride + col);
+      const float bhi[2][2] = {{bh0.x, bh4.x}, {bh0.y, bh4.y}};
+      const float blo[2][2] = {{bl0.x, bl4.x}, {bl0.y, bl4.y}};
+      const int a0 = (off[r0] + kGTaps * wm) * kGWinStride + 2 * gq;
+      const int a4 = (off[r4] + kGTaps * wm) * kGWinStride + 2 * gq;
+#pragma unroll
+      for (int x = 0; x < kGTaps; ++x) {
+        const float2 h0 = ld2(whi + a0 + x * kGWinStride), h4 = ld2(whi + a4 + x * kGWinStride);
+        const float2 l0 = ld2(wlo + a0 + x * kGWinStride), l4 = ld2(wlo + a4 + x * kGWinStride);
+        const float ahi[4] = {h0.x, h0.y, h4.x, h4.y};
+        const float alo[4] = {l0.x, l0.y, l4.x, l4.y};
+#pragma unroll
+        for (int y = 0; y < 2; ++y) {
+          mma_tf32(p[x][y], alo, bhi[y]);
+          mma_tf32(p[x][y], ahi, blo[y]);
+          mma_tf32(p[x][y], ahi, bhi[y]);
+        }
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < kGTaps; ++x)
+#pragma unroll
+      for (int y = 0; y < 2; ++y)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[x][y][e] += p[x][y][e];
+  };
+
+  int r_issue = lo;
+  for (int j = 0; j < kGRing; ++j) {
+    if (r_issue < hi) r_issue = issue(r_issue, raw + j * kGRawFloats);
+    cp_async_commit();
   }
+  cp_async_wait<kGRing - 1>();
+  __syncthreads();
+  int r_next = transform(lo, raw, split);  // the first row of stage i + 1
+  // The warps of tap row 1 split the next stage before their products, the
+  // others after theirs: each scheduler has products to issue while the
+  // splits run.
+  const bool split_first = wm == 1;
+  for (int i = 0;; ++i) {
+    // stage i + 1 has landed; every warp is done with split stage i - 1 and
+    // with raw stage i
+    cp_async_wait<kGRing - 2>();
+    __syncthreads();
+    if (r_issue < hi) r_issue = issue(r_issue, raw + (i % kGRing) * kGRawFloats);
+    cp_async_commit();
+    const bool more = r_next < hi;
+    const int r_this = r_next;
+    if (more && split_first)
+      r_next = transform(r_this, raw + ((i + 1) % kGRing) * kGRawFloats,
+                         split + ((i + 1) % 2) * kGSplitFloats);
+    products(split + (i % 2) * kGSplitFloats);
+    if (more && !split_first)
+      r_next = transform(r_this, raw + ((i + 1) % kGRing) * kGRawFloats,
+                         split + ((i + 1) % 2) * kGSplitFloats);
+    if (!more) break;
+  }
+
+  // acc[x][y][e]: tap kGTaps wm + x, channel c0 + 2gq + e / 2, column
+  // n0 + 16 wn + 4tq + 2 (e % 2) + y
   const int M = kK * Cin;
-  float* o = part + (size_t)blockIdx.z * ((size_t)M * Cout + Cout);
+  float* o = part + (size_t)blockIdx.y * ((size_t)M * Cout + Cout);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = 64 * (i / 4) + 4 * tm + i % 4;
-    if (m >= kWC * kK) continue;
+  for (int x = 0; x < kGTaps; ++x)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + 32 * (j / 4) + 4 * tn + j % 4;
-      if (n < Cout) o[(size_t)n * M + c0 * kK + m] = acc[i][j];
+    for (int y = 0; y < 2; ++y)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = n0 + 16 * wn + 4 * tq + 2 * (e % 2) + y, c = c0 + 2 * gq + e / 2;
+        o[(size_t)n * M + c * kK + kGTaps * wm + x] = acc[x][y][e];
+      }
+  if (bias_cta) {  // the row groups' bias sums, in order
+    cp_async_wait<0>();
+    __syncthreads();
+    if (tid < kGBiasParts * kGN) raw[tid] = bsum;
+    __syncthreads();
+    if (tid < kGN) {
+      float v = raw[tid];
+      for (int q = 1; q < kGBiasParts; ++q) v += raw[q * kGN + tid];
+      o[(size_t)M * Cout + n0 + tid] = v;
     }
   }
-  if (bias_block && n0 + tid < Cout) o[(size_t)M * Cout + n0 + tid] = bsum;
 }
 
 constexpr int kT0 = 128;  // conv0 times per step of wgrad0
@@ -700,23 +945,27 @@ extern "C" int fused_wav_in_bwd_launch(const float* pre, const float* st, const 
 }
 
 // part [nsplit, C_out * C_in * 15 + C_out]; rows (b, t) in chunks of
-// rows_per_split.
+// rows_per_split, a multiple of 32 (ops/fused_wav.py: wgrad_geometry), the
+// last chunk ending at B * Tout; C_out a multiple of 64.
 extern "C" int fused_wav_wgrad_launch(
     int from_wav, const float* pre, const float* st, int T_in, int C_in, const float* wav,
     const float* w0, const float* b0, int L, const float* g, int B, int Tout, int Cout,
     float leak, float* part, int nsplit, int rows_per_split, void* stream) {
-  if (!src_ok(from_wav, pre, T_in, C_in) || B < 1 || Tout < 1 || Cout < 1 || nsplit < 1 ||
-      nsplit > 65535 || rows_per_split < 1 ||
-      (long long)nsplit * rows_per_split < (long long)B * Tout || kS * (Tout - 1) + kK > T_in)
+  const long long rows = (long long)B * Tout;
+  if (!src_ok(from_wav, pre, T_in, C_in) || B < 1 || Tout < 1 || Cout < kGN || Cout % kGN != 0 ||
+      nsplit < 1 || nsplit > 65535 || rows_per_split < 1 || rows_per_split % kGRows != 0 ||
+      rows > INT_MAX || (long long)nsplit * rows_per_split < rows ||
+      (long long)(nsplit - 1) * rows_per_split >= rows || kS * (Tout - 1) + kK > T_in ||
+      g == nullptr || part == nullptr || ((uintptr_t)g | (uintptr_t)pre) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const Src s = make_src(pre, st, T_in, C_in, wav, w0, b0, L);
-  dim3 grid(C_in / kWC, (Cout + kWN - 1) / kWN, nsplit);
-  if (from_wav)
-    wav_wgrad_kernel<true><<<grid, kWThreads, 0, (cudaStream_t)stream>>>(
-        s, g, B, Tout, Cout, leak, part, rows_per_split);
-  else
-    wav_wgrad_kernel<false><<<grid, kWThreads, 0, (cudaStream_t)stream>>>(
-        s, g, B, Tout, Cout, leak, part, rows_per_split);
+  const auto kernel = from_wav ? wav_wgrad_kernel<true> : wav_wgrad_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kGSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(C_in / kGC * (Cout / kGN), nsplit);
+  kernel<<<grid, kGThreads, kGSmemBytes, (cudaStream_t)stream>>>(s, g, B, Tout, Cout, leak, part,
+                                                                 rows_per_split);
   return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,8 @@
 // the columns [r * D/N, (r + 1) * D/N). What is here:
 // - the limits (S <= kSPad = 36, D <= kMaxN = 512), the activations and
 //   their derivatives;
-// - mbarrier and TMA wrappers, and the encoder of a 2-D tensor map over a
+// - mbarrier and TMA wrappers (shared-memory addresses, cp.async and the
+//   TF32 helpers are in tf32_mma.cuh), and the encoder of a 2-D tensor map over a
 //   row-major weight matrix;
 // - the [kSPad, K] x [K, ncols] product in 9 x 8 register tiles whose
 //   threads form K-slices (Tiling, SliceRows, mma_quads), the slices'
@@ -25,6 +26,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"  // smem_addr, cp.async, the 3xTF32 mma.sync
 
 namespace cg = cooperative_groups;
 
@@ -83,10 +86,6 @@ __device__ __forceinline__ float dactivate(float v, int act) {
 // feed outputs that are not kept.
 __host__ __device__ inline int ring_stride(int dc) {
   return (dc + kTileCols - 1) / kTileCols * kTileCols;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {

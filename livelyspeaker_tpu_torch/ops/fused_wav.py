@@ -44,6 +44,10 @@ __all__ = [
     "fused_wav_backward_reference",
     "fused_wav_forward",
     "fused_wav_backward",
+    "WgradGeometry",
+    "wgrad_geometry",
+    "wgrad_partials",
+    "reduce_partials",
     "fused_wav_encoder",
     "FusedWavEncoder",
 ]
@@ -263,6 +267,14 @@ def _check_cuda(who: str, wav: torch.Tensor, packed) -> WavDims:
     return d
 
 
+def _check_residuals(who: str, res: WavResiduals, d: WavDims) -> None:
+    b, dev = res.wav.shape[0], res.wav.device
+    for name, t, shape in (("m1", res.m1, (b, d.T2, 64)), ("m2", res.m2, (b, d.T3, 128)),
+                           ("st0", res.st0, (b, 2, 32)), ("st1", res.st1, (b, 2, 64)),
+                           ("st2", res.st2, (b, 2, 128))):
+        fused_mlp._check(name, t, shape, dev, who)
+
+
 def _src(from_wav: bool, pre, st, t_in: int, c_in: int, wav, packed):
     """The stage-input arguments of the C launch functions."""
     return (int(from_wav), None if pre is None else pre.data_ptr(), st.data_ptr(), t_in, c_in,
@@ -298,14 +310,101 @@ def fused_wav_forward(
     return out, WavResiduals(wav, m1, m2, st0, st1, st2)
 
 
-def _wgrad_split(rows: int, tiles: int) -> Tuple[int, int]:
-    """(chunks, rows per chunk) of a weight gradient's B*T rows: enough
-    chunks for about 528 blocks (4 an SM) and at least 256 rows each.
-    Depends on the shapes only, so the sums are taken in the same order
-    every run."""
-    nsplit = max(1, min(math.ceil(528 / tiles), math.ceil(rows / 256)))
-    per = math.ceil(rows / nsplit)
-    return math.ceil(rows / per), per
+WGRAD_STAGE = 32  # rows (b, t) of a stage (csrc: kGRows)
+WGRAD_SEGMENTS = 4  # sequences a stage may span (kGSeg)
+WGRAD_TILE = (16, 64)  # input and output channels of an output tile (kGC, kGN)
+WGRAD_WAVE = 132  # CTAs the card runs at once: one an SM of an H100
+WGRAD_MIN_STAGES = 4  # stages a chunk takes at least, where the rows allow
+
+
+class WgradGeometry(NamedTuple):
+    """The weight-gradient launch of one conv: ``tiles`` output tiles of
+    16 input channels x 15 taps by 64 output channels, the B*T rows cut into
+    ``nsplit`` chunks of ``rows_per_split`` (a multiple of 32), one CTA a
+    tile and chunk."""
+    tiles: int
+    nsplit: int
+    rows_per_split: int
+
+    def bounds(self, rows: int):
+        """Chunk j holds the rows [bounds[j], bounds[j + 1])."""
+        return [min(rows, j * self.rows_per_split) for j in range(self.nsplit + 1)]
+
+
+def wgrad_geometry(b: int, t_out: int, c_in: int, c_out: int) -> WgradGeometry:
+    """Tiles and row chunks of the weight-gradient kernel for a conv from
+    ``c_in`` to ``c_out`` channels over ``b`` sequences of ``t_out`` output
+    times: as many chunks of whole 32-row stages as fill one wave of the
+    card with the tiles, each at least 4 stages where the rows allow.
+    Depends on the shapes only, so the partials are
+    summed in the same order every run. Raises ValueError for shapes the
+    kernel refuses."""
+    if b < 1 or t_out < 1:
+        raise ValueError(f"wgrad_geometry: B={b}, T={t_out}; the kernel takes B, T >= 1")
+    if c_in not in (32, 64, 128):
+        raise ValueError(f"wgrad_geometry: C_in={c_in}; the kernel takes 32, 64 or 128")
+    if c_out < WGRAD_TILE[1] or c_out % WGRAD_TILE[1]:
+        raise ValueError(f"wgrad_geometry: C_out={c_out}; the kernel takes multiples of 64")
+    rows = b * t_out
+    if rows > 2 ** 31 - 1:
+        raise ValueError(f"wgrad_geometry: B*T={rows} rows; the kernel takes < 2^31")
+    tiles = c_in // WGRAD_TILE[0] * (c_out // WGRAD_TILE[1])
+    steps = math.ceil(rows / WGRAD_STAGE)
+    nsplit = max(1, min(math.ceil(steps / WGRAD_MIN_STAGES), WGRAD_WAVE // tiles))
+    per = math.ceil(steps / nsplit) * WGRAD_STAGE
+    return WgradGeometry(tiles, math.ceil(rows / per), per)
+
+
+def wgrad_partials(i: int, res: WavResiduals, g: torch.Tensor, packed: Dict[str, torch.Tensor],
+                   leak: float = 0.3) -> torch.Tensor:
+    """Conv ``i``'s (1..3) weight- and bias-gradient partials on the card:
+    one launch of the weight-gradient kernel (3xTF32 on the tensor cores,
+    ``wgrad_geometry``'s chunks) for the cotangent ``g``
+    [B, T_i, C_out] of conv i's output, over its input lrelu(IN(pre))
+    recomputed from the residuals. Returns part [nsplit, C_out*C_in*15 +
+    C_out], each row dW (torch's layout) then db over one chunk of the
+    B*T_i rows; ``reduce_partials`` sums them. A CPU tensor runs the plain
+    version, one chunk of all the rows."""
+    wav = res.wav
+    if g.device.type == "cpu":  # the plain version: one chunk of all the rows
+        pre = _conv0(wav, packed) if i == 1 else (res.m1, res.m2)[i - 2].transpose(1, 2)
+        a = F.leaky_relu(_xhat(pre, (res.st0, res.st1, res.st2)[i - 1]), leak)
+        dw, db = _conv_weight_grad(a, g.transpose(1, 2), 6)
+        return torch.cat([dw.reshape(-1), db])[None]
+    d = _check_cuda("wgrad_partials", wav, packed)
+    _check_residuals("wgrad_partials", res, d)
+    t_out = (d.T1, d.T2, d.T3, d.T4)[i]
+    fused_mlp._check("g", g, (wav.shape[0], t_out, CHANNELS[i + 1]), wav.device, "wgrad_partials")
+    return _wgrad_partials(i, res, g, packed, leak, d)
+
+
+def _wgrad_partials(i, res: WavResiduals, g, packed, leak, d: WavDims) -> torch.Tensor:
+    """wgrad_partials' launch on tensors already checked."""
+    wav = res.wav
+    b, lengths = wav.shape[0], (d.T1, d.T2, d.T3, d.T4)
+    cin, cout, t_in, t_out = CHANNELS[i], CHANNELS[i + 1], lengths[i - 1], lengths[i]
+    pre, st = (None, res.m1, res.m2)[i - 1], (res.st0, res.st1, res.st2)[i - 1]
+    _, nsplit, per = wgrad_geometry(b, t_out, cin, cout)
+    part = torch.empty((nsplit, cout * cin * 15 + cout), dtype=torch.float32, device=wav.device)
+    _launch("wgrad", wav.device, *_src(i == 1, pre, st, t_in, cin, wav, packed), g.data_ptr(), b,
+            t_out, cout, leak, part.data_ptr(), nsplit, per, what=f"B={b}, L={d.L}, conv{i}")
+    return part
+
+
+def reduce_partials(part: torch.Tensor, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dW_i, db_i) from conv i's (0..3) partials [n, C_out*C_in*15 +
+    C_out], the rows summed in order: the reduce kernel on the card, a
+    sum in the same order on the CPU."""
+    cout, cin = CHANNELS[i + 1], CHANNELS[i]
+    if part.device.type == "cpu":
+        flat = part[0].clone()
+        for row in part[1:]:
+            flat = flat + row
+    else:
+        flat = torch.empty(part.shape[1], dtype=torch.float32, device=part.device)
+        _launch("reduce", part.device, part.data_ptr(), part.shape[0], flat.numel(),
+                flat.data_ptr(), what=f"conv{i}")
+    return flat[:cout * cin * 15].view(cout, cin, 15), flat[cout * cin * 15:]
 
 
 def fused_wav_backward(
@@ -323,33 +422,17 @@ def fused_wav_backward(
     b, dev = wav.shape[0], wav.device
     lengths = (d.T1, d.T2, d.T3, d.T4)
     fused_mlp._check("g", g, (b, d.T4, 256), dev, who)
-    for name, t, shape in (("m1", res.m1, (b, d.T2, 64)), ("m2", res.m2, (b, d.T3, 128)),
-                           ("st0", res.st0, (b, 2, 32)), ("st1", res.st1, (b, 2, 64)),
-                           ("st2", res.st2, (b, 2, 128))):
-        fused_mlp._check(name, t, shape, dev, who)
+    _check_residuals(who, res, d)
     f32 = dict(dtype=torch.float32, device=dev)
     what = f"B={b}, L={d.L}"
     pres, sts = (None, res.m1, res.m2), (res.st0, res.st1, res.st2)
     grads = {}
-
-    def reduce(part, n, i):  # part [n, C_out*C_in*15 + C_out] -> grads w{i}, b{i}
-        cout, cin = CHANNELS[i + 1], CHANNELS[i]
-        flat = torch.empty(cout * cin * 15 + cout, **f32)
-        _launch("reduce", dev, part.data_ptr(), n, flat.numel(), flat.data_ptr(),
-                what=f"{what}, conv{i}")
-        grads[f"w{i}"] = flat[:cout * cin * 15].view(cout, cin, 15)
-        grads[f"b{i}"] = flat[cout * cin * 15:]
-
     g_m = g
     for i in (3, 2, 1):
         cin, cout, t_in, t_out = CHANNELS[i], CHANNELS[i + 1], lengths[i - 1], lengths[i]
         src = _src(i == 1, pres[i - 1], sts[i - 1], t_in, cin, wav, packed)
-        tiles = cin // 8 * math.ceil(cout / 64)  # csrc: wav_wgrad_kernel's grid
-        nsplit, per = _wgrad_split(b * t_out, tiles)
-        part = torch.empty((nsplit, cout * cin * 15 + cout), **f32)
-        _launch("wgrad", dev, *src, g_m.data_ptr(), b, t_out, cout, leak, part.data_ptr(),
-                nsplit, per, what=f"{what}, conv{i}")
-        reduce(part, nsplit, i)
+        part = _wgrad_partials(i, res, g_m, packed, leak, d)
+        grads[f"w{i}"], grads[f"b{i}"] = reduce_partials(part, i)
         ntq = _bwd_data_tiles(t_in, cin)
         gy = torch.empty((b, t_in, cin), **f32)
         sums = torch.empty((b, ntq, 2, cin), **f32)
@@ -364,7 +447,7 @@ def fused_wav_backward(
     _launch("wgrad0", dev, wav.data_ptr(), packed["w0"].data_ptr(), packed["b0"].data_ptr(), d.L,
             res.st0.data_ptr(), gy.data_ptr(), sums.data_ptr(), ntq, b, d.T1, part0.data_ptr(),
             None if d_wav is None else d_wav.data_ptr(), what=f"{what}, conv0")
-    reduce(part0, b, 0)
+    grads["w0"], grads["b0"] = reduce_partials(part0, 0)
     return d_wav, grads
 
 

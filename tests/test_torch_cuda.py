@@ -536,6 +536,65 @@ def test_wav_kernels_match_plain(cuda_device, b, length):
             assert _rel(grads[k], rgrads[k]) <= 1e-4, k
 
 
+WAV_WGRAD_TOL = 1e-4  # GRAD_TOL of chip_smoke.py; 3xTF32 holds about 1e-6 against f64
+
+
+def _wav_wgrad_case(device, b, length, i, seed=5):
+    """Residuals of a seeded forward, a cotangent of conv i's output, and
+    conv i's plain weight gradient in f64 on the same activation."""
+    _, packed, wav, _ = _wav_case(device, b, length, seed=seed)
+    _, res = fused_wav.fused_wav_forward(wav, packed)
+    d = fused_wav.WavDims(length)
+    t_out = (d.T1, d.T2, d.T3, d.T4)[i]
+    g = torch.Generator().manual_seed(seed + i)
+    cot = torch.randn(b, t_out, fused_wav.CHANNELS[i + 1], generator=g).to(device)
+    a = torch.nn.functional.leaky_relu(fused_wav.lrelu_inputs(res, packed)[i - 1], 0.3)
+    ref = fused_wav._conv_weight_grad(a.double(), cot.transpose(1, 2).double(), 6)
+    return res, packed, cot, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", [1, 2, 3])
+@pytest.mark.parametrize("b,length", [
+    (1, audio_samples_for_frames(34)),  # T_out 1313 / 217 / 34
+    (8, audio_samples_for_frames(34)),
+    (512, audio_samples_for_frames(34)),
+    (3, audio_samples_for_frames(2)),   # T_out 175 / 27 / 3: stages of many sequences
+    (5, 5000),                          # T_out 305 / 49 / 6
+])
+def test_wav_wgrad_kernel_matches_plain(cuda_device, b, length, i):
+    """Conv i's weight and bias gradient from the tensor-core kernel (one
+    launch, its partials summed by the reduce kernel) within WAV_WGRAD_TOL
+    of the plain weight gradient in f64, and the same bits on a second
+    run."""
+    res, packed, cot, (rw, rb) = _wav_wgrad_case(cuda_device, b, length, i)
+    launches = fused_wav.LAUNCHES["wgrad"]
+    part = fused_wav.wgrad_partials(i, res, cot, packed)
+    again = fused_wav.wgrad_partials(i, res, cot, packed)
+    dw, db = fused_wav.reduce_partials(part, i)
+    torch.cuda.synchronize()
+    assert fused_wav.LAUNCHES["wgrad"] == launches + 2
+    geo = fused_wav.wgrad_geometry(b, cot.shape[1], fused_wav.CHANNELS[i], fused_wav.CHANNELS[i + 1])
+    assert part.shape[0] == geo.nsplit
+    assert torch.equal(part, again)
+    assert _rel(dw.double(), rw) <= WAV_WGRAD_TOL
+    assert _rel(db.double(), rb) <= WAV_WGRAD_TOL
+
+
+@pytest.mark.cuda
+def test_wav_wgrad_launch_refuses_other_chunks(cuda_device):
+    """The launch refuses chunks that are not whole 32-row stages or that
+    do not end at B*T, and a C_out that is not a multiple of 64."""
+    res, packed, cot, _ = _wav_wgrad_case(cuda_device, 2, audio_samples_for_frames(2), 2)
+    b, t_out = cot.shape[:2]  # 54 rows
+    src = fused_wav._src(False, res.m1, res.st1, res.m1.shape[1], 64, res.wav, packed)
+    part = torch.empty(64, 128 * 64 * 15 + 128, device=cuda_device)
+    for nsplit, per, cout in ((2, 48, 128), (1, 32, 128), (3, 32, 128), (2, 32, 100)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            fused_wav._launch("wgrad", cuda_device, *src, cot.data_ptr(), b, t_out, cout, 0.3,
+                              part.data_ptr(), nsplit, per, what="test")
+
+
 @pytest.mark.cuda
 def test_wav_function_routes_to_kernels(cuda_device):
     """Under autograd the drop-in launches the forward and backward kernels
