@@ -51,7 +51,7 @@ same training with the WavEncoder swapped for the fused WavEncoder stack
    model's feature cotangent (the eager encoder's own gradients are printed
    with the number of LeakyReLU inputs whose sign the two forwards round
    differently: the gradient jumps at the kink);
-9. the K3 kernels (six forward launches, thirteen backward) against their
+9. the K3 kernels (six forward launches, sixteen backward) against their
    plain versions at L = 36,267, B in {8, 512}: forward within rel 1e-5;
    backward on the same residuals, d_wav and every weight and conv3 bias
    gradient within rel 1e-4 of its max, the pre-IN biases within 1e-4 of
@@ -59,6 +59,10 @@ same training with the WavEncoder swapped for the fused WavEncoder stack
    weight-gradient kernel (3xTF32 on the tensor cores) conv by conv against
    the f64 weight gradient and timed against cuDNN's weight gradient of the
    same conv on the materialised activation, in turns, with its bound;
+   and the data-gradient kernel (its weight split, then 3xTF32 on the
+   tensor cores) conv by conv against the f64 data gradient and its
+   InstanceNorm sums, timed against cuDNN's data gradient of the same conv
+   on the same cotangent, in turns, with its bound;
 10. training through K3 and K2: 7. with the WavEncoder swapped for
    FusedWavEncoder before the TrainLoop is built: finite, decreasing
    losses; each K3 kernel launched as often a step as one forward and one
@@ -609,12 +613,36 @@ def k3_wgrad_cost(b, length, i):
     return flop, nbytes, PEAK_TF32
 
 
+def k3_bwd_data_cost(b, length, i):
+    """(operations, bytes, peak) of conv i's data-gradient launches: the
+    [B T_in, 3 C_out] x [3 C_out, 6 C_in] product by residue of the stride
+    (the useful 2 B T_i C_out C_in 15 FLOP) as 3xTF32, three TF32 products
+    at the TF32 peak, and for conv1 conv0's recompute as f32 outside the
+    tensor cores (counted in TF32-peak time); it reads the cotangent, its
+    input, statistics and split weights once, and writes gy and the tile
+    sums."""
+    from livelyspeaker_tpu_torch.ops import fused_wav as k3
+
+    dims = k3.WavDims(length)
+    t = (dims.T1, dims.T2, dims.T3, dims.T4)
+    cin, cout = k3.CHANNELS[i], k3.CHANNELS[i + 1]
+    flop = 3 * 2 * b * t[i] * 15 * cin * cout
+    if i == 1:
+        flop += 2 * b * t[0] * 32 * 15 * PEAK_TF32 / PEAK_FLOPS
+    inputs = b * length if i == 1 else b * t[i - 1] * cin
+    ntq = k3._bwd_data_tiles(t[i - 1], i == 1)
+    nbytes = 4 * (b * t[i] * cout + inputs + 2 * b * cin + 2 * cout * cin * 15
+                  + b * t[i - 1] * cin + b * ntq * 2 * cin)
+    return flop, nbytes, PEAK_TF32
+
+
 def k3_cost(b, length):
     """(FLOP, bytes[, peak]) of each K3 kernel over one forward and one
     backward call without d_wav (all its launches), from the shapes: the
     convs' FLOPs at the f32 peak, conv0 counted once wherever a kernel
-    recomputes it, but the weight gradient's as k3_wgrad_cost counts them;
-    each kernel's inputs read once, its outputs written once."""
+    recomputes it, but the weight and data gradients' as k3_wgrad_cost
+    and k3_bwd_data_cost count them; each kernel's inputs read once, its
+    outputs written once."""
     from livelyspeaker_tpu_torch.ops import fused_wav as k3
 
     dims = k3.WavDims(length)
@@ -632,15 +660,18 @@ def k3_cost(b, length):
     }
     # weight and data gradients of conv1..3 (conv0 recomputed for conv1);
     # the row-chunk partials of the weight gradients, as the wrapper splits;
-    # the weight gradient's three TF32 products at the TF32 peak, conv1's
-    # conv0 recompute at the f32 one (k3_wgrad_cost)
+    # the three TF32 products of each at the TF32 peak, conv1's conv0
+    # recompute at the f32 one (k3_wgrad_cost, k3_bwd_data_cost)
     nparts = [b] + [k3.wgrad_geometry(b, t[i], ch[i], ch[i + 1]).nsplit for i in (1, 2, 3)]
     parts = sum(n * w for n, w in zip(nparts, wts))
-    inputs, cots = wav + size[1] + size[2], size[1] + size[2] + size[3]
     wgrad = [k3_wgrad_cost(b, length, i) for i in (1, 2, 3)]
     cost["wgrad"] = (sum(c[0] for c in wgrad), sum(c[1] for c in wgrad), PEAK_TF32)
-    cost["bwd_data"] = (sum(conv), 4 * (inputs + cots + sum(wts[1:]) + size[0] + size[1] + size[2]))
+    bwd_data = [k3_bwd_data_cost(b, length, i) for i in (1, 2, 3)]
+    cost["bwd_data"] = (sum(c[0] for c in bwd_data), sum(c[1] for c in bwd_data), PEAK_TF32)
     cost["wgrad0"] = (2 * conv[0], 4 * (wav + size[0] + nparts[0] * wts[0]))
+    # the weight split: reads w_i once, writes its two TF32 halves
+    split = sum(ch[i + 1] * ch[i] * 15 for i in (1, 2, 3))
+    cost["wsplit"] = (4 * split, 4 * 3 * split)
     cost["reduce"] = (parts, 4 * (parts + sum(wts)))
     return cost
 
@@ -699,6 +730,67 @@ def wav_wgrad_turns(card, b, iters=10):
               f"{times['cudnn']:.4f} ms (rel {crel:.1e}); CUDA graphs, in turns ({card})")
     print(f"[wav-wgrad] B={b}: the three convs {sum(v[0] for v in out.values()):.4f} ms, cuDNN "
           f"{sum(v[1] for v in out.values()):.4f} ms ({card})")
+    return out
+
+
+def wav_bwd_data_turns(card, b, iters=10):
+    """K3's data-gradient kernel alone, conv by conv, at TED's waveform
+    length: conv i's launches of ``data_grad`` (gy = lrelu'(xhat) conv_i^T g
+    and the tiles' InstanceNorm sums), against cuDNN's data gradient of the
+    same conv on the same cotangent (aten.convolution_backward, f32, TF32
+    off), which does no LeakyReLU derivative, no InstanceNorm sums and no
+    conv0 recompute. Each is replayed from a CUDA graph, timed in turns
+    (kernel, cuDNN, cuDNN, kernel). The kernel's gy and its sums (over the
+    tiles) are held first against the plain data gradient in f64 and a
+    second launch against the first's bits. Returns {i: (kernel ms, cuDNN
+    ms)}."""
+    import torch.nn.functional as F
+
+    from livelyspeaker_tpu_torch.models import WavEncoder, audio_samples_for_frames
+    from livelyspeaker_tpu_torch.models.initializers import random_normal_
+    from livelyspeaker_tpu_torch.ops import fused_wav as k3
+
+    g = torch.Generator().manual_seed(80 + b)
+    enc = random_normal_(WavEncoder(), g).cuda()
+    packed = k3.pack_wav_params(enc, differentiable=False)
+    length = audio_samples_for_frames(34)
+    wav = (0.1 * torch.randn(b, length, generator=g)).cuda()
+    _, res = k3.fused_wav_forward(wav, packed)
+    xh = k3.lrelu_inputs(res, packed)
+    dims = k3.WavDims(length)
+    t = (dims.T1, dims.T2, dims.T3, dims.T4)
+    out = {}
+    for i in (1, 2, 3):
+        cout = k3.CHANNELS[i + 1]
+        cot = torch.randn(b, t[i], cout, generator=g).cuda()
+        a = F.leaky_relu(xh[i - 1], 0.3).contiguous()  # [B, C_in, T_in]
+        gt = cot.transpose(1, 2).contiguous()  # [B, C_out, T_out]
+        w = packed[f"w{i}"]
+        gy, sums = k3.data_grad(i, res, cot, packed)
+        gy2, sums2 = k3.data_grad(i, res, cot, packed)
+        same = torch.equal(gy, gy2) and torch.equal(sums, sums2)
+        rgy, rsums = k3._plain_data_grad(cot.double(), w.double(), xh[i - 1].double(), t[i - 1],
+                                         0.3)
+        rel = max(_rel(gy.double(), rgy), _rel(sums.double().sum(1), rsums[:, 0]))
+        cudnn = lambda: torch.ops.aten.convolution_backward(
+            gt, a, w, [cout], [6], [0], [1], False, [0], 1, [True, False, False])
+        slope = torch.where(xh[i - 1] > 0, 1.0, 0.3).double()
+        crel = _rel((cudnn()[0].double() * slope).transpose(1, 2), rgy)
+        del rgy, rsums, gy2, sums2, slope
+        check(same and rel <= GRAD_TOL, f"K3 bwd_data conv{i} B={b}: rel {rel:.3e} against "
+              f"f64, same bits on a second launch: {same}")
+        times = time_turns({"kernel": graphed(lambda: k3.data_grad(i, res, cot, packed)),
+                            "cudnn": graphed(cudnn)}, iters)
+        flop, nbytes, peak = k3_bwd_data_cost(b, length, i)
+        bound_ms = bound(flop, nbytes, peak)[0]
+        out[i] = (times["kernel"], times["cudnn"])
+        print(f"[wav-bwd-data] conv{i} B={b} T_in {t[i - 1]}, {sums.shape[1]} tiles a sequence: "
+              f"kernel {times['kernel']:.4f} ms (rel {rel:.1e} against f64), bound "
+              f"{bound_ms:.4f} ms (share {bound_ms / times['kernel']:.1%}); cuDNN data gradient "
+              f"{times['cudnn']:.4f} ms (rel {crel:.1e}, without lrelu', IN sums or conv0); "
+              f"CUDA graphs, in turns ({card})")
+    print(f"[wav-bwd-data] B={b}: the three convs {sum(v[0] for v in out.values()):.4f} ms, "
+          f"cuDNN {sum(v[1] for v in out.values()):.4f} ms ({card})")
     return out
 
 
@@ -843,11 +935,12 @@ def wav_kernel_phase(card):
               + ", ".join(f"{k} {v:.3f}" for k, v in per_kernel.items())
               + f"; plain fwd {plain['fwd']:.3f} ms, bwd {plain['bwd']:.3f} ms ({card})")
         wav_wgrad_turns(card, b)
+        wav_bwd_data_turns(card, b)
         if b == TRAIN_BATCH:
             report = {"ms": per_kernel, "plain_fwd": plain["fwd"], "plain_bwd": plain["bwd"],
                       "bound": {k: bound(*c) for k, c in k3_cost(b, length).items()}}
-            print(f"[wav-kernel] {tag}: bound by kernel, ms per call (wgrad: its three TF32 "
-                  "products at 495 TFLOP/s and conv0's recompute at 67): " + ", ".join(
+            print(f"[wav-kernel] {tag}: bound by kernel, ms per call (wgrad, bwd_data: their "
+                  "three TF32 products at 495 TFLOP/s and conv0's recompute at 67): " + ", ".join(
                 f"{k} {v[0]:.3f} ({v[1]}, share {v[0] / per_kernel[k]:.1%})"
                 for k, v in report["bound"].items()) + f" ({card})")
     return worst, report
@@ -1216,7 +1309,8 @@ def main():
     # product and one torch.sum the reduce kernel's sums; no single PyTorch
     # call computes any other of these functions (8-block mixer stacks and
     # their backward, a conv/InstanceNorm/LeakyReLU chain; cuDNN's weight
-    # gradient, printed beside K3's, takes the activation already normalised)
+    # and data gradients, printed beside K3's, skip the InstanceNorm, the
+    # LeakyReLU and conv0)
     kernels = [{
         "name": "fused_transmlp", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,

@@ -29,9 +29,12 @@
 //                            (b, t) product on the tensor cores (3xTF32),
 //                            the input activation recomputed on load;
 //   wav_reduce_kernel        the chunks summed in a fixed order;
-//   wav_bwd_data_kernel      g_a = conv_i^T g, times lrelu', written as gy
-//                            [B, T, C], with per-tile partial sums of gy and
-//                            gy * xhat;
+//   wav_wsplit_kernel        w_i split into TF32 halves, in the order the
+//                            data gradient reads it;
+//   wav_bwd_data_kernel      g_a = conv_i^T g on the tensor cores (3xTF32),
+//                            one product a residue of the stride, times
+//                            lrelu', written as gy [B, T, C], with per-tile
+//                            partial sums of gy and gy * xhat;
 //   wav_in_bwd_kernel        (i = 3, 2) the InstanceNorm backward in place:
 //                            g_m = inv (gy - mean(gy) - xhat mean(gy xhat));
 // and for conv0 wav_wgrad0_kernel (one block a sequence: g_m0 from gy1 on
@@ -49,10 +52,10 @@
 // Mosaic's lane rules and are not carried over.
 //
 // What bounds it: about 90 GFLOP forward and twice that backward at B = 512
-// on TED. The weight gradient runs on the tensor cores in 3xTF32 (mma.sync,
-// tf32_mma.cuh); the other kernels are plain f32 FMA, bound by the FP32
-// pipe and the shared-memory loads that feed it. wgmma and TMA are later
-// work.
+// on TED. The weight and data gradients run on the tensor cores in 3xTF32
+// (mma.sync, tf32_mma.cuh); the other kernels are plain f32 FMA, bound by
+// the FP32 pipe and the shared-memory loads that feed it. wgmma and TMA
+// are later work.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -297,99 +300,6 @@ wav_conv_fwd_kernel(Src src, const float* __restrict__ w, const float* __restric
 }
 
 // ----------------------------------------------------------------- backward
-
-constexpr int kBdThreads = kS * 32;  // one warp per residue r = tau mod 6
-
-// gy[b, tau, c] = lrelu'(xhat) * sum_{t, k: 6t + k = tau} sum_o w[o, c, k] g[b, t, o]
-// for the 6 kQT times tau of a block and 8 kCG channels, and the tile's sums
-// of gy and gy * xhat per channel into part [B, ntq, 2, Cin]. Warp r takes
-// the times tau = 6q + r, whose taps are k = r, r + 6, r + 12 (< 15), from
-// the outputs t = q, q - 1, q - 2; lane (qg, cg) eight consecutive q and the
-// channels cg + kCG i. The output cotangent is staged [o][t] (times
-// consecutive: three float4 loads serve all taps), the weights [o][c k].
-template <bool kFromWav, int kCG>
-__global__ void __launch_bounds__(kBdThreads)
-wav_bwd_data_kernel(Src src, const float* __restrict__ w, const float* __restrict__ g, int Tout,
-                    int Cout, float leak, float* __restrict__ gy, float* __restrict__ part) {
-  constexpr int kQG = 32 / kCG, kQT = 8 * kQG, kCT = 8 * kCG;
-  constexpr int kOC = 512 / kCT;       // output channels staged per step
-  constexpr int kGQ = kQT + 4;         // staged outputs t = q0 - 2 .. q0 + kQT - 1
-  constexpr int kWR = kCT * kK + 1;    // odd row of the staged weights
-  constexpr int kParts = kS * kQG;     // contributors to a channel's sums
-  __shared__ __align__(16) float g_s[kOC][kGQ];
-  __shared__ float w_s[kOC][kWR];
-  __shared__ float red[2][kParts][kCT];
-  const int tid = threadIdx.x, r = tid / 32, lane = tid % 32, qg = lane / kCG, cg = lane % kCG;
-  const int q0 = blockIdx.x * kQT, c0 = blockIdx.y * kCT, b = blockIdx.z;
-  const int Cin = src.C;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  for (int o0 = 0; o0 < Cout; o0 += kOC) {
-    __syncthreads();
-    for (int idx = tid; idx < kOC * kCT * kK; idx += kBdThreads) {
-      const int o = idx / (kCT * kK), ck = idx % (kCT * kK);
-      w_s[o][ck] = __ldg(w + ((size_t)(o0 + o) * Cin + c0) * kK + ck);
-    }
-    for (int idx = tid; idx < kGQ * kOC; idx += kBdThreads) {
-      const int tl = idx / kOC, o = idx % kOC, t = q0 - 2 + tl;
-      g_s[o][tl] = (tl < kQT + 2 && t >= 0 && t < Tout)
-          ? __ldg(g + ((size_t)b * Tout + t) * Cout + o0 + o) : 0.0f;
-    }
-    __syncthreads();
-    for (int o = 0; o < kOC; ++o) {
-      float gv[12];
-#pragma unroll
-      for (int v = 0; v < 3; ++v) {
-        const float4 x = *reinterpret_cast<const float4*>(&g_s[o][qg * 8 + 4 * v]);
-        gv[4 * v] = x.x, gv[4 * v + 1] = x.y, gv[4 * v + 2] = x.z, gv[4 * v + 3] = x.w;
-      }
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int k = r + kS * j;
-        if (k >= kK) break;
-        float wr[8];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) wr[c] = w_s[o][(cg + kCG * c) * kK + k];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(gv[i + 2 - j], wr[c], acc[i][c]);
-      }
-    }
-  }
-  float s1[8], s2[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) s1[c] = s2[c] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int tau = kS * (q0 + qg * 8 + i) + r;
-    if (tau >= src.T) continue;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int ch = c0 + cg + kCG * c;
-      const float xh = src_xhat<kFromWav>(src, b, tau, ch);
-      const float v = acc[i][c] * (xh > 0.0f ? 1.0f : leak);
-      gy[((size_t)b * src.T + tau) * Cin + ch] = v;
-      s1[c] += v;
-      s2[c] = fmaf(v, xh, s2[c]);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    red[0][r * kQG + qg][cg + kCG * c] = s1[c];
-    red[1][r * kQG + qg][cg + kCG * c] = s2[c];
-  }
-  __syncthreads();
-  if (tid < 2 * kCT) {
-    const int which = tid / kCT, c = tid % kCT;
-    float tot = 0.0f;
-    for (int p = 0; p < kParts; ++p) tot += red[which][p][c];
-    part[(((size_t)b * gridDim.x + blockIdx.x) * 2 + which) * Cin + c0 + c] = tot;
-  }
-}
 
 // The InstanceNorm backward of one sequence a block, in place over gy:
 // g_m = inv (gy - mean_t(gy) - xhat mean_t(gy xhat)), the means from the
@@ -746,6 +656,295 @@ wav_wgrad_kernel(Src src, const float* __restrict__ g, int B, int Tout, int Cout
   }
 }
 
+// ---- the data gradient of conv1..3 on the tensor cores in 3xTF32 ----
+//
+// Replaces the data gradient of livelyspeaker_tpu/ops/pallas/fused_wav.py:
+// _conv_rows_bwd (:329-:334) and the gy and sums part of _in_bwd
+// (:303-:313), called from _bwd_c, _bwd_b and _bwd_a.
+//
+// gy[b, tau, c] = lrelu'(xhat[b, tau, c]) sum_{t, k: 6t + k = tau} sum_o
+// w[o, c, k] g[b, t, o]. With tau = 6q + r (r = 0..5) and k = r + 6j
+// (j = 0..2, k < 15):
+//   gy[b, 6q + r, c] = lrelu'(xhat) sum_j sum_o g[b, q - j, o] w[o, c, r + 6j],
+// one product whose rows are (b, q), whose reduction runs over (j, o),
+// K = 3 C_out, and whose columns are (r, c), N = 6 C_in: for a fixed
+// (b, q) those columns are the 6 C_in consecutive floats of gy at times
+// 6q .. 6q + 5, so a tile is written in gy's own layout. The blocks
+// (j = 2, r >= 3) are zero (k > 14) and are skipped. What bounds it: the
+// tensor cores, 3 x 2 B T_out 15 C_in C_out TF32 FLOP at 495 TFLOP/s (0.52
+// ms for the three convs at TED B = 512), plus conv1's recompute of conv0
+// on the FP32 pipe (0.06 ms).
+//
+// Design:
+// - A CTA owns one tile: kRows = 16 kDWM q rows of one sequence (64, or 48
+//   when a sequence has at most 48, as conv3's 37 on TED) by all six
+//   residues of 16 input channels, and walks the reduction in stages of 8
+//   output channels o (one k8 step), each summed in a fresh accumulator
+//   that is then added into the running f32 sum. No atomics: every sum in
+//   a fixed order, the same bits every run.
+// - The A operand is a window of the cotangent, not an im2col: a stage
+//   holds g's rows q0 - 2 .. q0 + kRows - 1 of its 8 columns once (rows
+//   outside 0 .. T_out - 1 zero-filled by cp.async); fragment j reads it
+//   shifted by j rows and splits its four values into TF32 halves.
+// - The B operand is the weights, split once a backward by
+//   wav_wsplit_kernel in the order the fragments read them: a tile's stage
+//   is one contiguous 15 KB block, one bulk (TMA) copy. Each of its float4s
+//   holds (hi(o), hi(o + 4), lo(o), lo(o + 4)) for the o = tq and tq + 4 of
+//   an m16n8k8 fragment, one 16-byte load for b0 and b1 with both halves;
+//   channels are 16 floats apart, so each quarter of a warp covers the 32
+//   banks once, as the window's rows, 12 floats apart, do.
+// - Warp specialisation: one producer warp fills a ring of kDRing stages,
+//   each with a "full" mbarrier (every lane's cp.async arrival and the bulk
+//   copy's bytes) and an "empty" one (every product warp); the product
+//   warps never meet at a CTA barrier until the epilogue. The producer
+//   fences the async proxy after each "empty" wait: the bulk copy must not
+//   overwrite weights the product warps' loads have not yet read.
+// - Product warps: kDWM rows of 2, warp (wm, wn) the fragment of rows
+//   16 wm .. and the 8 channels 8 wn .. of every residue; 2 CTAs an SM.
+// - The epilogue multiplies by lrelu'(xhat), writes gy, and sums gy and
+//   gy xhat per channel over the tile (per thread in order, then across the
+//   lanes by a fixed shuffle tree, then across the warp rows in order) into
+//   part [B, ntq, 2, C_in]. xhat has the plain version's bits: (pre - mean)
+//   inv from the stored pre-norm tensor (all of a thread's values loaded
+//   before any is used) or, for conv1, conv0 recomputed from the tile's
+//   waveform samples, staged once (bias first, taps in order, no
+//   contraction). Times that no window reaches get gy = 0.
+
+constexpr int kDO = 8;        // output channels o of a stage (one k8 step)
+constexpr int kDRing = 5;     // stages in flight
+constexpr int kDWN = 2;       // product warps across a tile's channels
+constexpr int kDCW = 8 * kDWN;   // input channels of a tile
+constexpr int kDWinStride = 12;  // a row of the raw window: 8 floats, padded
+constexpr int kDBarBytes = 128;  // the ring's mbarriers, ahead of the floats
+
+// a tile of kRows q rows (6 kRows input times) by kDCW input channels
+template <int kRows>
+struct DGeo {
+  static constexpr int kWin = kRows + 2;                      // window rows q0 - 2 ..
+  static constexpr int kW = kK * kDCW * 2 * kDO;              // a stage's split weights
+  static constexpr int kSlot = kW + kWin * kDWinStride;       // split weights, raw window
+  static constexpr int kSamples = (kS0 * kS * kRows + kK - kS0 + 3) / 4 * 4;  // conv1's
+};
+static_assert(2 * kDRing * sizeof(uint64_t) <= kDBarBytes, "the ring's mbarriers");
+
+// wsp[o / 8][c / 16][k][c % 16][4 p .. 4 p + 3] = (hi w[o, c, k],
+// hi w[o + 4, c, k], lo w[o, c, k], lo w[o + 4, c, k]) for o = 8 (o / 8) + p,
+// p < 4: a tile's stage is one contiguous block.
+__global__ void wav_wsplit_kernel(const float* __restrict__ w, int Cin, int Cout,
+                                  float4* __restrict__ wsp) {
+  const int n = Cout / kDO * kK * Cin * 4;
+  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < n; idx += gridDim.x * blockDim.x) {
+    const int p = idx % 4, cl = idx / 4 % kDCW, k = idx / (4 * kDCW) % kK;
+    const int cg = idx / (4 * kDCW * kK) % (Cin / kDCW), ob = idx / (4 * kK * Cin);
+    const int o = ob * kDO + p, c = cg * kDCW + cl;
+    float h0, l0, h1, l1;
+    split_tf32(__ldg(w + ((size_t)o * Cin + c) * kK + k), h0, l0);
+    split_tf32(__ldg(w + ((size_t)(o + 4) * Cin + c) * kK + k), h1, l1);
+    wsp[idx] = make_float4(h0, h1, l0, l1);
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// gy [B, T_in, C_in] and part [B, ntq, 2, C_in] for the tile of q rows
+// kRows blockIdx.x .. of sequence blockIdx.z, channels 16 blockIdx.y ..:
+// kDWM x kDWN product warps, then the producer warp.
+template <bool kFromWav, int kDWM>
+__global__ void __launch_bounds__(32 * (kDWM * kDWN + 1), 2)
+wav_bwd_data_kernel(Src src, const float* __restrict__ wsp, const float* __restrict__ g, int Tout,
+                    int Cout, float leak, float* __restrict__ gy, float* __restrict__ part) {
+  constexpr int kRows = 16 * kDWM, kCW = kDCW, kMma = kDWM * kDWN;
+  using G = DGeo<kRows>;
+  extern __shared__ __align__(128) unsigned char dsmem[];
+  uint64_t* const full = reinterpret_cast<uint64_t*>(dsmem);  // a stage has landed
+  uint64_t* const empty = full + kDRing;                      // every product warp is done with it
+  float* const ring = reinterpret_cast<float*>(dsmem + kDBarBytes);  // kDRing slots
+  float* const red = ring + kDRing * G::kSlot;       // [kDWM][2][kCW] tile sums
+  float* const xs = red + kDWM * 2 * kCW;            // conv1: the tile's waveform samples
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q0 = blockIdx.x * kRows, c0 = blockIdx.y * kCW, b = blockIdx.z;
+  const int Cin = src.C, Tin = src.T, nst = Cout / kDO;
+  if (tid < kDRing) {
+    mbar_init(&full[tid], 33);     // every producer lane's cp.async arrival, the bulk copy's
+    mbar_init(&empty[tid], kMma);  // every product warp's
+  }
+  mbar_init_fence();
+  __syncthreads();
+
+  float acc[kS][4];
+#pragma unroll
+  for (int r = 0; r < kS; ++r)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[r][e] = 0.0f;
+  const int wm = warp / kDWN, wn = warp % kDWN, gq = lane / 4, tq = lane % 4;
+
+  if (warp == kMma) {  // the producer: stage s (output channels 8s .. 8s + 7) into its slot
+    if constexpr (kFromWav) {  // samples 30 q0 - 1600 .. under conv0 times 6 q0 .. 6 (q0 + kRows) - 1
+      const float* row = src.wav + (size_t)b * src.L;
+      const int p0 = kS0 * kS * q0 - kPad0;
+      for (int j = lane; j < G::kSamples; j += 32) {
+        const int wi = p0 + j;
+        const bool in = wi >= 0 && wi < src.L;
+        cp_async4(xs + j, row + (in ? wi : 0), in);
+      }
+    }
+    for (int s = 0; s < nst; ++s) {
+      const int slot = s % kDRing;
+      if (s >= kDRing) {
+        // the product warps' loads of the slot's last stage come before the
+        // bulk copy overwrites it: without the fence, they read some of the
+        // next stage's weights (seen on the card at B = 512)
+        mbar_wait(&empty[slot], (uint32_t)((s / kDRing - 1) & 1));
+        fence_proxy_async();
+      }
+      float* const dst = ring + slot * G::kSlot;
+      if (lane == 0) {  // the stage's split weights, one bulk copy
+        mbar_expect_tx(&full[slot], G::kW * sizeof(float));
+        tma_load_1d(dst, wsp + ((size_t)s * (Cin / kCW) + blockIdx.y) * G::kW,
+                    G::kW * sizeof(float), &full[slot]);
+      }
+      for (int j = lane; j < G::kWin * 2; j += 32) {
+        const int u = j / 2, v = j % 2, t = q0 - 2 + u;
+        const bool in = t >= 0 && t < Tout;
+        cp_async16(dst + G::kW + u * kDWinStride + 4 * v,
+                   g + (in ? ((size_t)b * Tout + t) * Cout + s * kDO + 4 * v : 0), in);
+      }
+      cp_async_arrive(&full[slot]);
+    }
+  } else {  // the product warps: acc[r] += each stage's products, in a fresh sum
+    for (int s = 0; s < nst; ++s) {
+      const int slot = s % kDRing;
+      mbar_wait(&full[slot], (uint32_t)((s / kDRing) & 1));
+      const float* const ws = ring + slot * G::kSlot;
+      const float* const win = ws + G::kW;
+      float p[kS][4];
+#pragma unroll
+      for (int r = 0; r < kS; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[r][e] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        // a0..a3 = (row gq, o tq), (gq + 8, tq), (gq, tq + 4), (gq + 8, tq + 4),
+        // read at window row m + 2 - j and split here
+        const float* a = win + (16 * wm + gq + 2 - j) * kDWinStride + tq;
+        const float av[4] = {a[0], a[8 * kDWinStride], a[4], a[8 * kDWinStride + 4]};
+        float ahi[4], alo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(av[e], ahi[e], alo[e]);
+        // b0, b1 = (o tq, channel gq), (tq + 4, gq) at tap r + 6j
+        constexpr int kR = 3;  // residues with a tap r + 12 < 15
+#pragma unroll
+        for (int r = 0; r < kS; ++r) {
+          if (j == 2 && r >= kR) continue;
+          const float4 v = ld4(ws + ((r + kS * j) * kCW + 8 * wn + gq) * 2 * kDO + 4 * tq);
+          const float bhi[2] = {v.x, v.y}, blo[2] = {v.z, v.w};
+          mma_tf32(p[r], alo, bhi);
+          mma_tf32(p[r], ahi, blo);
+          mma_tf32(p[r], ahi, bhi);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+#pragma unroll
+      for (int r = 0; r < kS; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][e] += p[r][e];
+    }
+  }
+
+  // acc[r][e]: q row 16 wm + gq + 8 (e / 2), residue r, channel
+  // c0 + 8 wn + 2 tq + e % 2
+  float s1[2] = {0.0f, 0.0f}, s2[2] = {0.0f, 0.0f};
+  const int ch = c0 + 8 * wn + 2 * tq;
+  if (warp < kMma) {
+    const float* st = src.st + (size_t)b * 2 * Cin;
+    const float mean[2] = {__ldg(st + ch), __ldg(st + ch + 1)};
+    const float inv[2] = {__ldg(st + Cin + ch), __ldg(st + Cin + ch + 1)};
+    // the stored pre-norm values of the thread's times, all loaded before
+    // any is used
+    float2 pre[2][kS];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < kS; ++r) {
+        const int tau = kS * (q0 + 16 * wm + gq + 8 * h) + r;
+        pre[h][r] = make_float2(0.0f, 0.0f);
+        if (!kFromWav && tau < Tin)
+          pre[h][r] = __ldg(reinterpret_cast<const float2*>(
+              src.pre + ((size_t)b * Tin + tau) * Cin + ch));
+      }
+    float w0r[2][kK], b0r[2];
+    if constexpr (kFromWav) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        b0r[e] = __ldg(src.b0 + ch + e);
+#pragma unroll
+        for (int k = 0; k < kK; ++k) w0r[e][k] = __ldg(src.w0 + (ch + e) * kK + k);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ql = 16 * wm + gq + 8 * h;
+#pragma unroll
+      for (int r = 0; r < kS; ++r) {
+        const int tau = kS * (q0 + ql) + r;
+        if (tau >= Tin) continue;
+        float x2[2] = {pre[h][r].x, pre[h][r].y};
+        if constexpr (kFromWav) {
+          const float* x = xs + kS0 * (kS * ql + r);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float m = b0r[e];
+#pragma unroll
+            for (int k = 0; k < kK; ++k) m = conv0_tap(m, w0r[e][k], x[k]);
+            x2[e] = m;
+          }
+        }
+        float out[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float xh = (x2[e] - mean[e]) * inv[e];
+          out[e] = acc[r][2 * h + e] * (xh > 0.0f ? 1.0f : leak);
+          s1[e] += out[e];
+          s2[e] = fmaf(out[e], xh, s2[e]);
+        }
+        *reinterpret_cast<float2*>(gy + ((size_t)b * Tin + tau) * Cin + ch) =
+            make_float2(out[0], out[1]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], o);
+        s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], o);
+      }
+    if (gq == 0) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        red[(wm * 2 + 0) * kCW + 8 * wn + 2 * tq + e] = s1[e];
+        red[(wm * 2 + 1) * kCW + 8 * wn + 2 * tq + e] = s2[e];
+      }
+    }
+  }
+  __syncthreads();  // the producer too: it leaves only once every stage has landed
+  if (tid < 2 * kCW) {
+    const int which = tid / kCW, c = tid % kCW;
+    float tot = red[which * kCW + c];
+    for (int m = 1; m < kDWM; ++m) tot += red[(m * 2 + which) * kCW + c];
+    part[(((size_t)b * gridDim.x + blockIdx.x) * 2 + which) * Cin + c0 + c] = tot;
+  }
+}
+
+// q rows of a data-gradient tile: 64, or 48 for a stored input whose
+// sequences have at most 48 (conv1's have at least 101)
+int bwd_data_rows(int from_wav, int T_in) {
+  const int q = (T_in + kS - 1) / kS;
+  return from_wav || q > 48 ? 64 : 48;
+}
+
 constexpr int kT0 = 128;  // conv0 times per step of wgrad0
 constexpr int kW0Part = kC0 * kK + kC0;  // 512: dW0 [32, 1, 15], then db0
 
@@ -861,13 +1060,21 @@ void conv_fwd(const Src& s, const float* w, const float* bias, float* out, int B
                                                                            Cout, leak);
 }
 
-template <bool kFromWav, int kCG>
-void bwd_data(const Src& s, const float* w, const float* g, int B, int Tout, int Cout,
-              float leak, float* gy, float* part, cudaStream_t stream) {
-  constexpr int kTimes = kS * 8 * (32 / kCG);  // input times of a block
-  dim3 grid((s.T + kTimes - 1) / kTimes, s.C / (8 * kCG), B);
-  wav_bwd_data_kernel<kFromWav, kCG><<<grid, kBdThreads, 0, stream>>>(s, w, g, Tout, Cout, leak,
-                                                                       gy, part);
+template <bool kFromWav, int kDWM>
+cudaError_t bwd_data(const Src& s, const float* wsp, const float* g, int B, int Tout, int Cout,
+                     float leak, float* gy, float* part, cudaStream_t stream) {
+  constexpr int kRows = 16 * kDWM;
+  using G = DGeo<kRows>;
+  constexpr size_t bytes = kDBarBytes + (size_t)(kDRing * G::kSlot + kDWM * 2 * kDCW +
+                                                 (kFromWav ? G::kSamples : 0)) * sizeof(float);
+  const auto kernel = wav_bwd_data_kernel<kFromWav, kDWM>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+  if (err != cudaSuccess) return err;
+  const int q = (s.T + kS - 1) / kS;
+  const dim3 grid((q + kRows - 1) / kRows, s.C / kDCW, B);
+  kernel<<<grid, 32 * (kDWM * kDWN + 1), bytes, stream>>>(s, wsp, g, Tout, Cout, leak, gy, part);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -917,24 +1124,39 @@ extern "C" int fused_wav_conv_fwd_launch(
   return (int)cudaGetLastError();
 }
 
-// gy [B, T_in, C_in] and part [B, ntq, 2, C_in], ntq = ceil(T_in / 384) for
-// C_in = 32 and ceil(T_in / 192) otherwise.
+// wsp [C_out / 8, C_in / 16, 15, 16, 8, 2]: conv i's weights [C_out, C_in, 15]
+// split into TF32 halves in the data-gradient kernel's order; C_out a
+// multiple of 8, C_in of 16.
+extern "C" int fused_wav_wsplit_launch(const float* w, int C_in, int C_out, float* wsp,
+                                       void* stream) {
+  if (w == nullptr || wsp == nullptr || C_in < kDCW || C_in % kDCW != 0 || C_out < kDO ||
+      C_out % kDO != 0 || (uintptr_t)wsp % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int n = C_out / kDO * kK * C_in * 4;
+  wav_wsplit_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+      w, C_in, C_out, reinterpret_cast<float4*>(wsp));
+  return (int)cudaGetLastError();
+}
+
+// gy [B, T_in, C_in] and part [B, ntq, 2, C_in] from the split weights wsp
+// (fused_wav_wsplit_launch): ntq = ceil(ceil(T_in / 6) / rows), rows = 64,
+// or 48 for a stored input with ceil(T_in / 6) <= 48; C_out a multiple of 8.
 extern "C" int fused_wav_bwd_data_launch(
     int from_wav, const float* pre, const float* st, int T_in, int C_in, const float* wav,
-    const float* w0, const float* b0, int L, const float* w, const float* g, int B, int Tout,
+    const float* w0, const float* b0, int L, const float* wsp, const float* g, int B, int Tout,
     int Cout, float leak, float* gy, float* part, void* stream) {
-  if (!src_ok(from_wav, pre, T_in, C_in) || B < 1 || B > 65535 || Tout < 1 || Cout < 16 ||
-      Cout % 16 != 0 || kS * (Tout - 1) + kK > T_in)
+  if (!src_ok(from_wav, pre, T_in, C_in) || B < 1 || B > 65535 || Tout < 1 || Cout < kDO ||
+      Cout % kDO != 0 || kS * (Tout - 1) + kK > T_in || wsp == nullptr || g == nullptr ||
+      gy == nullptr || part == nullptr ||
+      ((uintptr_t)wsp | (uintptr_t)g | (uintptr_t)pre | (uintptr_t)gy) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const Src s = make_src(pre, st, T_in, C_in, wav, w0, b0, L);
   const cudaStream_t st_ = (cudaStream_t)stream;
   if (from_wav)
-    bwd_data<true, 4>(s, w, g, B, Tout, Cout, leak, gy, part, st_);
-  else if (C_in == 32)
-    bwd_data<false, 4>(s, w, g, B, Tout, Cout, leak, gy, part, st_);
-  else
-    bwd_data<false, 8>(s, w, g, B, Tout, Cout, leak, gy, part, st_);
-  return (int)cudaGetLastError();
+    return (int)bwd_data<true, 4>(s, wsp, g, B, Tout, Cout, leak, gy, part, st_);
+  if (bwd_data_rows(from_wav, T_in) == 64)
+    return (int)bwd_data<false, 4>(s, wsp, g, B, Tout, Cout, leak, gy, part, st_);
+  return (int)bwd_data<false, 3>(s, wsp, g, B, Tout, Cout, leak, gy, part, st_);
 }
 
 extern "C" int fused_wav_in_bwd_launch(const float* pre, const float* st, const float* part,

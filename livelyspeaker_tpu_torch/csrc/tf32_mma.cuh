@@ -1,9 +1,12 @@
-// Device helpers of the 3xTF32 tensor-core products, shared by K2's weight
-// gradient (fused_transmlp_train.cu, through transmlp_common.cuh) and K3's
+// Device helpers of the 3xTF32 tensor-core products and of the staging that
+// feeds them, shared by K1 and K2 (fused_transmlp.cu and
+// fused_transmlp_train.cu, through transmlp_common.cuh) and K3
 // (fused_wav.cu):
 // - shared-memory addresses, and cp.async copies from device memory into
 //   shared memory (16 bytes, or 4), zero-filled when the source is out of
-//   range, with their commit groups and mbarrier arrivals;
+//   range, with their commit groups and mbarrier arrivals; mbarriers'
+//   initialisation, arrivals and waits; the 1-D bulk (TMA) copy and the
+//   proxy fence it needs after generic reads of its destination;
 // - f32 split into two TF32 halves rounded to nearest, ties away from zero;
 // - the m16n8k8 TF32 mma.sync with f32 accumulators.
 //
@@ -86,6 +89,54 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// One arrival that also expects `bytes` of bulk copies on the barrier.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Makes the initialised mbarriers visible to the async proxy (the TMA copies).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Orders this thread's view of shared memory, including what other threads
+// released to it through an mbarrier, before its later async-proxy (TMA)
+// accesses: a bulk copy into a buffer that generic loads have just read
+// must come after it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// A TMA copy of `bytes` contiguous bytes (a multiple of 16, both ends
+// 16-byte aligned) into this CTA's shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_1d(float* dst, const float* src, uint32_t bytes,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 }  // namespace

@@ -5,9 +5,9 @@
 // the columns [r * D/N, (r + 1) * D/N). What is here:
 // - the limits (S <= kSPad = 36, D <= kMaxN = 512), the activations and
 //   their derivatives;
-// - mbarrier and TMA wrappers (shared-memory addresses, cp.async and the
-//   TF32 helpers are in tf32_mma.cuh), and the encoder of a 2-D tensor map over a
-//   row-major weight matrix;
+// - the 2-D TMA copy (shared-memory addresses, cp.async, the mbarriers,
+//   the 1-D bulk copy and the TF32 helpers are in tf32_mma.cuh), and the
+//   encoder of a 2-D tensor map over a row-major weight matrix;
 // - the [kSPad, K] x [K, ncols] product in 9 x 8 register tiles whose
 //   threads form K-slices (Tiling, SliceRows, mma_quads), the slices'
 //   warp-level arrival on an mbarrier, and the fixed-order sum of the
@@ -88,36 +88,6 @@ __host__ __device__ inline int ring_stride(int dc) {
   return (dc + kTileCols - 1) / kTileCols * kTileCols;
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-// Makes the initialised mbarriers visible to the async proxy (the TMA copies).
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-// One arrival that also expects `bytes` of bulk copies on the barrier.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 // A TMA copy of the box of `map` at (column x0, row y0) into this CTA's
 // shared memory (128-byte aligned), completing on `bar`.
 __device__ __forceinline__ void tma_load_2d(float* dst, const CUtensorMap* map, int x0, int y0,
@@ -130,15 +100,6 @@ __device__ __forceinline__ void tma_load_2d(float* dst, const CUtensorMap* map, 
       : "memory");
 }
 
-// A TMA copy of `bytes` contiguous bytes (a multiple of 16, both ends
-// 16-byte aligned) into this CTA's shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_1d(float* dst, const float* src, uint32_t bytes,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
 
 // A product [kSPad, K] x [K, ncols] over the CTA's threads, ncols a multiple
 // of 8, at most kMaxCols. Thread p of a K-slice's 4 * ncols / 8 owns rows

@@ -6,7 +6,7 @@ Port of ``livelyspeaker_tpu/ops/pallas/fused_wav.py``. The stack is conv0
 (k15, stride 5, padded 1600 a side) -> InstanceNorm -> LeakyReLU -> conv1
 (stride 6) -> IN -> LReLU -> conv2 (stride 6) -> IN -> LReLU -> conv3
 (stride 6); the InstanceNorms have no affine and eps 1e-5. On a CUDA tensor
-the kernels of ``csrc/fused_wav.cu`` run (six forward launches, thirteen
+the kernels of ``csrc/fused_wav.cu`` run (six forward launches, sixteen
 backward ones) or the wrapper raises; on a CPU tensor the plain versions
 run. Nothing in the package routes through it by default:
 ``FusedWavEncoder`` swaps in for a model's ``audio_encoder``.
@@ -48,6 +48,8 @@ __all__ = [
     "wgrad_geometry",
     "wgrad_partials",
     "reduce_partials",
+    "bwd_data_rows",
+    "data_grad",
     "fused_wav_encoder",
     "FusedWavEncoder",
 ]
@@ -56,17 +58,27 @@ EPS = 1e-5
 CHANNELS = (1, 32, 64, 128, 256)
 PACKED_KEYS = ("w0", "b0", "w1", "b1", "w2", "b2", "w3", "b3")
 # launches of each CUDA kernel; a forward is stats0 1, conv_fwd 3, stats 2;
-# a backward is wgrad 3, reduce 4, bwd_data 3, in_bwd 2, wgrad0 1
+# a backward is wgrad 3, reduce 4, wsplit 3, bwd_data 3, in_bwd 2, wgrad0 1
 LAUNCHES = {"stats0": 0, "conv_fwd": 0, "stats": 0, "wgrad": 0, "reduce": 0,
-            "bwd_data": 0, "in_bwd": 0, "wgrad0": 0}
+            "wsplit": 0, "bwd_data": 0, "in_bwd": 0, "wgrad0": 0}
 FORWARD_LAUNCHES = {"stats0": 1, "conv_fwd": 3, "stats": 2}
-BACKWARD_LAUNCHES = {"wgrad": 3, "reduce": 4, "bwd_data": 3, "in_bwd": 2, "wgrad0": 1}
+BACKWARD_LAUNCHES = {"wgrad": 3, "reduce": 4, "wsplit": 3, "bwd_data": 3, "in_bwd": 2,
+                     "wgrad0": 1}
 
 
-def _bwd_data_tiles(t_in: int, c_in: int) -> int:
-    """Time tiles of the data-gradient kernel: 384 input times a block for
-    32 channels, 192 for more (csrc: wav_bwd_data_kernel's 6 kQT)."""
-    return math.ceil(t_in / (384 if c_in == 32 else 192))
+BWD_DATA_CHANNELS = 16  # input channels of a data-gradient tile (csrc: kDCW)
+
+
+def bwd_data_rows(t_in: int, from_wav: bool) -> int:
+    """q rows (input times / 6) of a data-gradient tile: 64, or 48 for a
+    stored input of at most 48 (csrc: bwd_data_rows)."""
+    return 64 if from_wav or math.ceil(t_in / 6) > 48 else 48
+
+
+def _bwd_data_tiles(t_in: int, from_wav: bool) -> int:
+    """Time tiles of the data-gradient kernel a sequence: the ceil(T_in / 6)
+    q rows in tiles of ``bwd_data_rows``."""
+    return math.ceil(math.ceil(t_in / 6) / bwd_data_rows(t_in, from_wav))
 
 
 class WavDims:
@@ -224,6 +236,7 @@ def _launcher(kernel: str):
             "stats0": [p, p, p, i, i, i, p],
             "stats": [p, i, i, i, p],
             "conv_fwd": src + [p, p, p, i, i, i, f],
+            "wsplit": [p, i, i, p],
             "bwd_data": src + [p, p, i, i, i, f, p, p],
             "in_bwd": [p, p, p, i, i, i, i, p],
             "wgrad": src + [p, i, i, i, f, p, i, i],
@@ -407,13 +420,65 @@ def reduce_partials(part: torch.Tensor, i: int) -> Tuple[torch.Tensor, torch.Ten
     return flat[:cout * cin * 15].view(cout, cin, 15), flat[cout * cin * 15:]
 
 
+def _plain_data_grad(g, w, xh, t_in, leak):
+    """The plain data gradient of one conv: g [B, T_out, C_out], xh [B, C_in,
+    T_in]; (gy [B, T_in, C_in], sums [B, 1, 2, C_in])."""
+    extra = t_in - ((g.shape[1] - 1) * 6 + 15)  # input times no window reaches
+    g_a = F.conv_transpose1d(g.transpose(1, 2), w, stride=6, output_padding=extra)
+    gy = g_a * torch.where(xh > 0, 1.0, leak).to(g_a.dtype)
+    sums = torch.stack([gy.sum(-1), (gy * xh).sum(-1)], dim=1)[:, None]
+    return gy.transpose(1, 2).contiguous(), sums
+
+
+def data_grad(i: int, res: WavResiduals, g: torch.Tensor, packed: Dict[str, torch.Tensor],
+              leak: float = 0.3) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Conv ``i``'s (1..3) data gradient through its input's LeakyReLU, for
+    the cotangent ``g`` [B, T_i, C_out] of conv i's output:
+    gy = lrelu'(xhat) * conv_i^T g, [B, T_in, C_in], with xhat recomputed
+    from the residuals, and the per-tile sums of gy and gy * xhat over
+    time, [B, ntq, 2, C_in], that the InstanceNorm backward reads. On the
+    card two launches: the weights split into TF32 halves, then the
+    data-gradient kernel (3xTF32 on the tensor cores, tiles of
+    ``bwd_data_rows`` q rows of one sequence); a CPU tensor runs the plain
+    version, one tile of all the times."""
+    wav = res.wav
+    if g.device.type == "cpu":
+        xh = lrelu_inputs(res, packed)[i - 1]
+        return _plain_data_grad(g, packed[f"w{i}"], xh, xh.shape[2], leak)
+    d = _check_cuda("data_grad", wav, packed)
+    _check_residuals("data_grad", res, d)
+    t_out = (d.T1, d.T2, d.T3, d.T4)[i]
+    fused_mlp._check("g", g, (wav.shape[0], t_out, CHANNELS[i + 1]), wav.device, "data_grad")
+    return _data_grad(i, res, g, packed, leak, d)
+
+
+def _data_grad(i, res: WavResiduals, g, packed, leak, d: WavDims):
+    """data_grad's launches on tensors already checked."""
+    wav = res.wav
+    b, lengths = wav.shape[0], (d.T1, d.T2, d.T3, d.T4)
+    cin, cout, t_in, t_out = CHANNELS[i], CHANNELS[i + 1], lengths[i - 1], lengths[i]
+    pre, st = (None, res.m1, res.m2)[i - 1], (res.st0, res.st1, res.st2)[i - 1]
+    f32 = dict(dtype=torch.float32, device=wav.device)
+    what = f"B={b}, L={d.L}, conv{i}"
+    cw = BWD_DATA_CHANNELS
+    wsp = torch.empty((cout // 8, cin // cw, 15, cw, 8, 2), **f32)  # csrc: wav_wsplit_kernel
+    _launch("wsplit", wav.device, packed[f"w{i}"].data_ptr(), cin, cout, wsp.data_ptr(),
+            what=what)
+    gy = torch.empty((b, t_in, cin), **f32)
+    sums = torch.empty((b, _bwd_data_tiles(t_in, i == 1), 2, cin), **f32)
+    _launch("bwd_data", wav.device, *_src(i == 1, pre, st, t_in, cin, wav, packed),
+            wsp.data_ptr(), g.data_ptr(), b, t_out, cout, leak, gy.data_ptr(), sums.data_ptr(),
+            what=what)
+    return gy, sums
+
+
 def fused_wav_backward(
     res: WavResiduals, g: torch.Tensor, packed: Dict[str, torch.Tensor], leak: float = 0.3,
     need_wav_grad: bool = True,
 ) -> Tuple[Optional[torch.Tensor], Dict[str, torch.Tensor]]:
     """(d_wav [B, L] or None, gradients keyed as ``packed``) for the output
     cotangent ``g`` [B, T4, 256]. A CPU tensor runs the plain version; a
-    CUDA tensor launches the thirteen backward kernels or raises."""
+    CUDA tensor launches the sixteen backward kernels or raises."""
     if g.device.type == "cpu":
         return fused_wav_backward_reference(res, g, packed, leak, need_wav_grad)
     who = "fused_wav_encoder backward"
@@ -429,15 +494,11 @@ def fused_wav_backward(
     grads = {}
     g_m = g
     for i in (3, 2, 1):
-        cin, cout, t_in, t_out = CHANNELS[i], CHANNELS[i + 1], lengths[i - 1], lengths[i]
-        src = _src(i == 1, pres[i - 1], sts[i - 1], t_in, cin, wav, packed)
+        cin, t_in = CHANNELS[i], lengths[i - 1]
         part = _wgrad_partials(i, res, g_m, packed, leak, d)
         grads[f"w{i}"], grads[f"b{i}"] = reduce_partials(part, i)
-        ntq = _bwd_data_tiles(t_in, cin)
-        gy = torch.empty((b, t_in, cin), **f32)
-        sums = torch.empty((b, ntq, 2, cin), **f32)
-        _launch("bwd_data", dev, *src, packed[f"w{i}"].data_ptr(), g_m.data_ptr(), b, t_out,
-                cout, leak, gy.data_ptr(), sums.data_ptr(), what=f"{what}, conv{i}")
+        gy, sums = _data_grad(i, res, g_m, packed, leak, d)
+        ntq = sums.shape[1]
         if i > 1:  # the InstanceNorm backward in place: gy becomes g_m
             _launch("in_bwd", dev, pres[i - 1].data_ptr(), sts[i - 1].data_ptr(),
                     sums.data_ptr(), ntq, b, t_in, cin, gy.data_ptr(), what=f"{what}, IN{i - 1}")

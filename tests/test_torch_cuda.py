@@ -595,6 +595,79 @@ def test_wav_wgrad_launch_refuses_other_chunks(cuda_device):
                               part.data_ptr(), nsplit, per, what="test")
 
 
+def _wav_bwd_data_case(device, b, length, i, seed=6):
+    """Residuals of a seeded forward, a cotangent of conv i's output, the
+    xhat of conv i's input as the plain version recomputes it, and the
+    plain data gradient in f64: gy [B, T_in, C_in] and the per-time terms
+    of the sums, [B, 2, C_in, T_in]."""
+    _, packed, wav, _ = _wav_case(device, b, length, seed=seed)
+    _, res = fused_wav.fused_wav_forward(wav, packed)
+    d = fused_wav.WavDims(length)
+    t_out = (d.T1, d.T2, d.T3, d.T4)[i]
+    g = torch.Generator().manual_seed(seed + i)
+    cot = torch.randn(b, t_out, fused_wav.CHANNELS[i + 1], generator=g).to(device)
+    xh = fused_wav.lrelu_inputs(res, packed)[i - 1].double()
+    rgy, _ = fused_wav._plain_data_grad(cot.double(), packed[f"w{i}"].double(), xh,
+                                        xh.shape[2], 0.3)
+    terms = torch.stack([rgy.transpose(1, 2), rgy.transpose(1, 2) * xh], dim=1)
+    return res, packed, cot, rgy, terms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", [1, 2, 3])
+@pytest.mark.parametrize("b,length", [
+    (1, audio_samples_for_frames(34)),  # T_in 7891 / 1313 / 217: tiles of 64, 64, 48 q rows
+    (8, audio_samples_for_frames(34)),
+    (512, audio_samples_for_frames(34)),
+    (3, audio_samples_for_frames(2)),   # T_in 1064 / 175 / 27: conv2 and conv3 in tiles of 48
+    (5, 5000),                          # T_in 1638 / 271 / 43: input times no window reaches
+])
+def test_wav_bwd_data_kernel_matches_plain(cuda_device, b, length, i):
+    """Conv i's data gradient from the tensor-core kernel (the weight split,
+    then one launch) within WAV_WGRAD_TOL of the plain data gradient in
+    f64: gy, and each tile's sums of gy and gy * xhat over its input times;
+    the same bits on a second launch."""
+    res, packed, cot, rgy, terms = _wav_bwd_data_case(cuda_device, b, length, i)
+    launches = dict(fused_wav.LAUNCHES)
+    gy, sums = fused_wav.data_grad(i, res, cot, packed)
+    gy2, sums2 = fused_wav.data_grad(i, res, cot, packed)
+    torch.cuda.synchronize()
+    assert fused_wav.LAUNCHES["bwd_data"] == launches["bwd_data"] + 2
+    assert fused_wav.LAUNCHES["wsplit"] == launches["wsplit"] + 2
+    assert torch.equal(gy, gy2) and torch.equal(sums, sums2)
+    t_in = gy.shape[1]
+    span = 6 * fused_wav.bwd_data_rows(t_in, i == 1)  # input times of a tile
+    assert sums.shape == (b, -(-t_in // span), 2, fused_wav.CHANNELS[i])
+    assert _rel(gy.double(), rgy) <= WAV_WGRAD_TOL
+    want = torch.stack([terms[..., j:j + span].sum(-1) for j in range(0, t_in, span)], dim=1)
+    assert _rel(sums.double(), want) <= WAV_WGRAD_TOL
+
+
+@pytest.mark.cuda
+def test_wav_bwd_data_launch_refuses_what_it_does_not_take(cuda_device):
+    """The launches refuse a C_out that is not a multiple of 8, a T_out
+    whose windows pass the input, no sequence, and a misaligned cotangent."""
+    res, packed, cot, _, _ = _wav_bwd_data_case(cuda_device, 2, audio_samples_for_frames(2), 2)
+    b, t_out = cot.shape[:2]
+    t_in = res.m1.shape[1]
+    src = fused_wav._src(False, res.m1, res.st1, t_in, 64, res.wav, packed)
+    wsp = torch.empty(2 * 128 * 64 * 15 + 4, device=cuda_device)
+    gy = torch.empty(b, t_in, 64, device=cuda_device)
+    part = torch.empty(b, 4, 2, 64, device=cuda_device)
+    flat = cot.reshape(-1)
+    for bb, tt, cout, g in ((b, t_out, 100, cot), (b, t_out + 1, 128, cot), (0, t_out, 128, cot),
+                            (b, t_out, 128, flat[1:])):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            fused_wav._launch("bwd_data", cuda_device, *src, wsp.data_ptr(), g.data_ptr(), bb, tt,
+                              cout, 0.3, gy.data_ptr(), part.data_ptr(), what="test")
+    with pytest.raises(RuntimeError, match="cudaError"):
+        fused_wav._launch("wsplit", cuda_device, packed["w2"].data_ptr(), 64, 100, wsp.data_ptr(),
+                          what="test")
+    with pytest.raises(RuntimeError, match="cudaError"):
+        fused_wav._launch("wsplit", cuda_device, packed["w2"].data_ptr(), 64, 128,
+                          wsp[1:].data_ptr(), what="test")
+
+
 @pytest.mark.cuda
 def test_wav_function_routes_to_kernels(cuda_device):
     """Under autograd the drop-in launches the forward and backward kernels
