@@ -51,18 +51,22 @@ same training with the WavEncoder swapped for the fused WavEncoder stack
    model's feature cotangent (the eager encoder's own gradients are printed
    with the number of LeakyReLU inputs whose sign the two forwards round
    differently: the gradient jumps at the kink);
-9. the K3 kernels (six forward launches, sixteen backward) against their
+9. the K3 kernels (nine forward launches, sixteen backward) against their
    plain versions at L = 36,267, B in {8, 512}: forward within rel 1e-5;
    backward on the same residuals, d_wav and every weight and conv3 bias
    gradient within rel 1e-4 of its max, the pre-IN biases within 1e-4 of
    the largest gradient; the time of both, and of each kernel; then the
-   weight-gradient kernel (3xTF32 on the tensor cores) conv by conv against
+   forward conv kernel (its weight split, then 3xTF32 on the tensor cores)
+   conv by conv against the f64 conv within rel 1e-5 and timed against
+   cuDNN's forward conv of the same conv on the materialised input, in
+   turns, with its bound; the weight-gradient kernel (3xTF32 on the tensor cores) conv by conv against
    the f64 weight gradient and timed against cuDNN's weight gradient of the
    same conv on the materialised activation, in turns, with its bound;
    and the data-gradient kernel (its weight split, then 3xTF32 on the
    tensor cores) conv by conv against the f64 data gradient and its
    InstanceNorm sums, timed against cuDNN's data gradient of the same conv
-   on the same cotangent, in turns, with its bound;
+   on the same cotangent, in turns, with its bound; and the four reduce
+   launches of a backward against part.sum(0) on the same partials;
 10. training through K3 and K2: 7. with the WavEncoder swapped for
    FusedWavEncoder before the TrainLoop is built: finite, decreasing
    losses; each K3 kernel launched as often a step as one forward and one
@@ -636,13 +640,32 @@ def k3_bwd_data_cost(b, length, i):
     return flop, nbytes, PEAK_TF32
 
 
+def k3_conv_fwd_cost(b, length, i):
+    """(operations, bytes, peak) of conv i's forward conv launch: the
+    2 B T_i 15 C_in C_out FLOP product as 3xTF32, three TF32 products at the
+    TF32 peak, and for conv1 conv0's recompute as f32 outside the tensor
+    cores (counted in TF32-peak time); it reads its input and statistics,
+    the split weights and the bias once, and writes its output."""
+    from livelyspeaker_tpu_torch.ops import fused_wav as k3
+
+    dims = k3.WavDims(length)
+    t = (dims.T1, dims.T2, dims.T3, dims.T4)
+    cin, cout = k3.CHANNELS[i], k3.CHANNELS[i + 1]
+    flop = 3 * 2 * b * t[i] * 15 * cin * cout
+    if i == 1:
+        flop += 2 * b * t[0] * 32 * 15 * PEAK_TF32 / PEAK_FLOPS
+    inputs = b * length + 32 * 16 if i == 1 else b * t[i - 1] * cin
+    nbytes = 4 * (inputs + 2 * b * cin + 2 * cout * cin * 15 + cout + b * t[i] * cout)
+    return flop, nbytes, PEAK_TF32
+
+
 def k3_cost(b, length):
     """(FLOP, bytes[, peak]) of each K3 kernel over one forward and one
     backward call without d_wav (all its launches), from the shapes: the
     convs' FLOPs at the f32 peak, conv0 counted once wherever a kernel
-    recomputes it, but the weight and data gradients' as k3_wgrad_cost
-    and k3_bwd_data_cost count them; each kernel's inputs read once, its
-    outputs written once."""
+    recomputes it, but the forward convs', weight and data gradients' as
+    k3_conv_fwd_cost, k3_wgrad_cost and k3_bwd_data_cost count them; each
+    kernel's inputs read once, its outputs written once."""
     from livelyspeaker_tpu_torch.ops import fused_wav as k3
 
     dims = k3.WavDims(length)
@@ -654,10 +677,11 @@ def k3_cost(b, length):
     wav = b * length
     cost = {
         "stats0": (conv[0], 4 * (wav + wts[0] + 2 * b * 32)),
-        "conv_fwd": (sum(conv), 4 * (wav + wts[0] + sum(wts[1:]) + sum(size[1:]) + size[1] + size[2])),
         "stats": (3 * (size[1] + size[2]), 4 * (size[1] + size[2])),
         "in_bwd": (6 * (size[1] + size[2]), 4 * 3 * (size[1] + size[2])),
     }
+    conv_fwd = [k3_conv_fwd_cost(b, length, i) for i in (1, 2, 3)]
+    cost["conv_fwd"] = (sum(c[0] for c in conv_fwd), sum(c[1] for c in conv_fwd), PEAK_TF32)
     # weight and data gradients of conv1..3 (conv0 recomputed for conv1);
     # the row-chunk partials of the weight gradients, as the wrapper splits;
     # the three TF32 products of each at the TF32 peak, conv1's conv0
@@ -669,11 +693,96 @@ def k3_cost(b, length):
     bwd_data = [k3_bwd_data_cost(b, length, i) for i in (1, 2, 3)]
     cost["bwd_data"] = (sum(c[0] for c in bwd_data), sum(c[1] for c in bwd_data), PEAK_TF32)
     cost["wgrad0"] = (2 * conv[0], 4 * (wav + size[0] + nparts[0] * wts[0]))
-    # the weight split: reads w_i once, writes its two TF32 halves
+    # the weight splits, forward and backward: each reads w_i once and
+    # writes its two TF32 halves
     split = sum(ch[i + 1] * ch[i] * 15 for i in (1, 2, 3))
     cost["wsplit"] = (4 * split, 4 * 3 * split)
+    cost["wsplit_fwd"] = cost["wsplit"]
     cost["reduce"] = (parts, 4 * (parts + sum(wts)))
     return cost
+
+
+def wav_conv_fwd_turns(card, b, iters=10):
+    """K3's forward conv kernel alone, conv by conv, at TED's waveform
+    length: conv i's launches of ``conv_forward`` (the weights split into
+    TF32 halves, then the conv over lrelu(IN(pre))), against cuDNN's forward
+    conv of the same conv on the materialised input a = lrelu(IN(pre)) laid
+    out [B, C_in, T_in] (F.conv1d, f32, TF32 off), which does no
+    InstanceNorm, LeakyReLU or conv0 recompute. Each is replayed from a CUDA
+    graph, timed in turns (kernel, cuDNN, cuDNN, kernel). The kernel's
+    output is held first against the plain conv in f64 and a second launch
+    against the first's bits. Returns {i: (kernel ms, cuDNN ms)}."""
+    import torch.nn.functional as F
+
+    from livelyspeaker_tpu_torch.models import WavEncoder, audio_samples_for_frames
+    from livelyspeaker_tpu_torch.models.initializers import random_normal_
+    from livelyspeaker_tpu_torch.ops import fused_wav as k3
+
+    g = torch.Generator().manual_seed(60 + b)
+    enc = random_normal_(WavEncoder(), g).cuda()
+    packed = k3.pack_wav_params(enc, differentiable=False)
+    length = audio_samples_for_frames(34)
+    wav = (0.1 * torch.randn(b, length, generator=g)).cuda()
+    _, res = k3.fused_wav_forward(wav, packed)
+    xh = k3.lrelu_inputs(res, packed)
+    dims = k3.WavDims(length)
+    t = (dims.T1, dims.T2, dims.T3, dims.T4)
+    out = {}
+    for i in (1, 2, 3):
+        a = F.leaky_relu(xh[i - 1], 0.3).contiguous()  # [B, C_in, T_in]
+        w, bias = packed[f"w{i}"], packed[f"b{i}"]
+        y = k3.conv_forward(i, res, packed)
+        same = torch.equal(y, k3.conv_forward(i, res, packed))
+        ref = F.conv1d(a.double(), w.double(), bias.double(), stride=6).transpose(1, 2)
+        rel = _rel(y.double(), ref)
+        cudnn = lambda: F.conv1d(a, w, bias, stride=6)
+        crel = _rel(cudnn().double().transpose(1, 2), ref)
+        del ref
+        check(same and rel <= KERNEL_TOL, f"K3 conv_fwd conv{i} B={b}: rel {rel:.3e} against "
+              f"f64, same bits on a second launch: {same}")
+        times = time_turns({"kernel": graphed(lambda: k3.conv_forward(i, res, packed)),
+                            "cudnn": graphed(cudnn)}, iters)
+        flop, nbytes, peak = k3_conv_fwd_cost(b, length, i)
+        bound_ms = bound(flop, nbytes, peak)[0]
+        out[i] = (times["kernel"], times["cudnn"])
+        print(f"[wav-conv-fwd] conv{i} B={b} T_out {t[i]}, {k3.conv_fwd_tiles(b, t[i])[0]} tiles: "
+              f"kernel {times['kernel']:.4f} ms (rel {rel:.1e} against f64), bound "
+              f"{bound_ms:.4f} ms (share {bound_ms / times['kernel']:.1%}); cuDNN forward conv "
+              f"{times['cudnn']:.4f} ms (rel {crel:.1e}, without IN, LeakyReLU or conv0); "
+              f"CUDA graphs, in turns ({card})")
+    print(f"[wav-conv-fwd] B={b}: the three convs {sum(v[0] for v in out.values()):.4f} ms, "
+          f"cuDNN {sum(v[1] for v in out.values()):.4f} ms ({card})")
+    return out
+
+
+def wav_reduce_turns(card, b, iters=20):
+    """K3's reduce kernel alone: one backward's four launches (the weight-
+    gradient partials of conv3, conv2 and conv1 in ``wgrad_geometry``'s
+    chunks, and conv0's [B, 512]), against part.sum(0) on the same four
+    partials; each sequence replayed from a CUDA graph, timed in turns.
+    Each sum is checked first against f64. Returns (kernel ms, library ms)."""
+    from livelyspeaker_tpu_torch.models import audio_samples_for_frames
+    from livelyspeaker_tpu_torch.ops import fused_wav as k3
+
+    g = torch.Generator().manual_seed(70 + b)
+    dims = k3.WavDims(audio_samples_for_frames(34))
+    t = (dims.T1, dims.T2, dims.T3, dims.T4)
+    ch = k3.CHANNELS
+    parts = [(i, torch.randn(k3.wgrad_geometry(b, t[i], ch[i], ch[i + 1]).nsplit,
+                             ch[i + 1] * ch[i] * 15 + ch[i + 1], generator=g).cuda())
+             for i in (3, 2, 1)] + [(0, torch.randn(b, 32 * 15 + 32, generator=g).cuda())]
+    rel = 0.0
+    for i, part in parts:
+        dw, db = k3.reduce_partials(part, i)
+        rel = max(rel, _rel(torch.cat([dw.reshape(-1), db]).double(), part.double().sum(0)))
+    check(rel <= GRAD_TOL, f"K3 reduce B={b}: rel {rel:.3e} against f64")
+    times = time_turns({
+        "kernel": graphed(lambda: [k3.reduce_partials(p, i) for i, p in parts]),
+        "library": graphed(lambda: [p.sum(0) for _, p in parts])}, iters)
+    print(f"[wav-reduce] B={b}: the four reduce launches of a backward {times['kernel']:.4f} ms "
+          f"(rel {rel:.1e} against f64) against part.sum(0) on the same partials "
+          f"{times['library']:.4f} ms; CUDA graphs, in turns ({card})")
+    return times["kernel"], times["library"]
 
 
 def wav_wgrad_turns(card, b, iters=10):
@@ -934,14 +1043,20 @@ def wav_kernel_phase(card):
               f"(with d_wav {ms['bwd+d_wav']:.3f}); by kernel, ms per call: "
               + ", ".join(f"{k} {v:.3f}" for k, v in per_kernel.items())
               + f"; plain fwd {plain['fwd']:.3f} ms, bwd {plain['bwd']:.3f} ms ({card})")
+        wav_conv_fwd_turns(card, b)
         wav_wgrad_turns(card, b)
         wav_bwd_data_turns(card, b)
+        reduce_ms = wav_reduce_turns(card, b)
         if b == TRAIN_BATCH:
-            report = {"ms": per_kernel, "plain_fwd": plain["fwd"], "plain_bwd": plain["bwd"],
+            # reduce: device time of its launches alone, from the same graph
+            # replays as the library call it is held to
+            report = {"ms": {**per_kernel, "reduce": reduce_ms[0]}, "plain_fwd": plain["fwd"],
+                      "plain_bwd": plain["bwd"], "library": {"reduce": reduce_ms[1]},
                       "bound": {k: bound(*c) for k, c in k3_cost(b, length).items()}}
-            print(f"[wav-kernel] {tag}: bound by kernel, ms per call (wgrad, bwd_data: their "
-                  "three TF32 products at 495 TFLOP/s and conv0's recompute at 67): " + ", ".join(
-                f"{k} {v[0]:.3f} ({v[1]}, share {v[0] / per_kernel[k]:.1%})"
+            print(f"[wav-kernel] {tag}: bound by kernel, ms per call (conv_fwd, wgrad, bwd_data: "
+                  "their three TF32 products at 495 TFLOP/s and conv0's recompute at 67): "
+                  + ", ".join(
+                f"{k} {v[0]:.3f} ({v[1]}, share {v[0] / report['ms'][k]:.1%})"
                 for k, v in report["bound"].items()) + f" ({card})")
     return worst, report
 
@@ -1306,11 +1421,11 @@ def main():
         profile_phase(model, loop, args.profile, card)
         profile_phase(wav_model, wav_loop, args.profile, card, name="train_step_k3")
     # library_ms: one torch.matmul computes the K2 weight-gradient kernel's
-    # product and one torch.sum the reduce kernel's sums; no single PyTorch
+    # product and one torch.sum each reduce kernel's sums; no single PyTorch
     # call computes any other of these functions (8-block mixer stacks and
-    # their backward, a conv/InstanceNorm/LeakyReLU chain; cuDNN's weight
-    # and data gradients, printed beside K3's, skip the InstanceNorm, the
-    # LeakyReLU and conv0)
+    # their backward, a conv/InstanceNorm/LeakyReLU chain; cuDNN's forward
+    # conv, weight and data gradients, printed beside K3's, skip the
+    # InstanceNorm, the LeakyReLU and conv0)
     kernels = [{
         "name": "fused_transmlp", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
@@ -1327,15 +1442,17 @@ def main():
             "bound_ms": train_times["bound"][k][0], "bound_by": train_times["bound"][k][1],
             "library_ms": train_times["library"].get(k),
         })
+    from livelyspeaker_tpu_torch.ops.fused_wav import FORWARD_LAUNCHES as k3_forward
+
     for k in wav_launches:
-        fwd = k in ("stats0", "conv_fwd", "stats")
+        fwd = k in k3_forward
         kernels.append({
             "name": f"fused_wav_{k}", "route": "cuda", "source": WAV_SOURCE,
             "replaces": WAV_REPLACES, "launches": wav_launches[k],
             "max_abs_err": wav_worst["fwd" if fwd else "bwd"], "ms": wav_times["ms"][k],
             "plain_ms": wav_times["plain_fwd" if fwd else "plain_bwd"],
             "bound_ms": wav_times["bound"][k][0], "bound_by": wav_times["bound"][k][1],
-            "library_ms": None,
+            "library_ms": wav_times["library"].get(k),
         })
     print(json.dumps({"kernels": kernels}))
     print(f"[device] {card}")

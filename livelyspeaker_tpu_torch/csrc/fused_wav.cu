@@ -16,13 +16,19 @@
 // conv0's output, [B, T1, 32] (517 MB at B = 512 on TED), is never written.
 // conv0 has one input channel and 15 taps, so each kernel that needs an
 // element of it recomputes it from the waveform (15 FMAs), and the
-// normalisation and LeakyReLU are applied on load. Forward, six launches:
+// normalisation and LeakyReLU are applied on load. Forward, nine launches:
 //   wav_stats0_kernel        IN0 statistics, two passes over recomputed conv0;
-//   wav_conv_fwd_kernel<1>   conv1 over lrelu(IN0(conv0)): m1 [B, T2, 64];
+//   wav_wsplit_fwd_kernel    w1 split into TF32 halves, in the order the
+//                            forward conv reads it;
+//   wav_conv_fwd_kernel<1>   conv1 over lrelu(IN0(conv0)) on the tensor cores
+//                            (3xTF32), one product a residue of the stride:
+//                            m1 [B, T2, 64];
 //   wav_stats_kernel         IN1 statistics of m1;
-//   wav_conv_fwd_kernel<0>   conv2 over lrelu(IN1(m1)): m2 [B, T3, 128];
+//   wav_wsplit_fwd_kernel, wav_conv_fwd_kernel<0>   conv2 over
+//                            lrelu(IN1(m1)): m2 [B, T3, 128];
 //   wav_stats_kernel         IN2 statistics of m2;
-//   wav_conv_fwd_kernel<0>   conv3 over lrelu(IN2(m2)): the output [B, T4, 256].
+//   wav_wsplit_fwd_kernel, wav_conv_fwd_kernel<0>   conv3 over
+//                            lrelu(IN2(m2)): the output [B, T4, 256].
 // The backward keeps the waveform, m1, m2 and the three statistics, and
 // walks the stages back, per conv i = 3, 2, 1:
 //   wav_wgrad_kernel         dW_i and db_i partials over row chunks of the
@@ -52,10 +58,10 @@
 // Mosaic's lane rules and are not carried over.
 //
 // What bounds it: about 90 GFLOP forward and twice that backward at B = 512
-// on TED. The weight and data gradients run on the tensor cores in 3xTF32
-// (mma.sync, tf32_mma.cuh); the other kernels are plain f32 FMA, bound by
-// the FP32 pipe and the shared-memory loads that feed it. wgmma and TMA
-// are later work.
+// on TED. The forward convs and the weight and data gradients run on the
+// tensor cores in 3xTF32 (mma.sync, tf32_mma.cuh); the other kernels are
+// plain f32 FMA, bound by the FP32 pipe and the shared-memory loads that
+// feed it. wgmma is later work.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -102,28 +108,6 @@ struct Src {
 // the same LeakyReLU branch at the kink (the gradient jumps there).
 __device__ __forceinline__ float conv0_tap(float m, float w, float x) {
   return __fadd_rn(m, __fmul_rn(w, x));
-}
-
-// conv0's output at time tau, channel c.
-__device__ __forceinline__ float conv0_at(const Src& s, int b, int tau, int c) {
-  const float* row = s.wav + (size_t)b * s.L;
-  const float* w = s.w0 + c * kK;
-  float m = __ldg(s.b0 + c);
-  const int p0 = kS0 * tau - kPad0;
-#pragma unroll
-  for (int k = 0; k < kK; ++k) {
-    const int i = p0 + k;
-    m = conv0_tap(m, __ldg(w + k), (i >= 0 && i < s.L) ? __ldg(row + i) : 0.0f);
-  }
-  return m;
-}
-
-template <bool kFromWav>
-__device__ __forceinline__ float src_xhat(const Src& s, int b, int tau, int c) {
-  const float pre = kFromWav ? conv0_at(s, b, tau, c)
-                             : __ldg(s.pre + ((size_t)b * s.T + tau) * s.C + c);
-  const float* st = s.st + (size_t)b * 2 * s.C;
-  return (pre - __ldg(st + c)) * __ldg(st + s.C + c);
 }
 
 // ---------------------------------------------------------------- statistics
@@ -224,77 +208,441 @@ wav_stats_kernel(const float* __restrict__ x, int T, int C, float* __restrict__ 
 }
 
 // ------------------------------------------------------------------ forward
+//
+// conv1..conv3 on the tensor cores in 3xTF32. Replaces the forward convs of
+// livelyspeaker_tpu/ops/pallas/fused_wav.py: _conv_rows (:208) called from
+// _fwd_a, _fwd_b and _fwd_c.
+//
+// out[b, t, o] = bias[o] + sum_{c, k} w[o, c, k] a[b, 6t + k, c], with
+// a = lrelu(IN(pre)). With input time tau = 6q + r and tap k = r + 6j, and
+// a_r[q] = a[6q + r]:
+//   out[b, t, o] = bias[o] + sum_{r < 6} sum_{j: r + 6j < 15} sum_c
+//                  a_r[b, t + j, c] w[o, c, r + 6j],
+// fifteen products of a phase-split window shifted by j rows, whose rows
+// are the output times, whose reduction runs over the input channels and
+// whose columns are the output channels. The taps (j = 2, r >= 3) do not
+// exist and are skipped. What bounds it: the tensor cores, 3 x 2 B T_out 15
+// C_in C_out TF32 FLOP at 495 TFLOP/s (0.52 ms for the three convs at TED
+// B = 512), plus conv1's recompute of conv0 on the FP32 pipe (0.06 ms).
+//
+// Design:
+// - A CTA owns a tile of 64 output rows by 64 output channels. Rows are the
+//   flattened (b, t) of the B T_out outputs, so a tile may span up to four
+//   sequences (conv3's 34 rows a sequence fill every m16 fragment); where a
+//   sequence is shorter than 21 rows, tiles stay inside one sequence
+//   (fwd_tiles). out [B, T_out, C_out] is time-major, so a tile's rows are
+//   consecutive rows of out.
+// - The reduction walks stages of one residue r and 16 input channels (two
+//   k8 steps a tap, two or three taps). Each product warp sums a stage's
+//   k8 steps for each of its fragments in a fresh accumulator that is then
+//   added into the running f32 sum. No atomics: the same bits every run.
+// - The A operand is the stage's normalised window of a_r, not an im2col:
+//   each segment of n rows holds its sequence's n + 2 window rows once, and
+//   row m at tap j reads window row off(m) + j. A k8 step's k = tq and
+//   tq + 4 are the adjacent input channels 2tq and 2tq + 1, one 8-byte
+//   load a row; rows are 24 floats apart (no bank conflicts in a half
+//   warp). Each value is split into TF32 halves as it is loaded, and the
+//   next k8 step's fragments load while the current step's products run.
+// - The B operand is the weights, split into TF32 halves once a forward by
+//   wav_wsplit_fwd_kernel in the order the fragments read them: a stage's
+//   block is contiguous, one bulk (TMA) copy. Each float4 holds (hi(c),
+//   hi(c + 1), lo(c), lo(c + 1)) of output channel o at the k8 step's
+//   input channels c = 2tq and 2tq + 1: b0 and b1 with both halves in one
+//   16-byte load; output channels are 16 floats apart, so a quarter warp
+//   covers the 32 banks once.
+// - Warp specialisation, no CTA barrier in the loop. A weight producer
+//   (lane 0) fills a ring of kFWRing weight stages ("wfull"/"wempty"); it
+//   fences the async proxy after each "wempty" wait, or the bulk copy could
+//   overwrite weights the product warps' loads have not yet read, and it
+//   issues no cp.async, so the fence has no copies of its own to order. A
+//   window producer warp copies each stage's raw window into a ring of
+//   kFRing (cp.async: the pre-norm values of the 16 channels at times
+//   6q + r, zero-filled past T_in) and signals "full"; conv1 has none: its
+//   weight producer's other lanes stage the tile's waveform samples once.
+//   Transform warps normalise each window value in place with its
+//   sequence's statistics and put it through the LeakyReLU in f32 (the
+//   plain version's branch at the kink; conv1 first sums conv0 from the
+//   samples, four channels from each sample loaded, bias first, taps in
+//   order, no contraction: the bits of every other K3 kernel) and signal
+//   "split"; 2 x 2 product warps, each 32 rows by 32 channels, run the
+//   products and signal "empty" and "wempty". Two CTAs an SM.
+// - The epilogue adds the bias and writes two adjacent channels a store.
 
-// out[b, t, o] = bias[o] + sum_{c, k} w[o, c, k] a[b, 6t + k, c] for a tile
-// of 8 kTR times x 8 kTC output channels, each thread 8 x 8: times
-// 8 tr .. 8 tr + 7 and channels tc + kTC i. The tile's input window is
-// staged phase-split, in_s[cc][r][q] = a[6 (t0 + q) + r], so a thread's
-// eight times at tap k = r + 6j are eight consecutive floats from q = 8 tr + j:
-// three float4 loads serve the two or three taps of a residue r. Weights
-// are staged [o][c k] as torch lays them out (rows padded to an odd length:
-// no bank conflicts), kCC input channels a step.
-template <bool kFromWav, int kTR, int kTC>
-__global__ void __launch_bounds__(kTR * kTC)
-wav_conv_fwd_kernel(Src src, const float* __restrict__ w, const float* __restrict__ bias,
-                    float* __restrict__ out, int Tout, int Cout, float leak) {
-  constexpr int kNT = kTR * kTC, kTT = 8 * kTR, kTO = 8 * kTC;
-  constexpr int kCC = 256 / kTO;      // input channels staged per step
-  constexpr int kNQ = kTT + 4;        // window q < kTT + 2, padded to a float4
-  constexpr int kWR = kCC * kK + 1;   // odd row of the staged weights
-  __shared__ __align__(16) float in_s[kCC][kS][kNQ];
-  __shared__ float w_s[kTO][kWR];
-  const int tid = threadIdx.x, tr = tid / kTC, tc = tid % kTC;
-  const int t0 = blockIdx.x * kTT, o0 = blockIdx.y * kTO, b = blockIdx.z;
-  const int Cin = src.C;
-  float acc[8][8];
+constexpr int kFN = 64;        // output channels of a tile
+constexpr int kFC = 16;        // input channels of a stage: two k8 steps
+constexpr int kFRing = 6;      // window stages in flight
+constexpr int kFWRing = 2;     // weight stages in flight
+constexpr int kFWM = 2, kFWN = 2;  // product warps across a tile's 64 rows and 64 channels
+constexpr int kFMF = 2;        // m16 fragments of a product warp: 32 rows
+constexpr int kFNF = kFN / (8 * kFWN);  // n-fragments of a product warp
+constexpr int kFSub = kFN * 2 * 8;       // the split weights of one k8 step of a tap
+constexpr int kFTap = kFC / 8 * kFSub;   // a tap's split weights in a stage
+constexpr int kFW = 3 * kFTap;           // a stage's split weights at most
+constexpr int kFWRow = kFC + 8;          // a window row: 16 channels, padded
+constexpr int kFBarBytes = 256;
+static_assert((3 * kFRing + 2 * kFWRing + 1) * sizeof(uint64_t) <= kFBarBytes,
+              "the rings' mbarriers");
+
+// A tile of 64 output rows spanning up to four sequences. conv1
+// (kFromWav) has three transform warps and no window producer, the others
+// two and one.
+template <bool kFromWav>
+struct FGeo {
+  static constexpr int kMma = kFWM * kFWN;                  // product warps
+  static constexpr int kRows = 16 * kFMF * kFWM;
+  static constexpr int kSeg = 4;
+  static constexpr int kWin = kRows + 2 * kSeg;            // window rows of a stage at most
+  static constexpr int kSlot = kWin * kFWRow;              // a window stage
+  static constexpr int kSamples = kFromWav ? kS0 * kS * kWin + (kK - kS0) * kSeg : 0;
+  static constexpr int kXform = kFromWav ? 3 : 2;
+  static constexpr int kProducers = kFromWav ? 1 : 2;      // weights (and windows)
+  static constexpr int kThreads = 32 * (kMma + kProducers + kXform);
+  static constexpr size_t kBytes =
+      kFBarBytes + (size_t)(kFWRing * kFW + kFRing * kSlot + kSamples) * sizeof(float);
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// taps of a stage of residue r: 3 for r < 3, else 2; its first slot in a
+// split block of 15 taps ordered (r, j): k = 0 6 12 1 7 13 2 8 14 3 9 4 10 5 11
+__host__ __device__ __forceinline__ int fwd_taps(int r) { return r < 3 ? 3 : 2; }
+__host__ __device__ __forceinline__ int fwd_first(int r) { return r < 3 ? 3 * r : 9 + 2 * (r - 3); }
+
+// wsp[c / 16][o / 64][slot][h][o % 64][tq][4] = (hi w[o, c, k],
+// hi w[o, c + 1, k], lo w[o, c, k], lo w[o, c + 1, k]) for
+// c = 16 (c / 16) + 8 h + 2 tq, tq < 4, and the tap k of the slot: a stage
+// (c / 16, r) of an output tile is one contiguous block of fwd_taps(r)
+// slots.
+__global__ void wav_wsplit_fwd_kernel(const float* __restrict__ w, int Cin, int Cout,
+                                      float4* __restrict__ wsp) {
+  const int n = Cin / kFC * (Cout / kFN) * kK * kFTap / 4;
+  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < n; idx += gridDim.x * blockDim.x) {
+    const int tq = idx % 4, o = idx / 4 % kFN, h = idx / (4 * kFN) % (kFC / 8);
+    const int q = idx / (kFTap / 4) % kK, rest = idx / (kFTap / 4 * kK);
+    const int nt = rest % (Cout / kFN), cg = rest / (Cout / kFN);
+    const int r = q < 9 ? q / 3 : 3 + (q - 9) / 2, j = q < 9 ? q % 3 : (q - 9) % 2;
+    const int k = r + kS * j, oo = nt * kFN + o, c = cg * kFC + 8 * h + 2 * tq;
+    float h0, l0, h1, l1;
+    split_tf32(__ldg(w + ((size_t)oo * Cin + c) * kK + k), h0, l0);
+    split_tf32(__ldg(w + ((size_t)oo * Cin + c + 1) * kK + k), h1, l1);
+    wsp[idx] = make_float4(h0, h1, l0, l1);
+  }
+}
+
+// A run of a tile's rows in one sequence: sequence b, times t .. t + n - 1,
+// tile rows j .. j + n - 1, window rows u .. u + n + 1.
+struct FSeg {
+  int b, t, n, j, u;
+};
+
+// The tile's segments: rows r0 .. r0 + nrows - 1 of the flattened (b, t)
+// rows, split at sequence ends (at most kSeg, as fwd_tiles guarantees).
+template <int kSeg>
+__device__ __forceinline__ int fwd_segs(int r0, int nrows, int T, FSeg (&seg)[kSeg]) {
+  int r = r0, u = 0, ns = 0;
+  const int end = r0 + nrows;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  for (int c0 = 0; c0 < Cin; c0 += kCC) {
-    __syncthreads();
-    for (int idx = tid; idx < kCC * kS * kNQ; idx += kNT) {
-      const int cc = idx % kCC, u = idx / kCC, q = u / kS, r = u % kS;
-      const int tau = kS * (t0 + q) + r;
-      in_s[cc][r][q] = (q < kTT + 2 && tau < src.T)
-          ? lrelu(src_xhat<kFromWav>(src, b, tau, c0 + cc), leak) : 0.0f;
-    }
-    for (int idx = tid; idx < kTO * kCC * kK; idx += kNT) {
-      const int o = idx / (kCC * kK), ck = idx % (kCC * kK);
-      w_s[o][ck] = o0 + o < Cout ? __ldg(w + ((size_t)(o0 + o) * Cin + c0) * kK + ck) : 0.0f;
-    }
-    __syncthreads();
-    for (int cc = 0; cc < kCC; ++cc) {
-#pragma unroll
-      for (int r = 0; r < kS; ++r) {
-        float a[12];
-#pragma unroll
-        for (int v = 0; v < 3; ++v) {
-          const float4 x = *reinterpret_cast<const float4*>(&in_s[cc][r][tr * 8 + 4 * v]);
-          a[4 * v] = x.x, a[4 * v + 1] = x.y, a[4 * v + 2] = x.z, a[4 * v + 3] = x.w;
+  for (int s = 0; s < kSeg; ++s) {
+    if (r >= end) break;
+    const int b = r / T, t = r - b * T, n = min(T - t, end - r);
+    seg[s] = FSeg{b, t, n, r - r0, u};
+    u += n + 2;
+    r += n;
+    ns = s + 1;
+  }
+  return ns;
+}
+
+// out [B, Tout, Cout] for tile blockIdx.x / (Cout / 64), output channels
+// 64 (blockIdx.x % (Cout / 64)) ..; tiles_per_seq as fwd_tiles sets it.
+template <bool kFromWav>
+__global__ void __launch_bounds__(FGeo<kFromWav>::kThreads, 2)
+wav_conv_fwd_kernel(Src src, const float* __restrict__ wsp, const float* __restrict__ bias,
+                    float* __restrict__ out, int B, int Tout, int Cout, float leak,
+                    int tiles_per_seq) {
+  using G = FGeo<kFromWav>;
+  constexpr int kRows = G::kRows, kSeg = G::kSeg, kXform = G::kXform, kFMma = G::kMma;
+  constexpr int kXw = kFMma + G::kProducers;  // the first transform warp
+  extern __shared__ __align__(128) unsigned char fsmem[];
+  uint64_t* const full = reinterpret_cast<uint64_t*>(fsmem);  // a raw window landed
+  uint64_t* const split = full + kFRing;                      // a window normalised
+  uint64_t* const empty = split + kFRing;                     // every product warp is done with it
+  uint64_t* const wfull = empty + kFRing;                     // a stage's weights landed
+  uint64_t* const wempty = wfull + kFWRing;                   // every product warp is done with them
+  uint64_t* const samples = wempty + kFWRing;                 // conv1: the samples landed
+  float* const wring = reinterpret_cast<float*>(fsmem + kFBarBytes);  // kFWRing weight stages
+  float* const ring = wring + kFWRing * kFW;                          // kFRing window stages
+  float* const xs = ring + kFRing * G::kSlot;  // conv1: the tile's waveform samples
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ntn = Cout / kFN, tile = blockIdx.x / ntn, nt = blockIdx.x % ntn;
+  const int Cin = src.C, Tin = src.T, nst = kS * (Cin / kFC);
+  int r0, nrows;
+  if (tiles_per_seq > 0) {
+    const int b = tile / tiles_per_seq, k = tile % tiles_per_seq;
+    r0 = b * Tout + k * kRows;
+    nrows = min(kRows, Tout - k * kRows);
+  } else {
+    r0 = tile * kRows;
+    nrows = min(kRows, B * Tout - r0);
+  }
+  FSeg seg[kSeg];
+  const int ns = fwd_segs<kSeg>(r0, nrows, Tout, seg);
+  if (tid < kFRing) {
+    mbar_init(&full[tid], 32);       // every window producer lane's cp.async arrival
+    mbar_init(&split[tid], kXform);  // every transform warp's
+    mbar_init(&empty[tid], kFMma);   // every product warp's
+  }
+  if (tid < kFWRing) {
+    mbar_init(&wfull[tid], 1);       // the bulk copy's
+    mbar_init(&wempty[tid], kFMma);  // every product warp's
+  }
+  if (tid == 0) mbar_init(samples, 31);  // lanes 1..31 of the weight producer
+  mbar_init_fence();
+  __syncthreads();
+
+  if (warp == kFMma) {  // the weight producer; for conv1 also the samples
+    if constexpr (kFromWav) {
+      if (lane > 0) {  // each segment's samples 30t - 1600 .. under conv0 times 6t .. 6(t + n + 1) + 5
+        for (int s = 0; s < ns; ++s) {
+          const float* row = src.wav + (size_t)seg[s].b * src.L;
+          const int p0 = kS0 * kS * seg[s].t - kPad0, count = kS0 * kS * (seg[s].n + 2) + kK - kS0;
+          float* dst = xs + kS0 * kS * seg[s].u + (kK - kS0) * s;
+          for (int j = lane - 1; j < count; j += 31) {
+            const int wi = p0 + j;
+            const bool in = wi >= 0 && wi < src.L;
+            cp_async4(dst + j, row + (in ? wi : 0), in);
+          }
         }
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          if (r + kS * j >= kK) continue;
-          float wr[8];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) wr[i] = w_s[tc + kTC * i][cc * kK + r + kS * j];
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int o = 0; o < 8; ++o) acc[i][o] = fmaf(a[i + j], wr[o], acc[i][o]);
-        }
+        cp_async_arrive(samples);
       }
     }
-  }
+    // Lane 0 issues the bulk copies and no cp.async: its proxy fence then
+    // has no copies of its own in flight to order.
+    if (lane == 0) {
+      for (int s = 0; s < nst; ++s) {
+        const int ws = s % kFWRing, cg = s / kS, r = s % kS;
+        if (s >= kFWRing) {
+          mbar_wait(&wempty[ws], (uint32_t)((s / kFWRing - 1) & 1));
+          // the product warps' loads of the slot's last stage come before
+          // the bulk copy overwrites it
+          fence_proxy_async();
+        }
+        const uint32_t bytes = fwd_taps(r) * kFTap * sizeof(float);
+        mbar_expect_tx(&wfull[ws], bytes);
+        tma_load_1d(wring + ws * kFW, wsp + ((size_t)(cg * ntn + nt) * kK + fwd_first(r)) * kFTap,
+                    bytes, &wfull[ws]);
+      }
+    }
+  } else if (!kFromWav && warp == kFMma + 1) {  // the window producer
+    for (int s = 0; s < nst; ++s) {
+      const int slot = s % kFRing, cg = s / kS, r = s % kS;
+      if (s >= kFRing) mbar_wait(&empty[slot], (uint32_t)((s / kFRing - 1) & 1));
+      float* const dst = ring + slot * G::kSlot;
+      for (int q = 0; q < ns; ++q) {  // the 16 channels at times 6(t + u) + r, u < n + 2
+        const float* base = src.pre + ((size_t)seg[q].b * Tin) * Cin + cg * kFC;
+        for (int j = lane; j < kFC / 4 * (seg[q].n + 2); j += 32) {
+          const int u = j / (kFC / 4), v = j % (kFC / 4), tau = kS * (seg[q].t + u) + r;
+          const bool in = tau < Tin;
+          cp_async16(dst + (seg[q].u + u) * kFWRow + 4 * v,
+                     in ? base + (size_t)tau * Cin + 4 * v : src.pre, in);
+        }
+      }
+      cp_async_arrive(&full[slot]);
+    }
+  } else if (warp >= kXw) {  // the transform warps: raw window -> normalised window
+    // a thread's kCT channels c0 .. c0 + kCT - 1 of every kStep-th window
+    // row: conv1 sums conv0 for four channels from each sample it loads
+    constexpr int kCT = kFromWav ? 4 : 1, kStep = kXform * 32 * kCT / kFC;
+    const int xt = tid - 32 * kXw, c0 = xt % (kFC / kCT) * kCT;
+    if constexpr (kFromWav) mbar_wait(samples, 0);
+    float w0c[kCT][kK], b0c[kCT];
+    for (int s = 0; s < nst; ++s) {
+      const int slot = s % kFRing, cg = s / kS, r = s % kS, ch = cg * kFC + c0;
+      if constexpr (kFromWav) {
+        if (r == 0) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int t = t0 + tr * 8 + i;
-    if (t >= Tout) continue;
+          for (int e = 0; e < kCT; ++e) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int o = o0 + tc + kTC * j;
-      if (o < Cout) out[((size_t)b * Tout + t) * Cout + o] = acc[i][j] + __ldg(bias + o);
+            for (int k = 0; k < kK; ++k) w0c[e][k] = __ldg(src.w0 + (ch + e) * kK + k);
+            b0c[e] = __ldg(src.b0 + ch + e);
+          }
+        }
+      }
+      if constexpr (kFromWav) {  // the slot is free once its last stage's products are done
+        if (s >= kFRing) mbar_wait(&empty[slot], (uint32_t)((s / kFRing - 1) & 1));
+      } else {
+        mbar_wait(&full[slot], (uint32_t)((s / kFRing) & 1));
+      }
+      float* const win = ring + slot * G::kSlot;  // [window row][16 channels, padded]
+      for (int q = 0; q < ns; ++q) {
+        const float* st = src.st + (size_t)seg[q].b * 2 * Cin + ch;
+        float mean[kCT], inv[kCT];
+#pragma unroll
+        for (int e = 0; e < kCT; ++e) mean[e] = __ldg(st + e), inv[e] = __ldg(st + Cin + e);
+        const int nu = seg[q].n + 2;
+        if constexpr (kFromWav) {
+          for (int u = xt / (kFC / kCT); u < nu; u += kStep) {
+            const int tau = kS * (seg[q].t + u) + r;
+            const float* xw = xs + kS0 * kS * seg[q].u + (kK - kS0) * q + kS0 * (kS * u + r);
+            float v[kCT];
+#pragma unroll
+            for (int e = 0; e < kCT; ++e) v[e] = b0c[e];
+#pragma unroll
+            for (int k = 0; k < kK; ++k) {
+              const float x = xw[k];
+#pragma unroll
+              for (int e = 0; e < kCT; ++e) v[e] = conv0_tap(v[e], w0c[e][k], x);
+            }
+#pragma unroll
+            for (int e = 0; e < kCT; ++e)
+              win[(seg[q].u + u) * kFWRow + c0 + e] =
+                  tau < Tin ? lrelu((v[e] - mean[e]) * inv[e], leak) : 0.0f;
+          }
+        } else {
+          // in place, two window rows at a time, so that their loads overlap
+          for (int u0 = xt / kFC; u0 < nu; u0 += 2 * kStep) {
+            float val[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int u = min(u0 + e * kStep, nu - 1), tau = kS * (seg[q].t + u) + r;
+              const float v = win[(seg[q].u + u) * kFWRow + c0];
+              val[e] = tau < Tin ? lrelu((v - mean[0]) * inv[0], leak) : 0.0f;
+            }
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int u = u0 + e * kStep;
+              if (u < nu) win[(seg[q].u + u) * kFWRow + c0] = val[e];
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&split[slot]);
+    }
+  } else {  // the product warps
+    const int wm = warp / kFWN, wn = warp % kFWN, gq = lane / 4, tq = lane % 4;
+    // window rows of tap 0 for the warp's rows 16 (kFMF wm + x) + gq (+ 8); 0
+    // past the tile
+    int off[kFMF][2];
+#pragma unroll
+    for (int x = 0; x < kFMF; ++x)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 16 * (kFMF * wm + x) + gq + 8 * h;
+        off[x][h] = 0;
+#pragma unroll
+        for (int q = 0; q < kSeg; ++q)
+          if (q < ns && m >= seg[q].j && m < seg[q].j + seg[q].n)
+            off[x][h] = seg[q].u + m - seg[q].j;
+      }
+    float acc[kFMF][kFNF][4], p[kFMF][kFNF][4];
+#pragma unroll
+    for (int x = 0; x < kFMF; ++x)
+#pragma unroll
+      for (int f = 0; f < kFNF; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[x][f][e] = 0.0f;
+    // A fragments of k8 step h of tap j from the normalised window: a0..a3
+    // = (row gq, k tq), (gq + 8, tq), (gq, tq + 4), (gq + 8, tq + 4), where
+    // k = tq and tq + 4 are the input channels 8h + 2tq and 8h + 2tq + 1 of
+    // the stage (the split weights pair them the same way): one 8-byte
+    // load a row
+    auto load_a = [&](const float* win, int j, int h, float (&a)[kFMF][4]) {
+#pragma unroll
+      for (int x = 0; x < kFMF; ++x) {
+        const float2 v0 = ld2(win + (off[x][0] + j) * kFWRow + 8 * h + 2 * tq);
+        const float2 v8 = ld2(win + (off[x][1] + j) * kFWRow + 8 * h + 2 * tq);
+        a[x][0] = v0.x, a[x][1] = v8.x, a[x][2] = v0.y, a[x][3] = v8.y;
+      }
+    };
+    auto split_a = [&](const float (&a)[kFMF][4], float (&hi)[kFMF][4], float (&lo)[kFMF][4]) {
+#pragma unroll
+      for (int x = 0; x < kFMF; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(a[x][e], hi[x][e], lo[x][e]);
+    };
+    // k8 step h of tap j: its products into the stage's fresh sums p
+    auto products = [&](const float* ws, int j, int h, const float (&ahi)[kFMF][4],
+                        const float (&alo)[kFMF][4]) {
+#pragma unroll
+      for (int f = 0; f < kFNF; ++f) {
+        // b0, b1 = (k tq, output gq), (tq + 4, gq) at tap r + 6j
+        const float4 v = ld4(ws + j * kFTap + h * kFSub + (32 * wn + 8 * f + gq) * 16 + 4 * tq);
+        const float bhi[2] = {v.x, v.y}, blo[2] = {v.z, v.w};
+#pragma unroll
+        for (int x = 0; x < kFMF; ++x) {
+          mma_tf32(p[x][f], alo[x], bhi);
+          mma_tf32(p[x][f], ahi[x], blo);
+          mma_tf32(p[x][f], ahi[x], bhi);
+        }
+      }
+    };
+    // stage s's first k8 step into a: waits until the stage is there
+    auto first_step = [&](int s, float (&a)[kFMF][4]) {
+      const int slot = s % kFRing;
+      mbar_wait(&wfull[s % kFWRing], (uint32_t)((s / kFWRing) & 1));
+      mbar_wait(&split[slot], (uint32_t)((s / kFRing) & 1));
+      load_a(ring + slot * G::kSlot, 0, 0, a);
+    };
+    // Each k8 step's A fragments are split, then the next step's (or the
+    // next stage's first) are loaded into the same registers while the
+    // step's products run.
+    float a[kFMF][4], hi[kFMF][4], lo[kFMF][4];
+    first_step(0, a);
+    for (int s = 0; s < nst; ++s) {
+      const int slot = s % kFRing, r = s % kS, taps = fwd_taps(r);
+      const float* const ws = wring + (s % kFWRing) * kFW;
+      const float* const win = ring + slot * G::kSlot;
+#pragma unroll
+      for (int x = 0; x < kFMF; ++x)
+#pragma unroll
+        for (int f = 0; f < kFNF; ++f)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[x][f][e] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        if (j == taps) break;
+#pragma unroll
+        for (int h = 0; h < kFC / 8; ++h) {
+          split_a(a, hi, lo);
+          if (h + 1 < kFC / 8)
+            load_a(win, j, h + 1, a);
+          else if (j + 1 < taps)
+            load_a(win, j + 1, 0, a);
+          else if (s + 1 < nst)
+            first_step(s + 1, a);
+          products(ws, j, h, hi, lo);
+        }
+      }
+      __syncwarp();  // every load of the stage's slots is done
+      if (lane == 0) {
+        mbar_arrive(&empty[slot]);
+        mbar_arrive(&wempty[s % kFWRing]);
+      }
+#pragma unroll
+      for (int x = 0; x < kFMF; ++x)
+#pragma unroll
+        for (int f = 0; f < kFNF; ++f)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[x][f][e] += p[x][f][e];
+    }
+    // acc[x][f][e]: tile row 16 (kFMF wm + x) + gq + 8 (e / 2), output
+    // channel 64 nt + 32 wn + 8 f + 2 tq + e % 2
+#pragma unroll
+    for (int f = 0; f < kFNF; ++f) {
+      const int o = nt * kFN + 32 * wn + 8 * f + 2 * tq;
+      const float b0 = __ldg(bias + o), b1 = __ldg(bias + o + 1);
+#pragma unroll
+      for (int x = 0; x < kFMF; ++x)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = 16 * (kFMF * wm + x) + gq + 8 * h;
+          if (m < nrows)
+            *reinterpret_cast<float2*>(out + (size_t)(r0 + m) * Cout + o) =
+                make_float2(acc[x][f][2 * h] + b0, acc[x][f][2 * h + 1] + b1);
+        }
     }
   }
 }
@@ -744,10 +1092,6 @@ __global__ void wav_wsplit_kernel(const float* __restrict__ w, int Cin, int Cout
   }
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
 // gy [B, T_in, C_in] and part [B, ntq, 2, C_in] for the tile of q rows
 // kRows blockIdx.x .. of sequence blockIdx.z, channels 16 blockIdx.y ..:
 // kDWM x kDWN product warps, then the producer warp.
@@ -1052,12 +1396,35 @@ bool src_ok(int from_wav, const float* pre, int T, int C) {
   return pre != nullptr && (C == 32 || C == 64 || C == 128);
 }
 
-template <bool kFromWav, int kTR, int kTC>
-void conv_fwd(const Src& s, const float* w, const float* bias, float* out, int B, int Tout,
-              int Cout, float leak, cudaStream_t stream) {
-  dim3 grid((Tout + 8 * kTR - 1) / (8 * kTR), (Cout + 8 * kTC - 1) / (8 * kTC), B);
-  wav_conv_fwd_kernel<kFromWav, kTR, kTC><<<grid, kTR * kTC, 0, stream>>>(s, w, bias, out, Tout,
-                                                                           Cout, leak);
+// The forward conv's tiles of `rows` rows for B sequences of T output rows:
+// tiles of flattened (b, t) rows (tiles_per_seq = 0) where any `rows`
+// consecutive rows span at most `segs` sequences, else ceil(T / rows)
+// tiles inside each sequence.
+void fwd_tiles(int rows, int segs, int B, int T, long long* tiles, int* tiles_per_seq) {
+  if (1 + (rows - 1 + T - 1) / T <= segs) {
+    *tiles_per_seq = 0;
+    *tiles = ((long long)B * T + rows - 1) / rows;
+  } else {
+    *tiles_per_seq = (T + rows - 1) / rows;
+    *tiles = (long long)B * *tiles_per_seq;
+  }
+}
+
+template <bool kFromWav>
+cudaError_t conv_fwd(const Src& s, const float* wsp, const float* bias, float* out, int B,
+                     int Tout, int Cout, float leak, cudaStream_t stream) {
+  using G = FGeo<kFromWav>;
+  long long tiles;
+  int tps;
+  fwd_tiles(G::kRows, G::kSeg, B, Tout, &tiles, &tps);
+  if (tiles * (Cout / kFN) > INT_MAX) return cudaErrorInvalidValue;
+  const auto kernel = wav_conv_fwd_kernel<kFromWav>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)(tiles * (Cout / kFN)), G::kThreads, G::kBytes, stream>>>(
+      s, wsp, bias, out, B, Tout, Cout, leak, tps);
+  return cudaGetLastError();
 }
 
 template <bool kFromWav, int kDWM>
@@ -1100,28 +1467,35 @@ extern "C" int fused_wav_stats_launch(const float* x, int B, int T, int C, float
   return (int)cudaGetLastError();
 }
 
+// wsp [C_in / 16, C_out / 64, 15, 2, 64, 4, 4]: conv i's weights [C_out,
+// C_in, 15] split into TF32 halves in the forward conv kernel's order; C_in
+// a multiple of 16, C_out of 64.
+extern "C" int fused_wav_wsplit_fwd_launch(const float* w, int C_in, int C_out, float* wsp,
+                                           void* stream) {
+  if (w == nullptr || wsp == nullptr || C_in < kFC || C_in % kFC != 0 || C_out < kFN ||
+      C_out % kFN != 0 || (uintptr_t)wsp % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int n = C_in / kFC * (C_out / kFN) * kK * kFTap / 4;
+  wav_wsplit_fwd_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+      w, C_in, C_out, reinterpret_cast<float4*>(wsp));
+  return (int)cudaGetLastError();
+}
+
+// out [B, Tout, Cout] = conv over lrelu(IN(input)) plus bias, from the split
+// weights w (fused_wav_wsplit_fwd_launch's wsp); C_out a multiple of 64.
 extern "C" int fused_wav_conv_fwd_launch(
     int from_wav, const float* pre, const float* st, int T_in, int C_in, const float* wav,
     const float* w0, const float* b0, int L, const float* w, const float* bias, float* out,
     int B, int Tout, int Cout, float leak, void* stream) {
-  if (!src_ok(from_wav, pre, T_in, C_in) || B < 1 || B > 65535 || Tout < 1 || Cout < 1 ||
-      kS * (Tout - 1) + kK > T_in)
+  if (!src_ok(from_wav, pre, T_in, C_in) || B < 1 || B > 65535 || Tout < 1 || Cout < kFN ||
+      Cout % kFN != 0 || kS * (Tout - 1) + kK > T_in || (long long)B * Tout > INT_MAX ||
+      w == nullptr || bias == nullptr || out == nullptr ||
+      ((uintptr_t)w | (uintptr_t)pre) % 16 != 0 || (uintptr_t)out % 8 != 0)
     return (int)cudaErrorInvalidValue;
   const Src s = make_src(pre, st, T_in, C_in, wav, w0, b0, L);
   const cudaStream_t st_ = (cudaStream_t)stream;
-  if (from_wav && Cout == 64)
-    conv_fwd<true, 16, 8>(s, w, bias, out, B, Tout, Cout, leak, st_);
-  else if (!from_wav && Cout == 64)
-    conv_fwd<false, 16, 8>(s, w, bias, out, B, Tout, Cout, leak, st_);
-  else if (!from_wav && Cout == 128)
-    conv_fwd<false, 16, 16>(s, w, bias, out, B, Tout, Cout, leak, st_);
-  else if (!from_wav && Cout == 256 && Tout <= 48)  // conv3 on TED and BEAT: 34 times
-    conv_fwd<false, 6, 32>(s, w, bias, out, B, Tout, Cout, leak, st_);
-  else if (!from_wav && Cout == 256)
-    conv_fwd<false, 8, 32>(s, w, bias, out, B, Tout, Cout, leak, st_);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (from_wav) return (int)conv_fwd<true>(s, w, bias, out, B, Tout, Cout, leak, st_);
+  return (int)conv_fwd<false>(s, w, bias, out, B, Tout, Cout, leak, st_);
 }
 
 // wsp [C_out / 8, C_in / 16, 15, 16, 8, 2]: conv i's weights [C_out, C_in, 15]

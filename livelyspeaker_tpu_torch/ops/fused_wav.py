@@ -6,7 +6,7 @@ Port of ``livelyspeaker_tpu/ops/pallas/fused_wav.py``. The stack is conv0
 (k15, stride 5, padded 1600 a side) -> InstanceNorm -> LeakyReLU -> conv1
 (stride 6) -> IN -> LReLU -> conv2 (stride 6) -> IN -> LReLU -> conv3
 (stride 6); the InstanceNorms have no affine and eps 1e-5. On a CUDA tensor
-the kernels of ``csrc/fused_wav.cu`` run (six forward launches, sixteen
+the kernels of ``csrc/fused_wav.cu`` run (nine forward launches, sixteen
 backward ones) or the wrapper raises; on a CPU tensor the plain versions
 run. Nothing in the package routes through it by default:
 ``FusedWavEncoder`` swaps in for a model's ``audio_encoder``.
@@ -44,6 +44,9 @@ __all__ = [
     "fused_wav_backward_reference",
     "fused_wav_forward",
     "fused_wav_backward",
+    "conv_fwd_tiles",
+    "forward_weight_split",
+    "conv_forward",
     "WgradGeometry",
     "wgrad_geometry",
     "wgrad_partials",
@@ -57,16 +60,76 @@ __all__ = [
 EPS = 1e-5
 CHANNELS = (1, 32, 64, 128, 256)
 PACKED_KEYS = ("w0", "b0", "w1", "b1", "w2", "b2", "w3", "b3")
-# launches of each CUDA kernel; a forward is stats0 1, conv_fwd 3, stats 2;
-# a backward is wgrad 3, reduce 4, wsplit 3, bwd_data 3, in_bwd 2, wgrad0 1
-LAUNCHES = {"stats0": 0, "conv_fwd": 0, "stats": 0, "wgrad": 0, "reduce": 0,
+# launches of each CUDA kernel; a forward is stats0 1, wsplit_fwd 3,
+# conv_fwd 3, stats 2; a backward is wgrad 3, reduce 4, wsplit 3, bwd_data
+# 3, in_bwd 2, wgrad0 1
+LAUNCHES = {"stats0": 0, "wsplit_fwd": 0, "conv_fwd": 0, "stats": 0, "wgrad": 0, "reduce": 0,
             "wsplit": 0, "bwd_data": 0, "in_bwd": 0, "wgrad0": 0}
-FORWARD_LAUNCHES = {"stats0": 1, "conv_fwd": 3, "stats": 2}
+FORWARD_LAUNCHES = {"stats0": 1, "wsplit_fwd": 3, "conv_fwd": 3, "stats": 2}
 BACKWARD_LAUNCHES = {"wgrad": 3, "reduce": 4, "wsplit": 3, "bwd_data": 3, "in_bwd": 2,
                      "wgrad0": 1}
 
 
 BWD_DATA_CHANNELS = 16  # input channels of a data-gradient tile (csrc: kDCW)
+FWD_TILE_N = 64  # output channels of a forward conv tile (csrc: kFN)
+FWD_STAGE_CHANNELS = 16  # input channels of a forward conv stage (kFC)
+# the taps of the forward conv's split weights, slot by slot: residue r's
+# taps r, r + 6 (, r + 12) together (csrc: fwd_first, fwd_taps)
+FWD_TAP_ORDER = (0, 6, 12, 1, 7, 13, 2, 8, 14, 3, 9, 4, 10, 5, 11)
+
+
+FWD_TILE_ROWS = 64  # output rows (b, t) of a forward conv tile (csrc: FGeo<2, 2>::kRows)
+FWD_SEGMENTS = 4  # sequences a forward conv tile may span (kSeg)
+
+
+def conv_fwd_tiles(b: int, t_out: int) -> Tuple[int, int]:
+    """(tiles, tiles_per_seq) of the forward conv kernel for ``b``
+    sequences of ``t_out`` output rows (csrc: fwd_tiles): tiles of 64
+    flattened (b, t) rows (tiles_per_seq = 0) where any 64 consecutive rows
+    span at most 4 sequences (t_out >= 21), else ceil(t_out / 64) tiles
+    inside each sequence."""
+    rows = FWD_TILE_ROWS
+    if 1 + math.ceil((rows - 1) / t_out) <= FWD_SEGMENTS:
+        return math.ceil(b * t_out / rows), 0
+    tps = math.ceil(t_out / rows)
+    return b * tps, tps
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 as the kernels round it (csrc: to_tf32): to
+    nearest, ties away from zero, the low 13 bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -8192).view(torch.float32)
+
+
+def _plain_forward_weight_split(w: torch.Tensor) -> torch.Tensor:
+    """The plain version of the forward weight split: flat
+    [C_in / 16, C_out / 64, 15 slots, 2, 64, 4, 4], each float4
+    (hi w[o, c, k], hi w[o, c + 1, k], lo w[o, c, k], lo w[o, c + 1, k]) for
+    c = 16 g + 8 h + 2 tq and the slot's tap k (``FWD_TAP_ORDER``)."""
+    cout, cin, _ = w.shape
+    hi = _tf32(w)
+    lo = _tf32(w - hi)
+    k = torch.tensor(FWD_TAP_ORDER, device=w.device)
+
+    def arrange(x):  # [C_out, C_in, 15] -> [g, nt, slot, h, o, tq, e], c = 16 g + 8 h + 2 tq + e
+        x = x[:, :, k].reshape(cout // FWD_TILE_N, FWD_TILE_N, cin // 16, 2, 4, 2, 15)
+        return x.permute(2, 0, 6, 3, 1, 4, 5)
+
+    return torch.cat([arrange(hi), arrange(lo)], dim=-1).contiguous().reshape(-1)
+
+
+def forward_weight_split(w: torch.Tensor) -> torch.Tensor:
+    """Conv weights [C_out, C_in, 15] (C_in a multiple of 16, C_out of 64)
+    split into TF32 halves in the order the forward conv kernel reads them:
+    the split kernel on a CUDA tensor, the plain version on a CPU one."""
+    if w.device.type == "cpu":
+        return _plain_forward_weight_split(w)
+    cout, cin, _ = w.shape
+    wsp = torch.empty(cout * cin * 30, dtype=torch.float32, device=w.device)
+    _launch("wsplit_fwd", w.device, w.data_ptr(), cin, cout, wsp.data_ptr(),
+            what=f"[{cout}, {cin}, 15]")
+    return wsp
 
 
 def bwd_data_rows(t_in: int, from_wav: bool) -> int:
@@ -235,6 +298,7 @@ def _launcher(kernel: str):
         argtypes = {
             "stats0": [p, p, p, i, i, i, p],
             "stats": [p, i, i, i, p],
+            "wsplit_fwd": [p, i, i, p],
             "conv_fwd": src + [p, p, p, i, i, i, f],
             "wsplit": [p, i, i, p],
             "bwd_data": src + [p, p, i, i, i, f, p, p],
@@ -298,7 +362,7 @@ def fused_wav_forward(
     wav: torch.Tensor, packed: Dict[str, torch.Tensor], leak: float = 0.3,
 ) -> Tuple[torch.Tensor, WavResiduals]:
     """(out [B, T4, 256], residuals). A CPU tensor runs the plain version;
-    a CUDA tensor launches the six forward kernels or raises."""
+    a CUDA tensor launches the nine forward kernels or raises."""
     if wav.device.type == "cpu":
         return fused_wav_forward_reference(wav, packed, leak)
     who = "fused_wav_encoder"
@@ -312,15 +376,44 @@ def fused_wav_forward(
     what = f"B={b}, L={d.L}"
     w0, b0 = packed["w0"].data_ptr(), packed["b0"].data_ptr()
     _launch("stats0", dev, wav.data_ptr(), w0, b0, d.L, d.T1, b, st0.data_ptr(), what=what)
-    stages = ((True, None, st0, d.T1, m1, d.T2), (False, m1, st1, d.T2, m2, d.T3),
-              (False, m2, st2, d.T3, out, d.T4))
-    for i, (from_wav, pre, st, t_in, y, t_out) in enumerate(stages, start=1):
+    for i, (pre, st, y) in enumerate(((None, st0, m1), (m1, st1, m2), (m2, st2, out)), start=1):
         if pre is not None:
-            _launch("stats", dev, pre.data_ptr(), b, t_in, CHANNELS[i], st.data_ptr(), what=what)
-        _launch("conv_fwd", dev, *_src(from_wav, pre, st, t_in, CHANNELS[i], wav, packed),
-                packed[f"w{i}"].data_ptr(), packed[f"b{i}"].data_ptr(), y.data_ptr(),
-                b, t_out, CHANNELS[i + 1], leak, what=f"{what}, conv{i}")
+            _launch("stats", dev, pre.data_ptr(), b, pre.shape[1], CHANNELS[i], st.data_ptr(),
+                    what=what)
+        _conv_forward(i, wav, pre, st, packed, leak, d, y)
     return out, WavResiduals(wav, m1, m2, st0, st1, st2)
+
+
+def _conv_forward(i, wav, pre, st, packed, leak, d: WavDims, y) -> None:
+    """Conv i's (1..3) forward launches on tensors already checked: its
+    weights split, then the conv into y [B, T_i, C_out]."""
+    lengths = (d.T1, d.T2, d.T3, d.T4)
+    cin, cout, b = CHANNELS[i], CHANNELS[i + 1], wav.shape[0]
+    wsp = forward_weight_split(packed[f"w{i}"])
+    _launch("conv_fwd", wav.device, *_src(i == 1, pre, st, lengths[i - 1], cin, wav, packed),
+            wsp.data_ptr(), packed[f"b{i}"].data_ptr(), y.data_ptr(), b, lengths[i], cout, leak,
+            what=f"B={b}, L={d.L}, conv{i}")
+
+
+def conv_forward(i: int, res: WavResiduals, packed: Dict[str, torch.Tensor],
+                 leak: float = 0.3) -> torch.Tensor:
+    """Conv ``i``'s (1..3) output [B, T_i, C_out] over its input
+    lrelu(IN(pre)), the input taken from the residuals (conv1's recomputed
+    from the waveform). On the card two launches: the weights split into
+    TF32 halves, then the forward conv kernel (3xTF32 on the tensor cores);
+    a CPU tensor runs the plain conv."""
+    wav = res.wav
+    pre, st = (None, res.m1, res.m2)[i - 1], (res.st0, res.st1, res.st2)[i - 1]
+    if wav.device.type == "cpu":
+        m = _conv0(wav, packed) if i == 1 else pre.transpose(1, 2).contiguous()
+        a = F.leaky_relu(_xhat(m, st), leak)
+        return F.conv1d(a, packed[f"w{i}"], packed[f"b{i}"], stride=6).transpose(1, 2).contiguous()
+    d = _check_cuda("conv_forward", wav, packed)
+    _check_residuals("conv_forward", res, d)
+    y = torch.empty((wav.shape[0], (d.T1, d.T2, d.T3, d.T4)[i], CHANNELS[i + 1]),
+                    dtype=torch.float32, device=wav.device)
+    _conv_forward(i, wav, pre, st, packed, leak, d, y)
+    return y
 
 
 WGRAD_STAGE = 32  # rows (b, t) of a stage (csrc: kGRows)

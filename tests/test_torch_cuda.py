@@ -737,3 +737,71 @@ def test_entry_points_default_to_the_card(cuda_device):
     assert place_model(model, None, "x") == where
     assert RAGSampler(model, steps=20, timestep_respacing="ddim2", device="cpu").device.type == "cpu"
     assert next(model.parameters()).device.type == "cpu"
+
+
+def _wav_conv_fwd_case(device, b, length, i, seed=7):
+    """Residuals of a seeded forward and conv i's plain output in f64 over
+    the same input lrelu(xhat), [B, T_i, C_out]."""
+    _, packed, wav, _ = _wav_case(device, b, length, seed=seed)
+    _, res = fused_wav.fused_wav_forward(wav, packed)
+    a = torch.nn.functional.leaky_relu(fused_wav.lrelu_inputs(res, packed)[i - 1], 0.3)
+    ref = torch.nn.functional.conv1d(a.double(), packed[f"w{i}"].double(),
+                                     packed[f"b{i}"].double(), stride=6)
+    return res, packed, ref.transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", [1, 2, 3])
+@pytest.mark.parametrize("b,length", [
+    (1, audio_samples_for_frames(34)),  # T_out 1313 / 217 / 34
+    (8, audio_samples_for_frames(34)),
+    (512, audio_samples_for_frames(34)),
+    (3, audio_samples_for_frames(2)),   # T_out 175 / 27 / 3: conv3 in tiles of one sequence
+    (5, 5000),                          # T_out 305 / 49 / 6: input times no window reaches
+])
+def test_wav_conv_fwd_kernel_matches_plain(cuda_device, b, length, i):
+    """Conv i's output from the tensor-core kernel (the weight split, then
+    one launch) within KERNEL_TOL (1e-5) of the plain conv in f64 on the
+    same input, and the same bits on a second launch."""
+    res, packed, ref = _wav_conv_fwd_case(cuda_device, b, length, i)
+    launches = dict(fused_wav.LAUNCHES)
+    y = fused_wav.conv_forward(i, res, packed)
+    y2 = fused_wav.conv_forward(i, res, packed)
+    torch.cuda.synchronize()
+    assert fused_wav.LAUNCHES["conv_fwd"] == launches["conv_fwd"] + 2
+    assert fused_wav.LAUNCHES["wsplit_fwd"] == launches["wsplit_fwd"] + 2
+    assert y.shape == ref.shape
+    assert torch.equal(y, y2)
+    assert _rel(y.double(), ref) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", [1, 2, 3])
+def test_wav_forward_weight_split_matches_plain(cuda_device, i):
+    """The forward weight split on the card gives the plain version's bits."""
+    _, packed, _, _ = _wav_case(cuda_device, 1, 5000)
+    w = packed[f"w{i}"]
+    assert torch.equal(fused_wav.forward_weight_split(w).cpu(),
+                       fused_wav.forward_weight_split(w.cpu()))
+
+
+@pytest.mark.cuda
+def test_wav_conv_fwd_launch_refuses_what_it_does_not_take(cuda_device):
+    """The launches refuse a C_out that is not a multiple of 64, a T_out
+    whose windows pass the input, no sequence, misaligned split weights,
+    and a split of weights whose C_out or alignment they do not take."""
+    res, packed, _ = _wav_conv_fwd_case(cuda_device, 2, audio_samples_for_frames(2), 2)
+    t_in, t_out = res.m1.shape[1], res.m2.shape[1]
+    src = fused_wav._src(False, res.m1, res.st1, t_in, 64, res.wav, packed)
+    wsp = fused_wav.forward_weight_split(packed["w2"])
+    y = torch.empty(2, t_out + 1, 128, device=cuda_device)
+    for bb, tt, cout, w in ((2, t_out, 100, wsp), (2, t_out + 1, 128, wsp), (0, t_out, 128, wsp),
+                            (2, t_out, 128, wsp[1:])):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            fused_wav._launch("conv_fwd", cuda_device, *src, w.data_ptr(),
+                              packed["b2"].data_ptr(), y.data_ptr(), bb, tt, cout, 0.3,
+                              what="test")
+    for cin, cout, out in ((64, 100, wsp), (64, 128, wsp[1:]), (60, 128, wsp)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            fused_wav._launch("wsplit_fwd", cuda_device, packed["w2"].data_ptr(), cin, cout,
+                              out.data_ptr(), what="test")
