@@ -65,8 +65,12 @@ same training with the WavEncoder swapped for the fused WavEncoder stack
    and the data-gradient kernel (its weight split, then 3xTF32 on the
    tensor cores) conv by conv against the f64 data gradient and its
    InstanceNorm sums, timed against cuDNN's data gradient of the same conv
-   on the same cotangent, in turns, with its bound; and the four reduce
-   launches of a backward against part.sum(0) on the same partials;
+   on the same cotangent, in turns, with its bound; the statistics kernel
+   (one pass, split over a cluster) on a forward's m1 and m2 against the
+   two-pass statistics in f64 and a second launch's bits, timed against
+   torch.var_mean then rsqrt; and each of the four reduce launches of a
+   backward against f64, the CPU plain version's bits and a second
+   launch's, timed against part.sum(0) on the same partials;
 10. training through K3 and K2: 7. with the WavEncoder swapped for
    FusedWavEncoder before the TrainLoop is built: finite, decreasing
    losses; each K3 kernel launched as often a step as one forward and one
@@ -677,7 +681,7 @@ def k3_cost(b, length):
     wav = b * length
     cost = {
         "stats0": (conv[0], 4 * (wav + wts[0] + 2 * b * 32)),
-        "stats": (3 * (size[1] + size[2]), 4 * (size[1] + size[2])),
+        "stats": (3 * (size[1] + size[2]), 4 * (size[1] + size[2] + 2 * b * (64 + 128))),
         "in_bwd": (6 * (size[1] + size[2]), 4 * 3 * (size[1] + size[2])),
     }
     conv_fwd = [k3_conv_fwd_cost(b, length, i) for i in (1, 2, 3)]
@@ -755,12 +759,95 @@ def wav_conv_fwd_turns(card, b, iters=10):
     return out
 
 
-def wav_reduce_turns(card, b, iters=20):
+def graphed_reps(fn, reps):
+    """``graphed`` over ``reps`` calls of ``fn`` in one graph: replays
+    that keep the card busy between a short function's calls. Time it and
+    divide by ``reps``."""
+    return graphed(lambda: [fn() for _ in range(reps)])
+
+
+def stats_errors(st, m):
+    """(mean error in units of the std, relative 1/std error) of the
+    statistics st [B, 2, C] of m [B, T, C] against the two-pass ones in
+    f64: what an error does to xhat = (m - mean) / std."""
+    from livelyspeaker_tpu_torch.ops import fused_wav as k3
+
+    ref = k3._norm_stats(m.double().transpose(1, 2))
+    st = st.double()
+    return (((st[:, 0] - ref[:, 0]) * ref[:, 1]).abs().max().item(),
+            ((st[:, 1] - ref[:, 1]) / ref[:, 1]).abs().max().item())
+
+
+def wav_stats_turns(card, b, others=None, iters=10, reps=10):
+    """K3's statistics kernel alone, at TED's waveform length: the two
+    launches of a forward (``norm_stats`` of the m1 [B, T2, 64] and m2
+    [B, T3, 128] that a forward produced) against the library's
+    torch.var_mean(m, dim=1, correction=0) then (var + 1e-5).rsqrt() on the
+    same tensors, and var_mean alone. Each is held first against the
+    two-pass statistics in f64 (the mean within KERNEL_TOL of the std,
+    1/std within KERNEL_TOL relative) and a second call against the first's
+    bits; then each tensor's call is replayed from a CUDA graph of ``reps``
+    calls and all are timed in turns. ``others``: more {name: stats
+    function} (another build's), checked and timed in the same turns.
+    Returns {name: ms of the two calls}."""
+    from livelyspeaker_tpu_torch.models import WavEncoder, audio_samples_for_frames
+    from livelyspeaker_tpu_torch.models.initializers import random_normal_
+    from livelyspeaker_tpu_torch.ops import fused_wav as k3
+
+    g = torch.Generator().manual_seed(90 + b)
+    enc = random_normal_(WavEncoder(), g).cuda()
+    packed = k3.pack_wav_params(enc, differentiable=False)
+    wav = (0.1 * torch.randn(b, audio_samples_for_frames(34), generator=g)).cuda()
+    _, res = k3.fused_wav_forward(wav, packed)
+    ms = {"m1": res.m1, "m2": res.m2}
+
+    def library(m):
+        var, _ = torch.var_mean(m, dim=1, correction=0)
+        return (var + k3.EPS).rsqrt()
+
+    fns = {"kernel": k3.norm_stats, **(others or {})}
+    notes, runs = [], {}
+    for name, fn in fns.items():
+        for key, m in ms.items():
+            st = fn(m)
+            same = torch.equal(st, fn(m))
+            err = stats_errors(st, m)
+            notes.append(f"{name} {key} errors {err[0]:.1e} / {err[1]:.1e}")
+            check(same and max(err) <= KERNEL_TOL, f"K3 stats {name} {key} B={b}: errors "
+                  f"{err[0]:.3e} (mean, of the std) {err[1]:.3e} (1/std) against f64, same "
+                  f"bits on a second call: {same}")
+            runs[f"{name} {key}"] = graphed_reps(lambda fn=fn, m=m: fn(m), reps)
+    for key, m in ms.items():
+        ref = k3._norm_stats(m.double().transpose(1, 2))[:, 1]
+        notes.append(f"library {key} 1/std rel {_rel(library(m).double(), ref):.1e}")
+        runs[f"library {key}"] = graphed_reps(lambda m=m: library(m), reps)
+        runs[f"var_mean {key}"] = graphed_reps(
+            lambda m=m: torch.var_mean(m, dim=1, correction=0), reps)
+    times = {k: v / reps for k, v in time_turns(runs, iters).items()}
+    names = list(fns) + ["library", "var_mean"]
+    out = {n: times[f"{n} m1"] + times[f"{n} m2"] for n in names}
+    nbytes = 4 * (res.m1.numel() + res.m2.numel() + 2 * b * (64 + 128))
+    bound_ms = bound(0, nbytes)[0]
+    print(f"[wav-stats] B={b} m1 {list(res.m1.shape)} m2 {list(res.m2.shape)}, ms a forward's "
+          f"two calls (m1 + m2): " + ", ".join(
+              f"{n} {out[n]:.4f} ({times[f'{n} m1']:.4f} + {times[f'{n} m2']:.4f})"
+              for n in names)
+          + f"; bound {bound_ms:.4f} ms (bytes; kernel share {bound_ms / out['kernel']:.1%}); "
+          f"{'; '.join(notes)}; CUDA graphs of {reps} calls, in turns ({card})")
+    return out
+
+
+def wav_reduce_turns(card, b, others=None, iters=20, reps=10):
     """K3's reduce kernel alone: one backward's four launches (the weight-
     gradient partials of conv3, conv2 and conv1 in ``wgrad_geometry``'s
-    chunks, and conv0's [B, 512]), against part.sum(0) on the same four
-    partials; each sequence replayed from a CUDA graph, timed in turns.
-    Each sum is checked first against f64. Returns (kernel ms, library ms)."""
+    chunks, and conv0's [B, 512]), each against part.sum(0) on the same
+    partials. Each sum is held first against f64 and a second launch
+    against the first's bits, and the kernel's against the CPU plain
+    version's bit for bit; then each launch is replayed from a CUDA graph
+    of ``reps`` launches, one graph a conv, and all are timed in turns.
+    ``others``: more {name: reduce function} with ``reduce_partials``'
+    signature (another build's), checked and timed in the same turns.
+    Returns {name: {conv i: ms}}, with the four summed under "sum"."""
     from livelyspeaker_tpu_torch.models import audio_samples_for_frames
     from livelyspeaker_tpu_torch.ops import fused_wav as k3
 
@@ -768,21 +855,37 @@ def wav_reduce_turns(card, b, iters=20):
     dims = k3.WavDims(audio_samples_for_frames(34))
     t = (dims.T1, dims.T2, dims.T3, dims.T4)
     ch = k3.CHANNELS
-    parts = [(i, torch.randn(k3.wgrad_geometry(b, t[i], ch[i], ch[i + 1]).nsplit,
-                             ch[i + 1] * ch[i] * 15 + ch[i + 1], generator=g).cuda())
-             for i in (3, 2, 1)] + [(0, torch.randn(b, 32 * 15 + 32, generator=g).cuda())]
-    rel = 0.0
-    for i, part in parts:
-        dw, db = k3.reduce_partials(part, i)
-        rel = max(rel, _rel(torch.cat([dw.reshape(-1), db]).double(), part.double().sum(0)))
-    check(rel <= GRAD_TOL, f"K3 reduce B={b}: rel {rel:.3e} against f64")
-    times = time_turns({
-        "kernel": graphed(lambda: [k3.reduce_partials(p, i) for i, p in parts]),
-        "library": graphed(lambda: [p.sum(0) for _, p in parts])}, iters)
-    print(f"[wav-reduce] B={b}: the four reduce launches of a backward {times['kernel']:.4f} ms "
-          f"(rel {rel:.1e} against f64) against part.sum(0) on the same partials "
-          f"{times['library']:.4f} ms; CUDA graphs, in turns ({card})")
-    return times["kernel"], times["library"]
+    parts = {i: torch.randn(k3.wgrad_geometry(b, t[i], ch[i], ch[i + 1]).nsplit,
+                            ch[i + 1] * ch[i] * 15 + ch[i + 1], generator=g).cuda()
+             for i in (3, 2, 1)}
+    parts[0] = torch.randn(b, 32 * 15 + 32, generator=g).cuda()
+    flat = lambda out: torch.cat([out[0].reshape(-1), out[1]])
+    fns = {"kernel": k3.reduce_partials, **(others or {})}
+    rel, runs = 0.0, {}
+    for name, fn in fns.items():
+        for i, part in parts.items():
+            got = flat(fn(part, i))
+            same = torch.equal(got, flat(fn(part, i)))
+            if name == "kernel":
+                same = same and torch.equal(got.cpu(), flat(k3.reduce_partials(part.cpu(), i)))
+            rel = max(rel, _rel(got.double(), part.double().sum(0)))
+            check(same and rel <= GRAD_TOL, f"K3 reduce {name} conv{i} B={b}: rel {rel:.3e} "
+                  f"against f64, same bits twice (and as the CPU's): {same}")
+            runs[f"{name} {i}"] = graphed_reps(lambda fn=fn, p=part, i=i: fn(p, i), reps)
+    for i, part in parts.items():
+        runs[f"library {i}"] = graphed_reps(lambda p=part: p.sum(0), reps)
+    times = {k: v / reps for k, v in time_turns(runs, iters).items()}
+    out = {}
+    for name in list(fns) + ["library"]:
+        out[name] = {i: times[f"{name} {i}"] for i in parts}
+        out[name]["sum"] = sum(out[name][i] for i in parts)
+    shapes = ", ".join(f"conv{i} {list(p.shape)}" for i, p in parts.items())
+    print(f"[wav-reduce] B={b} ({shapes}), ms a launch by conv 3 / 2 / 1 / 0 and their sum: "
+          + "; ".join(f"{n} " + " / ".join(f"{v[i]:.4f}" for i in parts) + f" = {v['sum']:.4f}"
+                      for n, v in out.items())
+          + f" (rel {rel:.1e} against f64; the kernel's bits as the CPU's); CUDA graphs of "
+          f"{reps} launches, in turns ({card})")
+    return out
 
 
 def wav_wgrad_turns(card, b, iters=10):
@@ -1046,12 +1149,16 @@ def wav_kernel_phase(card):
         wav_conv_fwd_turns(card, b)
         wav_wgrad_turns(card, b)
         wav_bwd_data_turns(card, b)
+        stats_ms = wav_stats_turns(card, b)
         reduce_ms = wav_reduce_turns(card, b)
         if b == TRAIN_BATCH:
-            # reduce: device time of its launches alone, from the same graph
-            # replays as the library call it is held to
-            report = {"ms": {**per_kernel, "reduce": reduce_ms[0]}, "plain_fwd": plain["fwd"],
-                      "plain_bwd": plain["bwd"], "library": {"reduce": reduce_ms[1]},
+            # stats and reduce: device time of their launches alone, from the
+            # same graph replays as the library calls they are held to
+            report = {"ms": {**per_kernel, "stats": stats_ms["kernel"],
+                             "reduce": reduce_ms["kernel"]["sum"]},
+                      "plain_fwd": plain["fwd"], "plain_bwd": plain["bwd"],
+                      "library": {"stats": stats_ms["library"],
+                                  "reduce": reduce_ms["library"]["sum"]},
                       "bound": {k: bound(*c) for k, c in k3_cost(b, length).items()}}
             print(f"[wav-kernel] {tag}: bound by kernel, ms per call (conv_fwd, wgrad, bwd_data: "
                   "their three TF32 products at 495 TFLOP/s and conv0's recompute at 67): "
@@ -1421,11 +1528,13 @@ def main():
         profile_phase(model, loop, args.profile, card)
         profile_phase(wav_model, wav_loop, args.profile, card, name="train_step_k3")
     # library_ms: one torch.matmul computes the K2 weight-gradient kernel's
-    # product and one torch.sum each reduce kernel's sums; no single PyTorch
-    # call computes any other of these functions (8-block mixer stacks and
-    # their backward, a conv/InstanceNorm/LeakyReLU chain; cuDNN's forward
-    # conv, weight and data gradients, printed beside K3's, skip the
-    # InstanceNorm, the LeakyReLU and conv0)
+    # product, one torch.sum each reduce kernel's sums, and torch.var_mean
+    # (then an rsqrt of B*C values) K3's statistics kernel's; no single
+    # PyTorch call computes any other of these functions (8-block mixer
+    # stacks and their backward; K3's stats0, which recomputes conv0, its
+    # in_bwd, and its convs over an InstanceNorm and a LeakyReLU: cuDNN's
+    # forward conv, weight and data gradients, printed beside K3's, skip
+    # the InstanceNorm, the LeakyReLU and conv0)
     kernels = [{
         "name": "fused_transmlp", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,

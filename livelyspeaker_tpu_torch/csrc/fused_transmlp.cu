@@ -468,7 +468,7 @@ int launch(const float* x, const float* emb, const float* ln1_s, const float* ln
     return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  cluster_launch_config(&cfg, attr, B, cluster, Smem(D, cluster).bytes());
+  cluster_launch_config(&cfg, attr, kT, B, cluster, Smem(D, cluster).bytes());
   const Kernel kernel = kernel_for(act);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)cfg.dynamicSmemBytes);
@@ -497,7 +497,7 @@ extern "C" int fused_transmlp_max_clusters(int D, int cluster) {
   if (!shape_ok(D, cluster)) return -(int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  cluster_launch_config(&cfg, attr, cluster, cluster, Smem(D, cluster).bytes());
+  cluster_launch_config(&cfg, attr, kT, cluster, cluster, Smem(D, cluster).bytes());
   const Kernel kernel = kernel_for(kSilu);  // every instance has the same resources' shape
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)cfg.dynamicSmemBytes);

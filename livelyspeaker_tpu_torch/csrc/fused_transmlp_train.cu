@@ -1014,7 +1014,7 @@ extern "C" int fused_transmlp_train_bwd_max_clusters(int D, int cluster) {
   if (!cluster_ok(D, cluster)) return -(int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  cluster_launch_config(&cfg, attr, cluster, cluster, BwdSmem(D, cluster).bytes());
+  cluster_launch_config(&cfg, attr, kT, cluster, cluster, BwdSmem(D, cluster).bytes());
   const BwdKernel kernel = bwd_kernel_for(kSilu);  // every instance takes the same resources
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)cfg.dynamicSmemBytes);
@@ -1045,7 +1045,7 @@ extern "C" int fused_transmlp_train_bwd_block_launch(
     if (q == nullptr || !aligned16(q)) return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  cluster_launch_config(&cfg, attr, B, cluster, BwdSmem(D, cluster).bytes());
+  cluster_launch_config(&cfg, attr, kT, B, cluster, BwdSmem(D, cluster).bytes());
   const BwdKernel kernel = bwd_kernel_for(act);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)cfg.dynamicSmemBytes);
@@ -1071,7 +1071,7 @@ extern "C" int fused_transmlp_train_wgrad_max_clusters(int cluster) {
   if (cluster < 1 || cluster > kMaxCluster) return -(int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  cluster_launch_config(&cfg, attr, 1, cluster, kWSmemBytes);
+  cluster_launch_config(&cfg, attr, kT, 1, cluster, kWSmemBytes);
   cfg.blockDim = dim3(kWThreads, 1, 1);
   cudaError_t err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kWSmemBytes);
@@ -1092,7 +1092,7 @@ extern "C" int fused_transmlp_train_wgrad_launch(const float* h2, const float* g
   const int tiles = (D + kWTile - 1) / kWTile;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  cluster_launch_config(&cfg, attr, tiles * tiles, cluster, kWSmemBytes);
+  cluster_launch_config(&cfg, attr, kT, tiles * tiles, cluster, kWSmemBytes);
   cfg.blockDim = dim3(kWThreads, 1, 1);
   cudaError_t err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kWSmemBytes);

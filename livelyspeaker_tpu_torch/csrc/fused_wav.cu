@@ -3,7 +3,8 @@
 //   conv0 (k15, stride 5, padded 1600 a side, 1 -> 32) -> IN -> LReLU
 //   -> conv1 (stride 6, 32 -> 64) -> IN -> LReLU -> conv2 (64 -> 128) -> IN
 //   -> LReLU -> conv3 (128 -> 256),
-// InstanceNorm without affine, eps 1e-5, statistics two-pass in f32.
+// InstanceNorm without affine, eps 1e-5, statistics in f32 (IN0's in two
+// passes, IN1's and IN2's in one pass, shifted, combined by Chan's formula).
 //
 // Replaces livelyspeaker_tpu/ops/pallas/fused_wav.py: fused_wav_encoder, the
 // Pallas TPU kernels `_fwd_a/_fwd_b/_fwd_c` and `_bwd_a/_bwd_b/_bwd_c`.
@@ -34,7 +35,7 @@
 //   wav_wgrad_kernel         dW_i and db_i partials over row chunks of the
 //                            (b, t) product on the tensor cores (3xTF32),
 //                            the input activation recomputed on load;
-//   wav_reduce_kernel        the chunks summed in a fixed order;
+//   wav_reduce_kernel        the chunks summed in a fixed grouping;
 //   wav_wsplit_kernel        w_i split into TF32 halves, in the order the
 //                            data gradient reads it;
 //   wav_bwd_data_kernel      g_a = conv_i^T g on the tensor cores (3xTF32),
@@ -59,9 +60,10 @@
 //
 // What bounds it: about 90 GFLOP forward and twice that backward at B = 512
 // on TED. The forward convs and the weight and data gradients run on the
-// tensor cores in 3xTF32 (mma.sync, tf32_mma.cuh); the other kernels are
-// plain f32 FMA, bound by the FP32 pipe and the shared-memory loads that
-// feed it. wgmma is later work.
+// tensor cores in 3xTF32 (mma.sync, tf32_mma.cuh); the statistics of m1
+// and m2 and the reduce are bound by the bytes they read; the other
+// kernels are plain f32 FMA, bound by the FP32 pipe and the shared-memory
+// loads that feed it. wgmma is later work.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -69,6 +71,7 @@
 #include <stdint.h>
 
 #include "tf32_mma.cuh"  // cp.async, the 3xTF32 mma.sync
+#include "cluster.cuh"   // the cluster barrier halves, cluster_launch_config
 
 namespace {
 
@@ -171,40 +174,129 @@ __global__ void __launch_bounds__(kThreads) wav_stats0_kernel(Src s, float* __re
   }
 }
 
-// The InstanceNorm statistics of a stored [B, T, C] tensor, C dividing 256:
-// thread (part, c) sums times part, part + 256/C, ...; the parts in order.
+// The InstanceNorm statistics of a stored pre-norm tensor x [B, T, C]
+// (m1 or m2), C = 32, 64 or 128. Replaces the statistics of
+// livelyspeaker_tpu/ops/pallas/fused_wav.py:224 _in_lrelu for IN1 and IN2
+// (the JAX formula: models/audio_encoder.py:42 _instance_norm). What bounds
+// it: reading x once, 229 MB for m1 and m2 at TED B = 512 (0.068 ms at
+// 3.35 TB/s). Design:
+// - One pass over x. A sequence's T rows are split over a cluster of N
+//   CTAs (stats_geometry: N as large as B N needs to fill the card, at most
+//   8), CTA rank r owning the rows [r per, min(T, (r + 1) per)), per a
+//   multiple of the kR rows a CTA step covers.
+// - Thread tid = slot kG + g holds channels 4g..4g+3 (one float4 of a
+//   row) and reads the rows r per + slot + k kR, kU 16-byte loads in flight.
+// - It sums d = x - x[b, 0, c] and d^2: the sequence's row 0, which every
+//   CTA reads, is the shift. These pre-norm conv outputs carry a bias that
+//   can dwarf their spread, and unshifted sums of squares would lose its
+//   digits. Each thread turns its sums into (n, mean - x0, M2), and those
+//   are combined by Chan's formula in a fixed order: the lanes of a warp
+//   that hold one channel group (shuffles, halving), the warps in order,
+//   then the CTAs in rank order in rank 0's shared memory, written through
+//   distributed shared memory. No atomics: the same bits every run.
+// - Every add, product, quotient and root is rounded on its own (no FMA
+//   contraction), so a CPU emulation in f32 gives the same bits.
+constexpr int kStatsU = 4;       // 16-byte loads in flight a thread
+constexpr int kStatsSMs = 132;   // the CTAs that fill an H100, one an SM
+constexpr int kStatsCluster = 8; // the portable cluster size
+
+struct Moments {
+  float n, mean, m2;
+};
+
+// Chan's combine of the moments of two sets of rows, a's before b's.
+__device__ __forceinline__ Moments chan(Moments a, Moments b) {
+  const float n = __fadd_rn(a.n, b.n);
+  if (n == 0.0f) return a;
+  const float d = __fsub_rn(b.mean, a.mean), f = __fdiv_rn(b.n, n);
+  return {n, __fadd_rn(a.mean, __fmul_rn(d, f)),
+          __fadd_rn(__fadd_rn(a.m2, b.m2), __fmul_rn(__fmul_rn(d, d), __fmul_rn(a.n, f)))};
+}
+
+__device__ __forceinline__ Moments shfl_down(Moments m, int o) {
+  return {__shfl_down_sync(0xffffffffu, m.n, o), __shfl_down_sync(0xffffffffu, m.mean, o),
+          __shfl_down_sync(0xffffffffu, m.m2, o)};
+}
+
+template <int kC>
 __global__ void __launch_bounds__(kThreads)
-wav_stats_kernel(const float* __restrict__ x, int T, int C, float* __restrict__ st) {
-  __shared__ float red[kThreads];
-  __shared__ float mean_s[kThreads];
-  const int tid = threadIdx.x, c = tid % C, part = tid / C, parts = kThreads / C;
-  const float* xb = x + (size_t)blockIdx.x * T * C;
-  float* stb = st + (size_t)blockIdx.x * 2 * C;
-  for (int pass = 0; pass < 2; ++pass) {
-    const float mu = pass ? mean_s[c] : 0.0f;
-    float acc = 0.0f;
-    for (int t = part; t < T; t += parts) {
-      const float v = __ldg(xb + (size_t)t * C + c);
-      if (pass == 0) {
-        acc += v;
-      } else {
-        acc = fmaf(v - mu, v - mu, acc);
+wav_stats_kernel(const float* __restrict__ x, int T, int per, float* __restrict__ st) {
+  constexpr int kG = kC / 4;          // float4 channel groups of a row
+  constexpr int kR = kThreads / kG;   // rows a CTA step covers
+  __shared__ Moments warp_m[kWarps][kC];
+  __shared__ Moments cta_m[kStatsCluster][kC];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), N = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = tid % kG, slot = tid / kG;
+  const float* xb = x + (size_t)(blockIdx.x / N) * T * kC;
+  cluster_arrive();  // rank 0's shared memory is written only once every CTA runs
+  const float4 x0 = __ldg(reinterpret_cast<const float4*>(xb) + g);
+  const float k0[4] = {x0.x, x0.y, x0.z, x0.w};
+  float s1[4] = {0.0f, 0.0f, 0.0f, 0.0f}, s2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int cnt = 0;
+  const int end = min(T, (rank + 1) * per);
+  for (int r = rank * per + slot; r < end; r += kStatsU * kR) {
+    float4 v[kStatsU];
+#pragma unroll
+    for (int u = 0; u < kStatsU; ++u)
+      if (r + u * kR < end) v[u] = __ldg(reinterpret_cast<const float4*>(xb + (size_t)(r + u * kR) * kC) + g);
+#pragma unroll
+    for (int u = 0; u < kStatsU; ++u) {
+      if (r + u * kR >= end) break;
+      const float e[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float d = __fsub_rn(e[j], k0[j]);
+        s1[j] = __fadd_rn(s1[j], d);
+        s2[j] = __fadd_rn(s2[j], __fmul_rn(d, d));
       }
+      ++cnt;
     }
-    red[tid] = acc;
-    __syncthreads();
-    if (tid < C) {
-      float tot = 0.0f;
-      for (int p = 0; p < parts; ++p) tot += red[p * C + tid];
-      if (pass == 0) {
-        mean_s[tid] = tot / T;
-        stb[tid] = tot / T;
-      } else {
-        stb[C + tid] = 1.0f / sqrtf(tot / T + kEps);
-      }
-    }
-    __syncthreads();
   }
+  const float n = (float)cnt;
+  Moments m[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float mean = cnt ? __fdiv_rn(s1[j], n) : 0.0f;
+    m[j] = {n, mean, cnt ? fmaxf(__fsub_rn(s2[j], __fmul_rn(s1[j], mean)), 0.0f) : 0.0f};
+  }
+  // the lanes of one channel group: lane l takes lane l + o's rows after its own
+#pragma unroll
+  for (int o = 16; o >= kG; o >>= 1)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) m[j] = chan(m[j], shfl_down(m[j], o));
+  if (lane < kG)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) warp_m[warp][4 * lane + j] = m[j];
+  __syncthreads();
+  Moments c{0.0f, 0.0f, 0.0f};
+  if (tid < kC) {
+    c = warp_m[0][tid];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) c = chan(c, warp_m[w][tid]);
+  }
+  cluster_wait();
+  if (tid < kC) cluster.map_shared_rank(&cta_m[0][0], 0)[rank * kC + tid] = c;
+  cluster.sync();
+  if (rank != 0 || tid >= kC) return;
+  c = cta_m[0][tid];
+  for (int q = 1; q < N; ++q) c = chan(c, cta_m[q][tid]);
+  float* stb = st + (size_t)(blockIdx.x / N) * 2 * kC;
+  stb[tid] = __fadd_rn(__ldg(xb + tid), c.mean);
+  stb[kC + tid] = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(__fdiv_rn(c.m2, (float)T), kEps)));
+}
+
+// The statistics kernel's split (ops/fused_wav.py: stats_geometry): N CTAs
+// a sequence, `per` rows a CTA.
+struct StatsGeo {
+  int cluster, per;
+};
+
+StatsGeo stats_geometry(int B, int T, int C) {
+  const int rows = kThreads * 4 / C, steps = (T + rows - 1) / rows;
+  const int n = max(1, min(min(kStatsCluster, (kStatsSMs + B - 1) / B), steps));
+  const int per = (steps + n - 1) / n * rows;
+  return {(T + per - 1) / per, per};
 }
 
 // ------------------------------------------------------------------ forward
@@ -1373,14 +1465,80 @@ wav_wgrad0_kernel(Src s, const float* __restrict__ gy, const float* __restrict__
   part[(size_t)b * kW0Part + tid + kThreads] = acc[1];
 }
 
-// out[i] = sum_{j < n} part[j, i], j in order.
-__global__ void wav_reduce_kernel(const float* __restrict__ part, int n, int width,
-                              float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= width) return;
-  float s = 0.0f;
-  for (int j = 0; j < n; ++j) s += __ldg(part + (size_t)j * width + i);
-  out[i] = s;
+// out[i] = sum_j part[j, i]: the weight-gradient partials [n, width] summed.
+// Replaces the in-order accumulation of the TPU kernel's weight gradients
+// in VMEM (livelyspeaker_tpu/ops/pallas/fused_wav.py:326 `dw_ref[c] += ...`,
+// and conv0's sums in _bwd_a, :370). What bounds it: reading part once (25
+// MB over a backward's four launches at TED B = 512, 7.4 us at 3.35 TB/s);
+// at conv0's [B, 512] the loads one thread makes one after another. Design
+// (reduce_geometry, mirrored by ops/fused_wav.py, which sums the CPU's
+// plain version in the same grouping): vectors of V = 4 columns (float4)
+// where width is a multiple of 4, else single columns; a CTA of 256
+// threads owns q adjacent vectors and 256 / q row groups, group k the rows
+// [k rows, (k + 1) rows) summed in order with kRedU loads in flight, the
+// groups' sums added in group order through shared memory, kRedU loaded
+// before they are added (one group: no shared memory). q halves from 256
+// while the CTAs are fewer than two an SM and there are rows for twice
+// the groups. The grouping depends on (n, width) only: the same bits
+// every run.
+constexpr int kRedU = 8;       // loads in flight a thread
+constexpr int kRedCtas = 264;  // two CTAs an SM of an H100
+constexpr int kRedMinQ = 4;    // vectors a CTA at least: 64-byte row segments
+
+struct RedGeo {
+  int vec, q, rows, ctas;
+};
+
+RedGeo reduce_geometry(int n, int width) {
+  const int vec = width % 4 == 0 ? 4 : 1, cols = width / vec;
+  int q = kThreads;
+  while (q > kRedMinQ && (cols + q - 1) / q < kRedCtas && 2 * (kThreads / q) <= n) q /= 2;
+  const int groups = kThreads / q;
+  return {vec, q, (n + groups - 1) / groups, (cols + q - 1) / q};
+}
+
+__device__ __forceinline__ float vadd(float a, float b) { return a + b; }
+__device__ __forceinline__ float4 vadd(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+wav_reduce_kernel(const V* __restrict__ part, int n, int cols, int q, int rows,
+                  V* __restrict__ out) {
+  __shared__ V red[kThreads];
+  const int tid = threadIdx.x, col = tid % q, grp = tid / q, c = blockIdx.x * q + col;
+  const int j0 = min(n, grp * rows), j1 = min(n, j0 + rows);
+  V s{};
+  if (c < cols) {
+    for (int j = j0; j < j1; j += kRedU) {
+      V v[kRedU];
+#pragma unroll
+      for (int u = 0; u < kRedU; ++u)
+        if (j + u < j1) v[u] = __ldg(part + (size_t)(j + u) * cols + c);
+#pragma unroll
+      for (int u = 0; u < kRedU; ++u)
+        if (j + u < j1) s = j + u == j0 ? v[u] : vadd(s, v[u]);
+    }
+  }
+  if (rows >= n) {  // one group
+    if (c < cols) out[c] = s;
+    return;
+  }
+  red[tid] = s;
+  __syncthreads();
+  if (grp != 0 || c >= cols) return;
+  const int groups = (n + rows - 1) / rows;
+  for (int k = 1; k < groups; k += kRedU) {
+    V v[kRedU];
+#pragma unroll
+    for (int u = 0; u < kRedU; ++u)
+      if (k + u < groups) v[u] = red[(k + u) * q + col];
+#pragma unroll
+    for (int u = 0; u < kRedU; ++u)
+      if (k + u < groups) s = vadd(s, v[u]);
+  }
+  out[c] = s;
 }
 
 Src make_src(const float* pre, const float* st, int T, int C, const float* wav,
@@ -1459,12 +1617,23 @@ extern "C" int fused_wav_stats0_launch(const float* wav, const float* w0, const 
   return (int)cudaGetLastError();
 }
 
+// st [B, 2, C] (mean, 1/std over time) of x [B, T, C], C = 32, 64 or 128,
+// x 16-byte aligned.
 extern "C" int fused_wav_stats_launch(const float* x, int B, int T, int C, float* st,
                                       void* stream) {
-  if (B < 1 || T < 1 || C < 1 || C > kThreads || kThreads % C != 0)
+  if (x == nullptr || st == nullptr || B < 1 || B > INT_MAX / kStatsCluster || T < 1 ||
+      T >= (1 << 24) || (C != 32 && C != 64 && C != 128) || (uintptr_t)x % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  wav_stats_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(x, T, C, st);
-  return (int)cudaGetLastError();
+  const StatsGeo g = stats_geometry(B, T, C);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cluster_launch_config(&cfg, attr, kThreads, B, g.cluster, 0);
+  cfg.stream = (cudaStream_t)stream;
+  const cudaError_t err =
+      C == 32    ? cudaLaunchKernelEx(&cfg, wav_stats_kernel<32>, x, T, g.per, st)
+      : C == 64  ? cudaLaunchKernelEx(&cfg, wav_stats_kernel<64>, x, T, g.per, st)
+                 : cudaLaunchKernelEx(&cfg, wav_stats_kernel<128>, x, T, g.per, st);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // wsp [C_in / 16, C_out / 64, 15, 2, 64, 4, 4]: conv i's weights [C_out,
@@ -1576,10 +1745,21 @@ extern "C" int fused_wav_wgrad0_launch(const float* wav, const float* w0, const 
   return (int)cudaGetLastError();
 }
 
+// out [width] = part [n, width] summed over its rows in reduce_geometry's
+// grouping; for a width that is a multiple of 4, part and out 16-byte
+// aligned.
 extern "C" int fused_wav_reduce_launch(const float* part, int n, int width, float* out,
                                        void* stream) {
-  if (n < 1 || width < 1) return (int)cudaErrorInvalidValue;
-  wav_reduce_kernel<<<(width + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-      part, n, width, out);
+  if (part == nullptr || out == nullptr || n < 1 || width < 1) return (int)cudaErrorInvalidValue;
+  const RedGeo g = reduce_geometry(n, width);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (g.vec == 4) {
+    if (((uintptr_t)part | (uintptr_t)out) % 16 != 0) return (int)cudaErrorInvalidValue;
+    wav_reduce_kernel<float4><<<g.ctas, kThreads, 0, st>>>(
+        reinterpret_cast<const float4*>(part), n, width / 4, g.q, g.rows,
+        reinterpret_cast<float4*>(out));
+  } else {
+    wav_reduce_kernel<float><<<g.ctas, kThreads, 0, st>>>(part, n, width, g.q, g.rows, out);
+  }
   return (int)cudaGetLastError();
 }

@@ -13,23 +13,23 @@
 //   warp-level arrival on an mbarrier, and the fixed-order sum of the
 //   slices' partial tiles through shared memory (reduce_slices);
 // - the LayerNorm row statistics across the cluster (two-pass per CTA, one
-//   exchange through distributed shared memory, Chan's combine).
+//   exchange through distributed shared memory, Chan's combine); the
+//   cluster barrier's halves and the launch configuration are in
+//   cluster.cuh.
 //
 // Rows S..kSPad-1 of every shared tile only ever feed rows that are not
 // written back.
 
 #pragma once
 
-#include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap; the encoder is reached through the runtime
 #include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "cluster.cuh"  // the cluster barrier halves, cluster_launch_config
 #include "tf32_mma.cuh"  // smem_addr, cp.async, the 3xTF32 mma.sync
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -262,15 +262,6 @@ __device__ __forceinline__ void arrive_slice(const Tiling& t, uint64_t* bar) {
                  : "memory");
 }
 
-// cg::this_cluster().sync() in its two halves: work that touches no other
-// CTA's shared memory can stand between them.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
 // Row statistics of src [kSPad, dc] (rows < S) over the whole D columns of
 // the cluster, into mean_s / inv_s: eight lanes a row take the local
 // two-pass (mean, M2), lane j of the eight pushes it to CTA j's st (slot
@@ -356,20 +347,6 @@ inline bool weight_map(CUtensorMap* map, const float* w, long long rows, int D, 
 inline bool cluster_ok(int D, int N) {
   return D >= kKTile && D <= kMaxN && D % kKTile == 0 &&
          (N == 1 || N == 2 || N == 4 || N == 8) && D % (4 * N) == 0 && D / N <= kMaxCols;
-}
-
-inline void cluster_launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int B,
-                                  int cluster, size_t smem) {
-  *cfg = {};
-  cfg->gridDim = dim3((unsigned)(B * cluster), 1, 1);
-  cfg->blockDim = dim3(kT, 1, 1);
-  cfg->dynamicSmemBytes = smem;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
 }
 
 }  // namespace

@@ -39,6 +39,9 @@ __all__ = [
     "PACKED_KEYS",
     "LAUNCHES",
     "pack_wav_params",
+    "StatsGeometry",
+    "stats_geometry",
+    "norm_stats",
     "lrelu_inputs",
     "fused_wav_forward_reference",
     "fused_wav_backward_reference",
@@ -50,6 +53,8 @@ __all__ = [
     "WgradGeometry",
     "wgrad_geometry",
     "wgrad_partials",
+    "ReduceGeometry",
+    "reduce_geometry",
     "reduce_partials",
     "bwd_data_rows",
     "data_grad",
@@ -189,6 +194,52 @@ def _norm_stats(m: torch.Tensor) -> torch.Tensor:
     mean = m.mean(-1)
     var = ((m - mean[..., None]) ** 2).mean(-1)
     return torch.stack([mean, torch.rsqrt(var + EPS)], dim=1)
+
+
+STATS_SMS = 132  # CTAs that fill an H100, one an SM (csrc: kStatsSMs)
+STATS_CLUSTER = 8  # the portable cluster size (kStatsCluster)
+THREADS = 256  # threads of a statistics or reduce CTA (kThreads)
+
+
+class StatsGeometry(NamedTuple):
+    """The statistics kernel's split of a sequence's T rows: ``cluster``
+    CTAs, rank r owning the rows [r rows_per_cta, min(T, (r + 1)
+    rows_per_cta))."""
+    cluster: int
+    rows_per_cta: int
+
+
+def stats_geometry(b: int, t: int, c: int) -> StatsGeometry:
+    """The statistics kernel's cluster for ``b`` sequences of ``t`` rows of
+    ``c`` channels (csrc: stats_geometry): as many CTAs a sequence as b of
+    them need to fill the card, at most 8 and at most one a step of the
+    1024 / c rows a CTA step covers; each CTA a whole number of steps.
+    Raises ValueError for shapes the kernel refuses."""
+    if b < 1 or not 1 <= t < 2 ** 24 or c not in CHANNELS[1:4]:
+        raise ValueError(f"stats_geometry: B={b}, T={t}, C={c}; the kernel takes B >= 1, "
+                         "1 <= T < 2^24 and C = 32, 64 or 128")
+    rows = THREADS * 4 // c
+    steps = math.ceil(t / rows)
+    n = max(1, min(STATS_CLUSTER, math.ceil(STATS_SMS / b), steps))
+    per = math.ceil(steps / n) * rows
+    return StatsGeometry(math.ceil(t / per), per)
+
+
+def norm_stats(m: torch.Tensor) -> torch.Tensor:
+    """The InstanceNorm statistics over time of a stored pre-norm tensor
+    m [B, T, C] (C = 32, 64 or 128), as st [B, 2, C] (mean, then 1/std): the
+    statistics kernel on a CUDA tensor, the two-pass plain version on a CPU
+    one. Raises on what the kernel does not take."""
+    if m.device.type == "cpu":
+        return _norm_stats(m.transpose(1, 2))
+    if m.dim() != 3:
+        raise ValueError(f"norm_stats: m has shape {tuple(m.shape)}, expected [B, T, C]")
+    b, t, c = m.shape
+    stats_geometry(b, t, c)
+    fused_mlp._check("m", m, (b, t, c), m.device, "norm_stats")
+    st = torch.empty((b, 2, c), dtype=torch.float32, device=m.device)
+    _launch("stats", m.device, m.data_ptr(), b, t, c, st.data_ptr(), what=f"[{b}, {t}, {c}]")
+    return st
 
 
 def _xhat(m: torch.Tensor, st: torch.Tensor) -> torch.Tensor:
@@ -369,19 +420,19 @@ def fused_wav_forward(
     d = _check_cuda(who, wav, packed)
     b, dev = wav.shape[0], wav.device
     f32 = dict(dtype=torch.float32, device=dev)
-    st0, st1, st2 = (torch.empty((b, 2, c), **f32) for c in CHANNELS[1:4])
+    st0 = torch.empty((b, 2, 32), **f32)
     m1 = torch.empty((b, d.T2, 64), **f32)
     m2 = torch.empty((b, d.T3, 128), **f32)
     out = torch.empty((b, d.T4, 256), **f32)
-    what = f"B={b}, L={d.L}"
     w0, b0 = packed["w0"].data_ptr(), packed["b0"].data_ptr()
-    _launch("stats0", dev, wav.data_ptr(), w0, b0, d.L, d.T1, b, st0.data_ptr(), what=what)
-    for i, (pre, st, y) in enumerate(((None, st0, m1), (m1, st1, m2), (m2, st2, out)), start=1):
+    _launch("stats0", dev, wav.data_ptr(), w0, b0, d.L, d.T1, b, st0.data_ptr(),
+            what=f"B={b}, L={d.L}")
+    sts = [st0]
+    for i, (pre, y) in enumerate(((None, m1), (m1, m2), (m2, out)), start=1):
         if pre is not None:
-            _launch("stats", dev, pre.data_ptr(), b, pre.shape[1], CHANNELS[i], st.data_ptr(),
-                    what=what)
-        _conv_forward(i, wav, pre, st, packed, leak, d, y)
-    return out, WavResiduals(wav, m1, m2, st0, st1, st2)
+            sts.append(norm_stats(pre))
+        _conv_forward(i, wav, pre, sts[-1], packed, leak, d, y)
+    return out, WavResiduals(wav, m1, m2, *sts)
 
 
 def _conv_forward(i, wav, pre, st, packed, leak, d: WavDims, y) -> None:
@@ -497,19 +548,64 @@ def _wgrad_partials(i, res: WavResiduals, g, packed, leak, d: WavDims) -> torch.
     return part
 
 
+REDUCE_CTAS = 264  # two CTAs an SM of an H100 (csrc: kRedCtas)
+REDUCE_MIN_VECTORS = 4  # column vectors a reduce CTA at least (kRedMinQ)
+
+
+class ReduceGeometry(NamedTuple):
+    """The reduce kernel's grouping of part [n, width]: columns in vectors
+    of ``vec`` (4: float4 loads, or 1), ``vectors`` adjacent vectors a CTA,
+    the rows in groups of ``rows`` (the last one may be shorter), summed
+    in order each and then in group order; ``ctas`` CTAs."""
+    vec: int
+    vectors: int
+    rows: int
+    ctas: int
+
+
+def reduce_geometry(n: int, width: int) -> ReduceGeometry:
+    """The reduce kernel's grouping for ``n`` rows of ``width`` columns
+    (csrc: reduce_geometry): vectors a CTA halve from 256 (twice the row
+    groups) while the CTAs are fewer than two an SM and there are rows for
+    twice the groups, down to 4. Depends on (n, width) only."""
+    if n < 1 or width < 1:
+        raise ValueError(f"reduce_geometry: n={n}, width={width}; the kernel takes n, width >= 1")
+    vec = 4 if width % 4 == 0 else 1
+    cols = width // vec
+    q = THREADS
+    while q > REDUCE_MIN_VECTORS and math.ceil(cols / q) < REDUCE_CTAS and 2 * (THREADS // q) <= n:
+        q //= 2
+    return ReduceGeometry(vec, q, math.ceil(n / (THREADS // q)), math.ceil(cols / q))
+
+
+def _plain_reduce(part: torch.Tensor) -> torch.Tensor:
+    """part [n, width] summed over its rows in the reduce kernel's grouping:
+    each group of ``reduce_geometry(n, width).rows`` rows in order, then the
+    groups in order; the kernel's bits."""
+    rows = reduce_geometry(*part.shape).rows
+    total = None
+    for j0 in range(0, part.shape[0], rows):
+        s = part[j0].clone()
+        for row in part[j0 + 1:j0 + rows]:
+            s = s + row
+        total = s if total is None else total + s
+    return total
+
+
 def reduce_partials(part: torch.Tensor, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dW_i, db_i) from conv i's (0..3) partials [n, C_out*C_in*15 +
-    C_out], the rows summed in order: the reduce kernel on the card, a
-    sum in the same order on the CPU."""
+    C_out], the rows summed in ``reduce_geometry``'s grouping: the reduce
+    kernel on the card, the same sums in the same order on the CPU."""
     cout, cin = CHANNELS[i + 1], CHANNELS[i]
+    width = cout * cin * 15 + cout
     if part.device.type == "cpu":
-        flat = part[0].clone()
-        for row in part[1:]:
-            flat = flat + row
+        flat = _plain_reduce(part)
     else:
-        flat = torch.empty(part.shape[1], dtype=torch.float32, device=part.device)
-        _launch("reduce", part.device, part.data_ptr(), part.shape[0], flat.numel(),
-                flat.data_ptr(), what=f"conv{i}")
+        fused_mlp._check("part", part, (part.shape[0], width), part.device, "reduce_partials")
+        reduce_geometry(part.shape[0], width)
+        flat = torch.empty(width, dtype=torch.float32, device=part.device)
+        _launch("reduce", part.device, part.data_ptr(), part.shape[0], width, flat.data_ptr(),
+                what=f"conv{i}")
     return flat[:cout * cin * 15].view(cout, cin, 15), flat[cout * cin * 15:]
 
 

@@ -805,3 +805,94 @@ def test_wav_conv_fwd_launch_refuses_what_it_does_not_take(cuda_device):
         with pytest.raises(RuntimeError, match="cudaError"):
             fused_wav._launch("wsplit_fwd", cuda_device, packed["w2"].data_ptr(), cin, cout,
                               out.data_ptr(), what="test")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8, 512])
+def test_wav_stats_kernel_matches_f64_and_emulation(cuda_device, b):
+    """The statistics kernel on the m1 and m2 of a forward at TED's and
+    BEAT's waveform length (36,267 samples), and on a case whose channel
+    means are 1e3 times their std: within 1e-5 of the two-pass statistics
+    in f64 (the mean relative to the largest mean, 1/std relative), the
+    bits of the CPU emulation of its arithmetic, the same bits on a second
+    launch; one launch a call."""
+    from wav_stats_emulation import emulate_stats, offset_case
+
+    _, packed, wav, _ = _wav_case(cuda_device, b, audio_samples_for_frames(34))
+    _, res = fused_wav.fused_wav_forward(wav, packed)
+    offset = offset_case(b, 217, 128, 1e3, seed=b).to(cuda_device)
+    for m in (res.m1, res.m2, offset):
+        launches = fused_wav.LAUNCHES["stats"]
+        st = fused_wav.norm_stats(m)
+        again = fused_wav.norm_stats(m)
+        torch.cuda.synchronize()
+        assert fused_wav.LAUNCHES["stats"] == launches + 2
+        assert torch.equal(st, again)
+        ref = fused_wav._norm_stats(m.double().transpose(1, 2))
+        assert _rel(st[:, 0].double(), ref[:, 0]) <= 1e-5
+        assert _rel(st[:, 1].double(), ref[:, 1]) <= 1e-5
+        assert torch.equal(st.cpu(), emulate_stats(m.cpu()))
+
+
+def _reduce_kernel(part, width):
+    out = torch.empty(width, device=part.device)
+    fused_wav._launch("reduce", part.device, part.data_ptr(), part.shape[0], width,
+                      out.data_ptr(), what="test")
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 512])
+@pytest.mark.parametrize("i", [3, 2, 1, 0])
+def test_wav_reduce_kernel_matches_cpu_bits(cuda_device, b, i):
+    """The reduce kernel on conv i's TED partials (``wgrad_geometry``'s
+    chunks; conv0's one row a sequence) equals the CPU plain version bit for
+    bit, twice."""
+    d = fused_wav.WavDims(audio_samples_for_frames(34))
+    t, ch = (d.T1, d.T2, d.T3, d.T4), fused_wav.CHANNELS
+    n = b if i == 0 else fused_wav.wgrad_geometry(b, t[i], ch[i], ch[i + 1]).nsplit
+    g = torch.Generator().manual_seed(b + i)
+    part = torch.randn(n, ch[i + 1] * ch[i] * 15 + ch[i + 1], generator=g)
+    want = torch.cat([x.reshape(-1) for x in fused_wav.reduce_partials(part, i)])
+    launches = fused_wav.LAUNCHES["reduce"]
+    for _ in range(2):
+        got = torch.cat([x.reshape(-1) for x in fused_wav.reduce_partials(part.to(cuda_device), i)])
+        assert torch.equal(got.cpu(), want)
+    assert fused_wav.LAUNCHES["reduce"] == launches + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,width", [(1, 491_776), (1, 1001), (7, 1001), (200, 3), (66, 30_785),
+                                     (513, 12)])
+def test_wav_reduce_kernel_other_shapes(cuda_device, n, width):
+    """One row, and widths that are not multiples of 4 (single columns):
+    the CPU plain version's bits."""
+    part = torch.randn(n, width, generator=torch.Generator().manual_seed(n + width))
+    got = _reduce_kernel(part.to(cuda_device), width)
+    assert torch.equal(got.cpu(), fused_wav._plain_reduce(part))
+
+
+@pytest.mark.cuda
+def test_wav_stats_and_reduce_launches_refuse_what_they_do_not_take(cuda_device):
+    """The statistics launch refuses C outside {32, 64, 128}, no rows, no
+    sequence and a misaligned tensor; the reduce launch no rows, no columns
+    and misaligned float4 rows; the wrappers raise before launching."""
+    m = torch.randn(2, 40, 128, device=cuda_device)
+    st = torch.empty(2, 2, 128, device=cuda_device)
+    for b, t, c, x in ((2, 40, 96, m), (2, 0, 128, m), (0, 40, 128, m),
+                       (2, 39, 128, m.reshape(-1)[1:])):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            fused_wav._launch("stats", cuda_device, x.data_ptr(), b, t, c, st.data_ptr(),
+                              what="test")
+    part = torch.randn(4, 1024, device=cuda_device)
+    out = torch.empty(1024, device=cuda_device)
+    for n, width, p in ((0, 1024, part), (4, 0, part), (3, 1020, part.reshape(-1)[1:])):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            fused_wav._launch("reduce", cuda_device, p.data_ptr(), n, width, out.data_ptr(),
+                              what="test")
+    launches = dict(fused_wav.LAUNCHES)
+    with pytest.raises(ValueError, match="stats_geometry"):
+        fused_wav.norm_stats(torch.randn(2, 40, 96, device=cuda_device))
+    with pytest.raises(ValueError, match="expected"):
+        fused_wav.reduce_partials(part, 2)
+    assert fused_wav.LAUNCHES == launches
