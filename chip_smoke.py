@@ -68,9 +68,14 @@ same training with the WavEncoder swapped for the fused WavEncoder stack
    on the same cotangent, in turns, with its bound; the statistics kernel
    (one pass, split over a cluster) on a forward's m1 and m2 against the
    two-pass statistics in f64 and a second launch's bits, timed against
-   torch.var_mean then rsqrt; and each of the four reduce launches of a
+   torch.var_mean then rsqrt; each of the four reduce launches of a
    backward against f64, the CPU plain version's bits and a second
-   launch's, timed against part.sum(0) on the same partials;
+   launch's, timed against part.sum(0) on the same partials; and the two
+   conv0 kernels (IN0's statistics over conv0 recomputed, one pass split
+   over a cluster; conv0's backward through IN0 split over warps, with
+   and without d_wav) against the plain versions in f64 and a second
+   call's bits, timed beside cuDNN on materialised conv0 and g_m0, the
+   bound and the rounding rule's instruction floor;
 10. training through K3 and K2: 7. with the WavEncoder swapped for
    FusedWavEncoder before the TrainLoop is built: finite, decreasing
    losses; each K3 kernel launched as often a step as one forward and one
@@ -601,6 +606,16 @@ def wgrad_library_probe(card, out_dir):
                   f"wpart.sum(0) on {list(wpart.shape)} {t['wpart']:.4f} ms a call ({card})")
 
 
+def conv0_taps(b, length):
+    """The taps of conv0 that b waveforms of ``length`` samples need: those
+    of the times whose window reaches a sample (``conv0_live``). Conv0 at
+    every other time is b0 exactly and needs none."""
+    from livelyspeaker_tpu_torch.ops import fused_wav as k3
+
+    lo, hi = k3.conv0_live(length)
+    return b * (hi - lo) * 32 * 15
+
+
 def k3_wgrad_cost(b, length, i):
     """(operations, bytes, peak) of conv i's weight-gradient launch: the
     [15 C_in, B T_i] x [B T_i, C_out] product as 3xTF32, three TF32
@@ -614,7 +629,7 @@ def k3_wgrad_cost(b, length, i):
     cin, cout = k3.CHANNELS[i], k3.CHANNELS[i + 1]
     flop = 3 * 2 * b * t[i] * 15 * cin * cout
     if i == 1:
-        flop += 2 * b * t[0] * 32 * 15 * PEAK_TF32 / PEAK_FLOPS
+        flop += 2 * conv0_taps(b, length) * PEAK_TF32 / PEAK_FLOPS
     nsplit = k3.wgrad_geometry(b, t[i], cin, cout).nsplit
     inputs = b * length if i == 1 else b * t[i - 1] * cin
     nbytes = 4 * (inputs + 2 * b * cin + b * t[i] * cout + nsplit * (cout * cin * 15 + cout))
@@ -636,7 +651,7 @@ def k3_bwd_data_cost(b, length, i):
     cin, cout = k3.CHANNELS[i], k3.CHANNELS[i + 1]
     flop = 3 * 2 * b * t[i] * 15 * cin * cout
     if i == 1:
-        flop += 2 * b * t[0] * 32 * 15 * PEAK_TF32 / PEAK_FLOPS
+        flop += 2 * conv0_taps(b, length) * PEAK_TF32 / PEAK_FLOPS
     inputs = b * length if i == 1 else b * t[i - 1] * cin
     ntq = k3._bwd_data_tiles(t[i - 1], i == 1)
     nbytes = 4 * (b * t[i] * cout + inputs + 2 * b * cin + 2 * cout * cin * 15
@@ -657,7 +672,7 @@ def k3_conv_fwd_cost(b, length, i):
     cin, cout = k3.CHANNELS[i], k3.CHANNELS[i + 1]
     flop = 3 * 2 * b * t[i] * 15 * cin * cout
     if i == 1:
-        flop += 2 * b * t[0] * 32 * 15 * PEAK_TF32 / PEAK_FLOPS
+        flop += 2 * conv0_taps(b, length) * PEAK_TF32 / PEAK_FLOPS
     inputs = b * length + 32 * 16 if i == 1 else b * t[i - 1] * cin
     nbytes = 4 * (inputs + 2 * b * cin + 2 * cout * cin * 15 + cout + b * t[i] * cout)
     return flop, nbytes, PEAK_TF32
@@ -666,8 +681,9 @@ def k3_conv_fwd_cost(b, length, i):
 def k3_cost(b, length):
     """(FLOP, bytes[, peak]) of each K3 kernel over one forward and one
     backward call without d_wav (all its launches), from the shapes: the
-    convs' FLOPs at the f32 peak, conv0 counted once wherever a kernel
-    recomputes it, but the forward convs', weight and data gradients' as
+    convs' FLOPs at the f32 peak, conv0 counted once over the times that
+    need it (``conv0_taps``) wherever a kernel recomputes it, but the
+    forward convs', weight and data gradients' as
     k3_conv_fwd_cost, k3_wgrad_cost and k3_bwd_data_cost count them; each
     kernel's inputs read once, its outputs written once."""
     from livelyspeaker_tpu_torch.ops import fused_wav as k3
@@ -675,12 +691,11 @@ def k3_cost(b, length):
     dims = k3.WavDims(length)
     t = (dims.T1, dims.T2, dims.T3, dims.T4)
     ch = k3.CHANNELS
-    conv = [2 * b * t[i] * ch[i + 1] * ch[i] * 15 for i in range(4)]  # FLOP of conv i
     size = [b * t[i] * ch[i + 1] for i in range(4)]  # floats of conv i's output
     wts = [ch[i + 1] * ch[i] * 15 + ch[i + 1] for i in range(4)]
     wav = b * length
     cost = {
-        "stats0": (conv[0], 4 * (wav + wts[0] + 2 * b * 32)),
+        "stats0": (2 * conv0_taps(b, length), 4 * (wav + wts[0] + 2 * b * 32)),
         "stats": (3 * (size[1] + size[2]), 4 * (size[1] + size[2] + 2 * b * (64 + 128))),
         "in_bwd": (6 * (size[1] + size[2]), 4 * 3 * (size[1] + size[2])),
     }
@@ -690,13 +705,14 @@ def k3_cost(b, length):
     # the row-chunk partials of the weight gradients, as the wrapper splits;
     # the three TF32 products of each at the TF32 peak, conv1's conv0
     # recompute at the f32 one (k3_wgrad_cost, k3_bwd_data_cost)
-    nparts = [b] + [k3.wgrad_geometry(b, t[i], ch[i], ch[i + 1]).nsplit for i in (1, 2, 3)]
+    nparts = [k3.wgrad0_geometry(b, length).ctas] + [
+        k3.wgrad_geometry(b, t[i], ch[i], ch[i + 1]).nsplit for i in (1, 2, 3)]
     parts = sum(n * w for n, w in zip(nparts, wts))
     wgrad = [k3_wgrad_cost(b, length, i) for i in (1, 2, 3)]
     cost["wgrad"] = (sum(c[0] for c in wgrad), sum(c[1] for c in wgrad), PEAK_TF32)
     bwd_data = [k3_bwd_data_cost(b, length, i) for i in (1, 2, 3)]
     cost["bwd_data"] = (sum(c[0] for c in bwd_data), sum(c[1] for c in bwd_data), PEAK_TF32)
-    cost["wgrad0"] = (2 * conv[0], 4 * (wav + size[0] + nparts[0] * wts[0]))
+    cost["wgrad0"] = (4 * conv0_taps(b, length), 4 * (wav + size[0] + nparts[0] * wts[0]))
     # the weight splits, forward and backward: each reads w_i once and
     # writes its two TF32 halves
     split = sum(ch[i + 1] * ch[i] * 15 for i in (1, 2, 3))
@@ -840,11 +856,12 @@ def wav_stats_turns(card, b, others=None, iters=10, reps=10):
 def wav_reduce_turns(card, b, others=None, iters=20, reps=10):
     """K3's reduce kernel alone: one backward's four launches (the weight-
     gradient partials of conv3, conv2 and conv1 in ``wgrad_geometry``'s
-    chunks, and conv0's [B, 512]), each against part.sum(0) on the same
-    partials. Each sum is held first against f64 and a second launch
-    against the first's bits, and the kernel's against the CPU plain
-    version's bit for bit; then each launch is replayed from a CUDA graph
-    of ``reps`` launches, one graph a conv, and all are timed in turns.
+    chunks, and conv0's in ``wgrad0_geometry``'s rows), each against
+    part.sum(0) on the same partials. Each sum is held first against f64
+    and a second launch against the first's bits, and the kernel's against
+    the CPU plain version's bit for bit; then each launch is replayed from
+    a CUDA graph of ``reps`` launches, one graph a conv, and all are timed
+    in turns.
     ``others``: more {name: reduce function} with ``reduce_partials``'
     signature (another build's), checked and timed in the same turns.
     Returns {name: {conv i: ms}}, with the four summed under "sum"."""
@@ -858,7 +875,7 @@ def wav_reduce_turns(card, b, others=None, iters=20, reps=10):
     parts = {i: torch.randn(k3.wgrad_geometry(b, t[i], ch[i], ch[i + 1]).nsplit,
                             ch[i + 1] * ch[i] * 15 + ch[i + 1], generator=g).cuda()
              for i in (3, 2, 1)}
-    parts[0] = torch.randn(b, 32 * 15 + 32, generator=g).cuda()
+    parts[0] = torch.randn(k3.wgrad0_geometry(b, dims.L).ctas, 32 * 15 + 32, generator=g).cuda()
     flat = lambda out: torch.cat([out[0].reshape(-1), out[1]])
     fns = {"kernel": k3.reduce_partials, **(others or {})}
     rel, runs = 0.0, {}
@@ -885,6 +902,132 @@ def wav_reduce_turns(card, b, others=None, iters=20, reps=10):
                       for n, v in out.items())
           + f" (rel {rel:.1e} against f64; the kernel's bits as the CPU's); CUDA graphs of "
           f"{reps} launches, in turns ({card})")
+    return out
+
+
+SMS, FP32_LANES = 132, 128  # H100 SXM: SMs, and FP32 lanes an SM
+
+
+def max_sm_clock_hz():
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi clocks.max.sm failed: {smi.stderr.strip()}")
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
+def conv0_floor_ms(b, length, clock_hz, kernel, need_wav_grad=False):
+    """The instruction floor of K3's conv0 kernels under the rounding rule
+    (every tap of conv0 a rounded product and a rounded sum, no FMA: two
+    FP32 instructions), ms: conv0 over the times whose window reaches a
+    sample, and for wgrad0 one FMA for each product of dW0 (and of d_wav),
+    at one instruction a lane a clock on 132 SMs of 128 FP32 lanes."""
+    taps = conv0_taps(b, length)
+    instr = 2 * taps
+    if kernel == "wgrad0":
+        instr += taps * (2 if need_wav_grad else 1)
+    return instr / (SMS * FP32_LANES * clock_hz) * 1e3
+
+
+def wav_conv0_turns(card, b, others=None, unchecked=(), iters=10, reps=5):
+    """K3's two conv0 kernels alone, at TED's waveform length: the
+    statistics kernel (``conv0_stats``: IN0's mean and 1/std, conv0
+    recomputed from the waveform) and the conv0 backward kernel
+    (``conv0_partials``: g_m0 through IN0, the dW0 and db0 partials, and
+    d_wav or not) on the gy1 and sums that a backward's conv1 data
+    gradient produced. Each result is held first against the plain version
+    in f64 and a second call against the first's bits; then each call is
+    replayed from a CUDA graph of ``reps`` calls and all are timed in
+    turns. ``others``: more {name: (stats0, partials)} with those two
+    functions' signatures (another build's), checked (unless in
+    ``unchecked``) and timed in the same turns. Printed for information
+    only, cuDNN doing the same work on materialised tensors: F.conv1d for
+    conv0 then torch.var_mean; and, on g_m0, conv0's weight and bias
+    gradient (aten.convolution_backward), with the data gradient for d_wav.
+    Returns {name: {"stats0", "wgrad0", "wgrad0+d_wav": ms a call}}."""
+    import torch.nn.functional as F
+
+    from livelyspeaker_tpu_torch.models import WavEncoder, audio_samples_for_frames
+    from livelyspeaker_tpu_torch.models.initializers import random_normal_
+    from livelyspeaker_tpu_torch.ops import fused_wav as k3
+
+    g = torch.Generator().manual_seed(110 + b)
+    enc = random_normal_(WavEncoder(), g).cuda()
+    packed = k3.pack_wav_params(enc, differentiable=False)
+    length = audio_samples_for_frames(34)
+    d = k3.WavDims(length)
+    wav = (0.1 * torch.randn(b, length, generator=g)).cuda()
+    _, res = k3.fused_wav_forward(wav, packed)
+    cot = torch.randn(b, d.T4, 256, generator=g).cuda()
+    _, gy1, sums = k3._stack_backward(res, cot, packed, 0.3, d)
+    # the plain versions in f64, on the kernels' st0, gy1 and sums
+    p64 = {k: v.double() for k, v in packed.items()}
+    st64 = res.st0.double()
+    ref_st = k3._norm_stats(k3._conv0(wav.double(), p64))
+    xh = k3._xhat(k3._conv0(wav.double(), p64), st64)
+    tot = sums.double().sum(1) / d.T1
+    g_m0 = k3._in_backward(gy1.double().transpose(1, 2), xh, st64, tot[:, 0], tot[:, 1])
+    del xh
+    ref_dwav, ref_dw, ref_db = k3._conv0_grads(wav.double(), g_m0, p64, True)
+    top = ref_dw.abs().max().item()
+
+    fns = {"kernel": (k3.conv0_stats, k3.conv0_partials), **(others or {})}
+    notes, runs = [], {}
+    for name, (stats0, partials) in fns.items():
+        st = stats0(wav, packed)
+        same = torch.equal(st, stats0(wav, packed))
+        mean_err = ((st[:, 0].double() - ref_st[:, 0]) * ref_st[:, 1]).abs().max().item()
+        inv_err = _rel(st[:, 1].double(), ref_st[:, 1])
+        errs = {"stats0 mean (of the std)": mean_err, "stats0 1/std": inv_err}
+        for need in (False, True):
+            dw_, part = partials(res, gy1, sums, packed, need)
+            dw2, part2 = partials(res, gy1, sums, packed, need)
+            same = same and torch.equal(part, part2) and (not need or torch.equal(dw_, dw2))
+            dw0, db0 = k3.reduce_partials(part, 0)
+            errs[f"dW0{' (d_wav)' if need else ''}"] = _rel(dw0.double(), ref_dw)
+            errs[f"db0{' (d_wav)' if need else ''} / max|dW0|"] = (
+                (db0.double() - ref_db).abs().max().item() / top)
+            if need:
+                errs["d_wav"] = _rel(dw_.double(), ref_dwav)
+        notes.append(f"{name}: " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+                     + ("" if same else ", OTHER BITS TWICE"))
+        if name not in unchecked:
+            tol = {k: KERNEL_TOL if k.startswith("stats0") else GRAD_TOL for k in errs}
+            bad = {k: v for k, v in errs.items() if not v <= tol[k]}
+            check(same and not bad, f"K3 conv0 kernels {name} B={b}: {bad} over tolerance, "
+                  f"same bits on a second call: {same}")
+        runs[f"{name} stats0"] = graphed_reps(lambda f=stats0: f(wav, packed), reps)
+        for need, key in ((False, "wgrad0"), (True, "wgrad0+d_wav")):
+            runs[f"{name} {key}"] = graphed_reps(
+                lambda f=partials, n=need: f(res, gy1, sums, packed, n), reps)
+    del ref_st, ref_dwav, ref_dw, ref_db
+    # cuDNN on materialised tensors, for information
+    w0, b0 = packed["w0"], packed["b0"]
+    x = wav[:, None]
+    g32 = g_m0.float().contiguous()
+    del g_m0
+    runs["cuDNN stats0"] = graphed_reps(lambda: torch.var_mean(
+        F.conv1d(x, w0, b0, stride=5, padding=1600), dim=2, correction=0), reps)
+    for mask, key in (([False, True, True], "wgrad0"), ([True, True, True], "wgrad0+d_wav")):
+        runs[f"cuDNN {key}"] = graphed_reps(lambda m=mask: torch.ops.aten.convolution_backward(
+            g32, x, w0, [32], [5], [1600], [1], False, [0], 1, m), reps)
+    times = {k: v / reps for k, v in time_turns(runs, iters).items()}
+    keys = ("stats0", "wgrad0", "wgrad0+d_wav")
+    out = {n: {k: times[f"{n} {k}"] for k in keys} for n in list(fns) + ["cuDNN"]}
+    clock = max_sm_clock_hz()
+    cost = k3_cost(b, length)
+    bounds = {"stats0": bound(*cost["stats0"])[0], "wgrad0": bound(*cost["wgrad0"])[0]}
+    floors = {"stats0": conv0_floor_ms(b, length, clock, "stats0"),
+              "wgrad0": conv0_floor_ms(b, length, clock, "wgrad0"),
+              "wgrad0+d_wav": conv0_floor_ms(b, length, clock, "wgrad0", True)}
+    print(f"[wav-conv0] B={b} L={length}, ms a call: " + "; ".join(
+        f"{n} " + ", ".join(f"{k} {v[k]:.4f}" for k in keys) for n, v in out.items())
+        + f"; table bound stats0 {bounds['stats0']:.4f}, wgrad0 {bounds['wgrad0']:.4f}; "
+        f"rounding-rule floor at {clock / 1e9:.3f} GHz: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in floors.items())
+        + f" (cuDNN on materialised conv0 / g_m0, for information; {'; '.join(notes)}); CUDA "
+        f"graphs of {reps} calls, in turns ({card})")
     return out
 
 
@@ -1151,11 +1294,15 @@ def wav_kernel_phase(card):
         wav_bwd_data_turns(card, b)
         stats_ms = wav_stats_turns(card, b)
         reduce_ms = wav_reduce_turns(card, b)
+        conv0_ms = wav_conv0_turns(card, b)
         if b == TRAIN_BATCH:
-            # stats and reduce: device time of their launches alone, from the
-            # same graph replays as the library calls they are held to
+            # stats, reduce, stats0 and wgrad0 (without d_wav, as a training
+            # step runs it): device time of their launches alone, from graph
+            # replays in turns with the calls they are held to
             report = {"ms": {**per_kernel, "stats": stats_ms["kernel"],
-                             "reduce": reduce_ms["kernel"]["sum"]},
+                             "reduce": reduce_ms["kernel"]["sum"],
+                             "stats0": conv0_ms["kernel"]["stats0"],
+                             "wgrad0": conv0_ms["kernel"]["wgrad0"]},
                       "plain_fwd": plain["fwd"], "plain_bwd": plain["bwd"],
                       "library": {"stats": stats_ms["library"],
                                   "reduce": reduce_ms["library"]["sum"]},
@@ -1531,10 +1678,13 @@ def main():
     # product, one torch.sum each reduce kernel's sums, and torch.var_mean
     # (then an rsqrt of B*C values) K3's statistics kernel's; no single
     # PyTorch call computes any other of these functions (8-block mixer
-    # stacks and their backward; K3's stats0, which recomputes conv0, its
-    # in_bwd, and its convs over an InstanceNorm and a LeakyReLU: cuDNN's
-    # forward conv, weight and data gradients, printed beside K3's, skip
-    # the InstanceNorm, the LeakyReLU and conv0)
+    # stacks and their backward; K3's in_bwd, and its convs over an
+    # InstanceNorm and a LeakyReLU: cuDNN's forward conv, weight and data
+    # gradients, printed beside K3's, skip the InstanceNorm, the LeakyReLU
+    # and conv0; K3's stats0 and wgrad0, which recompute conv0 and go
+    # through IN0: F.conv1d then torch.var_mean, and cuDNN's conv0 weight
+    # and data gradient on a materialised g_m0, printed beside them, are
+    # two or more calls each)
     kernels = [{
         "name": "fused_transmlp", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,

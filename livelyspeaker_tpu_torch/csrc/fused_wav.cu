@@ -3,8 +3,8 @@
 //   conv0 (k15, stride 5, padded 1600 a side, 1 -> 32) -> IN -> LReLU
 //   -> conv1 (stride 6, 32 -> 64) -> IN -> LReLU -> conv2 (64 -> 128) -> IN
 //   -> LReLU -> conv3 (128 -> 256),
-// InstanceNorm without affine, eps 1e-5, statistics in f32 (IN0's in two
-// passes, IN1's and IN2's in one pass, shifted, combined by Chan's formula).
+// InstanceNorm without affine, eps 1e-5, statistics in f32 (one pass each,
+// shifted, combined by Chan's formula).
 //
 // Replaces livelyspeaker_tpu/ops/pallas/fused_wav.py: fused_wav_encoder, the
 // Pallas TPU kernels `_fwd_a/_fwd_b/_fwd_c` and `_bwd_a/_bwd_b/_bwd_c`.
@@ -16,9 +16,10 @@
 //
 // conv0's output, [B, T1, 32] (517 MB at B = 512 on TED), is never written.
 // conv0 has one input channel and 15 taps, so each kernel that needs an
-// element of it recomputes it from the waveform (15 FMAs), and the
-// normalisation and LeakyReLU are applied on load. Forward, nine launches:
-//   wav_stats0_kernel        IN0 statistics, two passes over recomputed conv0;
+// element of it recomputes it from the waveform (15 taps, each a rounded
+// product and a rounded sum), and the normalisation and LeakyReLU are
+// applied on load. Forward, nine launches:
+//   wav_stats0_kernel        IN0 statistics, one pass over recomputed conv0;
 //   wav_wsplit_fwd_kernel    w1 split into TF32 halves, in the order the
 //                            forward conv reads it;
 //   wav_conv_fwd_kernel<1>   conv1 over lrelu(IN0(conv0)) on the tensor cores
@@ -44,9 +45,10 @@
 //                            partial sums of gy and gy * xhat;
 //   wav_in_bwd_kernel        (i = 3, 2) the InstanceNorm backward in place:
 //                            g_m = inv (gy - mean(gy) - xhat mean(gy xhat));
-// and for conv0 wav_wgrad0_kernel (one block a sequence: g_m0 from gy1 on
-// the fly, dW0 and db0 partials, and d_wav as a gather of at most three
-// conv0 taps a sample), then wav_reduce_kernel. IN0's backward needs the
+// and for conv0 wav_wgrad0_kernel (a sequence's times split over warps:
+// g_m0 from gy1 on the fly, dW0 and db0 partials a CTA, and d_wav as the
+// overlap-add of at most three times a sample), then wav_reduce_kernel.
+// IN0's backward needs the
 // sums of gy1 over all 7,891 times before any g_m0 exists, so gy1
 // [B, T1, 32] is written once by bwd_data and read once by wgrad0;
 // recomputing conv1^T g_m1 instead would cost another 41 GFLOP at B = 512.
@@ -61,9 +63,10 @@
 // What bounds it: about 90 GFLOP forward and twice that backward at B = 512
 // on TED. The forward convs and the weight and data gradients run on the
 // tensor cores in 3xTF32 (mma.sync, tf32_mma.cuh); the statistics of m1
-// and m2 and the reduce are bound by the bytes they read; the other
-// kernels are plain f32 FMA, bound by the FP32 pipe and the shared-memory
-// loads that feed it. wgmma is later work.
+// and m2 and the reduce are bound by the bytes they read; the two conv0
+// kernels by conv0's recompute on the FP32 pipe, two instructions a tap
+// under the rounding rule (conv0_tap), and wgrad0 also by reading gy1; the
+// InstanceNorm backward by its bytes. wgmma is later work.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -84,13 +87,11 @@ constexpr float kEps = 1e-5f;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ __forceinline__ float lrelu(float x, float leak) { return x > 0.0f ? x : leak * x; }
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
 // The input activation of a stage, a = lrelu(xhat), xhat = (pre - mean) * inv:
 // `pre` from a stored pre-norm tensor [B, T, C], or (kFromWav) conv0's
@@ -113,65 +114,189 @@ __device__ __forceinline__ float conv0_tap(float m, float w, float x) {
   return __fadd_rn(m, __fmul_rn(w, x));
 }
 
+// ---------------------------------------------------------------- conv0
+//
+// Shared by wav_stats0_kernel and wav_wgrad0_kernel: conv0 recomputed with
+// a lane a channel. A warp walks its times in batches of kC0Batch; the
+// waveform samples under a batch reach the warp's own shared buffer by
+// cp.async (4 bytes each, zero-filled in conv0's padding) one batch ahead,
+// and each lane keeps its channel's 15 weights and the samples of a group
+// of four times (30) in registers. A group reads its 30 samples as one
+// 8-byte and seven 16-byte loads that every lane of the warp makes at the
+// same address (one broadcast each): no shared-memory load per tap. The
+// four times' sums are independent, so four chains of conv0_tap are in
+// flight a lane.
+
+constexpr int kC0Batch = 32;  // times a warp batch
+constexpr int kC0Group = 4;   // times a group
+constexpr int kC0GroupX = kS0 * (kC0Group - 1) + kK;     // 30 samples under a group
+constexpr int kC0Samples = kS0 * kC0Batch + kK - kS0;   // 170 samples under a batch
+constexpr int kC0XOff = 2;    // buffer index of a batch's sample 0: a group's samples 2 .. 29 are 16-byte aligned
+constexpr int kC0XBuf = 176;  // a batch's sample buffer, floats
+static_assert(kC0XOff + kC0Samples <= kC0XBuf && kC0XBuf % 4 == 0, "sample buffer");
+static_assert((kC0XOff + 2) % 4 == 0, "a group's samples after its first two are 16-byte aligned");
+constexpr int kT0Lo = (kPad0 - kK) / kS0 + 1;  // 318: the first time whose window reaches a sample
+
+// The end of conv0's live times: times at or past it, and before kT0Lo,
+// see only padding, and conv0 there is b0 exactly (a tap adds w * 0).
+__host__ __device__ __forceinline__ int conv0_hi(int L, int T1) {
+  return min(T1, (L + kPad0 + kS0 - 1) / kS0);
+}
+
+// The samples under the batch of times t0 .. t0 + 31 of one waveform row
+// into xb[kC0XOff ..], 4-byte cp.async copies by the warp's lanes.
+__device__ __forceinline__ void stage_samples(float* xb, const float* row, int L, int t0, int lane) {
+  const int p0 = kS0 * t0 - kPad0;
+#pragma unroll
+  for (int j = lane; j < kC0Samples + 32 - kC0Samples % 32; j += 32) {
+    const int wi = p0 + j;
+    const bool in = j < kC0Samples && wi >= 0 && wi < L;
+    if (j < kC0Samples) cp_async4(xb + kC0XOff + j, row + (in ? wi : 0), in);
+  }
+}
+
+// x[0 .. 29]: the samples under group g of a batch, one 8-byte and seven
+// 16-byte loads (reloading the 10 it shares with group g - 1 costs fewer
+// instructions than moving them between registers)
+__device__ __forceinline__ void group_samples(const float* xb, int g, float (&x)[kC0GroupX]) {
+  const float* p = xb + kC0XOff + kS0 * kC0Group * g;
+  const float2 a = ld2(p);
+  x[0] = a.x, x[1] = a.y;
+#pragma unroll
+  for (int v = 0; v < 7; ++v) {
+    const float4 q = ld4(p + 2 + 4 * v);
+    x[2 + 4 * v] = q.x, x[3 + 4 * v] = q.y, x[4 + 4 * v] = q.z, x[5 + 4 * v] = q.w;
+  }
+}
+
+// conv0 of one channel at the four times of a group, bias first, taps in
+// order (conv0_tap)
+__device__ __forceinline__ void conv0_group(const float (&w)[kK], float bias,
+                                            const float (&x)[kC0GroupX], float (&m)[kC0Group]) {
+#pragma unroll
+  for (int i = 0; i < kC0Group; ++i) m[i] = bias;
+#pragma unroll
+  for (int k = 0; k < kK; ++k)
+#pragma unroll
+    for (int i = 0; i < kC0Group; ++i) m[i] = conv0_tap(m[i], w[k], x[kS0 * i + k]);
+}
+
 // ---------------------------------------------------------------- statistics
 
-// IN0's mean and 1/std for one sequence a block: each thread recomputes
-// conv0 at times tid, tid + 256, ... for all 32 channels; pass 0 sums, pass
-// 1 sums squares about the mean. Warp sums, then the 8 warps in order.
-__global__ void __launch_bounds__(kThreads) wav_stats0_kernel(Src s, float* __restrict__ st) {
-  __shared__ float w_s[kC0 * kK];
-  __shared__ float b_s[kC0];
-  __shared__ float red[kWarps][kC0];
-  __shared__ float mean_s[kC0];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, b = blockIdx.x;
-  for (int i = tid; i < kC0 * kK; i += kThreads) w_s[i] = __ldg(s.w0 + i);
-  if (tid < kC0) b_s[tid] = __ldg(s.b0 + tid);
-  __syncthreads();
+constexpr int kStatsSMs = 132;   // the CTAs that fill an H100, one an SM
+constexpr int kStatsCluster = 8; // the portable cluster size
+
+struct Moments {
+  float n, mean, m2;
+};
+
+// Chan's combine of the moments of two sets of rows, a's before b's.
+__device__ __forceinline__ Moments chan(Moments a, Moments b) {
+  const float n = __fadd_rn(a.n, b.n);
+  if (n == 0.0f) return a;
+  const float d = __fsub_rn(b.mean, a.mean), f = __fdiv_rn(b.n, n);
+  return {n, __fadd_rn(a.mean, __fmul_rn(d, f)),
+          __fadd_rn(__fadd_rn(a.m2, b.m2), __fmul_rn(__fmul_rn(d, d), __fmul_rn(a.n, f)))};
+}
+
+// (n, s1 / n, s2 - s1 mean) of n rows from their sums s1 and s2 of squares
+__device__ __forceinline__ Moments moments(float n, float s1, float s2) {
+  const float mean = __fdiv_rn(s1, n);
+  return {n, mean, fmaxf(__fsub_rn(s2, __fmul_rn(s1, mean)), 0.0f)};
+}
+
+// IN0's mean and 1/std, st0 [B, 2, 32], over conv0's output, which is
+// never stored. Replaces the IN0 statistics of livelyspeaker_tpu/ops/
+// pallas/fused_wav.py:254 _fwd_a (conv0 as the im2col product, the
+// statistics by _in_lrelu, :224; the JAX formula: models/audio_encoder.py:42
+// _instance_norm over conv0, :68-69). What bounds it: conv0's FP32 work.
+// Every tap is a rounded product and a rounded sum (conv0_tap: the same
+// bits in every K3 kernel), two instructions, so one pass over the 7,256
+// live times of TED's 7,891 takes 1.78 G taps, 3.57 G instructions, at
+// B = 512: 0.11 ms at 132 SMs x 128 lanes x 1.98 GHz. Its bytes (the
+// waveform, 74 MB) take 0.022 ms. Design:
+// - One pass: conv0 is computed once. The sums are shifted by row 0 of
+//   conv0, which is b0 exactly (time 0 sees only padding), so every CTA
+//   has the shift without work, and the times that see only padding (635
+//   of TED's 7,891) have d = 0: they are skipped and enter at the end as
+//   moments (n_pad, 0, 0).
+// - A sequence's live times [kT0Lo, conv0_hi) are split over a cluster of N
+//   CTAs (ops/fused_wav.py: stats0_geometry, from (B, L) only: N as large as B N needs to
+//   fill the card, at most 8), rank r owning [kT0Lo + r per, ...). Warp w
+//   of a CTA takes its batches of 32 times at offsets 32 w, 32 w + 256, ...
+//   and lane c is channel c (the conv0 design above).
+// - A lane sums d = conv0 - b0 and d^2 over a batch, turns the sums into
+//   the batch's (n, mean, M2), and combines the batches in order by Chan's
+//   formula; then the warps in order, through shared memory, the CTAs in
+//   rank order in rank 0's shared memory (distributed shared memory), and
+//   last the padding's moments. Every add, product, quotient and root is
+//   rounded on its own, so a CPU emulation in f32 gives the same bits. No
+//   atomics: the same bits every run.
+__global__ void __launch_bounds__(kThreads)
+wav_stats0_kernel(Src s, int per, float* __restrict__ st) {
+  __shared__ __align__(16) float xbuf[kWarps][2][kC0XBuf];
+  __shared__ Moments warp_m[kWarps][kC0];
+  __shared__ Moments cta_m[kStatsCluster][kC0];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), N = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, b = blockIdx.x / N;
+  cluster_arrive();  // rank 0's shared memory is written only once every CTA runs
   const float* row = s.wav + (size_t)b * s.L;
-  float* stb = st + (size_t)b * 2 * kC0;
-  for (int pass = 0; pass < 2; ++pass) {
-    float acc[kC0];
+  const int hi = conv0_hi(s.L, s.T);
+  const int lo = kT0Lo + rank * per, end = min(hi, lo + per);
+  float w[kK];
 #pragma unroll
-    for (int c = 0; c < kC0; ++c) acc[c] = 0.0f;
-    for (int t = tid; t < s.T; t += kThreads) {
-      float x[kK];
-      const int p0 = kS0 * t - kPad0;
+  for (int k = 0; k < kK; ++k) w[k] = __ldg(s.w0 + lane * kK + k);
+  const float bias = __ldg(s.b0 + lane);
+  constexpr int kStep = kWarps * kC0Batch;
+  int t0 = lo + kC0Batch * warp, buf = 0;
+  if (t0 < end) stage_samples(xbuf[warp][0], row, s.L, t0, lane);
+  cp_async_commit();
+  Moments run{0.0f, 0.0f, 0.0f};
+  for (; t0 < end; t0 += kStep, buf ^= 1) {
+    if (t0 + kStep < end) stage_samples(xbuf[warp][buf ^ 1], row, s.L, t0 + kStep, lane);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();  // every lane's copies of this batch have landed
+    const float* xb = xbuf[warp][buf];
+    const int n = min(kC0Batch, end - t0);
+    float x[kC0GroupX];
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int g = 0; g * kC0Group < n; ++g) {
+      group_samples(xb, g, x);
+      float m[kC0Group];
+      conv0_group(w, bias, x, m);
 #pragma unroll
-      for (int k = 0; k < kK; ++k) {
-        const int i = p0 + k;
-        x[k] = (i >= 0 && i < s.L) ? __ldg(row + i) : 0.0f;
-      }
-#pragma unroll
-      for (int c = 0; c < kC0; ++c) {
-        float m = b_s[c];
-#pragma unroll
-        for (int k = 0; k < kK; ++k) m = conv0_tap(m, w_s[c * kK + k], x[k]);
-        if (pass == 0) {
-          acc[c] += m;
-        } else {
-          m -= mean_s[c];
-          acc[c] = fmaf(m, m, acc[c]);
+      for (int i = 0; i < kC0Group; ++i) {
+        if (g * kC0Group + i < n) {
+          const float d = __fsub_rn(m[i], bias);
+          s1 = __fadd_rn(s1, d);
+          s2 = __fadd_rn(s2, __fmul_rn(d, d));
         }
       }
     }
-#pragma unroll
-    for (int c = 0; c < kC0; ++c) {
-      const float v = warp_sum(acc[c]);
-      if (lane == 0) red[warp][c] = v;
-    }
-    __syncthreads();
-    if (tid < kC0) {
-      float tot = 0.0f;
-      for (int w = 0; w < kWarps; ++w) tot += red[w][tid];
-      if (pass == 0) {
-        mean_s[tid] = tot / s.T;
-        stb[tid] = tot / s.T;
-      } else {
-        stb[kC0 + tid] = 1.0f / sqrtf(tot / s.T + kEps);
-      }
-    }
-    __syncthreads();
+    run = chan(run, moments((float)n, s1, s2));
+    __syncwarp();  // the buffer is read before the next batch's copies refill it
   }
+  cp_async_wait<0>();
+  warp_m[warp][lane] = run;
+  __syncthreads();
+  Moments c{0.0f, 0.0f, 0.0f};
+  if (tid < kC0) {
+    c = warp_m[0][tid];
+#pragma unroll
+    for (int q = 1; q < kWarps; ++q) c = chan(c, warp_m[q][tid]);
+  }
+  cluster_wait();
+  if (tid < kC0) cluster.map_shared_rank(&cta_m[0][0], 0)[rank * kC0 + tid] = c;
+  cluster.sync();
+  if (rank != 0 || tid >= kC0) return;
+  c = cta_m[0][tid];
+  for (int q = 1; q < N; ++q) c = chan(c, cta_m[q][tid]);
+  c = chan(Moments{(float)(s.T - (hi - kT0Lo)), 0.0f, 0.0f}, c);
+  float* stb = st + (size_t)b * 2 * kC0;
+  stb[tid] = __fadd_rn(__ldg(s.b0 + tid), c.mean);
+  stb[kC0 + tid] = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(__fdiv_rn(c.m2, (float)s.T), kEps)));
 }
 
 // The InstanceNorm statistics of a stored pre-norm tensor x [B, T, C]
@@ -197,21 +322,6 @@ __global__ void __launch_bounds__(kThreads) wav_stats0_kernel(Src s, float* __re
 // - Every add, product, quotient and root is rounded on its own (no FMA
 //   contraction), so a CPU emulation in f32 gives the same bits.
 constexpr int kStatsU = 4;       // 16-byte loads in flight a thread
-constexpr int kStatsSMs = 132;   // the CTAs that fill an H100, one an SM
-constexpr int kStatsCluster = 8; // the portable cluster size
-
-struct Moments {
-  float n, mean, m2;
-};
-
-// Chan's combine of the moments of two sets of rows, a's before b's.
-__device__ __forceinline__ Moments chan(Moments a, Moments b) {
-  const float n = __fadd_rn(a.n, b.n);
-  if (n == 0.0f) return a;
-  const float d = __fsub_rn(b.mean, a.mean), f = __fdiv_rn(b.n, n);
-  return {n, __fadd_rn(a.mean, __fmul_rn(d, f)),
-          __fadd_rn(__fadd_rn(a.m2, b.m2), __fmul_rn(__fmul_rn(d, d), __fmul_rn(a.n, f)))};
-}
 
 __device__ __forceinline__ Moments shfl_down(Moments m, int o) {
   return {__shfl_down_sync(0xffffffffu, m.n, o), __shfl_down_sync(0xffffffffu, m.mean, o),
@@ -392,10 +502,6 @@ struct FGeo {
   static constexpr size_t kBytes =
       kFBarBytes + (size_t)(kFWRing * kFW + kFRing * kSlot + kSamples) * sizeof(float);
 };
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
 
 // taps of a stage of residue r: 3 for r < 3, else 2; its first slot in a
 // split block of 15 taps ordered (r, j): k = 0 6 12 1 7 13 2 8 14 3 9 4 10 5 11
@@ -1381,88 +1487,252 @@ int bwd_data_rows(int from_wav, int T_in) {
   return from_wav || q > 48 ? 64 : 48;
 }
 
-constexpr int kT0 = 128;  // conv0 times per step of wgrad0
 constexpr int kW0Part = kC0 * kK + kC0;  // 512: dW0 [32, 1, 15], then db0
+constexpr int kW0Row = kC0 + 4;  // a staged row of gy1 (then g_m0): 32 channels, padded
+constexpr int kW0GyBuf = kC0Batch * kW0Row;
+constexpr int kW0Carry = 2 * (kK - kS0);  // d_wav's carries of a warp: h[t, 5 ..] of the batch's last two times
+constexpr int kW0HRow = kC0Batch + 4;      // a row (one tap) of h in the freed gy1 buffer: two carried times, 32, padded
+constexpr int kW0Split = 4 * 2 * 32 * 4;   // w0 split into TF32 halves as d_wav's B fragments
+constexpr size_t kW0SplitAt = (size_t)kWarps * (2 * (kC0XBuf + kW0GyBuf) + kW0Carry);
+constexpr size_t kW0Smem = (kW0SplitAt + kW0Split) * sizeof(float);
+static_assert(kS0 * kC0Batch <= kC0XBuf, "a batch's d_wav samples fit its sample buffer");
+static_assert(16 * kW0HRow <= kW0GyBuf, "h fits the batch's gy1 buffer");
+static_assert(kW0SplitAt % 4 == 0, "the split weights are 16-byte aligned");
+static_assert(kW0Smem >= (size_t)kWarps * kW0Part * sizeof(float), "the CTA's sums fit");
 
-// conv0's backward for one sequence a block, in steps of 128 times:
-// g_m0 = inv0 (gy1 - mean(gy1) - xhat0 mean(gy1 xhat0)) for the step's times
-// and the two before them (xhat0 recomputed), the step's dW0 and db0 sums
-// into registers (two outputs a thread), and d_wav for the padded samples
-// p in [5 t0, 5 (t0 + 128)): sum over t = p/5, p/5 - 1, p/5 - 2 of
-// sum_c w0[c, 0, p - 5t] g_m0[t, c]. Writes part [B, 512].
-__global__ void __launch_bounds__(kThreads)
-wav_wgrad0_kernel(Src s, const float* __restrict__ gy, const float* __restrict__ part_in, int ntq,
-              float* __restrict__ part, float* __restrict__ dwav) {
-  __shared__ float gm_s[kT0 + 2][kC0 + 1];
-  __shared__ float x_s[kS0 * (kT0 + 2) + kK];
-  __shared__ float w_s[kC0 * kK];
-  __shared__ float b_s[kC0], mean_s[kC0], inv_s[kC0], m1_s[kC0], m2_s[kC0];
-  const int tid = threadIdx.x, b = blockIdx.x, T1 = s.T;
-  for (int i = tid; i < kC0 * kK; i += kThreads) w_s[i] = __ldg(s.w0 + i);
-  if (tid < 2 * kC0) {
-    const int which = tid / kC0, c = tid % kC0;
-    float tot = 0.0f;
-    for (int i = 0; i < ntq; ++i) tot += __ldg(part_in + (((size_t)b * ntq + i) * 2 + which) * kC0 + c);
-    (which ? m2_s : m1_s)[c] = tot / T1;
-  }
-  if (tid < kC0) {
-    b_s[tid] = __ldg(s.b0 + tid);
-    mean_s[tid] = __ldg(s.st + (size_t)b * 2 * kC0 + tid);
-    inv_s[tid] = __ldg(s.st + (size_t)b * 2 * kC0 + kC0 + tid);
-  }
-  const float* row = s.wav + (size_t)b * s.L;
-  float acc[2] = {0.0f, 0.0f};
-  for (int t0 = 0; t0 < T1; t0 += kT0) {
+// x = hi + lo with hi the top 11 significant bits of x (TF32, truncated)
+// and lo the rest, exact; the tensor cores read lo's top 11 bits, so a
+// product keeps about 21 bits of x: two integer or float instructions, not
+// split_tf32's rounding.
+__device__ __forceinline__ void split_tf32_trunc(float x, float& hi, float& lo) {
+  hi = __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+  lo = x - hi;
+}
+
+// conv0's backward through IN0. Replaces the conv0 part of
+// livelyspeaker_tpu/ops/pallas/fused_wav.py:370 _bwd_a: IN0's backward
+// through _in_bwd (:303), db0_ref += _sum_bias(g_m0), dw0_ref +=
+// _dotT(x2d, g_m0), and the dx45 product folded into d_wav. For a time t
+// and channel c:
+//   g_m0[t, c] = inv0 (gy1[t, c] - mean_t(gy1) - xhat0[t, c] mean_t(gy1 xhat0)),
+// xhat0 = (conv0 - mean0) inv0 with conv0 recomputed, the two means from
+// conv1's data-gradient tile sums (in tile order); then
+//   dW0[c, k] += g_m0[t, c] x[5t + k],  db0[c] += g_m0[t, c],
+//   d_wav[5t + j] = sum_{i < 3} h[t - i, j + 5i],  h[t, k] = sum_c w0[c, k] g_m0[t, c].
+// What bounds it: reading gy1 [B, T1, 32] once (517 MB at TED B = 512,
+// 0.154 ms at 3.35 TB/s), and the FP32 work under the rounding rule: conv0
+// at two instructions a tap (0.11 ms) and one FMA a product of dW0 (0.05
+// ms); h's products run on the tensor cores. Design:
+// - Each sequence's T1 times are split over `splits` warps
+//   (ops/fused_wav.py: wgrad0_geometry, from (B, L) only: about two CTAs
+//   of 8 warps an SM at once), warp k of the grid owning sequence
+//   k / splits, times [j per, (j + 1) per), j = k % splits. A lane is a
+//   channel (the conv0 design above): its 15 weights and a group's 30
+//   samples in registers; gy1 and the samples of
+//   a batch of 32 times reach the warp's shared buffers by cp.async one
+//   batch ahead (gy1 in 16-byte copies, rows padded to 36 floats). The
+//   dW0 products take the samples and g_m0 from registers, 15 FMAs a time
+//   (on the tensor cores, measured, a batch's 48 mma.sync took as long as
+//   its 480 FMAs, and the register cap made it spill). The times that see
+//   only padding skip conv0 (it is b0) and dW0 (their samples are 0); they
+//   still give g_m0, for db0.
+// - d_wav: a lane writes its g_m0 over the staged gy1 of its channel; then
+//   the warp computes h = g_m0 w0 for the batch, [32 times x 32 channels]
+//   x [32 x 16 taps (the 16th 0)], on the tensor cores in 3xTF32 (mma.sync
+//   m16n8k8, tf32_mma.cuh): A read from the g_m0 rows (36 floats apart: no
+//   bank conflict) and split as it is loaded, B (w0's halves) from shared
+//   memory, split once a launch. h goes to the freed gy1 buffer tap-major,
+//   beside the two times before the batch (carried), and a lane, now a
+//   time, adds its five samples h[t, j] + h[t - 1, j + 5] + h[t - 2, j + 10];
+//   they leave through the batch's sample buffer, 32 consecutive samples a
+//   store. A warp first runs the four times before its range (the halo)
+//   without summing them, so each sample is written once, by the warp that
+//   owns time p / 5.
+// - Each CTA adds its warps' dW0 and db0 in warp order and writes one
+//   partial row, part [ctas, 512]; wav_reduce_kernel sums the rows in its
+//   fixed grouping. No atomics: the same bits every run.
+__global__ void __launch_bounds__(kThreads, 2)
+wav_wgrad0_kernel(Src s, const float* __restrict__ gy, const float* __restrict__ sums, int ntq,
+                  int B, int splits, int per, float* __restrict__ part,
+                  float* __restrict__ dwav) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, T1 = s.T;
+  float* const xbuf = smem + warp * 2 * kC0XBuf;
+  float* const gbuf = smem + kWarps * 2 * kC0XBuf + warp * 2 * kW0GyBuf;
+  float* const carry = smem + kWarps * 2 * (kC0XBuf + kW0GyBuf) + warp * kW0Carry;
+  float* const wsp = smem + kW0SplitAt;
+  if (dwav != nullptr) {  // w0 into TF32 halves as the B fragments of h's product
+    const int ks = tid / 64, nt = tid / 32 % 2, gq = lane / 4, tq = lane % 4, q = 8 * nt + gq;
+    float h0, l0, h1, l1;
+    split_tf32(q < kK ? __ldg(s.w0 + (8 * ks + tq) * kK + q) : 0.0f, h0, l0);
+    split_tf32(q < kK ? __ldg(s.w0 + (8 * ks + tq + 4) * kK + q) : 0.0f, h1, l1);
+    reinterpret_cast<float4*>(wsp)[tid] = make_float4(h0, h1, l0, l1);
     __syncthreads();
-    const int p0 = kS0 * (t0 - 2) - kPad0;  // waveform index of x_s[0]
-    for (int i = tid; i < kS0 * (kT0 + 2) + kK; i += kThreads) {
-      const int wi = p0 + i;
-      x_s[i] = (wi >= 0 && wi < s.L) ? __ldg(row + wi) : 0.0f;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < (kT0 + 2) * kC0; idx += kThreads) {
-      const int u = idx / kC0, c = idx % kC0, t = t0 - 2 + u;
-      float v = 0.0f;
-      if (t >= 0 && t < T1) {
-        float m = b_s[c];
+  }
+  const int k = blockIdx.x * kWarps + warp, b = k / splits;
+  float acc[kK], db = 0.0f;
 #pragma unroll
-        for (int k = 0; k < kK; ++k) m = conv0_tap(m, w_s[c * kK + k], x_s[kS0 * u + k]);
-        const float xh = (m - mean_s[c]) * inv_s[c];
-        v = inv_s[c] * (__ldg(gy + ((size_t)b * T1 + t) * kC0 + c) - m1_s[c] - xh * m2_s[c]);
-      }
-      gm_s[u][c] = v;
+  for (int q = 0; q < kK; ++q) acc[q] = 0.0f;
+  if (b < B) {
+    const int c = lane, t_begin = (k % splits) * per, t_end = min(T1, t_begin + per);
+    const float mean0 = __ldg(s.st + (size_t)b * 2 * kC0 + c);
+    const float inv0 = __ldg(s.st + (size_t)b * 2 * kC0 + kC0 + c);
+    float m1 = 0.0f, m2 = 0.0f;
+    for (int i = 0; i < ntq; ++i) {
+      m1 += __ldg(sums + (((size_t)b * ntq + i) * 2 + 0) * kC0 + c);
+      m2 += __ldg(sums + (((size_t)b * ntq + i) * 2 + 1) * kC0 + c);
     }
-    __syncthreads();
+    // g_m0 = inv0 (gy1 - m1 - xhat0 m2) = inv0 gy1 + gd (conv0 - mean0) + gk
+    const float gd = -inv0 * inv0 * (m2 / T1), gk = -inv0 * (m1 / T1);
+    float w[kK];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int q = tid + h * kThreads;
-      float sum = 0.0f;
-      if (q < kC0 * kK) {
-        const int c = q / kK, k = q % kK;
-        for (int u = 2; u < kT0 + 2; ++u) sum = fmaf(gm_s[u][c], x_s[kS0 * u + k], sum);
-      } else {
-        const int c = q - kC0 * kK;
-        for (int u = 2; u < kT0 + 2; ++u) sum += gm_s[u][c];
+    for (int q = 0; q < kK; ++q) w[q] = __ldg(s.w0 + c * kK + q);
+    const float bias = __ldg(s.b0 + c);
+    const int hi = conv0_hi(s.L, T1);
+    const float* row = s.wav + (size_t)b * s.L;
+    const float* gyb = gy + (size_t)b * T1 * kC0;
+    // the batches start at the halo when there is one: four times, of which
+    // d_wav needs the last two
+    const bool halo = dwav != nullptr && t_begin > 0;
+    const int first = halo ? t_begin - kC0Group : t_begin;
+    auto stage = [&](int t0, int into) {
+      stage_samples(xbuf + into * kC0XBuf, row, s.L, t0, lane);
+      float* dst = gbuf + into * kW0GyBuf;
+#pragma unroll
+      for (int v = 0; v < kC0Batch * kC0 / 4 / 32; ++v) {
+        const int q = lane + 32 * v, r = q / (kC0 / 4), col = 4 * (q % (kC0 / 4));
+        const bool in = t0 + r < t_end;
+        cp_async16(dst + r * kW0Row + col, gyb + (in ? (size_t)(t0 + r) * kC0 + col : 0), in);
       }
-      acc[h] += sum;
-    }
-    if (dwav == nullptr) continue;
-    for (int i = tid; i < kS0 * kT0; i += kThreads) {
-      const int p = kS0 * t0 + i, wi = p - kPad0;
-      if (wi < 0 || wi >= s.L) continue;
-      const int tmax = p / kS0;
-      float v = 0.0f;
-      for (int t = tmax; t > tmax - 3 && t >= 0; --t) {
-        if (t >= T1) continue;
-        const int k = p - kS0 * t, u = t - t0 + 2;
-#pragma unroll 8
-        for (int c = 0; c < kC0; ++c) v = fmaf(w_s[c * kK + k], gm_s[u][c], v);
+    };
+    stage(first, 0);
+    cp_async_commit();
+    // h[t0 - 2, k] and h[t0 - 1, k], k = 5 .. 14: what the batch's first two
+    // times need from the two before them
+    if (lane < kW0Carry) carry[lane] = 0.0f;
+    int buf = 0;
+    for (int t0 = first; t0 < t_end; t0 += kC0Batch, buf ^= 1) {
+      if (t0 + kC0Batch < t_end) stage(t0 + kC0Batch, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncwarp();  // every lane's copies of this batch have landed
+      float* xb = xbuf + buf * kC0XBuf;
+      float* gb = gbuf + buf * kW0GyBuf;
+      const int n = min(kC0Batch, t_end - t0);
+      float x[kC0GroupX];
+      float* gr = gb + c;  // this lane's channel of the group's first row
+      for (int g = 0; g * kC0Group < n; ++g, gr += kC0Group * kW0Row) {
+        group_samples(xb, g, x);
+        const int tg = t0 + g * kC0Group;
+        float m[kC0Group];
+        const bool live = tg + kC0Group > kT0Lo && tg < hi;
+        if (live) {
+          conv0_group(w, bias, x, m);
+        } else {
+#pragma unroll
+          for (int i = 0; i < kC0Group; ++i) m[i] = bias;
+        }
+        float v[kC0Group];  // g_m0
+#pragma unroll
+        for (int i = 0; i < kC0Group; ++i)
+          v[i] = fmaf(inv0, gr[i * kW0Row], fmaf(gd, m[i] - mean0, gk));
+        if (g * kC0Group + kC0Group > n) {  // the last group of a short batch
+#pragma unroll
+          for (int i = 0; i < kC0Group; ++i)
+            if (g * kC0Group + i >= n) v[i] = 0.0f;
+        }
+        if (dwav != nullptr) {
+#pragma unroll
+          for (int i = 0; i < kC0Group; ++i) gr[i * kW0Row] = v[i];
+        }
+        if (tg >= t_begin) {  // not the halo, which is one whole group
+#pragma unroll
+          for (int i = 0; i < kC0Group; ++i) db += v[i];
+          if (live) {
+#pragma unroll
+            for (int i = 0; i < kC0Group; ++i)
+#pragma unroll
+              for (int q = 0; q < kK; ++q) acc[q] = fmaf(v[i], x[kS0 * i + q], acc[q]);
+          }
+        }
       }
-      dwav[(size_t)b * s.L + wi] = v;
+      if (dwav != nullptr) {
+        __syncwarp();  // the batch's g_m0 rows are written
+        const int gq = lane / 4, tq = lane % 4;
+        float acc_h[2][2][4];  // [m-tile of 16 times][n-tile of 8 taps][fragment]
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc_h[mt][nt][e] = 0.0f;
+#pragma unroll
+        for (int ks = 0; ks < kC0 / 8; ++ks) {
+          float ahi[2][4], alo[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              split_tf32_trunc(gb[(16 * mt + gq + 8 * (e & 1)) * kW0Row + 8 * ks + tq + 4 * (e >> 1)],
+                               ahi[mt][e], alo[mt][e]);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const float4 w4 = ld4(wsp + ((ks * 2 + nt) * 32 + lane) * 4);
+            const float bhi[2] = {w4.x, w4.y}, blo[2] = {w4.z, w4.w};
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              mma_tf32(acc_h[mt][nt], alo[mt], bhi);
+              mma_tf32(acc_h[mt][nt], ahi[mt], blo);
+              mma_tf32(acc_h[mt][nt], ahi[mt], bhi);
+            }
+          }
+        }
+        __syncwarp();  // the g_m0 rows are read: h takes their place
+        float* hs = gb;  // hs[k * kW0HRow + 2 + t]: h[t0 + t, k], t = -2 .. 31
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              hs[(8 * nt + 2 * tq + (e & 1)) * kW0HRow + 2 + 16 * mt + gq + 8 * (e >> 1)] =
+                  acc_h[mt][nt][e];
+        if (lane < kW0Carry) hs[(kS0 + lane / 2) * kW0HRow + lane % 2] = carry[lane];
+        __syncwarp();
+        // a lane is a time t0 + lane now: its five samples 5 (t0 + lane) + j,
+        // h[t, j] + h[t - 1, j + 5] + h[t - 2, j + 10], into the batch's
+        // sample buffer, which phase 1 has read
+#pragma unroll
+        for (int j = 0; j < kS0; ++j)
+          xb[kS0 * lane + j] = (hs[j * kW0HRow + 2 + lane] + hs[(j + kS0) * kW0HRow + 1 + lane])
+                               + hs[(j + 2 * kS0) * kW0HRow + lane];
+        if (lane < kW0Carry) carry[lane] = hs[(kS0 + lane / 2) * kW0HRow + kC0Batch + lane % 2];
+        __syncwarp();  // the samples are written
+        // the samples to device memory, 32 consecutive ones a store
+#pragma unroll
+        for (int i = 0; i < kS0; ++i) {
+          const int q = lane + 32 * i, t = t0 + q / kS0, p = kS0 * t0 + q - kPad0;
+          if (t >= t_begin && t < t_end && p >= 0 && p < s.L) dwav[(size_t)b * s.L + p] = xb[q];
+        }
+      }
+      __syncwarp();  // the buffers are read before the next batch's copies refill them
     }
+    cp_async_wait<0>();
   }
-  part[(size_t)b * kW0Part + tid] = acc[0];
-  part[(size_t)b * kW0Part + tid + kThreads] = acc[1];
+  __syncthreads();  // every warp is done with its buffers: they hold the sums now
+  float* red = smem;  // [kWarps][512]
+#pragma unroll
+  for (int q = 0; q < kK; ++q) red[warp * kW0Part + lane * kK + q] = acc[q];
+  red[warp * kW0Part + kC0 * kK + lane] = db;
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < kW0Part / kThreads; ++h) {
+    const int q = tid + h * kThreads;
+    float tot = red[q];
+#pragma unroll
+    for (int v = 1; v < kWarps; ++v) tot += red[v * kW0Part + q];
+    part[(size_t)blockIdx.x * kW0Part + q] = tot;
+  }
 }
 
 // out[i] = sum_j part[j, i]: the weight-gradient partials [n, width] summed.
@@ -1470,7 +1740,7 @@ wav_wgrad0_kernel(Src s, const float* __restrict__ gy, const float* __restrict__
 // in VMEM (livelyspeaker_tpu/ops/pallas/fused_wav.py:326 `dw_ref[c] += ...`,
 // and conv0's sums in _bwd_a, :370). What bounds it: reading part once (25
 // MB over a backward's four launches at TED B = 512, 7.4 us at 3.35 TB/s);
-// at conv0's [B, 512] the loads one thread makes one after another. Design
+// at conv0's [rows, 512] the loads one thread makes one after another. Design
 // (reduce_geometry, mirrored by ops/fused_wav.py, which sums the CPU's
 // plain version in the same grouping): vectors of V = 4 columns (float4)
 // where width is a multiple of 4, else single columns; a CTA of 256
@@ -1609,12 +1879,29 @@ cudaError_t bwd_data(const Src& s, const float* wsp, const float* g, int B, int 
 // A stage input is (from_wav, pre, st, T_in, C_in) and the waveform with
 // conv0's parameters (wav, w0, b0, L), as Src describes.
 
+// st0 [B, 2, 32] (IN0's mean and 1/std over time) of conv0 over wav [B, L];
+// T1 must be conv0's length for L. The split of a sequence's live times,
+// `cluster` CTAs of `per` times (ops/fused_wav.py: stats0_geometry), must
+// cover them, every CTA some, `per` a whole number of CTA steps of 8 warps
+// x 32 times.
 extern "C" int fused_wav_stats0_launch(const float* wav, const float* w0, const float* b0, int L,
-                                       int T1, int B, float* st0, void* stream) {
-  if (B < 1 || L < 1 || T1 < 1) return (int)cudaErrorInvalidValue;
-  wav_stats0_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
-      make_src(nullptr, nullptr, T1, kC0, wav, w0, b0, L), st0);
-  return (int)cudaGetLastError();
+                                       int T1, int B, int cluster, int per, float* st0,
+                                       void* stream) {
+  if (wav == nullptr || w0 == nullptr || b0 == nullptr || st0 == nullptr || B < 1 ||
+      B > INT_MAX / kStatsCluster || L < 1 || L > INT_MAX - 2 * kPad0 ||
+      T1 != (L + 2 * kPad0 - kK) / kS0 + 1 || T1 >= (1 << 24) || cluster < 1 ||
+      cluster > kStatsCluster || per < 1 || per % (kWarps * kC0Batch) != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long live = conv0_hi(L, T1) - kT0Lo;
+  if ((long long)(cluster - 1) * per >= live || (long long)cluster * per < live)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cluster_launch_config(&cfg, attr, kThreads, B, cluster, 0);
+  cfg.stream = (cudaStream_t)stream;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, wav_stats0_kernel, make_src(nullptr, nullptr, T1, kC0, wav, w0, b0, L), per, st0);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // st [B, 2, C] (mean, 1/std over time) of x [B, T, C], C = 32, 64 or 128,
@@ -1734,14 +2021,29 @@ extern "C" int fused_wav_wgrad_launch(
   return (int)cudaGetLastError();
 }
 
-// part [B, 512] (dW0 then db0); dwav [B, L], or null for no waveform gradient.
+// part [nparts, 512] (dW0 then db0 partials) and dwav [B, L], or null for
+// no waveform gradient, from gy1 [B, T1, 32] (16-byte aligned) and its tile
+// sums part_in [B, ntq, 2, 32]; T1 must be conv0's length for L. The split
+// of a sequence's times, `splits` warps of `per` times (ops/fused_wav.py:
+// wgrad0_geometry), must cover them, every warp some, `per` a multiple of
+// 4; nparts is then the CTAs of 8 warps that B splits warps make.
 extern "C" int fused_wav_wgrad0_launch(const float* wav, const float* w0, const float* b0, int L,
                                        const float* st0, const float* gy1, const float* part_in,
-                                       int ntq, int B, int T1, float* part, float* dwav,
-                                       void* stream) {
-  if (B < 1 || L < 1 || T1 < 1 || ntq < 1) return (int)cudaErrorInvalidValue;
-  wav_wgrad0_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
-      make_src(nullptr, st0, T1, kC0, wav, w0, b0, L), gy1, part_in, ntq, part, dwav);
+                                       int ntq, int B, int T1, int splits, int per, float* part,
+                                       int nparts, float* dwav, void* stream) {
+  if (wav == nullptr || w0 == nullptr || b0 == nullptr || st0 == nullptr || gy1 == nullptr ||
+      part_in == nullptr || part == nullptr || B < 1 || B > 65535 || L < 1 ||
+      L > INT_MAX - 2 * kPad0 || T1 != (L + 2 * kPad0 - kK) / kS0 + 1 || ntq < 1 ||
+      (uintptr_t)gy1 % 16 != 0 || splits < 1 || per < kC0Group || per % kC0Group != 0 ||
+      (long long)(splits - 1) * per >= T1 || (long long)splits * per < T1 ||
+      nparts != ((long long)B * splits + kWarps - 1) / kWarps)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      wav_wgrad0_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kW0Smem);
+  if (err != cudaSuccess) return (int)err;
+  wav_wgrad0_kernel<<<nparts, kThreads, kW0Smem, (cudaStream_t)stream>>>(
+      make_src(nullptr, st0, T1, kC0, wav, w0, b0, L), gy1, part_in, ntq, B, splits, per,
+      part, dwav);
   return (int)cudaGetLastError();
 }
 

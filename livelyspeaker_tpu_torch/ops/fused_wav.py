@@ -47,6 +47,14 @@ __all__ = [
     "fused_wav_backward_reference",
     "fused_wav_forward",
     "fused_wav_backward",
+    "conv0_live",
+    "conv0_stats",
+    "Stats0Geometry",
+    "stats0_geometry",
+    "Wgrad0Geometry",
+    "wgrad0_geometry",
+    "conv0_backward",
+    "conv0_partials",
     "conv_fwd_tiles",
     "forward_weight_split",
     "conv_forward",
@@ -242,9 +250,77 @@ def norm_stats(m: torch.Tensor) -> torch.Tensor:
     return st
 
 
+CONV0_BATCH = 32  # times a warp batch of the conv0 kernels (csrc: kC0Batch)
+CONV0_GROUP = 4  # times a group (kC0Group)
+WGRAD0_WARPS = STATS_SMS * 2 * THREADS // 32  # the warps of two CTAs of 8 an SM of an H100
+
+
+class Stats0Geometry(NamedTuple):
+    """The conv0 statistics kernel's split of a sequence's live times
+    [lo, hi) (``conv0_live``): ``cluster`` CTAs, rank r owning [lo + r per,
+    min(hi, lo + (r + 1) per)); warp w of a CTA its batches of 32 times at
+    offsets 32 w, 32 w + 256, ..."""
+    cluster: int
+    per: int
+
+
+def stats0_geometry(b: int, length: int) -> Stats0Geometry:
+    """The conv0 statistics kernel's cluster for ``b`` waveforms of
+    ``length`` samples, which its launch takes and checks: as many CTAs a
+    sequence as b of them need to fill the card, at most 8 and at most one
+    a step of the 256 times a CTA's 8 warps cover; each CTA a whole number
+    of steps. Depends on (b, length) only."""
+    if b < 1 or length < 1:
+        raise ValueError(f"stats0_geometry: B={b}, L={length}; the kernel takes B, L >= 1")
+    lo, hi = conv0_live(length)
+    step = THREADS // 32 * CONV0_BATCH
+    steps = math.ceil((hi - lo) / step)
+    n = max(1, min(STATS_CLUSTER, math.ceil(STATS_SMS / b), steps))
+    per = math.ceil(steps / n) * step
+    return Stats0Geometry(math.ceil((hi - lo) / per), per)
+
+
+class Wgrad0Geometry(NamedTuple):
+    """The conv0 backward kernel's split: ``splits`` warps a sequence, warp
+    k of the grid owning sequence k // splits and its times [j per,
+    min(T1, (j + 1) per)), j = k % splits; ``ctas`` CTAs of 8 warps, one
+    partial row each."""
+    splits: int
+    per: int
+    ctas: int
+
+    def ranges(self, t1: int):
+        """[(t_begin, t_end)] of a sequence's warps, in order."""
+        return [(j * self.per, min(t1, (j + 1) * self.per)) for j in range(self.splits)]
+
+
+def wgrad0_geometry(b: int, length: int) -> Wgrad0Geometry:
+    """The conv0 backward kernel's split for ``b`` waveforms of ``length``
+    samples, which its launch takes and checks: as many warps a sequence as
+    fill two CTAs of 8 warps an SM when b of them run, at most one a batch
+    of 32 times, each a whole number of groups of 4 times. Depends on (b,
+    length) only, so the partial rows are summed in the same order every
+    run."""
+    if not 1 <= b <= 65535 or length < 1:
+        raise ValueError(f"wgrad0_geometry: B={b}, L={length}; the kernel takes 1 <= B <= 65535 "
+                         "and L >= 1")
+    t1 = WavDims(length).T1
+    splits = max(1, min(WGRAD0_WARPS // b, math.ceil(t1 / CONV0_BATCH)))
+    per = math.ceil(math.ceil(t1 / splits) / CONV0_GROUP) * CONV0_GROUP
+    splits = math.ceil(t1 / per)
+    return Wgrad0Geometry(splits, per, math.ceil(b * splits / (THREADS // 32)))
+
+
 def _xhat(m: torch.Tensor, st: torch.Tensor) -> torch.Tensor:
     """[B, C, T] normalised by st [B, 2, C]."""
     return (m - st[:, 0, :, None]) * st[:, 1, :, None]
+
+
+def conv0_live(length: int) -> Tuple[int, int]:
+    """[lo, hi): the conv0 output times whose window reaches a sample of a
+    waveform of ``length`` samples. Every other time sees only padding, and
+    conv0 there is b0 exactly (csrc: conv0_live)."""
+    return (1600 - 15) // 5 + 1, min(WavDims(length).T1, -(-(length + 1600) // 5))
 
 
 def _conv0(wav: torch.Tensor, packed) -> torch.Tensor:
@@ -289,13 +365,18 @@ def lrelu_inputs(res: WavResiduals, packed: Dict[str, torch.Tensor]):
             _xhat(res.m2.transpose(1, 2), res.st2)]
 
 
+def _in_backward(gy, xh, st, mean_gy, mean_gyxh):
+    """d/d pre of IN(pre) for the cotangent gy of its output, [B, C, T]:
+    inv (gy - mean_t(gy) - xhat mean_t(gy xhat)), the two means [B, C]
+    given."""
+    return st[:, 1, :, None] * (gy - mean_gy[..., None] - xh * mean_gyxh[..., None])
+
+
 def _norm_lrelu_backward(g_a, xh, st, leak):
     """d/d pre of lrelu(IN(pre)) for the cotangent g_a of its output, all
-    [B, C, T]: gy = g_a lrelu'(xhat), then
-    inv (gy - mean_t(gy) - xhat mean_t(gy xhat))."""
+    [B, C, T]: gy = g_a lrelu'(xhat), then the InstanceNorm backward."""
     gy = g_a * torch.where(xh > 0, 1.0, leak).to(g_a.dtype)
-    return st[:, 1, :, None] * (gy - gy.mean(-1, keepdim=True)
-                                - xh * (gy * xh).mean(-1, keepdim=True))
+    return _in_backward(gy, xh, st, gy.mean(-1), (gy * xh).mean(-1))
 
 
 def _conv_weight_grad(a, g, stride):
@@ -326,16 +407,24 @@ def fused_wav_backward_reference(
         extra = lengths[i - 1] - ((lengths[i] - 1) * 6 + 15)  # input times no window reaches
         g_a = F.conv_transpose1d(g_m, packed[f"w{i}"], stride=6, output_padding=extra)
         g_m = _norm_lrelu_backward(g_a, xh[i - 1], sts[i - 1], leak)
-    wavp = F.pad(res.wav, (1600, 1600))[:, None, :]  # [B, 1, L + 3200]
-    grads["w0"], grads["b0"] = _conv_weight_grad(wavp, g_m, 5)
-    d_wav = None
-    if need_wav_grad:
-        d_wav = F.conv_transpose1d(g_m, packed["w0"], stride=5, padding=1600,
-                                   output_padding=(d.L + 3185) % 5)[:, 0]
+    d_wav, grads["w0"], grads["b0"] = _conv0_grads(res.wav, g_m, packed, need_wav_grad)
     return d_wav, grads
 
 
 fused_wav_backward_reference.calls = 0
+
+
+def _conv0_grads(wav, g_m0, packed, need_wav_grad):
+    """(d_wav [B, L] or None, dW0, db0) for the cotangent g_m0 [B, 32, T1]
+    of conv0's output: the weight gradient over the padded waveform's
+    windows and, for d_wav, the transposed conv."""
+    wavp = F.pad(wav, (1600, 1600))[:, None, :]  # [B, 1, L + 3200]
+    dw, db = _conv_weight_grad(wavp, g_m0, 5)
+    d_wav = None
+    if need_wav_grad:
+        d_wav = F.conv_transpose1d(g_m0, packed["w0"], stride=5, padding=1600,
+                                   output_padding=(wav.shape[1] + 3185) % 5)[:, 0]
+    return d_wav, dw, db
 
 
 _bound: Dict[str, object] = {}
@@ -347,7 +436,7 @@ def _launcher(kernel: str):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         src = [i, p, p, i, i, p, p, p, i]  # from_wav, pre, st, T_in, C_in, wav, w0, b0, L
         argtypes = {
-            "stats0": [p, p, p, i, i, i, p],
+            "stats0": [p, p, p, i, i, i, i, i, p],
             "stats": [p, i, i, i, p],
             "wsplit_fwd": [p, i, i, p],
             "conv_fwd": src + [p, p, p, i, i, i, f],
@@ -355,7 +444,7 @@ def _launcher(kernel: str):
             "bwd_data": src + [p, p, i, i, i, f, p, p],
             "in_bwd": [p, p, p, i, i, i, i, p],
             "wgrad": src + [p, i, i, i, f, p, i, i],
-            "wgrad0": [p, p, p, i, p, p, p, i, i, i, p, p],
+            "wgrad0": [p, p, p, i, p, p, p, i, i, i, i, i, p, i, p],
             "reduce": [p, i, i, p],
         }[kernel]
         fn = getattr(lib, f"fused_wav_{kernel}_launch")
@@ -376,19 +465,25 @@ def _launch(kernel: str, dev: torch.device, *args, what: str) -> None:
     LAUNCHES[kernel] += 1
 
 
-def _check_cuda(who: str, wav: torch.Tensor, packed) -> WavDims:
-    """Raise on what the kernels do not take; the chain's lengths."""
+def _check_conv0(who: str, wav: torch.Tensor, packed) -> WavDims:
+    """Raise on a waveform or conv0 parameters the conv0 kernels do not
+    take; the chain's lengths."""
     if wav.device.type != "cuda":
         raise ValueError(f"{who}: no kernel for device {wav.device}")
-    if wav.dim() != 2:
-        raise ValueError(f"{who}: wav has shape {tuple(wav.shape)}, expected [B, L]")
-    b, length = wav.shape
-    if not 1 <= b <= 65535 or length < 1:
-        raise ValueError(f"{who}: wav has shape {tuple(wav.shape)}; the kernels take "
-                         "a batch of 1..65535 and at least one sample")
-    d = WavDims(length)
-    fused_mlp._check("wav", wav, (b, length), wav.device, who)
-    for i in range(4):
+    if wav.dim() != 2 or not 1 <= wav.shape[0] <= 65535 or wav.shape[1] < 1:
+        raise ValueError(f"{who}: wav has shape {tuple(wav.shape)}, expected [B, L] with a "
+                         "batch of 1..65535 and at least one sample")
+    d = WavDims(wav.shape[1])
+    fused_mlp._check("wav", wav, tuple(wav.shape), wav.device, who)
+    fused_mlp._check("w0", packed["w0"], (32, 1, 15), wav.device, who)
+    fused_mlp._check("b0", packed["b0"], (32,), wav.device, who)
+    return d
+
+
+def _check_cuda(who: str, wav: torch.Tensor, packed) -> WavDims:
+    """Raise on what the kernels do not take; the chain's lengths."""
+    d = _check_conv0(who, wav, packed)
+    for i in range(1, 4):
         cin, cout = CHANNELS[i], CHANNELS[i + 1]
         fused_mlp._check(f"w{i}", packed[f"w{i}"], (cout, cin, 15), wav.device, who)
         fused_mlp._check(f"b{i}", packed[f"b{i}"], (cout,), wav.device, who)
@@ -420,19 +515,32 @@ def fused_wav_forward(
     d = _check_cuda(who, wav, packed)
     b, dev = wav.shape[0], wav.device
     f32 = dict(dtype=torch.float32, device=dev)
-    st0 = torch.empty((b, 2, 32), **f32)
     m1 = torch.empty((b, d.T2, 64), **f32)
     m2 = torch.empty((b, d.T3, 128), **f32)
     out = torch.empty((b, d.T4, 256), **f32)
-    w0, b0 = packed["w0"].data_ptr(), packed["b0"].data_ptr()
-    _launch("stats0", dev, wav.data_ptr(), w0, b0, d.L, d.T1, b, st0.data_ptr(),
-            what=f"B={b}, L={d.L}")
-    sts = [st0]
+    sts = [conv0_stats(wav, packed)]
     for i, (pre, y) in enumerate(((None, m1), (m1, m2), (m2, out)), start=1):
         if pre is not None:
             sts.append(norm_stats(pre))
         _conv_forward(i, wav, pre, sts[-1], packed, leak, d, y)
     return out, WavResiduals(wav, m1, m2, *sts)
+
+
+def conv0_stats(wav: torch.Tensor, packed: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """IN0's statistics st0 [B, 2, 32] (mean, then 1/std over time) of
+    conv0's output over the waveform wav [B, L], which is never stored: the
+    statistics kernel on a CUDA tensor, the two-pass plain version over the
+    plain conv0 on a CPU one. Raises on what the kernel does not take."""
+    if wav.device.type == "cpu":
+        return _norm_stats(_conv0(wav, packed))
+    d = _check_conv0("conv0_stats", wav, packed)
+    b = wav.shape[0]
+    geo = stats0_geometry(b, d.L)
+    st0 = torch.empty((b, 2, 32), dtype=torch.float32, device=wav.device)
+    _launch("stats0", wav.device, wav.data_ptr(), packed["w0"].data_ptr(),
+            packed["b0"].data_ptr(), d.L, d.T1, b, geo.cluster, geo.per, st0.data_ptr(),
+            what=f"B={b}, L={d.L}")
+    return st0
 
 
 def _conv_forward(i, wav, pre, st, packed, leak, d: WavDims, y) -> None:
@@ -671,13 +779,22 @@ def fused_wav_backward(
     if g.device.type == "cpu":
         return fused_wav_backward_reference(res, g, packed, leak, need_wav_grad)
     who = "fused_wav_encoder backward"
+    d = _check_cuda(who, res.wav, packed)
+    fused_mlp._check("g", g, (res.wav.shape[0], d.T4, 256), g.device, who)
+    _check_residuals(who, res, d)
+    grads, gy1, sums = _stack_backward(res, g, packed, leak, d)
+    d_wav, grads["w0"], grads["b0"] = conv0_backward(res, gy1, sums, packed, need_wav_grad)
+    return d_wav, grads
+
+
+def _stack_backward(res: WavResiduals, g, packed, leak, d: WavDims):
+    """The backward's launches for conv3, conv2 and conv1 on tensors already
+    checked: (their gradients, gy1 [B, T1, 32], sums [B, ntq, 2, 32]), gy1
+    the cotangent of IN0's output through LeakyReLU and sums its tile sums
+    of gy1 and gy1 xhat0."""
     wav = res.wav
-    d = _check_cuda(who, wav, packed)
     b, dev = wav.shape[0], wav.device
     lengths = (d.T1, d.T2, d.T3, d.T4)
-    fused_mlp._check("g", g, (b, d.T4, 256), dev, who)
-    _check_residuals(who, res, d)
-    f32 = dict(dtype=torch.float32, device=dev)
     what = f"B={b}, L={d.L}"
     pres, sts = (None, res.m1, res.m2), (res.st0, res.st1, res.st2)
     grads = {}
@@ -687,18 +804,59 @@ def fused_wav_backward(
         part = _wgrad_partials(i, res, g_m, packed, leak, d)
         grads[f"w{i}"], grads[f"b{i}"] = reduce_partials(part, i)
         gy, sums = _data_grad(i, res, g_m, packed, leak, d)
-        ntq = sums.shape[1]
         if i > 1:  # the InstanceNorm backward in place: gy becomes g_m
             _launch("in_bwd", dev, pres[i - 1].data_ptr(), sts[i - 1].data_ptr(),
-                    sums.data_ptr(), ntq, b, t_in, cin, gy.data_ptr(), what=f"{what}, IN{i - 1}")
+                    sums.data_ptr(), sums.shape[1], b, t_in, cin, gy.data_ptr(),
+                    what=f"{what}, IN{i - 1}")
             g_m = gy
+    return grads, gy, sums
+
+
+def conv0_backward(res: WavResiduals, gy1: torch.Tensor, sums: torch.Tensor,
+                   packed: Dict[str, torch.Tensor], need_wav_grad: bool = True,
+                   ) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """conv0's backward through IN0: (d_wav [B, L] or None, dW0 [32, 1, 15],
+    db0 [32]) for gy1 [B, T1, 32], the cotangent of IN0's output, and its
+    tile sums [B, ntq, 2, 32] of gy1 and gy1 xhat0 over time (conv1's data
+    gradient gives both): ``conv0_partials``, then the partials summed by
+    ``reduce_partials``."""
+    d_wav, part = conv0_partials(res, gy1, sums, packed, need_wav_grad)
+    dw0, db0 = reduce_partials(part, 0)
+    return d_wav, dw0, db0
+
+
+def conv0_partials(res: WavResiduals, gy1: torch.Tensor, sums: torch.Tensor,
+                   packed: Dict[str, torch.Tensor], need_wav_grad: bool = True,
+                   ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """(d_wav or None, part [rows, 512]) of ``conv0_backward``: g_m0 =
+    inv0 (gy1 - mean(gy1) - xhat0 mean(gy1 xhat0)), xhat0 from conv0
+    recomputed and st0, then d_wav and the partial sums of dW0 (torch's
+    layout) and db0, a row each. On the card one launch of the conv0
+    backward kernel; a CPU tensor runs the plain version, one row."""
+    wav = res.wav
+    if gy1.device.type == "cpu":
+        xh = _xhat(_conv0(wav, packed), res.st0)
+        tot = sums.sum(1) / gy1.shape[1]  # [B, 2, 32]: mean(gy1), mean(gy1 xhat0)
+        g_m0 = _in_backward(gy1.transpose(1, 2), xh, res.st0, tot[:, 0], tot[:, 1])
+        d_wav, dw, db = _conv0_grads(wav, g_m0, packed, need_wav_grad)
+        return d_wav, torch.cat([dw.reshape(-1), db])[None]
+    who = "conv0_backward"
+    d = _check_conv0(who, wav, packed)
+    b = wav.shape[0]
+    fused_mlp._check("st0", res.st0, (b, 2, 32), wav.device, who)
+    fused_mlp._check("gy1", gy1, (b, d.T1, 32), wav.device, who)
+    if sums.dim() != 4 or sums.shape[1] < 1:
+        raise ValueError(f"{who}: sums has shape {tuple(sums.shape)}, expected [B, ntq, 2, 32]")
+    fused_mlp._check("sums", sums, (b, sums.shape[1], 2, 32), wav.device, who)
+    f32 = dict(dtype=torch.float32, device=wav.device)
     d_wav = torch.empty((b, d.L), **f32) if need_wav_grad else None
-    part0 = torch.empty((b, 32 * 15 + 32), **f32)
-    _launch("wgrad0", dev, wav.data_ptr(), packed["w0"].data_ptr(), packed["b0"].data_ptr(), d.L,
-            res.st0.data_ptr(), gy.data_ptr(), sums.data_ptr(), ntq, b, d.T1, part0.data_ptr(),
-            None if d_wav is None else d_wav.data_ptr(), what=f"{what}, conv0")
-    grads["w0"], grads["b0"] = reduce_partials(part0, 0)
-    return d_wav, grads
+    geo = wgrad0_geometry(b, d.L)
+    part = torch.empty((geo.ctas, 32 * 15 + 32), **f32)
+    _launch("wgrad0", wav.device, wav.data_ptr(), packed["w0"].data_ptr(),
+            packed["b0"].data_ptr(), d.L, res.st0.data_ptr(), gy1.data_ptr(), sums.data_ptr(),
+            sums.shape[1], b, d.T1, geo.splits, geo.per, part.data_ptr(), geo.ctas,
+            None if d_wav is None else d_wav.data_ptr(), what=f"B={b}, L={d.L}, conv0")
+    return d_wav, part
 
 
 class _FusedWav(torch.autograd.Function):

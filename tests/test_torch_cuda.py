@@ -896,3 +896,122 @@ def test_wav_stats_and_reduce_launches_refuse_what_they_do_not_take(cuda_device)
     with pytest.raises(ValueError, match="expected"):
         fused_wav.reduce_partials(part, 2)
     assert fused_wav.LAUNCHES == launches
+
+
+def _conv0_case(device, b, length, seed=8):
+    """Residuals of a seeded forward, and gy1 and its tile sums from the
+    backward's conv1 data gradient on a seeded cotangent."""
+    _, packed, wav, cot = _wav_case(device, b, length, seed=seed)
+    _, res = fused_wav.fused_wav_forward(wav, packed)
+    d = fused_wav.WavDims(length)
+    _, gy1, sums = fused_wav._stack_backward(res, cot, packed, 0.3, d)
+    return res, packed, gy1, sums
+
+
+CONV0_CASES = [
+    (1, audio_samples_for_frames(34)),  # TED's and BEAT's waveform: clusters of 8, 247 warps
+    (8, audio_samples_for_frames(34)),
+    (512, audio_samples_for_frames(34)),  # one CTA a sequence; 4 warps a sequence
+    (3, audio_samples_for_frames(2)),   # a short clip: partial batches and clusters
+    (5, 5000),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,length", CONV0_CASES)
+def test_wav_stats0_kernel_matches_emulation_and_f64(cuda_device, b, length):
+    """The conv0 statistics kernel gives the CPU emulation's bits
+    (``wav_stats_emulation.emulate_stats0``), the same bits on a second
+    launch, one launch a call, and within 1e-5 of the two-pass statistics in
+    f64 of the same conv0 (the mean relative to the largest mean, 1/std
+    relative); also with b0 1e3 times conv0's spread."""
+    from wav_stats_emulation import emulate_stats0
+
+    _, packed, wav, _ = _wav_case(cuda_device, b, length, seed=9)
+    spread = (fused_wav._conv0(wav[:1], packed) - packed["b0"][:, None]).std().item()
+    offset = dict(packed, b0=(1e3 * spread * torch.sign(packed["b0"])).contiguous())
+    for p in (packed, offset):
+        launches = fused_wav.LAUNCHES["stats0"]
+        st = fused_wav.conv0_stats(wav, p)
+        again = fused_wav.conv0_stats(wav, p)
+        torch.cuda.synchronize()
+        assert fused_wav.LAUNCHES["stats0"] == launches + 2
+        assert torch.equal(st, again)
+        cpu = {k: v.cpu() for k, v in p.items()}
+        assert torch.equal(st.cpu(), emulate_stats0(wav.cpu(), cpu))
+        ref = fused_wav._norm_stats(fused_wav._conv0(wav, p).double())
+        assert _rel(st[:, 0].double(), ref[:, 0]) <= 1e-5
+        assert ((st[:, 1].double() - ref[:, 1]) / ref[:, 1]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,length", CONV0_CASES)
+def test_wav_wgrad0_kernel_matches_f64(cuda_device, b, length):
+    """The conv0 backward kernel (one launch; its partial rows, one a CTA,
+    summed by the reduce kernel) within WAV_WGRAD_TOL of the plain version in
+    f64 on the same st0, gy1 and sums: dW0 and d_wav relative, db0 (0 in
+    exact arithmetic) of the largest dW0; with and without d_wav, the same
+    bits on a second launch."""
+    res, packed, gy1, sums = _conv0_case(cuda_device, b, length)
+    p64 = {k: v.double() for k, v in packed.items()}
+    st64 = res.st0.double()
+    t1 = gy1.shape[1]
+    xh = fused_wav._xhat(fused_wav._conv0(res.wav.double(), p64), st64)
+    tot = sums.double().sum(1) / t1
+    g_m0 = fused_wav._in_backward(gy1.double().transpose(1, 2), xh, st64, tot[:, 0], tot[:, 1])
+    rwav, rw, rb = fused_wav._conv0_grads(res.wav.double(), g_m0, p64, True)
+    for need in (False, True):
+        launches = fused_wav.LAUNCHES["wgrad0"]
+        d_wav, part = fused_wav.conv0_partials(res, gy1, sums, packed, need)
+        d_wav2, part2 = fused_wav.conv0_partials(res, gy1, sums, packed, need)
+        torch.cuda.synchronize()
+        assert fused_wav.LAUNCHES["wgrad0"] == launches + 2
+        assert part.shape == (fused_wav.wgrad0_geometry(b, length).ctas, 512)
+        assert torch.equal(part, part2)
+        dw, db = fused_wav.reduce_partials(part, 0)
+        assert _rel(dw.double(), rw) <= WAV_WGRAD_TOL
+        assert (db.double() - rb).abs().max().item() <= WAV_WGRAD_TOL * rw.abs().max().item()
+        if need:
+            assert torch.equal(d_wav, d_wav2)
+            assert _rel(d_wav.double(), rwav) <= WAV_WGRAD_TOL
+        else:
+            assert d_wav is None
+
+
+@pytest.mark.cuda
+def test_wav_conv0_launches_refuse_what_they_do_not_take(cuda_device):
+    """The statistics launch refuses a T1 that is not conv0's length for L,
+    no sequence, a null pointer and a split of the live times that is not
+    ``stats0_geometry``'s kind (one that misses times, leaves a CTA none,
+    has more than 8 CTAs or a part of a CTA step); the backward launch a T1
+    that is not conv0's length, another count of partial rows, a misaligned
+    gy1, no tile sums, a null pointer and a split of the times that misses
+    some, leaves a warp none or is not in groups of 4."""
+    res, packed, gy1, sums = _conv0_case(cuda_device, 2, audio_samples_for_frames(2))
+    wav, st0 = res.wav, res.st0
+    b, length = wav.shape
+    t1 = gy1.shape[1]
+    w0, b0 = packed["w0"].data_ptr(), packed["b0"].data_ptr()
+    st = torch.empty(b, 2, 32, device=cuda_device)
+    n, per = fused_wav.stats0_geometry(b, length)
+    assert n > 1
+    for tt, bb, nn, pp, out in ((t1 + 1, b, n, per, st), (t1, 0, n, per, st),
+                                (t1, b, n, per, None), (t1, b, n - 1, per, st),
+                                (t1, b, n + 1, per, st), (t1, b, 9, 256, st),
+                                (t1, b, n, per + 32, st)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            fused_wav._launch("stats0", cuda_device, wav.data_ptr(), w0, b0, length, tt, bb, nn,
+                              pp, None if out is None else out.data_ptr(), what="test")
+    splits, per, rows = fused_wav.wgrad0_geometry(b, length)
+    assert splits > 1
+    part = torch.empty(rows + 1, 512, device=cuda_device)
+    flat = gy1.reshape(-1)
+    for tt, sp, pp, nr, g, ntq, out in (
+            (t1 + 1, splits, per, rows, gy1, 1, part), (t1, splits, per, rows + 1, gy1, 1, part),
+            (t1, splits, per, rows, flat[1:], 1, part), (t1, splits, per, rows, gy1, 0, part),
+            (t1, splits, per, rows, gy1, 1, None), (t1, splits - 1, per, rows, gy1, 1, part),
+            (t1, splits + 1, per, rows, gy1, 1, part), (t1, splits, per + 2, rows, gy1, 1, part)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            fused_wav._launch("wgrad0", cuda_device, wav.data_ptr(), w0, b0, length,
+                              st0.data_ptr(), g.data_ptr(), sums.data_ptr(), ntq, b, tt, sp, pp,
+                              None if out is None else out.data_ptr(), nr, None, what="test")

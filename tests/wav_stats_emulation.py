@@ -98,3 +98,58 @@ def offset_case(b: int, t: int, c: int, offset: float, seed: int) -> torch.Tenso
     mean = offset * std * rng.choice([-1.0, 1.0], size=(b, 1, c))
     return torch.from_numpy((mean + std * rng.normal(size=(b, t, c))).astype(np.float32))
 
+
+
+def emulate_stats0(wav: torch.Tensor, packed) -> torch.Tensor:
+    """st0 [B, 2, 32] (mean, 1/std) of conv0 over wav [B, L] f32, as the
+    conv0 statistics kernel (``wav_stats0_kernel``) computes it: conv0 with
+    the kernels' bits (bias first, taps in order, each product and sum
+    rounded), over the live times [lo, hi) only, shifted by b0 (conv0's row
+    0); the live times split over ``stats0_geometry``'s CTAs, warp w of a
+    CTA summing its batches of 32 times at offsets 32 w, 32 w + 256, ...
+    in order, each batch's (n, mean, M2) combined into the warp's by Chan's
+    formula; then the warps in order, the CTAs in rank order, and last the
+    padding's times as (n_pad, 0, 0) before them."""
+    b, length = wav.shape
+    m = k3._conv0(wav, packed)  # [B, 32, T1]
+    t1 = m.shape[2]
+    lo, hi = k3.conv0_live(length)
+    live = hi - lo
+    bias = packed["b0"]
+    d = m[:, :, lo:hi] - bias[None, :, None]
+    geo = k3.stats0_geometry(b, length)
+    warps, batch = k3.THREADS // 32, k3.CONV0_BATCH
+    step = warps * batch
+    rank = torch.arange(geo.cluster)[:, None]
+    warp = torch.arange(warps)[None, :]
+    end = torch.clamp((rank + 1) * geo.per, max=live)  # [R, 1]
+    shape = (b, 32, geo.cluster, warps)
+    zero = torch.zeros(shape)
+    run = (zero, zero, zero)
+    for j in range(geo.per // step):
+        start = rank * geo.per + warp * batch + j * step  # [R, W]
+        n = torch.clamp(end - start, min=0, max=batch)
+        s1, s2 = zero, zero
+        for i in range(batch):
+            valid = (i < n)[None, None]
+            di = d[:, :, (start + i).clamp(max=live - 1)]
+            s1 = torch.where(valid, s1 + di, s1)
+            s2 = torch.where(valid, s2 + di * di, s2)
+        nb = n.float()[None, None].expand(shape)
+        has = nb > 0
+        mean = torch.where(has, s1 / nb, zero)
+        m2 = torch.where(has, (s2 - s1 * mean).clamp_min(0.0), zero)
+        new = chan(run, (nb, mean, m2))
+        run = tuple(torch.where(has, y, x) for x, y in zip(run, new))
+    acc = [x[..., 0] for x in run]  # [B, 32, R]
+    for w in range(1, warps):
+        acc = chan(acc, [x[..., w] for x in run])
+    tot = [x[..., 0] for x in acc]
+    for r in range(1, geo.cluster):
+        tot = chan(tot, [x[..., r] for x in acc])
+    pad = torch.full_like(tot[0], float(t1 - live))
+    _, mean, m2 = chan((pad, torch.zeros_like(pad), torch.zeros_like(pad)), tot)
+    var = m2 / torch.full_like(m2, t1)
+    root = torch.sqrt((var + torch.full_like(var, k3.EPS)).double()).float()
+    inv = torch.ones_like(root) / root
+    return torch.stack([bias[None, :] + mean, inv], dim=1)
