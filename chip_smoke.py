@@ -4,9 +4,10 @@
 
 Drives the port's paths at the full TED width (latent 512, 8 blocks,
 1400 speakers) with seeded random weights: RAG sampling behind the serving
-batcher, RAG training through TrainLoop with the fused backbone, and the
-same training with the WavEncoder swapped for the fused WavEncoder stack
-(K3). Checks:
+batcher, the two-stage composition (CLIP text tower, SAG sketch, RAG
+refinement) through LivelySpeakerPipeline, RAG training through TrainLoop
+with the fused backbone, and the same training with the WavEncoder swapped
+for the fused WavEncoder stack (K3). Checks:
 
 1. device: a CUDA card is required (no CPU run); TF32 is off for matmul
    and cuDNN, so every comparison below is f32 against f32;
@@ -24,7 +25,16 @@ same training with the WavEncoder swapped for the fused WavEncoder stack
    and the plain version never; then one served-size batch through the
    fused sampler agrees with the eager modules (cuBLAS) within rel 1e-4;
 5. one BEAT batch (emotion conditioning) the same way;
-6. the training kernels (the cluster kernel with a stash as the forward; per
+6. the composition: LivelySpeakerPipeline (ddim100, skip 80, guidance 1.5)
+   on a batch of 8 sentences (HashTokenizer), at TED (RAGConfig.ted(),
+   SAG 9x3 at latent 512, ff 1024, 3 layers, 4 heads, ViT-B/32's text
+   tower: vocab 49,408, context 77, width 512, 12 layers, 8 heads) and
+   BEAT (RAGConfig.beat(), SAG 47x6, emotions): every clip finite [8, J,
+   F, 34], K1 launched 20 times for the batch and its plain version never,
+   and the same batch through the eager modules (use_fused=False) from the
+   same seeded generator within rel 1e-4; the ms of the CLIP encode, the
+   SAG decode and the 20-step refinement of a batch, and clips/s;
+7. the training kernels (the cluster kernel with a stash as the forward; per
    layer of the backward a cluster block kernel, a 3xTF32 tensor-core
    weight-gradient kernel and a reduce kernel) against their plain versions
    at TED (S=35) and BEAT (S=36), D=512, L=8, silu, B in {64, 512}: forward
@@ -33,14 +43,14 @@ same training with the WavEncoder swapped for the fused WavEncoder stack
    both, the forward and the block kernel at clusters of 8 and 4 CTAs in
    turns; then the weight-gradient and reduce kernels alone, 8 launches,
    against 8 calls of torch.matmul(h2.T, g_m2) and of part.sum(0), in turns;
-7. training: TrainLoop.run_loop() on RAGConfig.ted(fused_train_backbone=True)
+8. training: TrainLoop.run_loop() on RAGConfig.ted(fused_train_backbone=True)
    (its own seeded init), DDPM-1000 cosine, 30 steps at batch 512 on one
    fixed seeded batch, the default TrainConfig but lr 1e-3: every loss is
    finite, the mean of the last 5 is below that of the first 5, the forward
    kernel launched once a step and each backward kernel 8 times (once per
    layer) a step, the plain versions and K1 never; step ms, clips/s and
    peak memory;
-8. the fused training loss against the eager one on a TED and a BEAT batch
+9. the fused training loss against the eager one on a TED and a BEAT batch
    of 64 (BEAT with kld_weight 0), with the same t, noise, style and
    condition drop: loss within rel 1e-5, every parameter gradient within
    rel 1e-4 of its max (the three conv biases before an InstanceNorm, whose
@@ -51,7 +61,7 @@ same training with the WavEncoder swapped for the fused WavEncoder stack
    model's feature cotangent (the eager encoder's own gradients are printed
    with the number of LeakyReLU inputs whose sign the two forwards round
    differently: the gradient jumps at the kink);
-9. the K3 kernels (nine forward launches, sixteen backward) against their
+10. the K3 kernels (nine forward launches, sixteen backward) against their
    plain versions at L = 36,267, B in {8, 512}: forward within rel 1e-5;
    backward on the same residuals, d_wav and every weight and conv3 bias
    gradient within rel 1e-4 of its max, the pre-IN biases within 1e-4 of
@@ -76,15 +86,16 @@ same training with the WavEncoder swapped for the fused WavEncoder stack
    and without d_wav) against the plain versions in f64 and a second
    call's bits, timed beside cuDNN on materialised conv0 and g_m0, the
    bound and the rounding rule's instruction floor;
-10. training through K3 and K2: 7. with the WavEncoder swapped for
+11. training through K3 and K2: 8. with the WavEncoder swapped for
    FusedWavEncoder before the TrainLoop is built: finite, decreasing
    losses; each K3 kernel launched as often a step as one forward and one
    backward launch it; the K3 plain versions and F.conv1d never called;
-11. one served-size TED batch (8) through RAGSampler with the K3 drop-in
+12. one served-size TED batch (8) through RAGSampler with the K3 drop-in
    against the same sampler on the cuDNN encoder, within rel 1e-4.
 
 With ``--profile DIR`` it also profiles a second burst of the 24 serving
-requests and 3 steps of each training run with torch.profiler (Chrome
+requests, 3 composed TED batches and 3 steps of each training run with
+torch.profiler (Chrome
 traces and tables of device time by kernel, and the idle share, in DIR),
 and prints the kernels cuBLAS runs for the weight-gradient product.
 
@@ -389,11 +400,13 @@ def serving_phase(card, profile_dir=None):
     return launches
 
 
-def _device_table(prof, classes, wall_ms, title, steps, unit):
+def _device_table(prof, classes, wall_ms, title, steps, unit, labels=()):
     """Device time by kernel class from a torch.profiler run: lines of a
     table (ms per ``unit``, share of wall, launches), the idle share and
-    the top kernels, and the launches of each class."""
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    the top kernels, and the launches of each class. ``labels``: the
+    record_function names, whose spans on the device are not kernels."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.key not in labels]
     dev_time = lambda e: getattr(e, "self_device_time_total", 0.0) / 1e3  # ms
     sums = {k: 0.0 for k in classes}
     sums["other"] = 0.0
@@ -455,6 +468,160 @@ def beat_phase():
 
 def _rel(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+COMPOSED_STEPS = 20  # ddim100 with skip_timesteps 80: the refinement's steps
+SENTENCES = [
+    "so we went down to the river that morning",
+    "I never expected that, honestly",
+    "the thing about cities is that they never sleep",
+    "look at this, it is enormous",
+    "we kept going, up and up, until the very top",
+    "no",
+    "people tend to forget how small the world has become over the last fifty years",
+    "and then, all of a sudden, everyone started clapping",
+]
+
+
+def wall_ms(fn, reps=10):
+    """Median host ms of ``fn()`` from a synchronised start to a
+    synchronised end, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+@torch.no_grad()
+def composition_phase(card, profile_dir=None):
+    """LivelySpeakerPipeline at full width (the configuration of the JAX
+    package's eval scripts: SAG at latent 512, ViT-B/32's text tower,
+    ddim100, skip 80, guidance 1.5), one batch of 8 at TED and one at BEAT:
+    K1 on the fused run's main path, the eager run beside it; per-stage
+    times at TED (and a profile of three batches with ``profile_dir``).
+    Returns K1's launches over the two fused runs."""
+    from livelyspeaker_tpu_torch.data import HashTokenizer
+    from livelyspeaker_tpu_torch.models import SAG, CLIPTextEncoder, RAGConfig
+    from livelyspeaker_tpu_torch.models.initializers import random_normal_
+    from livelyspeaker_tpu_torch.ops import fused_mlp
+    from livelyspeaker_tpu_torch.pipeline import LivelySpeakerPipeline
+
+    launches = 0
+    for tag, cfg, seed in (("composition-ted", RAGConfig.ted(), 15),
+                           ("composition-beat", RAGConfig.beat(), 17)):
+        rag = _random_model(cfg, seed)
+        g = torch.Generator().manual_seed(seed + 1)
+        sag = random_normal_(SAG(njoints=cfg.njoints, nfeats=cfg.nfeats, latent_dim=512,
+                                 generator=g), g)
+        clip = random_normal_(CLIPTextEncoder(generator=g), g)
+        cond = _cond(cfg, np.random.default_rng(seed + 2), len(SENTENCES))
+        pipes = {fused: LivelySpeakerPipeline(rag, sag, clip, HashTokenizer(), use_fused=fused)
+                 for fused in (True, False)}
+        check(pipes[True].device.type == "cuda", f"{tag}: the pipeline is not on the card")
+        gen = lambda: torch.Generator(device="cuda").manual_seed(7)
+
+        fused_mlp.fused_transmlp.launches = 0
+        fused_mlp.fused_transmlp_reference.calls = 0
+        out = pipes[True](SENTENCES, cond, gen(), guidance=1.5)
+        torch.cuda.synchronize()
+        n, plain = fused_mlp.fused_transmlp.launches, fused_mlp.fused_transmlp_reference.calls
+        launches += n
+        shape = (len(SENTENCES), cfg.njoints, cfg.nfeats, cfg.nframes)
+        check(tuple(out.shape) == shape, f"{tag}: shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"{tag}: non-finite clip")
+        print(f"[{tag}] fused_transmlp launches {n} for a batch of {len(SENTENCES)}, "
+              f"plain version calls {plain}")
+        check(n == COMPOSED_STEPS and plain == 0,
+              f"{tag}: K1 launched {n} times (want {COMPOSED_STEPS}), plain version {plain}")
+
+        eager = pipes[False](SENTENCES, cond, gen(), guidance=1.5)
+        rel = _rel(out, eager)
+        print(f"[{tag}] fused vs eager composition, {tuple(out.shape)}: rel {rel:.3e} "
+              f"(tol {SLICE_TOL})")
+        check(rel <= SLICE_TOL, f"{tag}: fused composition disagrees with the eager modules")
+        if tag != "composition-ted":
+            continue
+        pipe = pipes[True]
+        tokens = torch.from_numpy(pipe.tokenizer(SENTENCES)).cuda()
+        z = pipe.clip_text(tokens)
+        sketch = pipe.sag.decode(z, cond["origin_x"])
+        clip_ms = wall_ms(lambda: pipe.clip_text(tokens))
+        sag_ms = wall_ms(lambda: pipe.sag.decode(z, cond["origin_x"]))
+        refine_ms = wall_ms(lambda: pipe.rag_sampler(
+            cond, gen(), guidance=1.5, skip_timesteps=pipe.skip_timesteps, init_image=sketch))
+        batch_ms = wall_ms(lambda: pipe(SENTENCES, cond, gen(), guidance=1.5))
+        per = f"a batch of {len(SENTENCES)}, host ms, synchronised, median of 10"
+        print(f"[{tag}] CLIP encode: {clip_ms:.3f} ms ({per})")
+        print(f"[{tag}] SAG decode: {sag_ms:.3f} ms ({per})")
+        print(f"[{tag}] {COMPOSED_STEPS}-step refinement: {refine_ms:.3f} ms ({per})")
+        print(f"[{tag}] whole pipeline: {batch_ms:.3f} ms, "
+              f"{len(SENTENCES) / batch_ms * 1e3:.2f} clips/s ({per})")
+        print(f"[{tag}] card: {card}")
+        if profile_dir:
+            composition_profile(pipe, cond, gen, profile_dir, card)
+    return launches
+
+
+def composition_profile(pipe, cond, gen, out_dir, card, batches=3):
+    """torch.profiler over ``batches`` composed batches, the stages of
+    ``LivelySpeakerPipeline.__call__`` under record_function labels: host
+    and device ms a batch by stage, device time by kernel class and the
+    idle share, into DIR/composition_trace.json and
+    DIR/composition_profile.txt."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            with record_function("clip_encode"):
+                z = pipe.clip_text(torch.from_numpy(pipe.tokenizer(SENTENCES)).cuda())
+            with record_function("sag_decode"):
+                sketch = pipe.sag.decode(z, cond["origin_x"])
+            with record_function("refinement"):
+                pipe.rag_sampler(cond, gen(), guidance=1.5, skip_timesteps=pipe.skip_timesteps,
+                                 init_image=sketch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(os.path.join(out_dir, "composition_trace.json"))
+    classes = {"K1 fused_transmlp": ("fused_transmlp_cluster_kernel",),
+               "cuDNN conv (WavEncoder)": ("cudnn", "convolve", "fprop_implicit"),
+               "cuBLAS GEMM (CLIP, SAG, per-batch set-up)": ("_gemm_", "cublas", "gemv",
+                                                              "gemmk")}
+    stages = ("clip_encode", "sag_decode", "refinement")
+    lines, head, counts = _device_table(
+        prof, classes, wall_ms, f"composition: {batches} TED batches of {len(SENTENCES)} "
+        f"({card})", batches, "batch", labels=stages)
+    # a stage's device span is its record_function range on the device (its
+    # first kernel's start to its last kernel's end); busy, the kernels
+    # that start inside it
+    events = prof.events()
+    dev = [e for e in events if e.device_type.name == "CUDA"]
+    kernels = [e for e in dev if e.name not in stages]
+    for i, k in enumerate(stages):
+        spans = [e.time_range for e in dev if e.name == k]
+        span = sum(r.elapsed_us() for r in spans) / 1e3
+        busy = sum(e.time_range.elapsed_us() for e in kernels
+                   if any(r.start <= e.time_range.start < r.end for r in spans)) / 1e3
+        host = sum(e.time_range.elapsed_us() for e in events
+                   if e.name == k and e.device_type.name == "CPU") / 1e3
+        lines.insert(1 + i, f"{k}: host {host / batches:.3f} ms a batch, device span "
+                     f"{span / batches:.3f} ms, busy {busy / batches:.3f} ms "
+                     f"({100 * (1 - busy / span) if span else 100:.1f}% idle)")
+        head += 1
+    with open(os.path.join(out_dir, "composition_profile.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    for line in lines[:head + 1]:
+        print(f"[profile] {line}")
+    k1 = counts["K1 fused_transmlp"]
+    check(k1 == COMPOSED_STEPS * batches,
+          f"composition profile: {k1} K1 kernels for {batches} batches")
 
 
 def kernel_ms_by_name(fn, iters, module=None):
@@ -1656,14 +1823,15 @@ def profile_phase(model, loop, out_dir, card, name="train_step"):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="also profile a serving burst and 3 steps of each training run, "
-                             "writing the traces and tables to DIR")
+                        help="also profile a serving burst, 3 composed batches and 3 steps of "
+                             "each training run, writing the traces and tables to DIR")
     args = parser.parse_args()
     card = device_phase()
     build_phase()
     worst_abs, k1 = kernel_phase(card)
     launches = serving_phase(card, args.profile)
     beat_phase()
+    launches += composition_phase(card, args.profile)
     train_worst, train_times = train_kernel_phase(card)
     train_launches, _, model, loop, train_stats = train_phase(card)
     wav_worst, wav_times = wav_kernel_phase(card)

@@ -1,6 +1,16 @@
-"""RAG denoiser, audio frontend, TransMLP backbone and CFG wrappers."""
+"""RAG denoiser, audio frontend, TransMLP backbone and CFG wrappers; the SAG,
+its transformer layers and the CLIP text tower."""
 
 from .audio_encoder import WavEncoder, audio_samples_for_frames
 from .cfg import make_cfg_denoiser, make_guidance_schedule, scheduled_scale
+from .clip_text import CLIPTextConfig, CLIPTextEncoder, quick_gelu
 from .mlp_backbone import MLPBlock, TimestepEmbedder, TransMLP, sinusoidal_table
 from .rag import RAG, RAGConfig
+from .sag import SAG, SAGDecoder, SAGEncoder, sag_losses
+from .transformer import (
+    MultiHeadAttention,
+    TransformerDecoder,
+    TransformerDecoderLayer,
+    TransformerEncoder,
+    TransformerEncoderLayer,
+)

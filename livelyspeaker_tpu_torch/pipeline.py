@@ -1,24 +1,30 @@
-"""RAG sampling, the user-facing generation API of the port.
+"""The user-facing generation API of the port.
 
-Port of ``RAGSampler`` from ``livelyspeaker_tpu/pipeline.py``: audio- and
-speaker-conditioned gesture sampling with classifier-free guidance. The
-weights live in the model; :meth:`RAGSampler.update_params` swaps them.
+Port of ``RAGSampler`` and ``LivelySpeakerPipeline`` from
+``livelyspeaker_tpu/pipeline.py``. ``RAGSampler`` is audio- and
+speaker-conditioned gesture sampling with classifier-free guidance; the
+weights live in the model and :meth:`RAGSampler.update_params` swaps them.
+``LivelySpeakerPipeline`` is the two-stage composition: the SAG decodes a
+motion sketch from a CLIP text embedding, and the RAG refines it, q-sampled
+to step T - ``skip_timesteps`` of the respaced chain, under CFG.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Union
+from typing import Dict, Mapping, Optional, Sequence, Union
 
 import torch
 
 from .diffusion.sampling import sample_loop
 from .diffusion.schedule import DiffusionSchedule
 from .models.cfg import make_cfg_denoiser, make_guidance_schedule
+from .models.clip_text import CLIPTextEncoder
 from .models.fast_rag import make_fused_cfg_denoiser
 from .models.rag import RAG
+from .models.sag import SAG
 from .utils.device import place_model
 
-__all__ = ["RAGSampler"]
+__all__ = ["RAGSampler", "LivelySpeakerPipeline"]
 
 
 class RAGSampler:
@@ -116,3 +122,71 @@ class RAGSampler:
             skip_timesteps=skip_timesteps,
             init_image=init_image,
         )
+
+
+class LivelySpeakerPipeline:
+    """text + audio + speaker -> gesture clip: the SAG sketch, refined by
+    the RAG.
+
+    ``device=None`` puts the three models on the card (construction raises
+    without one); ``device="cpu"``, or any explicit device, is taken as
+    given, as in :class:`RAGSampler`, which this holds. The weights live in
+    the modules; both stages run in ``eval()`` under ``torch.no_grad()``.
+    ``use_fused=True`` runs each refinement step through the fused TransMLP
+    kernel. ``tokenizer`` maps a list of sentences to int ids [B, 77]
+    (``data.clip_tokenizer``)."""
+
+    def __init__(
+        self,
+        rag: RAG,
+        sag: SAG,
+        clip_text: CLIPTextEncoder,
+        tokenizer,
+        *,
+        steps: int = 1000,
+        timestep_respacing: Optional[str] = "ddim100",
+        skip_timesteps: int = 80,
+        method: str = "ddim",
+        guidance_schedule: Optional[str] = None,
+        use_fused: bool = False,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        self.device = place_model(sag, device, "LivelySpeakerPipeline")
+        self.rag_sampler = RAGSampler(
+            rag,
+            steps=steps,
+            timestep_respacing=timestep_respacing,
+            method=method,
+            use_fused=use_fused,
+            guidance_schedule=guidance_schedule,
+            device=self.device,
+        )
+        self.sag = sag.eval()
+        self.clip_text = clip_text.to(self.device).eval()
+        self.tokenizer = tokenizer
+        self.skip_timesteps = skip_timesteps
+
+    @torch.no_grad()
+    def semantic_sketch(self, sentences: Sequence[str],
+                        seed_motion: torch.Tensor) -> torch.Tensor:
+        """The SAG decode of the CLIP text features of ``sentences``, seeded
+        by the first frames of ``seed_motion`` [B, J, F, T]."""
+        tokens = torch.from_numpy(self.tokenizer(list(sentences))).to(self.device)
+        z = self.clip_text(tokens)
+        return self.sag.decode(z, seed_motion.to(self.device, torch.float32))
+
+    @torch.no_grad()
+    def __call__(
+        self,
+        sentences: Sequence[str],
+        cond: Dict[str, torch.Tensor],
+        generator: Optional[torch.Generator] = None,
+        *,
+        guidance=1.5,
+    ) -> torch.Tensor:
+        """Clips [B, J, F, T]: the sketch of ``sentences`` from
+        ``cond["origin_x"]``, refined over the last ``num_timesteps -
+        skip_timesteps`` steps under ``cond`` (on the models' device)."""
+        sketch = self.semantic_sketch(sentences, cond["origin_x"])
+        return self.rag_sampler(cond, generator, guidance=guidance,
+                                skip_timesteps=self.skip_timesteps, init_image=sketch)

@@ -16,6 +16,11 @@ JAX package) gives: nested dicts of numpy arrays.
 :func:`state_dict_to_jax_params` is the inverse; it reads each leaf's module
 type from the model, since a torch ``weight`` alone does not say which Flax
 name it had.
+
+The released PyTorch checkpoints of the two-stage composition map onto the
+port's modules by name alone (the layouts are torch's on both sides):
+:func:`sag_state_dict_from_reference` for the SAG (MotionCLIP) and
+:func:`clip_text_state_dict_from_openai` for OpenAI CLIP's text tower.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["jax_params_to_state_dict", "state_dict_to_jax_params", "random_normal_params"]
+__all__ = ["jax_params_to_state_dict", "state_dict_to_jax_params", "random_normal_params",
+           "sag_state_dict_from_reference", "clip_text_state_dict_from_openai"]
 
 
 def _flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -120,3 +126,65 @@ def random_normal_params(tree: Mapping, rng: np.random.Generator) -> Dict:
         }
 
     return walk(tree, "")
+
+
+def _f32(a) -> torch.Tensor:
+    """An f32 CPU copy (OpenAI's CLIP checkpoint holds fp16 weights)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to("cpu", torch.float32).clone()
+    return torch.tensor(np.asarray(a), dtype=torch.float32)
+
+
+def _renamed(sd: Mapping, names: Mapping[str, str]) -> Dict[str, torch.Tensor]:
+    """{port key: f32 tensor of sd[reference key]} for each pair of ``names``."""
+    return {ours: _f32(sd[theirs]) for ours, theirs in names.items()}
+
+
+def _with_leaves(ours: str, theirs: str, leaves) -> Dict[str, str]:
+    return {f"{ours}.{leaf}": f"{theirs}.{leaf}" for leaf in leaves}
+
+
+_WB = ("weight", "bias")
+_ATTN = ("in_proj_weight", "in_proj_bias", "out_proj.weight", "out_proj.bias")
+
+
+def sag_state_dict_from_reference(sd: Mapping, num_layers: int = 3) -> Dict[str, torch.Tensor]:
+    """The port's ``models.sag.SAG`` state_dict from a released SAG
+    (MotionCLIP) state_dict, such as ``ckpts/TED/SAG.pth``: its
+    ``encoder.seqTransEncoder.layers.{i}`` and
+    ``decoder.seqTransDecoder.layers.{i}`` are stock ``nn.Transformer*Layer``
+    modules. Keys outside the SAG are ignored."""
+    names = {"encoder.mu_query": "encoder.muQuery",
+             "encoder.sigma_query": "encoder.sigmaQuery"}
+    names.update(_with_leaves("encoder.skel_embedding", "encoder.skelEmbedding", _WB))
+    names.update(_with_leaves("decoder.mapping", "decoder.mapping", _WB))
+    names.update(_with_leaves("decoder.final_layer", "decoder.finallayer", _WB))
+    for i in range(num_layers):
+        for side, ref, attns, norms in (
+                ("encoder", "encoder.seqTransEncoder", ("self_attn",), (1, 2)),
+                ("decoder", "decoder.seqTransDecoder", ("self_attn", "multihead_attn"),
+                 (1, 2, 3))):
+            ours, theirs = f"{side}.{side}.layer_{i}", f"{ref}.layers.{i}"
+            for a in attns:
+                names.update(_with_leaves(f"{ours}.{a}", f"{theirs}.{a}", _ATTN))
+            for m in ("linear1", "linear2") + tuple(f"norm{n}" for n in norms):
+                names.update(_with_leaves(f"{ours}.{m}", f"{theirs}.{m}", _WB))
+    return _renamed(sd, names)
+
+
+def clip_text_state_dict_from_openai(sd: Mapping, layers: int = 12) -> Dict[str, torch.Tensor]:
+    """The port's ``models.clip_text.CLIPTextEncoder`` state_dict from an
+    OpenAI CLIP state_dict (the whole model or its text tower); the vision
+    tower's keys are ignored."""
+    names = {"token_embedding": "token_embedding.weight",
+             "positional_embedding": "positional_embedding",
+             "text_projection": "text_projection"}
+    names.update(_with_leaves("ln_final", "ln_final", _WB))
+    for i in range(layers):
+        ours, theirs = f"block_{i}", f"transformer.resblocks.{i}"
+        names[f"{ours}.attn_in_proj_weight"] = f"{theirs}.attn.in_proj_weight"
+        names[f"{ours}.attn_in_proj_bias"] = f"{theirs}.attn.in_proj_bias"
+        for m, ref in (("ln_1", "ln_1"), ("ln_2", "ln_2"), ("attn_out_proj", "attn.out_proj"),
+                       ("mlp_c_fc", "mlp.c_fc"), ("mlp_c_proj", "mlp.c_proj")):
+            names.update(_with_leaves(f"{ours}.{m}", f"{theirs}.{ref}", _WB))
+    return _renamed(sd, names)

@@ -1015,3 +1015,45 @@ def test_wav_conv0_launches_refuse_what_they_do_not_take(cuda_device):
             fused_wav._launch("wgrad0", cuda_device, wav.data_ptr(), w0, b0, length,
                               st0.data_ptr(), g.data_ptr(), sums.data_ptr(), ntq, b, tt, sp, pp,
                               None if out is None else out.data_ptr(), nr, None, what="test")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["ted", "beat"])
+def test_composition_runs_k1_on_the_card(cuda_device, variant):
+    """LivelySpeakerPipeline with its default device (the card), narrow
+    widths: the refinement's 20 steps launch K1 20 times and never its
+    plain version, and agree with the eager modules within rel 1e-4."""
+    from livelyspeaker_tpu_torch.data import HashTokenizer
+    from livelyspeaker_tpu_torch.models import SAG, CLIPTextConfig, CLIPTextEncoder, RAG, RAGConfig
+    from livelyspeaker_tpu_torch.pipeline import LivelySpeakerPipeline
+
+    kw = dict(latent_dim=64, num_layers=2, n_speakers=6)
+    cfg = RAGConfig.beat(**kw) if variant == "beat" else RAGConfig.ted(**kw)
+    g = torch.Generator().manual_seed(3)
+    rag = random_normal_(RAG(cfg, generator=g), g)
+    sag = random_normal_(SAG(njoints=cfg.njoints, nfeats=cfg.nfeats, latent_dim=64, ff_size=128,
+                             num_layers=2, generator=g), g)
+    clip = random_normal_(CLIPTextEncoder(CLIPTextConfig(width=64, layers=2, heads=4,
+                                                         embed_dim=64), generator=g), g)
+    b = 3
+    cond = {"audio": 0.1 * torch.randn(b, audio_samples_for_frames(34), generator=g),
+            "vid": torch.randint(0, 6, (b,), generator=g),
+            "origin_x": torch.randn(b, cfg.njoints, cfg.nfeats, 34, generator=g)}
+    if cfg.num_emotions:
+        cond["emo"] = torch.randint(0, cfg.num_emotions, (b,), generator=g)
+    cond = {k: v.to(cuda_device) for k, v in cond.items()}
+    sentences = ["so we went down to the river", "no", "and then everyone started clapping"]
+    outs = []
+    for use_fused in (True, False):
+        pipe = LivelySpeakerPipeline(rag, sag, clip, HashTokenizer(), use_fused=use_fused)
+        assert pipe.device.type == "cuda"
+        launches = fused_mlp.fused_transmlp.launches
+        plain = fused_mlp.fused_transmlp_reference.calls
+        outs.append(pipe(sentences, cond, torch.Generator(device="cuda").manual_seed(5)))
+        torch.cuda.synchronize()
+        assert fused_mlp.fused_transmlp.launches - launches == (20 if use_fused else 0)
+        assert fused_mlp.fused_transmlp_reference.calls == plain
+    fused, eager = outs
+    assert fused.shape == (b, cfg.njoints, cfg.nfeats, 34) and torch.isfinite(fused).all()
+    rel = ((fused - eager).abs().max() / eager.abs().max()).item()
+    assert rel <= 1e-4, rel

@@ -1,14 +1,23 @@
 """The port's entry points run on the card unless the caller asks for the
-CPU: without a CUDA device ``RAGSampler``, ``build_rag_server`` and
-``TrainLoop`` raise unless ``device="cpu"`` is passed, and run with it."""
+CPU: without a CUDA device ``RAGSampler``, ``LivelySpeakerPipeline``,
+``build_rag_server`` and ``TrainLoop`` raise unless ``device="cpu"`` is
+passed, and run with it."""
 
 import numpy as np
 import pytest
 import torch
 
+from livelyspeaker_tpu_torch.data import HashTokenizer
 from livelyspeaker_tpu_torch.diffusion import DiffusionSchedule
-from livelyspeaker_tpu_torch.models import RAG, RAGConfig, audio_samples_for_frames
-from livelyspeaker_tpu_torch.pipeline import RAGSampler
+from livelyspeaker_tpu_torch.models import (
+    RAG,
+    SAG,
+    CLIPTextConfig,
+    CLIPTextEncoder,
+    RAGConfig,
+    audio_samples_for_frames,
+)
+from livelyspeaker_tpu_torch.pipeline import LivelySpeakerPipeline, RAGSampler
 from livelyspeaker_tpu_torch.serving import ServeConfig, build_rag_server
 from livelyspeaker_tpu_torch.training import TrainConfig
 from livelyspeaker_tpu_torch.training.loop import TrainLoop
@@ -44,6 +53,26 @@ def _sampler(model, **kw):
     return sampler.device
 
 
+def _pipeline(model, **kw):
+    """A tiny composition: SAG and CLIP text tower at width 32, ddim2 with
+    one of its two steps skipped."""
+    g = torch.Generator().manual_seed(2)
+    sag = SAG(latent_dim=32, ff_size=64, num_layers=1, generator=g)
+    clip = CLIPTextEncoder(CLIPTextConfig(width=32, layers=1, heads=4, embed_dim=32),
+                           generator=g)
+    pipe = LivelySpeakerPipeline(model, sag, clip, HashTokenizer(), steps=20,
+                                 timestep_respacing="ddim2", skip_timesteps=1, use_fused=True,
+                                 **kw)
+    b = _batch(model.cfg)
+    cond = {"audio": torch.from_numpy(b["audio"]), "vid": torch.from_numpy(b["vid"]),
+            "origin_x": torch.from_numpy(b["motion"])}
+    out = pipe(["hello there", "the river"], cond, torch.Generator().manual_seed(1))
+    assert out.shape == b["motion"].shape and bool(torch.isfinite(out).all())
+    for m in (sag, clip):
+        assert next(m.parameters()).device == pipe.device
+    return pipe.device
+
+
 def _server(model, **kw):
     cfg = ServeConfig(max_batch=2, max_wait_ms=10.0, steps=20, timestep_respacing="ddim2",
                       sampler="ddim")
@@ -64,8 +93,9 @@ def _train(model, **kw):
     return loop.device
 
 
-@pytest.mark.parametrize("entry", [_sampler, _server, _train], ids=["RAGSampler", "build_rag_server",
-                                                                    "TrainLoop"])
+@pytest.mark.parametrize("entry", [_sampler, _pipeline, _server, _train],
+                         ids=["RAGSampler", "LivelySpeakerPipeline", "build_rag_server",
+                              "TrainLoop"])
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(no_card, entry):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         entry(_model())
