@@ -5,7 +5,8 @@
 Drives the port's paths at the full TED width (latent 512, 8 blocks,
 1400 speakers) with seeded random weights: RAG sampling behind the serving
 batcher, the two-stage composition (CLIP text tower, SAG sketch, RAG
-refinement) through LivelySpeakerPipeline, RAG training through TrainLoop
+refinement) through LivelySpeakerPipeline, the HTTP front end with text and
+long-form requests, RAG training through TrainLoop
 with the fused backbone, and the same training with the WavEncoder swapped
 for the fused WavEncoder stack (K3). Checks:
 
@@ -34,6 +35,18 @@ for the fused WavEncoder stack (K3). Checks:
    and the same batch through the eager modules (use_fused=False) from the
    same seeded generator within rel 1e-4; the ms of the CLIP encode, the
    SAG decode and the 20-step refinement of a batch, and clips/s;
+   then the HTTP front end (``livelyspeaker_tpu_torch.scripts.serve``) on
+   seeded TED and SAG checkpoints written as the JAX package's npz, at its
+   defaults: 16 plain requests from 4 threads, 8 text requests beside 4
+   plain, one long request over 10 s of audio (5 windows, [9, 3, 150]) and
+   the same streamed as NDJSON (its chunks within rel 1e-4 of the blocking
+   answer from the same seed), /stats, /metrics and a reload; K1 launched
+   20 times a batch served and its plain version never, no batch mixing
+   text and plain; the p50 and p95 of the plain requests, the ms a window,
+   the ms to the first NDJSON line and clips/s; then a PLMS batcher (K1 21
+   times a batch), and PLMS, inpainting (the held frames equal to the
+   constraint) and generate_long_form, fused against eager within rel
+   1e-4;
 7. the training kernels (the cluster kernel with a stash as the forward; per
    layer of the backward a cluster block kernel, a 3xTF32 tensor-core
    weight-gradient kernel and a reduce kernel) against their plain versions
@@ -300,9 +313,11 @@ def _cond(cfg, rng, b):
     return {k: v.cuda() for k, v in cond.items()}
 
 
-def fused_vs_eager(model, cond, guidance, tag):
-    """One batch through the fused sampler and the eager one, from the same
-    seeded generator: same noise, same style draws."""
+def fused_vs_eager(model, cond, guidance, tag, method=None, launches=20, **call_kw):
+    """One batch through the fused sampler and the eager one (the serving
+    default's respacing; ``method`` defaults to its sampler), from the same
+    seeded generator: same noise, same style draws. The fused run launches
+    K1 ``launches`` times. Returns the fused batch."""
     from livelyspeaker_tpu_torch.ops import fused_mlp
     from livelyspeaker_tpu_torch.pipeline import RAGSampler
     from livelyspeaker_tpu_torch.serving import ServeConfig
@@ -311,14 +326,16 @@ def fused_vs_eager(model, cond, guidance, tag):
     outs = []
     for use_fused in (True, False):
         sampler = RAGSampler(model, steps=sc.steps, timestep_respacing=sc.timestep_respacing,
-                             method=sc.sampler, use_fused=use_fused)
+                             method=method or sc.sampler, use_fused=use_fused)
         gen = torch.Generator(device="cuda").manual_seed(7)
-        launches = fused_mlp.fused_transmlp.launches
-        outs.append(sampler(cond, gen, guidance=guidance))
+        n0, plain0 = fused_mlp.fused_transmlp.launches, fused_mlp.fused_transmlp_reference.calls
+        outs.append(sampler(cond, gen, guidance=guidance, **call_kw))
         torch.cuda.synchronize()
-        check((fused_mlp.fused_transmlp.launches - launches) == (20 if use_fused else 0),
-              f"{tag}: fused={use_fused} launched the kernel "
-              f"{fused_mlp.fused_transmlp.launches - launches} times")
+        n = fused_mlp.fused_transmlp.launches - n0
+        check(n == (launches if use_fused else 0),
+              f"{tag}: fused={use_fused} launched the kernel {n} times")
+        check(fused_mlp.fused_transmlp_reference.calls == plain0,
+              f"{tag}: the plain version ran")
     fused, eager = outs
     c = model.cfg
     check(fused.shape == (cond["vid"].shape[0], c.njoints, c.nfeats, c.nframes), f"{tag}: shape")
@@ -326,6 +343,7 @@ def fused_vs_eager(model, cond, guidance, tag):
     rel = ((fused - eager).abs().max() / eager.abs().max()).item()
     print(f"[{tag}] fused vs eager sampler, {tuple(fused.shape)}: rel {rel:.3e} (tol {SLICE_TOL})")
     check(rel <= SLICE_TOL, f"{tag}: fused path disagrees with the eager modules")
+    return fused
 
 
 def _burst(batcher, audio, speakers, guidances, n_threads):
@@ -622,6 +640,324 @@ def composition_profile(pipe, cond, gen, out_dir, card, batches=3):
     k1 = counts["K1 fused_transmlp"]
     check(k1 == COMPOSED_STEPS * batches,
           f"composition profile: {k1} K1 kernels for {batches} batches")
+
+
+LONG_SECONDS = 10  # 150 frames at 15 fps: 5 windows of long_form_window_grid
+LONG_WINDOWS = 5
+RELOAD_TOKEN = "chip-smoke"
+
+
+def _write_checkpoints(out_dir):
+    """Seeded random TED weights (RAGConfig.ted(), full width) with their
+    args.json, a second version of them for the reload, and a SAG (latent
+    512, ff 1024, 3 layers, 4 heads), each as the JAX package's npz. Returns
+    the RAG (on the card) and the paths."""
+    from livelyspeaker_tpu_torch.models import SAG, RAGConfig
+    from livelyspeaker_tpu_torch.models.initializers import random_normal_
+    from livelyspeaker_tpu_torch.training.checkpoints import save_args, save_params_npz
+
+    cfg = RAGConfig.ted()
+    model = _random_model(cfg, seed=21)
+    paths = {k: os.path.join(out_dir, f"{k}.npz") for k in ("rag", "rag_v2", "sag")}
+    save_params_npz(paths["rag"], model.state_dict(), model)
+    save_params_npz(paths["rag_v2"], {k: 1.01 * v for k, v in model.state_dict().items()},
+                    model)
+    save_args(out_dir, {"njoints": cfg.njoints, "nfeats": cfg.nfeats, "n_poses": cfg.nframes,
+                        "latent_dim": cfg.latent_dim, "layers": cfg.num_layers,
+                        "mlpact": cfg.mlpact, "n_speakers": cfg.n_speakers,
+                        "num_emotions": cfg.num_emotions, "cond_mask_prob": cfg.cond_mask_prob})
+    g = torch.Generator().manual_seed(22)
+    sag = random_normal_(SAG(njoints=cfg.njoints, nfeats=cfg.nfeats, latent_dim=512,
+                             ff_size=1024, num_layers=3, num_heads=4, generator=g), g)
+    save_params_npz(paths["sag"], sag.state_dict(), sag)
+    return model, paths
+
+
+class _Client:
+    """JSON over HTTP/1.1 to the front end, a connection a request."""
+
+    def __init__(self, address):
+        self.host, self.port = address[:2]
+
+    def _conn(self):
+        import http.client
+
+        return http.client.HTTPConnection(self.host, self.port, timeout=600)
+
+    def get(self, path):
+        conn = self._conn()
+        try:
+            conn.request("GET", path)
+            r = conn.getresponse()
+            body = r.read()
+        finally:
+            conn.close()
+        check(r.status == 200, f"front end: GET {path} answered {r.status}")
+        return r.headers, body
+
+    def post(self, path, obj):
+        """(answer, client ms)."""
+        conn = self._conn()
+        try:
+            t0 = time.perf_counter()
+            conn.request("POST", path, body=json.dumps(obj),
+                         headers={"Content-Type": "application/json"})
+            r = conn.getresponse()
+            body = r.read()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            conn.close()
+        check(r.status == 200, f"front end: POST {path} answered {r.status}: {body[:200]}")
+        return json.loads(body), ms
+
+    def stream(self, obj):
+        """The NDJSON lines of a streamed answer and the client ms to the
+        first line."""
+        conn = self._conn()
+        try:
+            t0 = time.perf_counter()
+            conn.request("POST", "/v1/generate", body=json.dumps(obj),
+                         headers={"Content-Type": "application/json"})
+            r = conn.getresponse()
+            check(r.status == 200, f"front end: streamed request answered {r.status}")
+            check(r.headers["Content-Type"] == "application/x-ndjson",
+                  "front end: a streamed answer is not NDJSON")
+            lines, first_ms = [], None
+            while True:
+                line = r.readline()
+                if not line:
+                    break
+                if first_ms is None:
+                    first_ms = (time.perf_counter() - t0) * 1e3
+                if line.strip():
+                    lines.append(json.loads(line))
+        finally:
+            conn.close()
+        return lines, first_ms
+
+
+def _in_threads(n_threads, work):
+    """``work(k)`` in ``n_threads`` threads at once; their results in order,
+    the errors and the wall seconds."""
+    results, errors = [None] * n_threads, []
+
+    def run(k):
+        try:
+            results[k] = work(k)
+        except BaseException as e:  # reported by the caller
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(all(not t.is_alive() for t in threads), "front end: a client thread hung")
+    return results, errors, time.perf_counter() - t0
+
+
+def _audio_b64(audio):
+    import base64
+
+    return base64.b64encode(np.ascontiguousarray(audio, np.float32).tobytes()).decode()
+
+
+def _clip(answer, shape, what):
+    m = np.asarray(answer["motion"], np.float32)
+    check(m.shape == shape and list(shape) == answer.get("shape", list(shape)),
+          f"front end: {what} has shape {m.shape}, want {shape}")
+    check(np.isfinite(m).all(), f"front end: {what} is not finite")
+    return m
+
+
+def front_end_phase(card):
+    """The HTTP front end (``livelyspeaker_tpu_torch.scripts.serve``) on
+    checkpoints written here, at its defaults (dpmpp over ddim20, max_batch
+    8, text through the composition over ddim100 with skip 80): plain, text,
+    long and streamed long requests, /stats and /metrics, a reload; K1 20
+    times a batch served, its plain version never, text and plain never in
+    one batch. Then a PLMS batcher (21 launches a batch), and PLMS,
+    inpainting and long form fused against eager. Returns K1's launches on
+    the main paths (the front end and the PLMS batcher)."""
+    import tempfile
+
+    from livelyspeaker_tpu_torch.diffusion import Inpainting
+    from livelyspeaker_tpu_torch.ops import fused_mlp
+    from livelyspeaker_tpu_torch.pipeline import (
+        RAGSampler,
+        generate_long_form,
+        long_form_window_grid,
+    )
+    from livelyspeaker_tpu_torch.scripts import serve
+    from livelyspeaker_tpu_torch.serving import ServeConfig, build_rag_server
+
+    rng = np.random.default_rng(23)
+    with tempfile.TemporaryDirectory() as tmp:
+        model, paths = _write_checkpoints(tmp)
+        t0 = time.perf_counter()
+        srv, batcher = serve.build_server([
+            "--model_path", paths["rag"], "--sag_path", paths["sag"], "--host", "127.0.0.1",
+            "--port", "0", "--reload_token", RELOAD_TOKEN])
+        print(f"[front-end] build_server (checkpoints loaded, plain and text routes warmed) "
+              f"{time.perf_counter() - t0:.2f} s")
+        check(batcher.device.type == "cuda", "front end: the batcher is not on the card")
+        batches = []  # (texts, plains, K1 launches) a dispatched batch
+        dispatch = batcher._dispatch
+
+        def counted(batch):
+            n0 = fused_mlp.fused_transmlp.launches
+            out = dispatch(batch)
+            n_text = sum(1 for r in batch if r.text)
+            batches.append((n_text, len(batch) - n_text, fused_mlp.fused_transmlp.launches - n0))
+            return out
+
+        batcher._dispatch = counted
+        server_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        server_thread.start()
+        client = _Client(srv.server_address)
+        n = batcher.n_samples
+        try:
+            fused_mlp.fused_transmlp.launches = 0
+            fused_mlp.fused_transmlp_reference.calls = 0
+            batcher.reset_stats()
+
+            # 1. 16 plain requests from 4 threads
+            plain_audio = [(0.1 * rng.normal(size=n)).astype(np.float32) for _ in range(16)]
+            speakers = rng.integers(0, 1400, size=16)
+
+            def plain(k):
+                return [client.post("/v1/generate", {"audio_b64": _audio_b64(plain_audio[i]),
+                                                     "speaker": int(speakers[i])})
+                        for i in range(4 * k, 4 * k + 4)]
+
+            res, errors, wall = _in_threads(4, plain)
+            check(not errors, f"front end: a plain request failed: {errors[:1]}")
+            plain_ms = [ms for r in res for _, ms in r]
+            for r in res:
+                for answer, _ in r:
+                    _clip(answer, (9, 3, 34), "a plain clip")
+            p50, p95 = np.percentile(plain_ms, 50), np.percentile(plain_ms, 95)
+            print(f"[front-end] 16 plain requests from 4 threads over HTTP: p50 {p50:.2f} ms "
+                  f"p95 {p95:.2f} ms (client clock), {16 / wall:.2f} clips/s ({card})")
+
+            # 2. 8 text requests from 4 threads, beside 4 plain from 2 more
+            def mixed(k):
+                if k < 4:
+                    return [client.post("/v1/generate", {
+                        "audio_b64": _audio_b64(plain_audio[2 * k + j]),
+                        "text": SENTENCES[2 * k + j]}) for j in range(2)]
+                return [client.post("/v1/generate", {"audio_b64": _audio_b64(plain_audio[k])})
+                        for _ in range(2)]
+
+            res, errors, wall = _in_threads(6, mixed)
+            check(not errors, f"front end: a text request failed: {errors[:1]}")
+            for r in res:
+                for answer, _ in r:
+                    _clip(answer, (9, 3, 34), "a text or plain clip")
+            text_ms = [ms for r in res[:4] for _, ms in r]
+            print(f"[front-end] 8 text requests beside 4 plain: text p50 "
+                  f"{np.percentile(text_ms, 50):.2f} ms, the 12 in {wall * 1e3:.2f} ms ({card})")
+
+            # 3. one long request over 10 s of audio, 4. the same streamed
+            long_audio = (0.1 * rng.normal(size=LONG_SECONDS * 16000)).astype(np.float32)
+            grid = long_form_window_grid(len(long_audio), 34, 4)
+            check(grid[0] == LONG_WINDOWS and grid[3] == 15 * LONG_SECONDS,
+                  f"front end: the window grid is {grid[:4]}")
+            request = {"audio_b64": _audio_b64(long_audio), "speaker": 5, "long": True}
+            batcher._generator.manual_seed(31)  # the worker is idle: no other draw
+            answer, long_ms = client.post("/v1/generate", request)
+            long_clip = _clip(answer, (9, 3, 15 * LONG_SECONDS), "the long clip")
+            batcher._generator.manual_seed(31)
+            lines, first_ms = client.stream(dict(request, stream=True))
+            check([ln.get("window") for ln in lines] == list(range(LONG_WINDOWS)),
+                  f"front end: streamed windows {[ln.get('window') for ln in lines]}")
+            streamed = np.concatenate([np.asarray(ln["motion"], np.float32) for ln in lines], -1)
+            check(streamed.shape == long_clip.shape, "front end: the streamed clip's shape")
+            rel = float(np.abs(streamed - long_clip).max() / np.abs(long_clip).max())
+            print(f"[front-end] long request, 10 s of audio: {long_ms:.2f} ms, "
+                  f"{long_ms / LONG_WINDOWS:.2f} ms a window; streamed: first NDJSON line "
+                  f"after {first_ms:.2f} ms, chunks against the blocking answer rel {rel:.3e} "
+                  f"(tol {SLICE_TOL}) ({card})")
+            check(rel <= SLICE_TOL, "front end: the streamed chunks differ from the long answer")
+
+            # 5. /stats and /metrics
+            stats = json.loads(client.get("/stats")[1])
+            _, metrics = client.get("/metrics")
+            check(stats["requests_served"] == 16 + 12 + 2 * LONG_WINDOWS,
+                  f"front end: /stats counts {stats['requests_served']} requests")
+            check(b"livelyspeaker_requests_served" in metrics, "front end: /metrics")
+            print(f"[front-end] /stats: {stats}")
+
+            # 6. a reload, then one request
+            answer, _ = client.post("/v1/reload", {"model_path": paths["rag_v2"],
+                                                    "token": RELOAD_TOKEN})
+            check(answer.get("param_version") == 1, f"front end: reload answered {answer}")
+            _clip(client.post("/v1/generate", {"audio_b64": _audio_b64(plain_audio[0])})[0],
+                  (9, 3, 34), "the clip after the reload")
+            launches = fused_mlp.fused_transmlp.launches
+            plain_calls = fused_mlp.fused_transmlp_reference.calls
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            batcher.close()
+            server_thread.join(timeout=60)
+    check(all(t == 0 or p == 0 for t, p, _ in batches),
+          f"front end: text and plain requests shared a batch: {batches}")
+    check(all(k == 20 for _, _, k in batches),
+          f"front end: K1 launches a batch {[k for _, _, k in batches]}, want 20 each")
+    check(launches == 20 * len(batches) and plain_calls == 0,
+          f"front end: {launches} K1 launches for {len(batches)} batches, plain {plain_calls}")
+    print(f"[front-end] {len(batches)} batches ({sum(1 for t, _, _ in batches if t)} of text), "
+          f"sizes {[t + p for t, p, _ in batches]}, fused_transmlp launches {launches}, "
+          f"plain version calls {plain_calls}")
+
+    # PLMS (order 2) behind the batcher: 21 launches a batch
+    plms = build_rag_server(model, ServeConfig(sampler="plms"))
+    try:
+        plms.generate(plain_audio[0], timeout=600)  # warm-up
+        plms.reset_stats()
+        fused_mlp.fused_transmlp.launches = 0
+        reqs = [plms.submit(a, speaker=int(s)) for a, s in zip(plain_audio[:8], speakers)]
+        for r in reqs:
+            c = r.wait(timeout=600)
+            check(c.shape == (9, 3, 34) and np.isfinite(c).all(), "plms: a clip")
+        torch.cuda.synchronize()
+        plms_launches = fused_mlp.fused_transmlp.launches
+        plms_batches = plms.stats()["batches_served"]
+    finally:
+        plms.close()
+    print(f"[plms] 8 requests in {plms_batches} batches, fused_transmlp launches {plms_launches}")
+    check(plms_launches == 21 * plms_batches, "plms: K1 did not launch 21 times a batch")
+    check(fused_mlp.fused_transmlp_reference.calls == 0, "plms: the plain version ran")
+
+    cfg = model.cfg
+    fused_vs_eager(model, _cond(cfg, rng, 8), 1.5, "plms", method="plms", launches=21)
+    cond = _cond(cfg, rng, 8)
+    mask = torch.zeros(8, 9, 3, 34, dtype=torch.bool, device="cuda")
+    mask[..., :4] = True
+    motion = torch.randn(8, 9, 3, 34, generator=torch.Generator().manual_seed(24)).cuda()
+    fused = fused_vs_eager(model, cond, 1.5, "inpainting",
+                           inpainting=Inpainting(mask, motion, noised=True))
+    check(torch.equal(fused[mask], motion[mask]),
+          "inpainting: the first 4 frames are not the constraint")
+
+    outs = []
+    for use_fused in (True, False):
+        sampler = RAGSampler(model, timestep_respacing="ddim20", method="dpmpp",
+                             use_fused=use_fused)
+        n0 = fused_mlp.fused_transmlp.launches
+        outs.append(generate_long_form(sampler, long_audio, 5,
+                                       torch.Generator(device="cuda").manual_seed(7)))
+        k = fused_mlp.fused_transmlp.launches - n0
+        check(k == (20 * LONG_WINDOWS if use_fused else 0), f"long form: {k} K1 launches")
+    rel = float(np.abs(outs[0] - outs[1]).max() / np.abs(outs[1]).max())
+    check(outs[0].shape == (9, 3, 15 * LONG_SECONDS) and np.isfinite(outs[0]).all(),
+          "long form: the clip")
+    print(f"[long-form] fused vs eager generate_long_form, {LONG_WINDOWS} windows "
+          f"{outs[0].shape}: rel {rel:.3e} (tol {SLICE_TOL})")
+    check(rel <= SLICE_TOL, "long form: the fused chain disagrees with the eager one")
+    return launches + plms_launches
 
 
 def kernel_ms_by_name(fn, iters, module=None):
@@ -1832,6 +2168,7 @@ def main():
     launches = serving_phase(card, args.profile)
     beat_phase()
     launches += composition_phase(card, args.profile)
+    launches += front_end_phase(card)
     train_worst, train_times = train_kernel_phase(card)
     train_launches, _, model, loop, train_stats = train_phase(card)
     wav_worst, wav_times = wav_kernel_phase(card)

@@ -22,7 +22,12 @@ from .resample import (
     uniform_sample_t,
 )
 from .sampling import (
+    Inpainting,
+    MeanType,
     VarType,
+    condition_mean,
+    condition_score,
+    ddim_reverse_step,
     extract,
     p_mean_variance,
     predict_eps_from_xstart,
@@ -31,7 +36,9 @@ from .sampling import (
     q_mean_variance,
     q_posterior_mean_variance,
     q_sample,
+    reverse_loop,
     sample_loop,
+    sample_loop_with_dump,
 )
 from .schedule import (
     DiffusionSchedule,

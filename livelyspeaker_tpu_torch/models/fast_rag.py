@@ -129,7 +129,8 @@ def make_fused_cfg_denoiser(
     """CFG denoiser closure ``(x, t, generator) -> x0_hat`` on the fused
     path; a drop-in for ``cfg.make_cfg_denoiser``. Every t-invariant term is
     computed here, once. Without ``style_eps`` in ``cond`` each step draws
-    the style noise for all 2B rows, so the two halves draw independently."""
+    the style noise for all 2B rows, so the two halves draw independently.
+    A sample that is not f32 raises: the kernel is f32 only."""
     b = cond["vid"].shape[0]
     device = cond["vid"].device
     audio_feats = model.encode_audio(cond["audio"])
@@ -138,6 +139,8 @@ def make_fused_cfg_denoiser(
     scale = guidance_scale_tensor(guidance_scale, b, device)
 
     def denoise_fn(x, t, generator=None):
+        if x.dtype != torch.float32:  # K1 is f32 only: no silent cast
+            raise TypeError(f"the fused denoiser takes f32 samples, not {x.dtype}")
         out = _forward_from_static(
             model, static, torch.cat([x, x]), torch.cat([t, t]), cond2, generator
         )

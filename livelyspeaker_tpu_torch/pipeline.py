@@ -7,15 +7,18 @@ weights live in the model and :meth:`RAGSampler.update_params` swaps them.
 ``LivelySpeakerPipeline`` is the two-stage composition: the SAG decodes a
 motion sketch from a CLIP text embedding, and the RAG refines it, q-sampled
 to step T - ``skip_timesteps`` of the respaced chain, under CFG.
+:func:`generate_long_form` and :func:`generate_long_form_stream` chain
+windows over audio of any length through either.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Mapping, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
-from .diffusion.sampling import sample_loop
+from .diffusion.sampling import Inpainting, sample_loop
 from .diffusion.schedule import DiffusionSchedule
 from .models.cfg import make_cfg_denoiser, make_guidance_schedule
 from .models.clip_text import CLIPTextEncoder
@@ -24,7 +27,8 @@ from .models.rag import RAG
 from .models.sag import SAG
 from .utils.device import place_model
 
-__all__ = ["RAGSampler", "LivelySpeakerPipeline"]
+__all__ = ["RAGSampler", "LivelySpeakerPipeline", "generate_long_form",
+           "generate_long_form_stream", "long_form_window_grid"]
 
 
 class RAGSampler:
@@ -105,9 +109,12 @@ class RAGSampler:
         guidance=1.5,
         skip_timesteps: int = 0,
         init_image: Optional[torch.Tensor] = None,
+        inpainting: Optional[Inpainting] = None,
     ) -> torch.Tensor:
         """Sample clips [B, J, F, T] for the conditioning in ``cond`` (on the
-        model's device); ``guidance`` is a scalar or a per-sample [B]."""
+        model's device); ``guidance`` is a scalar or a per-sample [B].
+        ``inpainting`` (its tensors on the model's device) holds frames to a
+        constraint at every step."""
         c = self.model.cfg
         b = cond["vid"].shape[0]
         gsched = self._guidance_schedule_fn(skip_timesteps)
@@ -121,6 +128,7 @@ class RAGSampler:
             method=self.method,
             skip_timesteps=skip_timesteps,
             init_image=init_image,
+            inpainting=inpainting,
         )
 
 
@@ -190,3 +198,99 @@ class LivelySpeakerPipeline:
         sketch = self.semantic_sketch(sentences, cond["origin_x"])
         return self.rag_sampler(cond, generator, guidance=guidance,
                                 skip_timesteps=self.skip_timesteps, init_image=sketch)
+
+
+def long_form_window_grid(n_audio_samples: int, nframes: int, n_pre_seq: int,
+                          fps: int = 15, sr: int = 16000):
+    """The window grid every long-form path shares (the generators here and
+    ``serving.GestureBatcher.long_form_stream``).
+
+    Windows of ``nframes`` overlap by ``n_pre_seq`` seed frames (hop =
+    nframes - n_pre_seq); enough are laid down that ``nframes + (n-1)*hop
+    >= total_frames`` (the tail window's audio is zero-padded by the
+    caller), and the last window's output is cropped by ``excess`` so that
+    the frames yielded sum to ``total_frames = max(int(n_audio_samples *
+    fps / sr), nframes)``.
+
+    Returns ``(n_windows, excess, hop, total_frames, sample_offsets)``,
+    ``sample_offsets[w]`` the waveform start of window ``w``."""
+    hop = nframes - n_pre_seq
+    total_frames = max(int(n_audio_samples * fps / sr), nframes)
+    n_windows = max(1, -(-(total_frames - nframes) // hop) + 1)
+    excess = nframes + (n_windows - 1) * hop - total_frames
+    offsets = [int(round(w * hop / fps * sr)) for w in range(n_windows)]
+    return n_windows, excess, hop, total_frames, offsets
+
+
+def generate_long_form(
+    sampler: RAGSampler,
+    audio: np.ndarray,
+    speaker: int,
+    generator: Optional[torch.Generator] = None,
+    *,
+    guidance: float = 1.5,
+    fps: int = 15,
+    sr: int = 16000,
+    emotion: int = 0,
+    pipeline: Optional[LivelySpeakerPipeline] = None,
+    sentences: Optional[Sequence[str]] = None,
+) -> np.ndarray:
+    """Audio of any length -> one continuous gesture stream [J, F,
+    total_frames], ``total_frames = int(len(audio) * fps / sr)`` (one window
+    at least): the windows of :func:`long_form_window_grid`, generated in
+    order, each seeded with the previous window's last ``n_pre_seq`` frames
+    (the RAG's seed-frame conditioning). With ``pipeline`` and
+    ``sentences`` (cycled) each window is a LivelySpeaker composition.
+    Every window draws from ``generator`` in turn (the JAX package splits a
+    key per window instead). :func:`generate_long_form_stream` yields the
+    same frames window by window."""
+    chunks = generate_long_form_stream(
+        sampler, audio, speaker, generator, guidance=guidance, fps=fps, sr=sr,
+        emotion=emotion, pipeline=pipeline, sentences=sentences)
+    return np.concatenate([c for _, c in chunks], axis=-1)
+
+
+def generate_long_form_stream(
+    sampler: RAGSampler,
+    audio: np.ndarray,
+    speaker: int,
+    generator: Optional[torch.Generator] = None,
+    *,
+    guidance: float = 1.5,
+    fps: int = 15,
+    sr: int = 16000,
+    emotion: int = 0,
+    pipeline: Optional[LivelySpeakerPipeline] = None,
+    sentences: Optional[Sequence[str]] = None,
+):
+    """Generator form of :func:`generate_long_form`: yields ``(window,
+    new_frames [J, F, K])`` as each window completes, K = nframes for window
+    0 and nframes - n_pre_seq after (the last window cropped so the total
+    matches the audio). The windows run on the sampler's device."""
+    c = sampler.model.cfg
+    nf, pre = c.nframes, c.n_pre_seq
+    n_windows, excess, _, _, offsets = long_form_window_grid(len(audio), nf, pre, fps=fps, sr=sr)
+    dev = sampler.device
+    seed = np.zeros((1, c.njoints, c.nfeats, nf), np.float32)
+    win_samples = int(round(nf / fps * sr))
+    vid = torch.tensor([speaker], device=dev)
+    for w in range(n_windows):
+        wav = np.zeros((1, win_samples), np.float32)
+        chunk = np.asarray(audio[offsets[w]: offsets[w] + win_samples], np.float32)
+        wav[0, : len(chunk)] = chunk
+        cond = {"audio": torch.from_numpy(wav).to(dev), "vid": vid,
+                "origin_x": torch.tensor(seed, device=dev)}
+        if c.num_emotions:  # a BEAT model needs its emotion token
+            cond["emo"] = torch.tensor([emotion], device=dev)
+        if pipeline is not None and sentences:
+            clip = pipeline([sentences[w % len(sentences)]], cond, generator, guidance=guidance)
+        else:
+            clip = sampler(cond, generator, guidance=guidance)
+        clip = clip[0].cpu().numpy()  # [J, F, nf]
+        # windows after the first re-synthesise their seed frames: dropped
+        out = clip if w == 0 else clip[:, :, pre:]
+        if w == n_windows - 1 and excess:
+            out = out[:, :, :-excess]
+        yield w, out
+        seed[:] = 0.0
+        seed[0, :, :, :pre] = clip[:, :, -pre:]

@@ -1057,3 +1057,103 @@ def test_composition_runs_k1_on_the_card(cuda_device, variant):
     assert fused.shape == (b, cfg.njoints, cfg.nfeats, 34) and torch.isfinite(fused).all()
     rel = ((fused - eager).abs().max() / eager.abs().max()).item()
     assert rel <= 1e-4, rel
+
+
+def _narrow_rag(cuda_device, b=3, seed=6):
+    from livelyspeaker_tpu_torch.models import RAG, RAGConfig
+
+    cfg = RAGConfig.ted(latent_dim=64, num_layers=2, n_speakers=6)
+    g = torch.Generator().manual_seed(seed)
+    rag = random_normal_(RAG(cfg, generator=g), g).to(cuda_device).eval()
+    cond = {"audio": 0.1 * torch.randn(b, audio_samples_for_frames(34), generator=g),
+            "vid": torch.randint(0, 6, (b,), generator=g),
+            "origin_x": torch.randn(b, cfg.njoints, cfg.nfeats, 34, generator=g)}
+    return rag, {k: v.to(cuda_device) for k, v in cond.items()}
+
+
+def _fused_and_eager(run, launches_fused):
+    """``run(use_fused)`` twice: K1 launched ``launches_fused`` times by the
+    fused run, never by the eager one, its plain version never."""
+    outs = []
+    for use_fused in (True, False):
+        launches = fused_mlp.fused_transmlp.launches
+        plain = fused_mlp.fused_transmlp_reference.calls
+        outs.append(torch.as_tensor(run(use_fused)))
+        torch.cuda.synchronize()
+        assert fused_mlp.fused_transmlp.launches - launches == (
+            launches_fused if use_fused else 0)
+        assert fused_mlp.fused_transmlp_reference.calls == plain
+    fused, eager = outs
+    assert torch.isfinite(fused).all()
+    assert ((fused - eager).abs().max() / eager.abs().max()).item() <= 1e-4
+    return fused
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [1, 2, 4])
+def test_plms_runs_k1_on_the_card(cuda_device, order):
+    """PLMS over ddim20: at order > 1 the first step calls the denoiser
+    twice, so K1 launches 21 times a batch; fused within rel 1e-4 of the
+    eager modules from the same generator (order 2, RAGSampler's, through
+    RAGSampler; the others through sample_loop)."""
+    from livelyspeaker_tpu_torch.diffusion import DiffusionSchedule, sample_loop
+    from livelyspeaker_tpu_torch.models.cfg import make_cfg_denoiser
+    from livelyspeaker_tpu_torch.models.fast_rag import make_fused_cfg_denoiser
+    from livelyspeaker_tpu_torch.pipeline import RAGSampler
+
+    rag, cond = _narrow_rag(cuda_device)
+    sched = DiffusionSchedule.create(timestep_respacing="ddim20").to(cuda_device)
+
+    def run(use_fused):
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        if order == 2:
+            return RAGSampler(rag, timestep_respacing="ddim20", method="plms",
+                              use_fused=use_fused)(cond, gen)
+        make = make_fused_cfg_denoiser if use_fused else make_cfg_denoiser
+        return sample_loop(make(rag, cond, 1.5), sched, (3, 9, 3, 34), gen, method="plms",
+                           order=order)
+
+    _fused_and_eager(run, 20 + (order > 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noised", [True, False], ids=["noised", "clean"])
+def test_inpainting_runs_k1_on_the_card(cuda_device, noised):
+    """RAGSampler(inpainting=) at the serving default (dpmpp over ddim20):
+    20 K1 launches, fused within rel 1e-4 of eager, and the held frames
+    are the constraint at the last step."""
+    from livelyspeaker_tpu_torch.diffusion import Inpainting
+    from livelyspeaker_tpu_torch.pipeline import RAGSampler
+
+    rag, cond = _narrow_rag(cuda_device)
+    mask = torch.zeros(3, 9, 3, 34, dtype=torch.bool, device=cuda_device)
+    mask[..., :4] = True
+    inpaint = Inpainting(mask, torch.randn(3, 9, 3, 34, device=cuda_device), noised)
+
+    def run(use_fused):
+        sampler = RAGSampler(rag, timestep_respacing="ddim20", method="dpmpp",
+                             use_fused=use_fused)
+        return sampler(cond, torch.Generator(device="cuda").manual_seed(5), inpainting=inpaint)
+
+    fused = _fused_and_eager(run, 20)
+    assert torch.equal(fused[mask], inpaint.motion[mask])
+
+
+@pytest.mark.cuda
+def test_long_form_runs_k1_on_the_card(cuda_device):
+    """generate_long_form over 5 windows (10 s of audio): 20 K1 launches a
+    window, fused within rel 1e-4 of eager from the same generator."""
+    import numpy as np
+
+    from livelyspeaker_tpu_torch.pipeline import RAGSampler, generate_long_form
+
+    rag, _ = _narrow_rag(cuda_device)
+    audio = (0.1 * np.random.default_rng(3).normal(size=160000)).astype(np.float32)
+
+    def run(use_fused):
+        sampler = RAGSampler(rag, timestep_respacing="ddim20", method="dpmpp",
+                             use_fused=use_fused)
+        return generate_long_form(sampler, audio, 2, torch.Generator(device="cuda").manual_seed(5))
+
+    fused = _fused_and_eager(run, 5 * 20)
+    assert fused.shape == (9, 3, 150)

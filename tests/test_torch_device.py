@@ -1,7 +1,11 @@
 """The port's entry points run on the card unless the caller asks for the
 CPU: without a CUDA device ``RAGSampler``, ``LivelySpeakerPipeline``,
-``build_rag_server`` and ``TrainLoop`` raise unless ``device="cpu"`` is
+``build_rag_server``, ``TrainLoop`` and the HTTP front end's
+``build_server`` raise unless ``device="cpu"`` (``--device cpu``) is
 passed, and run with it."""
+
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -18,8 +22,10 @@ from livelyspeaker_tpu_torch.models import (
     audio_samples_for_frames,
 )
 from livelyspeaker_tpu_torch.pipeline import LivelySpeakerPipeline, RAGSampler
+from livelyspeaker_tpu_torch.scripts.serve import build_server
 from livelyspeaker_tpu_torch.serving import ServeConfig, build_rag_server
 from livelyspeaker_tpu_torch.training import TrainConfig
+from livelyspeaker_tpu_torch.training.checkpoints import save_args, save_params_npz
 from livelyspeaker_tpu_torch.training.loop import TrainLoop
 from livelyspeaker_tpu_torch.utils.device import place_model
 
@@ -85,6 +91,26 @@ def _server(model, **kw):
         batcher.close()
 
 
+def _front_end(model, device=None):
+    """The front end on a checkpoint of ``model`` (with its args.json): it
+    warms one request through its batcher before it binds."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "rag.npz")
+        save_params_npz(path, model.state_dict(), model)
+        c = model.cfg
+        save_args(d, {"latent_dim": c.latent_dim, "layers": c.num_layers,
+                      "n_speakers": c.n_speakers})
+        argv = ["--model_path", path, "--port", "0", "--max_batch", "2", "--steps", "20",
+                "--timestep_respacing", "ddim2", "--sampler", "ddim"]
+        srv, batcher = build_server(argv + (["--device", device] if device else []))
+    try:
+        assert batcher.stats()["requests_served"] == 1
+        return batcher.device
+    finally:
+        srv.server_close()
+        batcher.close()
+
+
 def _train(model, **kw):
     loop = TrainLoop(model, DiffusionSchedule.create(steps=20), None, [_batch(model.cfg)],
                      cfg=TrainConfig(lr=1e-3), num_epochs=1, log_interval=1000, seed=3, **kw)
@@ -93,9 +119,9 @@ def _train(model, **kw):
     return loop.device
 
 
-@pytest.mark.parametrize("entry", [_sampler, _pipeline, _server, _train],
+@pytest.mark.parametrize("entry", [_sampler, _pipeline, _server, _train, _front_end],
                          ids=["RAGSampler", "LivelySpeakerPipeline", "build_rag_server",
-                              "TrainLoop"])
+                              "TrainLoop", "serve.build_server"])
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(no_card, entry):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         entry(_model())
