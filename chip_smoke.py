@@ -7,8 +7,9 @@ Drives the port's paths at the full TED width (latent 512, 8 blocks,
 batcher, the two-stage composition (CLIP text tower, SAG sketch, RAG
 refinement) through LivelySpeakerPipeline, the HTTP front end with text and
 long-form requests, RAG training through TrainLoop
-with the fused backbone, and the same training with the WavEncoder swapped
-for the fused WavEncoder stack (K3). Checks:
+with the fused backbone, training from TED and BEAT records through the
+train_rag and train_sag entry points, and the same training with the
+WavEncoder swapped for the fused WavEncoder stack (K3). Checks:
 
 1. device: a CUDA card is required (no CPU run); TF32 is off for matmul
    and cuDNN, so every comparison below is f32 against f32;
@@ -62,7 +63,19 @@ for the fused WavEncoder stack (K3). Checks:
    finite, the mean of the last 5 is below that of the first 5, the forward
    kernel launched once a step and each backward kernel 8 times (once per
    layer) a step, the plain versions and K1 never; step ms, clips/s and
-   peak memory;
+   peak memory; then training from records (``records_train_phase``):
+   synthetic TED (1,040 windows) and BEAT (273 windows) records built
+   here, ``scripts.train_rag.main`` with --fused_train at B=512 for 10
+   epochs, once with the streaming DataLoader and once with
+   --device_resident 1 (K2's launches as above for every step, no plain
+   version, finite losses whose last-5 mean is below the first-5 mean, the
+   two loaders' first batches identical), on BEAT at B=128 (47x6, S=36),
+   ``scripts.train_sag.main`` at latent 512 with the 12-layer text tower,
+   B=512, 3 epochs and the FGD hook each epoch ("new best FGD" printed,
+   sag_best.npz written), then one batch of 8 sentences composed from the
+   trained RAG and sag_best.npz, K1 20 launches, fused against eager
+   within rel 1e-4; the loader's host ms a batch and the step ms of each
+   route beside the fixed batch's;
 9. the fused training loss against the eager one on a TED and a BEAT batch
    of 64 (BEAT with kld_weight 0), with the same t, noise, style and
    condition drop: loss within rel 1e-5, every parameter gradient within
@@ -1980,6 +1993,262 @@ def train_phase(card, wav_kernels=False, beside=None):
     return launches, wav_launches, model, loop, stats
 
 
+RECORD_CLIPS, RECORD_SECONDS = 40, 20  # 26 windows a clip: 1,040 TED windows
+BEAT_CLIPS, BEAT_SECONDS, BEAT_BATCH = 13, 16, 128  # 21 windows a clip: 273 BEAT windows
+RECORD_EPOCHS, BEAT_EPOCHS, SAG_EPOCHS = 10, 3, 3
+
+
+def _dir_bytes(root):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(root) for f in files)
+
+
+def _progress_rows(save_dir, key):
+    with open(os.path.join(save_dir, "progress.jsonl")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    return [r for r in rows if key in r]
+
+
+class _Tee:
+    """Writes to stdout and keeps a copy."""
+
+    def __init__(self):
+        self.out, self.parts = sys.stdout, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _records_rag_run(tag, argv, save_dir, card, want_decrease):
+    """train_rag.main(argv) with every step logged: checks K2's launches
+    (forward 1 a step, each backward kernel LAYERS a step), no plain
+    version and no K1, finite losses (falling with ``want_decrease``);
+    returns the loop and its numbers."""
+    from livelyspeaker_tpu_torch.ops import fused_mlp, fused_mlp_train as k2
+    from livelyspeaker_tpu_torch.scripts import train_rag
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    fused_mlp.fused_transmlp_reference.calls = 0
+    t0 = time.perf_counter()
+    loop = train_rag.main(argv + ["--save_dir", save_dir, "--log_interval", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(k2.LAUNCHES)
+    plain = (k2.fused_transmlp_train_forward_reference.calls,
+             k2.fused_transmlp_train_backward_reference.calls)
+    k1 = (fused_mlp.fused_transmlp.launches, fused_mlp.fused_transmlp_reference.calls)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    rows = _progress_rows(save_dir, "loss")
+    losses = [r["loss"] for r in rows]
+    steps, per_epoch = loop.step, len(loop.data)
+    check(len(losses) == steps > 0, f"{tag}: {len(losses)} losses logged for {steps} steps")
+    check(all(np.isfinite(losses)), f"{tag}: a loss is not finite: {losses}")
+    # step ms from the log's clock (each line follows the step's host sync),
+    # after two warm-up steps; the first step of each epoch waits for its
+    # loader's first batch, and epoch 1's also for epoch 0's checkpoint
+    ms = np.diff([0.0] + [r["elapsed_s"] for r in rows]) * 1e3
+    step_no = np.arange(steps)
+    first_of_epoch = step_no % per_epoch == 0
+    kept = (step_no >= 2) & (step_no != per_epoch)
+    steady = ms[kept & ~first_of_epoch]
+    firsts = ms[kept & first_of_epoch]
+    stats = {"step_ms": float(np.median(steady)), "mean_ms": float(steady.mean()),
+             "epoch_first_ms": float(np.median(firsts)) if firsts.size else float("nan"),
+             "peak_gib": peak_gib, "wall_s": wall, "steps": steps, "losses": losses}
+    stats["clips_s"] = loop.data.batch_size / stats["step_ms"] * 1e3
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"[{tag}] {steps} steps ({per_epoch} a epoch) at B={loop.data.batch_size}: loss first-5 "
+          f"mean {first:.5f} last-5 mean {last:.5f}; losses " + " ".join(f"{v:.4f}" for v in losses))
+    print(f"[{tag}] step {stats['step_ms']:.2f} ms median ({stats['mean_ms']:.2f} mean) over the "
+          f"steps after the second that start no epoch, {stats['epoch_first_ms']:.2f} ms median "
+          f"for an epoch's first step (not epoch 1's, which follows epoch 0's checkpoint); "
+          f"{stats['clips_s']:.1f} clips/s; {wall:.2f} s for the whole "
+          f"run; peak memory {peak_gib:.2f} GiB ({card})")
+    print(f"[{tag}] K2 launches {launches} (per step: fwd 1, each backward kernel {LAYERS}); "
+          f"plain versions {plain}; K1 launches and plain calls {k1}")
+    check(launches["fwd"] == steps, f"{tag}: forward kernel launched {launches['fwd']} times")
+    for k in ("bwd_block", "wgrad", "reduce"):
+        check(launches[k] == LAYERS * steps, f"{tag}: {k} launched {launches[k]} times")
+    check(plain == (0, 0) and k1 == (0, 0), f"{tag}: a plain version or K1 ran on the training path")
+    if want_decrease:
+        check(last < first, f"{tag}: loss did not decrease ({first:.5f} -> {last:.5f})")
+    return loop, stats
+
+
+def records_train_phase(card, beside):
+    """Training from records through the port's entry points at full width:
+    synthetic TED and BEAT records built here; train_rag --fused_train on
+    TED at batch 512 with the streaming loader and with --device_resident 1
+    (K2's launches counted, losses finite and falling, the two loaders'
+    first batches identical); train_rag on BEAT at batch 128; train_sag at
+    latent 512 with the 12-layer CLIP text tower and the FGD hook each
+    epoch; then one composed batch of 8 from the trained RAG and
+    sag_best.npz through K1, fused against eager. ``beside``: train_phase's
+    fixed-batch numbers, printed alongside."""
+    import shutil
+    import tempfile
+    from contextlib import redirect_stdout
+
+    from livelyspeaker_tpu_torch.data import (DataLoader, DeviceDataLoader, HashTokenizer,
+                                              TedWindowDataset)
+    from livelyspeaker_tpu_torch.data.loader import _PinnedSlots
+    from livelyspeaker_tpu_torch.data.synthetic import (build_synthetic_beat_records,
+                                                        build_synthetic_ted_records)
+    from livelyspeaker_tpu_torch.models import SAG, CLIPTextConfig, CLIPTextEncoder, RAG, RAGConfig
+    from livelyspeaker_tpu_torch.ops import fused_mlp
+    from livelyspeaker_tpu_torch.pipeline import LivelySpeakerPipeline
+    from livelyspeaker_tpu_torch.scripts import train_rag, train_sag
+    from livelyspeaker_tpu_torch.training.checkpoints import load_args
+    from livelyspeaker_tpu_torch.utils.checkpoints import load_params_npz
+    from livelyspeaker_tpu_torch.utils.convert import jax_params_to_state_dict
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_records.")
+    try:
+        ted_dir, beat_dir = os.path.join(work, "ted"), os.path.join(work, "beat")
+        t0 = time.perf_counter()
+        n_ted, _ = build_synthetic_ted_records(ted_dir, n_clips=RECORD_CLIPS,
+                                               clip_seconds=RECORD_SECONDS, seed=41)
+        t1 = time.perf_counter()
+        n_beat = build_synthetic_beat_records(beat_dir, n_clips=BEAT_CLIPS,
+                                              clip_seconds=BEAT_SECONDS, seed=42)
+        t2 = time.perf_counter()
+        print(f"[records] TED: {n_ted} windows from {RECORD_CLIPS} clips of {RECORD_SECONDS} s, "
+              f"{_dir_bytes(ted_dir) / 2 ** 20:.1f} MiB, built in {t1 - t0:.2f} s; BEAT: {n_beat} "
+              f"windows from {BEAT_CLIPS} clips of {BEAT_SECONDS} s, "
+              f"{_dir_bytes(beat_dir) / 2 ** 20:.1f} MiB, built in {t2 - t1:.2f} s (host)")
+        check(n_ted >= 2 * TRAIN_BATCH and n_beat >= 2 * BEAT_BATCH,
+              f"records: {n_ted} TED and {n_beat} BEAT windows, too few for two batches")
+
+        # the host side of the streaming loader at B=512
+        ds = TedWindowDataset(ted_dir)
+        fields = train_rag.TRAIN_FIELDS["ted"]
+        chunk = np.random.default_rng(0).permutation(len(ds))[:TRAIN_BATCH]
+        gather_ms = wall_ms(lambda: ds.batch(chunk, fields=fields), reps=5)
+        host = ds.batch(chunk, fields=fields)
+        slots = _PinnedSlots(1, torch.device("cuda"))
+        send_ms = wall_ms(lambda: slots.send(host)[1].synchronize(), reps=5)  # pinned copy + H2D
+        stream = DataLoader(ds, TRAIN_BATCH, seed=10, fields=fields, device="cuda")
+        for b in stream:  # a warm-up epoch: the host allocator's pinned blocks
+            pass
+        torch.cuda.synchronize()
+        t0, n = time.perf_counter(), 0
+        for _ in range(3):
+            for b in stream:
+                torch.cuda.current_stream().synchronize()
+                n += 1
+        loader_ms = (time.perf_counter() - t0) * 1e3 / n
+        batch_mb = sum(v.numel() * v.element_size() for v in b.values()) / 1e6
+        resident = DeviceDataLoader(ds, TRAIN_BATCH, seed=10, fields=fields, device="cuda")
+        for loader in (stream, resident):
+            loader.set_epoch(0)
+        a, r = next(iter(stream)), next(iter(resident))
+        same = all(a[k].dtype == r[k].dtype and torch.equal(a[k], r[k]) for k in fields)
+        print(f"[records] streaming loader: host gather {gather_ms:.2f} ms a batch of "
+              f"{TRAIN_BATCH} ({batch_mb:.1f} MB), into the pinned slot and to the card "
+              f"{send_ms:.2f} ms, {loader_ms:.2f} ms a batch delivered to the card (alone, {n} "
+              f"batches after a warm-up epoch, each epoch's first without overlap); host ms "
+              f"medians of 5; device-resident copy {resident.nbytes / 1e6:.1f} MB; first "
+              f"batches identical: {same}")
+        check(same, "records: the two loaders' first batches differ")
+        del stream, resident, a, r, b, slots, host
+
+        common = ["--dataset", "ted", "--data_dir", ted_dir, "--fused_train", "--batch_size",
+                  str(TRAIN_BATCH), "--epochs", str(RECORD_EPOCHS), "--lr", str(TRAIN_LR),
+                  "--latent_dim", "512", "--layers", str(LAYERS), "--n_speakers", "1400",
+                  "--seed", "10"]
+        runs = {}
+        for resident_flag in ("0", "1"):
+            tag = "records-ted-resident" if resident_flag == "1" else "records-ted-stream"
+            _, runs[tag] = _records_rag_run(tag, common + ["--device_resident", resident_flag],
+                                            os.path.join(work, tag), card, want_decrease=True)
+        s, r = runs["records-ted-stream"], runs["records-ted-resident"]
+        # the same seed, init and batch stream: the losses differ only by the
+        # run-to-run rounding of cuDNN's convs
+        loss_diff = float(np.max(np.abs(np.subtract(s["losses"], r["losses"]))))
+        print(f"[records-ted] step ms median: streaming {s['step_ms']:.2f} (epoch-first "
+              f"{s['epoch_first_ms']:.2f}), device-resident {r['step_ms']:.2f} (epoch-first "
+              f"{r['epoch_first_ms']:.2f}), train_phase's fixed batch {beside['step_ms']:.2f} mean; "
+              f"clips/s {s['clips_s']:.1f} / {r['clips_s']:.1f} / {beside['clips_s']:.1f}; peak "
+              f"{s['peak_gib']:.2f} / {r['peak_gib']:.2f} / {beside['peak_gib']:.2f} GiB; the two "
+              f"loaders' losses differ by at most {loss_diff:.3e} ({card})")
+
+        _, beat = _records_rag_run(
+            "records-beat", ["--dataset", "beat", "--data_dir", beat_dir, "--fused_train",
+                             "--batch_size", str(BEAT_BATCH), "--epochs", str(BEAT_EPOCHS),
+                             "--lr", str(TRAIN_LR), "--seed", "11"],
+            os.path.join(work, "beat_run"), card, want_decrease=False)
+
+        sag_dir = os.path.join(work, "sag")
+        tee = _Tee()
+        torch.cuda.reset_peak_memory_stats()
+        with redirect_stdout(tee):
+            out = train_sag.main(["--dataset", "ted", "--data_dir", ted_dir, "--latent_dim", "512",
+                                  "--clip_layers", "12", "--batch_size", str(TRAIN_BATCH),
+                                  "--epochs", str(SAG_EPOCHS), "--eval_interval", "1",
+                                  "--log_interval", "1", "--save_dir", sag_dir, "--seed", "12"])
+        torch.cuda.synchronize()
+        rows = _progress_rows(sag_dir, "sum")
+        sums = [row["sum"] for row in rows]
+        fgds = [row["eval_fgd"] for row in _progress_rows(sag_dir, "eval_fgd")]
+        sag_ms = np.diff([row["elapsed_s"] for row in rows]) * 1e3
+        check(len(sums) == out["step"] > 0 and all(np.isfinite(sums)),
+              f"records-sag: losses {sums} for {out['step']} steps")
+        check("new best FGD" in "".join(tee.parts), "records-sag: no new best FGD printed")
+        check(os.path.exists(os.path.join(sag_dir, "sag_best.npz")), "records-sag: no sag_best.npz")
+        print(f"[records-sag] {out['step']} steps at B={TRAIN_BATCH}, latent 512, CLIP 12 layers: "
+              f"losses " + " ".join(f"{v:.4f}" for v in sums) + f"; FGD each epoch "
+              + " ".join(f"{v:.6g}" for v in fgds) + f", best {out['best_fgd']:.6g}")
+        print(f"[records-sag] step {np.median(sag_ms):.2f} ms median (tokenize, CLIP encode and "
+              f"the Adam step; the gaps between logged steps within an epoch), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})")
+        del out
+
+        # compose from what was trained
+        rag_dir = os.path.join(work, "records-ted-stream")
+        saved = load_args(rag_dir)
+        cfg = RAGConfig(njoints=saved["njoints"], nfeats=saved["nfeats"], nframes=saved["n_poses"],
+                        latent_dim=saved["latent_dim"], num_layers=saved["layers"],
+                        n_speakers=saved["n_speakers"], num_emotions=saved["num_emotions"])
+        step = s["steps"]
+        rag = RAG(cfg)
+        rag.load_state_dict(jax_params_to_state_dict(
+            load_params_npz(os.path.join(rag_dir, f"model{step:09d}.npz"))))
+        sag = SAG(njoints=cfg.njoints, nfeats=cfg.nfeats, latent_dim=512)
+        sag.load_state_dict(jax_params_to_state_dict(
+            load_params_npz(os.path.join(sag_dir, "sag_best.npz"))))
+        clip = CLIPTextEncoder(CLIPTextConfig(layers=12, embed_dim=512),
+                               generator=torch.Generator().manual_seed(0))  # train_sag's tower
+        cond = _cond(cfg, np.random.default_rng(43), len(SENTENCES))
+        gen = lambda: torch.Generator(device="cuda").manual_seed(7)
+        with torch.no_grad():
+            pipes = {f: LivelySpeakerPipeline(rag.cuda(), sag, clip, HashTokenizer(), use_fused=f)
+                     for f in (True, False)}
+            fused_mlp.fused_transmlp.launches = 0
+            fused_mlp.fused_transmlp_reference.calls = 0
+            fused = pipes[True](SENTENCES, cond, gen(), guidance=1.5)
+            torch.cuda.synchronize()
+            n, plain = fused_mlp.fused_transmlp.launches, fused_mlp.fused_transmlp_reference.calls
+            eager = pipes[False](SENTENCES, cond, gen(), guidance=1.5)
+        rel = _rel(fused, eager)
+        shape = (len(SENTENCES), cfg.njoints, cfg.nfeats, cfg.nframes)
+        print(f"[records-compose] trained RAG (step {step}) and sag_best.npz: {tuple(fused.shape)}, "
+              f"K1 launches {n}, plain calls {plain}; fused vs eager rel {rel:.3e} (tol {SLICE_TOL})")
+        check(tuple(fused.shape) == shape and bool(torch.isfinite(fused).all()),
+              "records-compose: the composed batch is not finite of the expected shape")
+        check(n == COMPOSED_STEPS and plain == 0,
+              f"records-compose: K1 launched {n} times (want {COMPOSED_STEPS}), plain {plain}")
+        check(rel <= SLICE_TOL, "records-compose: fused composition disagrees with the eager one")
+        return {"stream": s, "resident": r, "beat": beat, "gather_ms": gather_ms,
+                "send_ms": send_ms, "loader_ms": loader_ms}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def _kink_flips(enc, audio, res):
     """(n, total): the inputs of the WavEncoder's three LeakyReLUs whose sign
     differs between the eager encoder's forward (cuDNN convs) and K3's
@@ -2171,6 +2440,7 @@ def main():
     launches += front_end_phase(card)
     train_worst, train_times = train_kernel_phase(card)
     train_launches, _, model, loop, train_stats = train_phase(card)
+    records_train_phase(card, train_stats)
     wav_worst, wav_times = wav_kernel_phase(card)
     _, wav_launches, wav_model, wav_loop, _ = train_phase(card, wav_kernels=True, beside=train_stats)
     fused_vs_eager_train_phase()

@@ -19,8 +19,11 @@ name it had.
 
 The released PyTorch checkpoints of the two-stage composition map onto the
 port's modules by name alone (the layouts are torch's on both sides):
-:func:`sag_state_dict_from_reference` for the SAG (MotionCLIP) and
-:func:`clip_text_state_dict_from_openai` for OpenAI CLIP's text tower.
+:func:`sag_state_dict_from_reference` for the SAG (MotionCLIP),
+:func:`clip_text_state_dict_from_openai` for OpenAI CLIP's text tower and
+:func:`pose_embedding_state_dict_from_torch` for the FGD evaluator's pose
+encoder. The JAX package's evaluator parameters carry over through
+:func:`jax_params_to_state_dict`, like every other tree.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ import torch
 from torch import nn
 
 __all__ = ["jax_params_to_state_dict", "state_dict_to_jax_params", "random_normal_params",
-           "sag_state_dict_from_reference", "clip_text_state_dict_from_openai"]
+           "sag_state_dict_from_reference", "clip_text_state_dict_from_openai",
+           "pose_embedding_state_dict_from_torch"]
 
 
 def _flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -187,4 +191,25 @@ def clip_text_state_dict_from_openai(sd: Mapping, layers: int = 12) -> Dict[str,
         for m, ref in (("ln_1", "ln_1"), ("ln_2", "ln_2"), ("attn_out_proj", "attn.out_proj"),
                        ("mlp_c_fc", "mlp.c_fc"), ("mlp_c_proj", "mlp.c_proj")):
             names.update(_with_leaves(f"{ours}.{m}", f"{theirs}.{ref}", _WB))
+    return _renamed(sd, names)
+
+
+def pose_embedding_state_dict_from_torch(sd: Mapping, prefix: str = "pose_encoder."
+                                         ) -> Dict[str, torch.Tensor]:
+    """The port's ``models.embedding_net.PoseEmbeddingEncoder`` state_dict
+    from a reference ``PoseEncoderConv`` state_dict (the TED TriModal
+    autoencoder's ``gen_dict`` or BEAT's HalfEmbeddingNet): its convs are
+    ``net.{0,1,2}.0`` with BatchNorms ``net.{0,1,2}.1`` and ``net.3``; its
+    dense layers ``out_net.{0,3,6}`` with BatchNorms ``out_net.{1,4}``, and
+    ``fc_mu``."""
+    names = {}
+    for ours, theirs in (("conv0", "net.0.0"), ("conv1", "net.1.0"), ("conv2", "net.2.0"),
+                         ("conv3", "net.3"), ("fc0", "out_net.0"), ("fc1", "out_net.3"),
+                         ("fc2", "out_net.6"), ("fc_mu", "fc_mu")):
+        names.update(_with_leaves(ours, prefix + theirs, _WB))
+    for ours, theirs in (("conv0", "net.0.1"), ("conv1", "net.1.1"), ("conv2", "net.2.1"),
+                         ("fc0", "out_net.1"), ("fc1", "out_net.4")):
+        for leaf, ref in (("mean", "running_mean"), ("var", "running_var"),
+                          ("scale", "weight"), ("bias", "bias")):
+            names[f"{ours}_bn_{leaf}"] = f"{prefix}{theirs}.{ref}"
     return _renamed(sd, names)

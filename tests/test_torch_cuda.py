@@ -8,9 +8,11 @@ tests/test_torch_cuda.py``.
 
 import ctypes
 
+import numpy as np
 import pytest
 import torch
 
+from livelyspeaker_tpu_torch.data import loader
 from livelyspeaker_tpu_torch.models import WavEncoder, audio_samples_for_frames
 from livelyspeaker_tpu_torch.models.initializers import random_normal_
 from livelyspeaker_tpu_torch.models.mlp_backbone import TransMLP
@@ -1157,3 +1159,44 @@ def test_long_form_runs_k1_on_the_card(cuda_device):
 
     fused = _fused_and_eager(run, 5 * 20)
     assert fused.shape == (9, 3, 150)
+
+
+class _LoaderRows:
+    """Rows of seeded arrays, wide enough that a copy takes a while."""
+
+    def __init__(self, n=640, width=36267, seed=0):
+        rng = np.random.default_rng(seed)
+        self.audio = rng.normal(size=(n, width)).astype(np.float32)
+        self.vid = np.arange(n, dtype=np.int32)
+        self.pcm = rng.integers(-2 ** 15, 2 ** 15, size=(n, 1000)).astype(np.int16)
+
+    def __len__(self):
+        return len(self.vid)
+
+    def batch(self, idx, fields=None):
+        return {"audio": self.audio[idx], "vid": self.vid[idx], "pcm": self.pcm[idx],
+                "sentence": [f"row {i}" for i in idx]}
+
+
+@pytest.mark.cuda
+def test_pinned_loader_delivers_the_cpu_bits(cuda_device):
+    """50 batches through pinned buffers and the copy stream, prefetch 2,
+    with the consumer's stream kept busy so that copies and refills
+    overlap it: every batch has the bits of the CPU route."""
+    ds = _LoaderRows()
+    kw = dict(batch_size=64, seed=3, prefetch=2)
+    gpu = loader.DataLoader(ds, device="cuda", **kw)
+    cpu = loader.DataLoader(ds, device="cpu", **kw)
+    busy = torch.randn(2048, 2048, device="cuda")
+    n = 0
+    while n < 50:
+        for a, b in zip(gpu, cpu, strict=True):
+            for _ in range(4):  # work queued ahead of the batch's use
+                busy = torch.tanh(busy @ busy * 1e-3)
+            assert a["audio"].device.type == "cuda"
+            assert a["sentence"] == b["sentence"]
+            for k in ("audio", "vid", "pcm"):
+                assert a[k].dtype == b[k].dtype
+                assert torch.equal(a[k].cpu(), b[k]), (n, k)
+            n += 1
+    torch.cuda.synchronize()
