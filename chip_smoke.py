@@ -16,7 +16,8 @@ WavEncoder swapped for the fused WavEncoder stack (K3). Checks:
 2. build: the three CUDA sources of csrc/ are compiled with nvcc, one
    process each, started together;
 3. kernel against plain version: TED (S=35, F=27) and BEAT (S=36, F=282),
-   D=512, L=8, 2B in {2, 16, 64, 512}, LN2 folded and not, with and
+   D=512, L=8, 2B in {2, 16, 64, 512, 1024} (1,024: the eval scripts'
+   batch of 512 under CFG), LN2 folded and not, with and
    without the pose projection; rel = max|kernel - plain| / max|plain| <=
    1e-5, the time per call of both, the bound (FLOPs at the f32 peak) and
    the share of it; at 2B in {2, 16, 512} the kernel at clusters of 8 and 4
@@ -75,7 +76,17 @@ WavEncoder swapped for the fused WavEncoder stack (K3). Checks:
    sag_best.npz written), then one batch of 8 sentences composed from the
    trained RAG and sag_best.npz, K1 20 launches, fused against eager
    within rel 1e-4; the loader's host ms a batch and the step ms of each
-   route beside the fixed batch's;
+   route beside the fixed batch's; then evaluation (``eval_phase``) on
+   those records and checkpoints: a seeded RAG checkpoint with the
+   released layout's keys (tests/manifests/rag_ted.json) through
+   ``scripts.convert_checkpoint rag``, loaded strict, bit-exact; the four
+   eval scripts with --fused on seeded evaluator, BEAT SAG and CLIP
+   checkpoints in the released layouts: eval_rag_ted at batch 512 (K1 at
+   2B=1,024, guidances x batches x 100 launches), eval_rag_beat at the
+   records' one batch (x 100), eval_livelyspeaker_ted and _beat (20 a
+   batch), every number finite, the plain version never; the TED eval's
+   first batch fused against eager within rel 1e-4; each script's wall
+   time split into sampling and scoring (host clock, synchronised);
 9. the fused training loss against the eager one on a TED and a BEAT batch
    of 64 (BEAT with kld_weight 0), with the same t, noise, style and
    condition drop: loss within rel 1e-5, every parameter gradient within
@@ -240,8 +251,9 @@ def time_turns(fns, iters, rounds=2):
 
 def kernel_phase(card):
     """K1 against its plain version at TED and BEAT, 2B in {2, 16, 64,
-    512}, LN2 folded and affine, with and without the pose projection;
-    then the cluster sizes the kernel takes at D=512, in turns."""
+    512, 1024}, LN2 folded and affine, with and without the pose
+    projection; then the cluster sizes the kernel takes at D=512, in
+    turns."""
     from livelyspeaker_tpu_torch.models.initializers import random_normal_
     from livelyspeaker_tpu_torch.models.mlp_backbone import TransMLP
     from livelyspeaker_tpu_torch.ops import fused_mlp
@@ -260,7 +272,7 @@ def kernel_phase(card):
     for name, seq, feats in (("TED", 35, 27), ("BEAT", 36, 282)):
         stack = random_normal_(TransMLP(seq, 8, 512, "silu"), g).to(dev)
         pose = random_normal_(torch.nn.Linear(512, feats), g).to(dev)
-        for b2 in (2, 16, 64, 512):
+        for b2 in (2, 16, 64, 512, 1024):
             x = torch.randn(b2, seq, 512, generator=g).to(dev)
             emb = torch.randn(b2, 512, generator=g).to(dev)
             geo = fused_mlp.transmlp_geometry(b2, seq, 512, resident)
@@ -272,7 +284,7 @@ def kernel_phase(card):
                     torch.cuda.synchronize()
                     err = (out - ref).abs().max().item()
                     rel = err / ref.abs().max().item()
-                    iters = 20 if b2 <= 64 else 5
+                    iters = 20 if b2 <= 64 else 5 if b2 <= 512 else 3
                     ms = time_ms(lambda: fused_mlp.fused_transmlp(x, emb, packed, out_proj=op), iters)
                     plain = time_ms(lambda: fused_mlp.fused_transmlp_reference(
                         x, emb, packed, out_proj=op), iters)
@@ -2088,8 +2100,9 @@ def records_train_phase(card, beside):
     first batches identical); train_rag on BEAT at batch 128; train_sag at
     latent 512 with the 12-layer CLIP text tower and the FGD hook each
     epoch; then one composed batch of 8 from the trained RAG and
-    sag_best.npz through K1, fused against eager. ``beside``: train_phase's
-    fixed-batch numbers, printed alongside."""
+    sag_best.npz through K1, fused against eager; then :func:`eval_phase`
+    on those records and checkpoints, before they are removed. ``beside``:
+    train_phase's fixed-batch numbers, printed alongside."""
     import shutil
     import tempfile
     from contextlib import redirect_stdout
@@ -2103,6 +2116,7 @@ def records_train_phase(card, beside):
     from livelyspeaker_tpu_torch.ops import fused_mlp
     from livelyspeaker_tpu_torch.pipeline import LivelySpeakerPipeline
     from livelyspeaker_tpu_torch.scripts import train_rag, train_sag
+    from livelyspeaker_tpu_torch.scripts.eval_common import final_npz
     from livelyspeaker_tpu_torch.training.checkpoints import load_args
     from livelyspeaker_tpu_torch.utils.checkpoints import load_params_npz
     from livelyspeaker_tpu_torch.utils.convert import jax_params_to_state_dict
@@ -2243,10 +2257,211 @@ def records_train_phase(card, beside):
         check(n == COMPOSED_STEPS and plain == 0,
               f"records-compose: K1 launched {n} times (want {COMPOSED_STEPS}), plain {plain}")
         check(rel <= SLICE_TOL, "records-compose: fused composition disagrees with the eager one")
+        del pipes, rag, sag, clip
+        evals = eval_phase(card, work, ted_dir, beat_dir,
+                           os.path.join(rag_dir, f"model{step:09d}.npz"),
+                           final_npz(os.path.join(work, "beat_run")),
+                           os.path.join(sag_dir, "sag_best.npz"))
         return {"stream": s, "resident": r, "beat": beat, "gather_ms": gather_ms,
-                "send_ms": send_ms, "loader_ms": loader_ms}
+                "send_ms": send_ms, "loader_ms": loader_ms, "eval": evals}
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+EVAL_STEPS = 100  # the eval scripts' DDIM-100
+
+
+def _reference_layout(manifest, seed):
+    """A seeded state_dict with exactly the keys and shapes of a released
+    checkpoint (``tests/manifests/<manifest>.json``), at unit-fan-in scale:
+    std 1/sqrt(fan_in) for a weight of two or more axes, 1 for an embedding
+    table, norm scales near 1, running variances above 0.5."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "manifests",
+                           f"{manifest}.json")) as f:
+        shapes = json.load(f)
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, shape in shapes.items():
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.tensor(7, dtype=torch.int64)
+            continue
+        a = rng.normal(size=shape)
+        if k.endswith("running_var"):
+            a = np.abs(a) + 0.5
+        elif k.endswith("alpha") or (k.endswith("weight") and len(shape) == 1):
+            a = 1.0 + 0.1 * a
+        elif "embedding.weight" in k:
+            pass
+        elif len(shape) >= 2 and k.endswith("weight"):
+            a = a / np.sqrt(np.prod(shape[1:]))
+        else:
+            a = 0.1 * a
+        sd[k] = torch.from_numpy(a.astype(np.float32))
+    return sd
+
+
+def _openai_clip_layout(clip):
+    """The state_dict of the port's CLIP text tower under OpenAI CLIP's key
+    names (the inverse of ``utils.convert.clip_text_state_dict_from_openai``)."""
+    import re
+
+    out = {}
+    for k, v in clip.state_dict().items():
+        if k == "token_embedding":
+            k = "token_embedding.weight"
+        m = re.match(r"block_(\d+)\.(.*)", k)
+        if m:
+            rest = m.group(2)
+            for ours, theirs in (("attn_in_proj_", "attn.in_proj_"), ("attn_out_proj.",
+                                                                       "attn.out_proj."),
+                                 ("mlp_c_fc.", "mlp.c_fc."), ("mlp_c_proj.", "mlp.c_proj.")):
+                rest = rest.replace(ours, theirs)
+            k = f"transformer.resblocks.{m.group(1)}.{rest}"
+        out[k] = v.detach().cpu().clone()
+    return out
+
+
+def _eval_run(tag, module, argv, expect_launches):
+    """``module.main(argv)`` with K1's counts set to 0 just before and read
+    just after: every number of its results finite, K1 launched
+    ``expect_launches(results)`` times, its plain version never. Returns
+    (results, K1 launches, the script's time line as a dict, with the whole
+    call's seconds as "call")."""
+    from contextlib import redirect_stdout
+
+    from livelyspeaker_tpu_torch.ops import fused_mlp
+
+    tee = _Tee()
+    torch.cuda.synchronize()
+    fused_mlp.fused_transmlp.launches = 0
+    fused_mlp.fused_transmlp_reference.calls = 0
+    t0 = time.perf_counter()
+    with redirect_stdout(tee):
+        results = module.main(argv)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    n, plain = fused_mlp.fused_transmlp.launches, fused_mlp.fused_transmlp_reference.calls
+    line = [x for x in "".join(tee.parts).splitlines() if x.startswith("seconds: ")][-1]
+    seconds = {k: float(v) for k, v in (f.split("=") for f in line.split()[1:])}
+    seconds["call"] = call_s  # main() whole, loading included
+    want = expect_launches(results)
+    print(f"[{tag}] K1 launches {n} (want {want}), plain version calls {plain}")
+    check(bool(results) and all(np.isfinite(np.asarray(r, np.float64)).all() for r in results),
+          f"{tag}: a number is not finite: {results}")
+    check(n == want and plain == 0, f"{tag}: K1 launched {n} times (want {want}), plain {plain}")
+    return results, n, seconds
+
+
+def eval_phase(card, work, ted_dir, beat_dir, rag_npz, beat_npz, sag_npz):
+    """The port's evaluation on what the records phase built and trained: a
+    reference-layout RAG checkpoint through convert_checkpoint; the four
+    eval scripts with --fused (TED at batch 512, BEAT at its records'
+    273), seeded evaluator, BEAT SAG and CLIP checkpoints in the released
+    layouts; K1's launches counted on each; the first TED batch fused
+    against eager; where each script's time goes."""
+    import random
+
+    t_phase = time.perf_counter()
+    from livelyspeaker_tpu_torch.data import DataLoader, TedWindowDataset
+    from livelyspeaker_tpu_torch.models import SAG, CLIPTextConfig, CLIPTextEncoder, RAG, RAGConfig
+    from livelyspeaker_tpu_torch.scripts import (convert_checkpoint, eval_livelyspeaker_beat,
+                                                 eval_livelyspeaker_ted, eval_rag_beat,
+                                                 eval_rag_ted)
+    from livelyspeaker_tpu_torch.training.checkpoints import save_params_npz
+    from livelyspeaker_tpu_torch.utils.config import generate_args
+    from livelyspeaker_tpu_torch.utils.convert import rag_state_dict_from_reference
+
+    # 1. a released-layout RAG checkpoint -> npz -> the port's RAG
+    ref = _reference_layout("rag_ted", seed=51)
+    src, dst = os.path.join(work, "RAG.pt"), os.path.join(work, "rag_converted.npz")
+    torch.save(ref, src)
+    t0 = time.perf_counter()
+    convert_checkpoint.main(["rag", src, dst])
+    convert_s = time.perf_counter() - t0
+    converted = RAG(RAGConfig.ted())
+    converted.load_state_dict(eval_rag_ted.load_rag_params(dst, generate_args(
+        ["--model_path", dst])), strict=True)
+    direct = rag_state_dict_from_reference(ref)
+    same = all(torch.equal(v, direct[k]) for k, v in converted.state_dict().items())
+    print(f"[eval-convert] {len(ref)} reference keys -> {len(direct)} tensors of RAG(RAGConfig"
+          f".ted()) in {convert_s:.2f} s; loaded strict; npz round trip bit-exact: {same}")
+    check(same, "eval-convert: the converted npz differs from rag_state_dict_from_reference")
+    del converted, direct, ref
+
+    ted_eval, beat_eval = os.path.join(work, "ted_evaluator.bin"), os.path.join(work, "best_rec.bin")
+    torch.save({"gen_dict": _reference_layout("ted_evaluator", 52), "pose_dim": 27}, ted_eval)
+    torch.save({"model_state": _reference_layout("beat_half_embedding", 53)}, beat_eval)
+    clip_pt, beat_sag = os.path.join(work, "clip.pt"), os.path.join(work, "sag_beat.npz")
+    # train_sag's text tower (seed 0), in OpenAI's layout
+    torch.save(_openai_clip_layout(CLIPTextEncoder(CLIPTextConfig(layers=12, embed_dim=512),
+                                                   generator=torch.Generator().manual_seed(0))),
+               clip_pt)
+    sag = SAG(njoints=47, nfeats=6, latent_dim=512, generator=torch.Generator().manual_seed(54))
+    save_params_npz(beat_sag, sag.state_dict(), sag)
+    del sag
+
+    from livelyspeaker_tpu_torch.data.beat import BeatWindowDataset
+
+    ted_batch = TRAIN_BATCH
+    n_ted = len(TedWindowDataset(ted_dir)) // ted_batch
+    n_beat = len(BeatWindowDataset(beat_dir))
+    n_beat //= min(n_beat, 512)  # the scripts' batch: min(--batch_size 512, the records)
+    runs = {}
+    common = ["--data_dir", ted_dir, "--eval_model_path", ted_eval, "--fused"]
+    runs["eval_rag_ted"] = _eval_run(
+        "eval-rag-ted", eval_rag_ted,
+        ["--model_path", rag_npz, "--batch_size", str(ted_batch)] + common,
+        lambda r: len(r) * n_ted * EVAL_STEPS)
+    runs["eval_rag_beat"] = _eval_run(
+        "eval-rag-beat", eval_rag_beat,
+        ["--model_path", beat_npz, "--data_dir", beat_dir, "--eval_model_path", beat_eval,
+         "--fused"], lambda r: len(r) * n_beat * EVAL_STEPS)
+    runs["eval_livelyspeaker_ted"] = _eval_run(
+        "eval-ls-ted", eval_livelyspeaker_ted,
+        ["--model_path", rag_npz, "--sag_path", sag_npz, "--clip_path", clip_pt,
+         "--batch_size", str(ted_batch)] + common,
+        lambda r: len(r) * n_ted * COMPOSED_STEPS)
+    runs["eval_livelyspeaker_beat"] = _eval_run(
+        "eval-ls-beat", eval_livelyspeaker_beat,
+        ["--model_path", beat_npz, "--sag_path", beat_sag, "--clip_path", clip_pt,
+         "--data_dir", beat_dir, "--eval_model_path", beat_eval, "--fused"],
+        lambda r: len(r) * n_beat * COMPOSED_STEPS)
+
+    # the TED RAG eval's first batch at its first guidance, fused and eager
+    args = generate_args(["--model_path", rag_npz, "--data_dir", ted_dir])
+    model = RAG(RAGConfig(njoints=args.njoints, nfeats=args.nfeats, nframes=args.n_poses,
+                          latent_dim=args.latent_dim, num_layers=args.layers,
+                          n_speakers=args.n_speakers))
+    model.load_state_dict(eval_rag_ted.load_rag_params(rag_npz, args))
+    dataset = TedWindowDataset(ted_dir)
+    batch = next(iter(DataLoader(dataset, batch_size=ted_batch, shuffle=True, drop_last=True,
+                                 seed=233)))
+    random.seed(233)
+    speakers = list(dataset.speaker_model.word2index.values())
+    vid = np.array([random.choice(speakers) for _ in range(ted_batch)], np.int32)
+    cond = {"audio": torch.from_numpy(batch["audio"]).cuda(), "vid": torch.from_numpy(vid).cuda(),
+            "origin_x": torch.from_numpy(batch["motion"]).cuda()}
+    outs = []
+    for fused in (True, False):
+        args.fused = fused
+        sampler = eval_rag_ted.sampler_from_args(model, args)
+        outs.append(sampler(cond, torch.Generator(device="cuda").manual_seed(233), guidance=1.0))
+    rel = _rel(outs[0], outs[1])
+    print(f"[eval-rag-ted] first batch, guidance 1.0, fused vs eager sampler, "
+          f"{tuple(outs[0].shape)} (K1 at 2B={2 * ted_batch}): rel {rel:.3e} (tol {SLICE_TOL})")
+    check(rel <= SLICE_TOL, "eval-rag-ted: fused sampling disagrees with the eager modules")
+    del model, outs, cond
+
+    for name, (results, n, sec) in runs.items():
+        scoring = {k: v for k, v in sec.items() if k not in ("call", "wall", "sampling")}
+        rest = sec["call"] - sec["sampling"] - sum(scoring.values())
+        print(f"[eval-time] {name}: main() {sec['call']:.2f} s, sampling {sec['sampling']:.2f} s "
+              f"({n} K1 launches), scoring {sum(scoring.values()):.2f} s ("
+              + ", ".join(f"{k} {v:.2f}" for k, v in scoring.items())
+              + f"), loading and the rest {rest:.2f} s; host clock, synchronised ({card})")
+    print(f"[eval] the phase: {time.perf_counter() - t_phase:.2f} s, host clock ({card})")
+    return {"launches": sum(n for _, n, _ in runs.values()), "seconds": {
+        k: sec for k, (_, _, sec) in runs.items()}}
 
 
 def _kink_flips(enc, audio, res):
@@ -2440,7 +2655,7 @@ def main():
     launches += front_end_phase(card)
     train_worst, train_times = train_kernel_phase(card)
     train_launches, _, model, loop, train_stats = train_phase(card)
-    records_train_phase(card, train_stats)
+    launches += records_train_phase(card, train_stats)["eval"]["launches"]
     wav_worst, wav_times = wav_kernel_phase(card)
     _, wav_launches, wav_model, wav_loop, _ = train_phase(card, wav_kernels=True, beside=train_stats)
     fused_vs_eager_train_phase()

@@ -17,8 +17,9 @@ JAX package) gives: nested dicts of numpy arrays.
 type from the model, since a torch ``weight`` alone does not say which Flax
 name it had.
 
-The released PyTorch checkpoints of the two-stage composition map onto the
-port's modules by name alone (the layouts are torch's on both sides):
+The released PyTorch checkpoints map onto the port's modules by name alone
+(the layouts are torch's on both sides, but for the RAG's token mix and
+LayerNorm vectors): :func:`rag_state_dict_from_reference` for the RAG,
 :func:`sag_state_dict_from_reference` for the SAG (MotionCLIP),
 :func:`clip_text_state_dict_from_openai` for OpenAI CLIP's text tower and
 :func:`pose_embedding_state_dict_from_torch` for the FGD evaluator's pose
@@ -35,7 +36,8 @@ import torch
 from torch import nn
 
 __all__ = ["jax_params_to_state_dict", "state_dict_to_jax_params", "random_normal_params",
-           "sag_state_dict_from_reference", "clip_text_state_dict_from_openai",
+           "rag_state_dict_from_reference", "sag_state_dict_from_reference",
+           "clip_text_state_dict_from_openai",
            "pose_embedding_state_dict_from_torch"]
 
 
@@ -150,6 +152,44 @@ def _with_leaves(ours: str, theirs: str, leaves) -> Dict[str, str]:
 
 _WB = ("weight", "bias")
 _ATTN = ("in_proj_weight", "in_proj_bias", "out_proj.weight", "out_proj.bias")
+
+
+def rag_state_dict_from_reference(sd: Mapping, num_layers: int = 8,
+                                  num_emotions: int = 0) -> Dict[str, torch.Tensor]:
+    """The port's ``models.rag.RAG`` state_dict from a reference RAG
+    state_dict (``ckpts/TED/RAG.pt``, BEAT's RAG checkpoints: a plain
+    state_dict, CLIP stripped; module tree of the reference's
+    ``scripts/model/RAG.py``, ``mlp_module.py`` and ``audio_enc.py``): the
+    WavEncoder convs at ``feat_extractor`` indices 0/3/6/9, the speaker (and
+    with ``num_emotions``, the emotion) tables, the timestep MLP and each
+    block's ``block1``/``block2`` LayerNorm (``alpha``/``beta`` [1, 1, D]),
+    token mix (a Conv1d(S, S, 1), weight [S, S, 1]) and channel mix. The
+    sinusoid tables are left out: the port rebuilds them."""
+    names = {}
+    for i, idx in enumerate((0, 3, 6, 9)):
+        names.update(_with_leaves(f"audio_encoder.conv{i}",
+                                  f"audio_encoder.feat_extractor.{idx}", _WB))
+    for ours, theirs in (("input_mapping", "input_mapping"), ("speaker_mu", "speaker_mu"),
+                         ("speaker_logvar", "speaker_logvar"),
+                         ("pose_final", "output_process.poseFinal"),
+                         ("backbone.embed_timestep.fc1", "backbone.embed_timestep.time_embed.0"),
+                         ("backbone.embed_timestep.fc2", "backbone.embed_timestep.time_embed.2")):
+        names.update(_with_leaves(ours, theirs, _WB))
+    names["speaker_embedding.weight"] = "speaker_embedding.weight"
+    if num_emotions:
+        names["emotion_embedding.weight"] = "emotion_embedding.weight"
+    for i in range(num_layers):
+        ours, theirs = f"backbone.block_{i}", f"backbone.mlps.{i}"
+        names.update(_with_leaves(f"{ours}.channel_mix", f"{theirs}.block2.1", _WB))
+        names[f"{ours}.token_mix_bias"] = f"{theirs}.block1.1.bias"
+    out = _renamed(sd, names)
+    for i in range(num_layers):
+        ours, theirs = f"backbone.block_{i}", f"backbone.mlps.{i}"
+        out[f"{ours}.token_mix_kernel"] = _f32(sd[f"{theirs}.block1.1.weight"])[:, :, 0].clone()
+        for ln, blk in (("ln1", "block1"), ("ln2", "block2")):
+            out[f"{ours}.{ln}.weight"] = _f32(sd[f"{theirs}.{blk}.0.alpha"]).reshape(-1)
+            out[f"{ours}.{ln}.bias"] = _f32(sd[f"{theirs}.{blk}.0.beta"]).reshape(-1)
+    return out
 
 
 def sag_state_dict_from_reference(sd: Mapping, num_layers: int = 3) -> Dict[str, torch.Tensor]:

@@ -1,18 +1,29 @@
 """The port's entry points run on the card unless the caller asks for the
 CPU: without a CUDA device ``RAGSampler``, ``LivelySpeakerPipeline``,
-``build_rag_server``, ``TrainLoop`` and the HTTP front end's
-``build_server`` raise unless ``device="cpu"`` (``--device cpu``) is
-passed, and run with it."""
+``build_rag_server``, ``TrainLoop``, the HTTP front end's ``build_server``,
+the four eval scripts' ``main``, ``EmbeddingSpaceEvaluator`` and the BEAT
+FID embedder raise unless ``device="cpu"`` (``--device cpu``) is passed,
+and run with it. Each new script answers ``--help`` when run as
+``python -m livelyspeaker_tpu_torch.scripts.<name>``."""
 
+import contextlib
 import os
+import runpy
+import sys
 import tempfile
+import warnings
 
 import numpy as np
 import pytest
 import torch
 
 from livelyspeaker_tpu_torch.data import HashTokenizer
+from livelyspeaker_tpu_torch.data.synthetic import (
+    build_synthetic_beat_records,
+    build_synthetic_ted_records,
+)
 from livelyspeaker_tpu_torch.diffusion import DiffusionSchedule
+from livelyspeaker_tpu_torch.eval import EmbeddingSpaceEvaluator
 from livelyspeaker_tpu_torch.models import (
     RAG,
     SAG,
@@ -21,7 +32,15 @@ from livelyspeaker_tpu_torch.models import (
     RAGConfig,
     audio_samples_for_frames,
 )
+from livelyspeaker_tpu_torch.models.embedding_net import TedEmbeddingEncoder
 from livelyspeaker_tpu_torch.pipeline import LivelySpeakerPipeline, RAGSampler
+from livelyspeaker_tpu_torch.scripts import (
+    eval_common,
+    eval_livelyspeaker_beat,
+    eval_livelyspeaker_ted,
+    eval_rag_beat,
+    eval_rag_ted,
+)
 from livelyspeaker_tpu_torch.scripts.serve import build_server
 from livelyspeaker_tpu_torch.serving import ServeConfig, build_rag_server
 from livelyspeaker_tpu_torch.training import TrainConfig
@@ -119,9 +138,78 @@ def _train(model, **kw):
     return loop.device
 
 
-@pytest.mark.parametrize("entry", [_sampler, _pipeline, _server, _train, _front_end],
+@contextlib.contextmanager
+def _one_torch_thread():
+    """The eval entries' tensors are small: torch's CPU thread pool costs
+    more than it gives here, and its spinning threads slow the other test
+    workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def _eval_script(module, beat):
+    """``module.main`` on one batch of synthetic records and a checkpoint of
+    ``model`` (a BEAT model of the same width for the BEAT scripts), ddim2;
+    the composition scripts refine the last step."""
+
+    def entry(model, device=None):
+        with tempfile.TemporaryDirectory() as d, _one_torch_thread():
+            data = os.path.join(d, "records")
+            if beat:
+                build_synthetic_beat_records(data, n_clips=1, clip_seconds=5, seed=3)
+                c = model.cfg
+                model = RAG(RAGConfig.beat(latent_dim=c.latent_dim, num_layers=c.num_layers,
+                                           n_speakers=30))
+            else:
+                build_synthetic_ted_records(data, n_clips=1, clip_seconds=10, seed=3)
+            path = os.path.join(d, "rag.npz")
+            save_params_npz(path, model.state_dict(), model)
+            save_args(d, {"latent_dim": model.cfg.latent_dim, "layers": model.cfg.num_layers,
+                          "n_speakers": model.cfg.n_speakers})
+            argv = ["--model_path", path, "--data_dir", data, "--batch_size", "4",
+                    "--diffusion_steps", "20", "--timestep_respacing", "ddim2",
+                    "--skip_steps", "1", "--fused"]
+            results = module.main(argv + (["--device", device] if device else []))
+        assert results and all(np.isfinite(r[2]) for r in results)
+        return torch.device(device)
+
+    return entry
+
+
+def _evaluator(model, device=None):
+    with _one_torch_thread():
+        ev = EmbeddingSpaceEvaluator(TedEmbeddingEncoder().state_dict(), device=device)
+        ev.push_samples(np.zeros((2, 34, 27), np.float32), np.ones((2, 34, 27), np.float32))
+    return ev.device
+
+
+def _beat_embedder(model, device=None):
+    from test_torch_convert import reference_state_dict
+
+    with tempfile.TemporaryDirectory() as d, _one_torch_thread():
+        path = os.path.join(d, "best_rec.bin")
+        torch.save({"model_state": reference_state_dict("beat_half_embedding")}, path)
+        args = type("Args", (), {"eval_model_path": path, "device": device})()
+        feats = eval_common.load_beat_embedder(args)(np.zeros((2, 34, 282), np.float32))
+    assert feats.shape == (2, 300) and np.isfinite(feats).all()
+    return torch.device(device)
+
+
+@pytest.mark.parametrize("entry", [_sampler, _pipeline, _server, _train, _front_end,
+                                   _eval_script(eval_rag_ted, beat=False),
+                                   _eval_script(eval_rag_beat, beat=True),
+                                   _eval_script(eval_livelyspeaker_ted, beat=False),
+                                   _eval_script(eval_livelyspeaker_beat, beat=True),
+                                   _evaluator, _beat_embedder],
                          ids=["RAGSampler", "LivelySpeakerPipeline", "build_rag_server",
-                              "TrainLoop", "serve.build_server"])
+                              "TrainLoop", "serve.build_server", "eval_rag_ted.main",
+                              "eval_rag_beat.main", "eval_livelyspeaker_ted.main",
+                              "eval_livelyspeaker_beat.main", "EmbeddingSpaceEvaluator",
+                              "load_beat_embedder"])
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(no_card, entry):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         entry(_model())
@@ -138,3 +226,17 @@ def test_place_model_rule(no_card):
         place_model(model, None, "TrainLoop")
     assert place_model(model, "cpu", "x") == torch.device("cpu")
     assert place_model(model, torch.device("cpu"), "x") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("script", ["eval_rag_ted", "eval_rag_beat", "eval_livelyspeaker_ted",
+                                    "eval_livelyspeaker_beat", "convert_checkpoint"])
+def test_new_scripts_answer_help(script, monkeypatch, capsys):
+    """``python -m livelyspeaker_tpu_torch.scripts.<script> --help``, run
+    the way ``-m`` runs it, in this process."""
+    monkeypatch.setattr(sys, "argv", [script, "--help"])
+    with warnings.catch_warnings(), pytest.raises(SystemExit) as exit_:
+        # runpy warns that the module was imported before: this file imports it
+        warnings.filterwarnings("ignore", ".*found in sys.modules", RuntimeWarning)
+        runpy.run_module(f"livelyspeaker_tpu_torch.scripts.{script}", run_name="__main__")
+    assert exit_.value.code == 0
+    assert "usage:" in capsys.readouterr().out
