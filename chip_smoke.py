@@ -128,7 +128,29 @@ WavEncoder swapped for the fused WavEncoder stack (K3). Checks:
    losses; each K3 kernel launched as often a step as one forward and one
    backward launch it; the K3 plain versions and F.conv1d never called;
 12. one served-size TED batch (8) through RAGSampler with the K3 drop-in
-   against the same sampler on the cuDNN encoder, within rel 1e-4.
+   against the same sampler on the cuDNN encoder, within rel 1e-4;
+13. the measurement scripts (``measure_phase``), each through its
+   ``main(argv)`` at full width with the kernel counts set to 0 just before
+   and read just after: bench_serve (TED, max_batch 16, a burst of 256 at
+   pipeline depth 0 and 1; BEAT, a burst of 64 with 8 single requests, and
+   one with a quarter of the requests carrying text): K1 20 times a served
+   batch, its plain version never; bench_train --fused_train (10 steps at
+   B=512 after the first) twice, around bench_train --loaders (the eager
+   backbone's step, then both loaders), so that the fused and the eager
+   step run in turns: K2's forward once and each backward kernel 8 times a
+   fused step, the plain versions and K1 never; bench_data (one epoch, f32 and PCM16
+   records); profile of the sampler (batch 256, ddim100, two batches: K1's
+   kernel 200 times in the trace) and of the train step (batch 512, three
+   steps), with each trace's span, busy time, idle share and top kernels;
+   and soak_serve for 20 s against a server process with the composition
+   (reloads every 5 s): its own asserts, no transport error, exit 0 on
+   SIGTERM;
+14. generation (``generate_phase``): scripts.generate with --fused on the
+   front end's seeded TED and SAG checkpoints, RAG-only (K1 100 launches),
+   with --sag_path (20) and --long over 10 s (100 a window, [150, 27]),
+   then main at BEAT (100; the npz's motion [34, 282]); the plain version
+   never; the RAG-only clip against the eager modules from the same seeded
+   generator within rel 1e-4.
 
 With ``--profile DIR`` it also profiles a second burst of the 24 serving
 requests, 3 composed TED batches and 3 steps of each training run with
@@ -2640,6 +2662,242 @@ def profile_phase(model, loop, out_dir, card, name="train_step"):
         check(n == 0, f"profile {name}: {n} cuDNN convolution kernels on the K3 path")
 
 
+def _counted(fn):
+    """``fn()`` with every kernel count set to 0 just before and read just
+    after: (result, counts, seconds). ``counts``: K1's launches and its
+    plain version's calls, K2's launches by kernel and its plain versions'
+    calls."""
+    from livelyspeaker_tpu_torch.ops import fused_mlp, fused_mlp_train as k2
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    fused_mlp.fused_transmlp_reference.calls = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out, {
+        "k1": fused_mlp.fused_transmlp.launches,
+        "k1_plain": fused_mlp.fused_transmlp_reference.calls,
+        "k2": dict(k2.LAUNCHES),
+        "k2_plain": (k2.fused_transmlp_train_forward_reference.calls,
+                     k2.fused_transmlp_train_backward_reference.calls),
+    }, secs
+
+
+def trace_summary(path, k1_name="fused_transmlp_cluster_kernel"):
+    """What a torch.profiler Chrome trace shows: the span of its events, the
+    card's busy time (the union of the kernels' intervals), K1's time and
+    launches, the host's kernel-launch calls, and the five kernels that
+    took the most time. Times in ms."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    check(kernels, f"{path}: the trace holds no kernel")
+    busy, end = 0.0, -1.0
+    for e in kernels:
+        lo, hi = e["ts"], e["ts"] + e["dur"]
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    k1 = [e["dur"] for e in kernels if k1_name in e["name"]]
+    launch_calls = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                       and "Launch" in e.get("name", ""))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"span_ms": span / 1e3, "busy_ms": busy / 1e3, "idle_share": 1.0 - busy / span,
+            "k1_ms": sum(k1) / 1e3, "k1_kernels": len(k1), "kernels": len(kernels),
+            "launch_calls": launch_calls, "top": [(n[:60], t / 1e3) for n, t in top]}
+
+
+SERVE_RUNS = (  # (tag, bench_serve arguments)
+    ("ted-depth0", ["--burst", "256", "--pipeline_depth", "0"]),
+    ("ted-depth1", ["--burst", "256", "--pipeline_depth", "1"]),
+    ("beat-single", ["--dataset", "beat", "--burst", "64", "--single", "8"]),
+    ("beat-text", ["--dataset", "beat", "--burst", "64", "--text_frac", "0.25"]),
+)
+BENCH_TRAIN_STEPS = 10
+SOAK_SECONDS, SOAK_RELOAD_EVERY = 20, 5
+
+
+def measure_phase(card, profile_dir=None):
+    """The measurement scripts of ``livelyspeaker_tpu_torch.scripts`` at full
+    width, each called through its ``main(argv)`` with the kernel counts set
+    to 0 just before and read just after: ``bench_serve`` (TED at
+    max_batch 16, a burst of 256 at pipeline depth 0 and 1; BEAT, a burst
+    of 64 with 8 single requests, and one with a quarter of the requests
+    carrying text) with K1 20 times a served batch and its plain version
+    never; ``bench_train --fused_train`` (K2 1 + 3 x 8 launches a step, its
+    plain versions and K1 never) twice, in turns with ``--loaders`` (the
+    eager step, then both loaders); ``bench_data``;
+    ``profile`` of the sampler (batch 256, ddim100, K1's kernel in its
+    trace) and of the train step (batch 512), with what each trace shows;
+    and ``soak_serve`` against a server process with the composition.
+    Returns (K1 launches, K2 launches by kernel)."""
+    import tempfile
+
+    from livelyspeaker_tpu_torch.ops import fused_mlp_train as k2
+    from livelyspeaker_tpu_torch.scripts import (
+        bench_data,
+        bench_serve,
+        bench_train,
+        profile,
+        soak_serve,
+    )
+
+    k1_total, k2_total = 0, {k: 0 for k in k2.LAUNCHES}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, argv in SERVE_RUNS:
+            out, c, secs = _counted(lambda: bench_serve.main(["--max_batch", "16"] + argv))
+            print(f"[measure] bench_serve {tag}: {secs:.2f} s, {out['batches']} batches "
+                  f"(burst {out['burst_batches']}), K1 launches {c['k1']}, plain {c['k1_plain']} "
+                  f"({card})")
+            check(c["k1"] == 20 * out["batches"] and c["k1_plain"] == 0,
+                  f"bench_serve {tag}: K1 {c['k1']} for {out['batches']} batches, "
+                  f"plain {c['k1_plain']}")
+            check(not any(c["k2"].values()), f"bench_serve {tag}: K2 ran")
+            k1_total += c["k1"]
+
+        # the fused step, the eager one (then both loaders), the fused one
+        # again: fused and eager in turns
+        step_ms = {"fused": [], "eager": []}
+        for turn in ("fused", "loaders", "fused"):
+            fused = turn == "fused"
+            argv = ["--dtypes", "float32", "--steps", str(BENCH_TRAIN_STEPS)] + (
+                ["--fused_train"] if fused else
+                ["--loaders", "--data_dir", os.path.join(tmp, "loader_records")])
+            rows, c, secs = _counted(lambda: bench_train.main(argv))
+            step_ms["fused" if fused else "eager"].append(rows[0]["value"])
+            check(np.isfinite(rows[0]["final_loss"]), f"bench_train: loss {rows[0]['final_loss']}")
+            if not fused:
+                print(f"[measure] bench_train --loaders (eager backbone): {secs:.2f} s ({card})")
+                check([r.get("loader") for r in rows] == [None, "streaming", "device_resident"]
+                      and all(r["value"] > 0 for r in rows), f"bench_train --loaders: {rows}")
+                check(not any(c["k2"].values()) and c["k1"] == 0,
+                      "bench_train --loaders: a kernel ran")
+                continue
+            steps = BENCH_TRAIN_STEPS + 1  # and the first step, timed apart
+            print(f"[measure] bench_train --fused_train: {secs:.2f} s, K2 {c['k2']} over "
+                  f"{steps} steps, plain {c['k2_plain']}, K1 {c['k1']} ({card})")
+            want = {k: steps * (1 if k == "fwd" else LAYERS) for k in k2.LAUNCHES}
+            check(c["k2"] == want and c["k2_plain"] == (0, 0) and c["k1"] == 0,
+                  f"bench_train: K2 {c['k2']} (want {want}), plain {c['k2_plain']}, K1 {c['k1']}")
+            for k in k2_total:
+                k2_total[k] += c["k2"][k]
+        print(f"[measure] bench_train step ms in turns (fused, eager, fused): "
+              f"{step_ms['fused'][0]} / {step_ms['eager'][0]} / {step_ms['fused'][1]} ({card})")
+
+        rows, _, secs = _counted(lambda: bench_data.main(
+            ["--epochs", "1", "--synthetic_dir", tmp]))
+        print(f"[measure] bench_data: {secs:.2f} s (records built included) ({card})")
+        check(len(rows) == 3 and all(r["value"] > 0 for r in rows), f"bench_data: {rows}")
+
+        trace_root = profile_dir or os.path.join(tmp, "traces")
+        for what, argv, want_k1 in (
+                ("sampler", ["--batch", "256", "--sampler", "ddim", "--timestep_respacing",
+                             "ddim100", "--iters", "2"], 3 * EVAL_STEPS),
+                ("train", ["--batch", "512", "--iters", "3"], 0)):
+            path, c, secs = _counted(lambda: profile.main(
+                ["--what", what, "--trace_dir", os.path.join(trace_root, f"profile_{what}")]
+                + argv))
+            check(os.path.getsize(path) > 0, f"profile {what}: no trace at {path}")
+            t = trace_summary(path)
+            print(f"[measure] profile --what {what}: {secs:.2f} s; trace {path}: span "
+                  f"{t['span_ms']:.2f} ms, device busy {t['busy_ms']:.2f} ms, idle "
+                  f"{100 * t['idle_share']:.1f}%, {t['kernels']} kernels, {t['launch_calls']} "
+                  f"launch calls, K1 {t['k1_kernels']} kernels {t['k1_ms']:.2f} ms ({card})")
+            print(f"[measure] profile --what {what}: top kernels "
+                  + "; ".join(f"{n} {ms:.2f} ms" for n, ms in t["top"]))
+            check(c["k1"] == want_k1 and c["k1_plain"] == 0,
+                  f"profile {what}: K1 {c['k1']} (want {want_k1}), plain {c['k1_plain']}")
+            if what == "sampler":
+                check(t["k1_kernels"] == 2 * EVAL_STEPS,
+                      f"profile sampler: K1's kernel {t['k1_kernels']} times in the trace")
+            k1_total += c["k1"]
+
+        summary, _, secs = _counted(lambda: soak_serve.main(
+            ["--seconds", str(SOAK_SECONDS), "--reload_every", str(SOAK_RELOAD_EVERY),
+             "--composition", "--out", os.path.join(tmp, "soak")]))
+        print(f"[measure] soak_serve: {secs:.2f} s ({card})")
+        check(summary["errors"] == 0 and summary["sigterm_exit_code"] == 0
+              and summary["param_version"] == summary["reload"] > 0
+              and summary["text"] > 0, f"soak_serve: {summary}")
+    return k1_total, k2_total
+
+
+GENERATE_TEXT = "we should protect the oceans"
+
+
+def generate_phase(card):
+    """``scripts.generate`` on the front end's seeded TED and SAG checkpoints
+    (``_write_checkpoints``) and a seeded BEAT checkpoint, with --fused:
+    ``run`` RAG-only (DDIM-100: K1 100 launches), with --sag_path (the
+    composition's 20 refinement steps) and --long over 10 s of audio (100 a
+    window), then ``main`` at BEAT (100, and its npz); the plain version
+    never; the RAG-only TED clip against the same call through the eager
+    modules (the same seeded generator) within rel 1e-4. Returns K1's
+    launches."""
+    import tempfile
+
+    from livelyspeaker_tpu_torch.models import RAGConfig
+    from livelyspeaker_tpu_torch.scripts import generate
+    from livelyspeaker_tpu_torch.training.checkpoints import save_args, save_params_npz
+
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        _, paths = _write_checkpoints(tmp)
+        bcfg = RAGConfig.beat()
+        beat = _random_model(bcfg, seed=25)
+        os.makedirs(os.path.join(tmp, "beat"))
+        paths["beat"] = os.path.join(tmp, "beat", "rag.npz")
+        save_params_npz(paths["beat"], beat.state_dict(), beat)
+        save_args(os.path.dirname(paths["beat"]), {
+            "njoints": bcfg.njoints, "nfeats": bcfg.nfeats, "n_poses": bcfg.nframes,
+            "latent_dim": bcfg.latent_dim, "layers": bcfg.num_layers, "mlpact": bcfg.mlpact,
+            "n_speakers": bcfg.n_speakers, "num_emotions": bcfg.num_emotions,
+            "cond_mask_prob": bcfg.cond_mask_prob})
+        speech = os.path.join(tmp, "speech.npy")
+        rng = np.random.default_rng(26)
+        np.save(speech, (0.1 * rng.normal(size=LONG_SECONDS * 16000)).astype(np.float32))
+        base = ["--model_path", paths["rag"], "--audio", speech, "--speaker", "7"]
+        total_frames = LONG_SECONDS * 15
+        runs = (("rag", base + ["--fused"], EVAL_STEPS, 34),
+                ("sag", base + ["--fused", "--sag_path", paths["sag"], "--text", GENERATE_TEXT],
+                 COMPOSED_STEPS, 34),
+                ("long", base + ["--fused", "--long"], EVAL_STEPS * LONG_WINDOWS, total_frames))
+        motions = {}
+        for tag, argv, want, frames in runs:
+            (motion, wav), c, secs = _counted(lambda: generate.run(generate.parse_args(argv)))
+            print(f"[generate] {tag}: motion {motion.shape}, {secs:.2f} s, K1 launches {c['k1']} "
+                  f"(want {want}), plain {c['k1_plain']} ({card})")
+            check(motion.shape == (frames, 27) and np.isfinite(motion).all(),
+                  f"generate {tag}: motion {motion.shape}, finite {np.isfinite(motion).all()}")
+            check(c["k1"] == want and c["k1_plain"] == 0,
+                  f"generate {tag}: K1 {c['k1']} (want {want}), plain {c['k1_plain']}")
+            motions[tag] = motion
+            launches += c["k1"]
+        eager, _ = generate.run(generate.parse_args(base))
+        rel = float(np.abs(motions["rag"] - eager).max() / np.abs(eager).max())
+        print(f"[generate] rag: fused against eager rel {rel:.3e} (tol {SLICE_TOL})")
+        check(rel <= SLICE_TOL, f"generate: fused against eager rel {rel:.3e}")
+
+        out = os.path.join(tmp, "beat_clip")
+        path, c, secs = _counted(lambda: generate.main(
+            ["--model_path", paths["beat"], "--audio", speech, "--emotion", "3", "--fused",
+             "--out", out]))
+        motion = np.load(path)["motion"]
+        print(f"[generate] beat main: {path} motion {motion.shape}, {secs:.2f} s, K1 launches "
+              f"{c['k1']}, plain {c['k1_plain']} ({card})")
+        check(motion.shape == (34, bcfg.njoints * bcfg.nfeats) and np.isfinite(motion).all(),
+              f"generate beat: motion {motion.shape}")
+        check(c["k1"] == EVAL_STEPS and c["k1_plain"] == 0,
+              f"generate beat: K1 {c['k1']}, plain {c['k1_plain']}")
+        launches += c["k1"]
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -2660,6 +2918,10 @@ def main():
     _, wav_launches, wav_model, wav_loop, _ = train_phase(card, wav_kernels=True, beside=train_stats)
     fused_vs_eager_train_phase()
     wav_sampler_phase()
+    measure_launches, bench_train_launches = measure_phase(card, args.profile)
+    launches += measure_launches + generate_phase(card)
+    for k, n in bench_train_launches.items():
+        train_launches[k] += n
     if args.profile:
         wgrad_library_probe(card, args.profile)
         profile_phase(model, loop, args.profile, card)

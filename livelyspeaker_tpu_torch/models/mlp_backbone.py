@@ -109,7 +109,8 @@ class TransMLP(nn.Module):
     """Timestep embedding + ``num_layers`` mixer blocks.
 
     ``fused_vjp=True`` routes the blocks through ``fused_transmlp_train``
-    (the training fast path: fused forward, hand-written backward; f32 only).
+    (the training fast path: fused forward, hand-written backward, in f32;
+    a bf16 stack is cast to f32 around it, as the JAX kernel does).
     The parameters and the state_dict are the same either way."""
 
     def __init__(self, seq_len: int = 35, num_layers: int = 8, dim: int = 512,

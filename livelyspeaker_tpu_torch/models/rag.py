@@ -63,7 +63,7 @@ class RAGConfig:
         self.num_emotions = num_emotions
         self.cond_mask_prob = cond_mask_prob
         # the mixer stack through the fused training kernel with the
-        # hand-written backward (f32 only)
+        # hand-written backward (in f32, also under a bf16 compute dtype)
         self.fused_train_backbone = fused_train_backbone
         # bf16 activations for the WavEncoder's conv stack only; its
         # parameters and returned features stay f32

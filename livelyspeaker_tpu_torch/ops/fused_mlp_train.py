@@ -525,11 +525,18 @@ def fused_transmlp_train(
     """The differentiable mixer stack, [B, S, D] -> [B, S, D], with the
     semantics of ``TransMLP`` minus the timestep embedder. Under autograd
     the forward stashes the block inputs and the backward is the
-    hand-written one; without autograd it is K1's stash-free stack. f32
-    only on the card (the plain version also takes float64, for gradcheck)."""
+    hand-written one; without autograd it is K1's stash-free stack. The
+    kernels are f32 only (the plain version also takes float64, for
+    gradcheck). A bf16 or f16 ``x`` (the trainer's ``compute_dtype``) is
+    computed as the JAX kernel computes it: ``x``, ``emb`` and the weights
+    cast to f32, the stack in f32, the output cast back to ``x``'s dtype.
+    The gradients reach each reduced-precision input in its own dtype (the
+    JAX custom VJP hands its f32 cotangents on unrounded)."""
     _act_pair(act_name)  # raises on gelu, as the JAX kernel does
     if x.dtype in (torch.bfloat16, torch.float16):
-        raise TypeError(f"fused_transmlp_train: x is {x.dtype}; the fused backbone is f32 only")
+        return fused_transmlp_train(
+            x.float(), emb.float(), {k: v.float() for k, v in packed.items()},
+            act_name).to(x.dtype)
     b, _, d = x.shape
     emb = emb.reshape(b, d)
     weights = [packed[k] for k in PACKED_KEYS]

@@ -464,8 +464,12 @@ def test_train_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     packed, x, emb, cot = _train_case(cuda_device, 35, 64, 1, 2)
     calls = fused_mlp_train.fused_transmlp_train_forward_reference.calls
     fwd = fused_mlp_train.fused_transmlp_train_forward
-    with pytest.raises(TypeError, match="f32"):
-        fused_mlp_train.fused_transmlp_train(x.to(torch.bfloat16), emb, packed)
+    # the wrapper computes a bf16 x in f32 (the JAX kernel's semantics); the
+    # kernel entry itself takes f32 only
+    with torch.no_grad():
+        out = fused_mlp_train.fused_transmlp_train(x.to(torch.bfloat16), emb, packed)
+        want = fused_mlp_train.fused_transmlp_train(x.to(torch.bfloat16).float(), emb, packed)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, want.to(torch.bfloat16))
     with pytest.raises(TypeError, match="f32"):
         fwd(x.to(torch.bfloat16), emb, packed)
     with pytest.raises(ValueError, match="contiguous"):

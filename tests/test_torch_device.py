@@ -1,10 +1,11 @@
 """The port's entry points run on the card unless the caller asks for the
 CPU: without a CUDA device ``RAGSampler``, ``LivelySpeakerPipeline``,
 ``build_rag_server``, ``TrainLoop``, the HTTP front end's ``build_server``,
-the four eval scripts' ``main``, ``EmbeddingSpaceEvaluator`` and the BEAT
-FID embedder raise unless ``device="cpu"`` (``--device cpu``) is passed,
-and run with it. Each new script answers ``--help`` when run as
-``python -m livelyspeaker_tpu_torch.scripts.<name>``."""
+the four eval scripts' ``main``, ``EmbeddingSpaceEvaluator``, the BEAT
+FID embedder, and the measurement and generation scripts (``bench_serve``,
+``bench_train``, ``profile``, ``generate``) raise unless ``device="cpu"``
+(``--device cpu``) is passed, and run with it. Each new script answers
+``--help`` when run as ``python -m livelyspeaker_tpu_torch.scripts.<name>``."""
 
 import contextlib
 import os
@@ -35,11 +36,15 @@ from livelyspeaker_tpu_torch.models import (
 from livelyspeaker_tpu_torch.models.embedding_net import TedEmbeddingEncoder
 from livelyspeaker_tpu_torch.pipeline import LivelySpeakerPipeline, RAGSampler
 from livelyspeaker_tpu_torch.scripts import (
+    bench_serve,
+    bench_train,
     eval_common,
     eval_livelyspeaker_beat,
     eval_livelyspeaker_ted,
     eval_rag_beat,
     eval_rag_ted,
+    generate,
+    profile,
 )
 from livelyspeaker_tpu_torch.scripts.serve import build_server
 from livelyspeaker_tpu_torch.serving import ServeConfig, build_rag_server
@@ -199,17 +204,68 @@ def _beat_embedder(model, device=None):
     return torch.device(device)
 
 
+def _script_argv(model, device):
+    c = model.cfg
+    return (["--latent_dim", str(c.latent_dim), "--layers", str(c.num_layers)]
+            + (["--device", device] if device else []))
+
+
+def _bench_serve(model, device=None):
+    """The bench at ``model``'s width (it builds its own seeded model)."""
+    with _one_torch_thread():
+        out = bench_serve.main(_script_argv(model, device) + [
+            "--burst", "2", "--max_batch", "2", "--clients", "1", "--max_wait_ms", "5",
+            "--steps", "20", "--timestep_respacing", "ddim2", "--sampler", "ddim"])
+    assert out["clips_per_sec"] > 0
+    return torch.device(out["device"])
+
+
+def _bench_train(model, device=None):
+    with _one_torch_thread():
+        rows = bench_train.main(_script_argv(model, device) + [
+            "--batch", "2", "--steps", "1", "--dtypes", "float32", "--fused_train"])
+    assert np.isfinite(rows[0]["final_loss"])
+    return torch.device(device)
+
+
+def _profile(model, device=None):
+    """The sampler's trace at the TED configuration, two steps."""
+    with tempfile.TemporaryDirectory() as d, _one_torch_thread():
+        path = profile.main(["--what", "sampler", "--batch", "1", "--iters", "1", "--steps",
+                             "20", "--timestep_respacing", "ddim2", "--sampler", "ddim",
+                             "--trace_dir", d] + (["--device", device] if device else []))
+        assert os.path.getsize(path) > 0
+    return torch.device(device)
+
+
+def _generate(model, device=None):
+    """``generate.run`` on a checkpoint of ``model`` (with its args.json)."""
+    with tempfile.TemporaryDirectory() as d, _one_torch_thread():
+        path = os.path.join(d, "rag.npz")
+        save_params_npz(path, model.state_dict(), model)
+        c = model.cfg
+        save_args(d, {"latent_dim": c.latent_dim, "layers": c.num_layers,
+                      "n_speakers": c.n_speakers})
+        motion, _ = generate.run(generate.parse_args(
+            ["--model_path", path, "--fused", "--diffusion_steps", "20",
+             "--timestep_respacing", "ddim2"] + (["--device", device] if device else [])))
+    assert motion.shape == (34, 27) and np.isfinite(motion).all()
+    return torch.device(device)
+
+
 @pytest.mark.parametrize("entry", [_sampler, _pipeline, _server, _train, _front_end,
                                    _eval_script(eval_rag_ted, beat=False),
                                    _eval_script(eval_rag_beat, beat=True),
                                    _eval_script(eval_livelyspeaker_ted, beat=False),
                                    _eval_script(eval_livelyspeaker_beat, beat=True),
-                                   _evaluator, _beat_embedder],
+                                   _evaluator, _beat_embedder, _bench_serve, _bench_train,
+                                   _profile, _generate],
                          ids=["RAGSampler", "LivelySpeakerPipeline", "build_rag_server",
                               "TrainLoop", "serve.build_server", "eval_rag_ted.main",
                               "eval_rag_beat.main", "eval_livelyspeaker_ted.main",
                               "eval_livelyspeaker_beat.main", "EmbeddingSpaceEvaluator",
-                              "load_beat_embedder"])
+                              "load_beat_embedder", "bench_serve.main", "bench_train.main",
+                              "profile.main", "generate.run"])
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(no_card, entry):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         entry(_model())
@@ -229,7 +285,9 @@ def test_place_model_rule(no_card):
 
 
 @pytest.mark.parametrize("script", ["eval_rag_ted", "eval_rag_beat", "eval_livelyspeaker_ted",
-                                    "eval_livelyspeaker_beat", "convert_checkpoint"])
+                                    "eval_livelyspeaker_beat", "convert_checkpoint", "profile",
+                                    "bench_data", "bench_train", "bench_serve", "soak_serve",
+                                    "generate"])
 def test_new_scripts_answer_help(script, monkeypatch, capsys):
     """``python -m livelyspeaker_tpu_torch.scripts.<script> --help``, run
     the way ``-m`` runs it, in this process."""

@@ -155,8 +155,16 @@ def test_gelu_and_bf16_raise():
     fused = TransMLP(35, 1, 64, "gelu", fused_vjp=True)
     with pytest.raises(ValueError, match="gelu"):
         fused(x, torch.zeros(2, dtype=torch.long))
-    with pytest.raises(TypeError, match="f32"):
-        k2.fused_transmlp_train(x.to(torch.bfloat16), e, _packed(tm), "silu")
+    # bf16 is not refused: the stack runs in f32 on the bf16 values and
+    # returns bf16, as the JAX kernel does (test_torch_measure.py holds it
+    # against the JAX kernel)
+    _, tm = _backbones(35, 64, 1, "silu")
+    xb = torch.randn(2, 35, 64, generator=torch.Generator().manual_seed(9)).to(torch.bfloat16)
+    eb = torch.randn(2, 64, generator=torch.Generator().manual_seed(10)).to(torch.bfloat16)
+    out = k2.fused_transmlp_train(xb, eb, _packed(tm), "silu")
+    assert out.dtype == torch.bfloat16
+    want = k2.fused_transmlp_train(xb.float(), eb.float(), _packed(tm), "silu")
+    assert torch.equal(out, want.to(torch.bfloat16))
     with pytest.raises(ValueError, match="no kernel"):
         k2.fused_transmlp_train_forward(x.to("meta"), e.to("meta"), _packed(tm))
 

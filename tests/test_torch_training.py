@@ -270,11 +270,23 @@ def test_bf16_step_keeps_f32_masters_and_fused_backbone_refuses_it():
     assert all(p.dtype == torch.float32 for p in tm.parameters())
     assert any(not torch.equal(p0[k], state.params[k]) for k in p0)
 
+    # the fused backbone is no longer refused under bf16: as in the JAX
+    # package it runs its stack in f32 on the bf16 values (its parity with
+    # the JAX kernel is in test_torch_measure.py); the masters stay f32
+    from livelyspeaker_tpu_torch.ops import fused_mlp_train as k2
+
     fused = _own_init_model(fused_train_backbone=True)
     step = make_train_step(fused, DiffusionSchedule.create(steps=20), tx, cfg)
     state = init_train_state(dict(fused.named_parameters()), tx, cfg=cfg)
-    with pytest.raises(TypeError, match="f32"):
-        step(state, batch, torch.Generator().manual_seed(0))
+    p0 = {k: v.detach().clone() for k, v in state.params.items()}
+    calls = (k2.fused_transmlp_train_forward_reference.calls,
+             k2.fused_transmlp_train_backward_reference.calls)
+    state, m = step(state, batch, torch.Generator().manual_seed(0))
+    assert (k2.fused_transmlp_train_forward_reference.calls,
+            k2.fused_transmlp_train_backward_reference.calls) == (calls[0] + 1, calls[1] + 1)
+    assert np.isfinite(m["loss"]) and m["skipped_nonfinite"] == 0.0
+    assert all(p.dtype == torch.float32 for p in fused.parameters())
+    assert any(not torch.equal(p0[k], state.params[k]) for k in p0)
 
 
 def test_fused_backbone_train_step_matches_eager():
