@@ -8,8 +8,10 @@ batcher, the two-stage composition (CLIP text tower, SAG sketch, RAG
 refinement) through LivelySpeakerPipeline, the HTTP front end with text and
 long-form requests, RAG training through TrainLoop
 with the fused backbone, training from TED and BEAT records through the
-train_rag and train_sag entry points, and the same training with the
-WavEncoder swapped for the fused WavEncoder stack (K3). Checks:
+train_rag and train_sag entry points, records built from raw TED clips and
+a raw BEAT directory and trained through K2 and the gesture autoencoder,
+K1's bf16 option, and the same training with the WavEncoder swapped for
+the fused WavEncoder stack (K3). Checks:
 
 1. device: a CUDA card is required (no CPU run); TF32 is off for matmul
    and cuDNN, so every comparison below is f32 against f32;
@@ -21,7 +23,15 @@ WavEncoder swapped for the fused WavEncoder stack (K3). Checks:
    without the pose projection; rel = max|kernel - plain| / max|plain| <=
    1e-5, the time per call of both, the bound (FLOPs at the f32 peak) and
    the share of it; at 2B in {2, 16, 512} the kernel at clusters of 8 and 4
-   CTAs, timed in turns;
+   CTAs, timed in turns; then the bf16 kernel (``bf16_kernel_phase``,
+   csrc/fused_transmlp_bf16.cu) against its plain bf16 version at TED and
+   BEAT, 2B in {16, 512}, LN2 folded and not, with and without the pose
+   projection: max|kernel - plain| <= 2^-6 max|plain| (printed in bf16
+   ulps of max|y|), both within rel 0.05 of the f32 kernel on the same
+   weights, the time of the three and the bound at the bf16 tensor-core
+   peak; then 20 calls of the bf16 stack through fused_transmlp at the
+   serving shape, the counts set to 0 before: 20 bf16 launches, no f32
+   launch and no plain call;
 4. serving: build_rag_server with the default ServeConfig (DPM-Solver++ over
    ddim20, max_batch 8, guidance 1.5) answers 24 requests from 3 threads;
    every clip is finite [9, 3, 34], the kernel ran 20 times per batch served
@@ -86,7 +96,20 @@ WavEncoder swapped for the fused WavEncoder stack (K3). Checks:
    records' one batch (x 100), eval_livelyspeaker_ted and _beat (20 a
    batch), every number finite, the plain version never; the TED eval's
    first batch fused against eager within rel 1e-4; each script's wall
-   time split into sampling and scoring (host clock, synchronised);
+   time split into sampling and scoring (host clock, synchronised); then
+   records from raw files (``records_build_phase``): 40 raw TED clips of
+   20 s (npz) through scripts.build_ted_records in f32 and PCM16 (1,040
+   windows each), 6 raw BEAT recordings of 40 s of two speakers (BVH at
+   120 fps, WAV, TextGrid, csv, txt, json; BEAT's train split) through
+   scripts.build_beat_records (342 windows), the seconds of each build;
+   the loaders' first batches on the card (f32 and PCM16 motion equal,
+   PCM16 audio within 2^-15 of f32); train_rag --fused_train from the TED
+   records at B=512 (5 epochs) and the BEAT records at B=128 (K2's
+   launches as above, finite and falling losses);
+   scripts.train_gesture_autoencoder on the TED records at batch 512, base
+   32, 10 epochs: finite, falling reconstruction MSE, the npz exactly the
+   Flax module's keys and shapes (tests/manifests/gesture_ae_ted.json),
+   loaded into the port's model; each run's step ms;
 9. the fused training loss against the eager one on a TED and a BEAT batch
    of 64 (BEAT with kld_weight 0), with the same t, noise, style and
    condition drop: loss within rel 1e-5, every parameter gradient within
@@ -182,6 +205,11 @@ TRAIN_FWD_SOURCE = KERNEL_SOURCE  # the cluster kernel, with a stash pointer
 TRAIN_REPLACES = "livelyspeaker_tpu/ops/pallas/fused_mlp_train.py:257"
 GRAD_TOL = 1e-4  # f32 sums over up to B*S = 18,432 rows in another order
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR, LAYERS = 30, 512, 1e-3, 8
+BF16_SOURCE = "livelyspeaker_tpu_torch/csrc/fused_transmlp_bf16.cu"
+BF16_REPLACES = "livelyspeaker_tpu/ops/pallas/fused_mlp.py:215"  # its bf16 option, :49 and :202
+BF16_TOL = 2.0 ** -6  # bf16 kernel vs plain, of max|plain|: a few bf16 ulps of max|y|
+BF16_F32_TOL = 0.05  # either bf16 stack vs the f32 kernel, of max|f32| (the JAX test's 0.05)
+BF16_PATH_STEPS = 20  # the bf16 path: calls of the stack, one a solver step
 WAV_SOURCE = "livelyspeaker_tpu_torch/csrc/fused_wav.cu"
 WAV_REPLACES = "livelyspeaker_tpu/ops/pallas/fused_wav.py:468"
 ZERO_GRAD = tuple(f"audio_encoder.conv{i}.bias" for i in range(3))
@@ -210,7 +238,7 @@ def device_phase():
 def build_phase():
     from livelyspeaker_tpu_torch.ops._build import build_log, load_libraries
 
-    names = ("fused_transmlp", "fused_transmlp_train", "fused_wav")
+    names = ("fused_transmlp", "fused_transmlp_train", "fused_wav", "fused_transmlp_bf16")
     t0 = time.perf_counter()
     load_libraries(names)  # one nvcc per source, started together
     secs = time.perf_counter() - t0
@@ -237,6 +265,7 @@ def time_ms(fn, iters):
 PEAK_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM at 700 W (data sheet)
 PEAK_TF32 = 495e12  # TF32 on the tensor cores, dense, H100 SXM at 700 W
 PEAK_BYTES = 3.35e12  # HBM3, H100 SXM
+PEAK_BF16 = 989e12  # bf16 on the tensor cores, dense, H100 SXM at 700 W
 
 
 def bound(flop, nbytes, peak=PEAK_FLOPS):
@@ -248,15 +277,17 @@ def bound(flop, nbytes, peak=PEAK_FLOPS):
 
 
 def k1_cost(x, emb, packed, op):
-    """(FLOP, bytes) of one K1 call: the token mix, channel mix and pose
-    products (the LayerNorms, activations and residuals, under 3% at D=512,
-    are left out); every input read once, the output written once."""
+    """(FLOP, bytes) of one K1 call, f32 or bf16: the token mix, channel mix
+    and pose products (the LayerNorms, activations and residuals, under 3%
+    at D=512, are left out); every input read once at its own element size,
+    the output (of x's type) written once."""
     b, s, d = x.shape
     layers = packed["token_w"].shape[0]
-    f = op["out_w"].shape[1] if op is not None else 0
+    f = op["out_b"].shape[0] if op is not None else 0
     flop = b * (layers * (2 * s * d * d + 2 * s * s * d) + 2 * s * d * f)
     tensors = [x, emb, *packed.values(), *(op.values() if op is not None else ())]
-    nbytes = 4 * (sum(t.numel() for t in tensors) + b * s * (f or d))
+    nbytes = (sum(t.numel() * t.element_size() for t in tensors)
+              + b * s * (f or d) * x.element_size())
     return flop, nbytes
 
 
@@ -335,6 +366,102 @@ def kernel_phase(card):
                       + ", ".join(f"{n} CTAs {t:.4f} ms" for n, t in times.items())
                       + f"; transmlp_geometry picks {geo.cluster} ({card})")
     return worst_abs, main
+
+
+def bf16_kernel_phase(card):
+    """K1's bf16 kernel against its plain bf16 version at TED (S=35, F=27)
+    and BEAT (S=36, F=282), D=512, L=8, 2B in {16, 512}, LN2 folded and
+    affine, with and without the pose projection; both against the f32
+    kernel on the same weights; the time of the three and the bound at the
+    bf16 tensor-core peak. Then the bf16 path: no path of the package uses
+    bf16 (f32 is the default, as in the JAX package), so the option is
+    driven through its entry point, ``fused_transmlp``, as its user calls
+    it: BF16_PATH_STEPS calls at the serving shape (TED, 2B = 16, LN2
+    folded), each on the previous call's output with a step's embedding,
+    the counts set to 0 before and read after. Returns (worst abs error,
+    the serving call's numbers, the path's launches)."""
+    from livelyspeaker_tpu_torch.models.initializers import random_normal_
+    from livelyspeaker_tpu_torch.models.mlp_backbone import TransMLP
+    from livelyspeaker_tpu_torch.ops import fused_mlp
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(3)
+    bf16 = torch.bfloat16
+    worst_abs, main = 0.0, None
+    for name, seq, feats in (("TED", 35, 27), ("BEAT", 36, 282)):
+        stack = random_normal_(TransMLP(seq, 8, 512, "silu"), g).to(dev)
+        pose = random_normal_(torch.nn.Linear(512, feats), g).to(dev)
+        for b2 in (16, 512):
+            x = torch.randn(b2, seq, 512, generator=g).to(dev)
+            emb = torch.randn(b2, 512, generator=g).to(dev)
+            xb, eb = x.to(bf16), emb.to(bf16)
+            for fold in (False, True):
+                p16 = fused_mlp.pack_transmlp_params(stack, fold_ln2=fold, dtype=bf16)
+                p32 = fused_mlp.pack_transmlp_params(stack, fold_ln2=fold)
+                for proj in (None, pose):
+                    o16 = fused_mlp.pack_out_proj(proj, dtype=bf16) if proj is not None else None
+                    o32 = fused_mlp.pack_out_proj(proj) if proj is not None else None
+                    out = fused_mlp.fused_transmlp(xb, eb, p16, out_proj=o16)
+                    ref = fused_mlp.fused_transmlp_reference(xb, eb, p16, out_proj=o16)
+                    f32 = fused_mlp.fused_transmlp(x, emb, p32, out_proj=o32)
+                    torch.cuda.synchronize()
+                    check(out.dtype == bf16 and out.shape == ref.shape, "bf16 kernel: bad output")
+                    err = (out.float() - ref.float()).abs().max().item()
+                    top = ref.float().abs().max().item()
+                    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+                    f32_top = f32.abs().max().item()
+                    vs_f32 = (out.float() - f32).abs().max().item() / f32_top
+                    plain_vs_f32 = (ref.float() - f32).abs().max().item() / f32_top
+                    iters = 20 if b2 <= 16 else 5
+                    ms = time_ms(lambda: fused_mlp.fused_transmlp(xb, eb, p16, out_proj=o16), iters)
+                    plain = time_ms(lambda: fused_mlp.fused_transmlp_reference(
+                        xb, eb, p16, out_proj=o16), iters)
+                    f32_ms = time_ms(lambda: fused_mlp.fused_transmlp(x, emb, p32, out_proj=o32),
+                                     iters)
+                    flop, nbytes = k1_cost(xb, eb, p16, o16)
+                    bound_ms, bound_by = bound(flop, nbytes, PEAK_BF16)
+                    tag = (f"{name} 2B={b2} S={seq} D=512 L=8 ln2={'folded' if fold else 'affine'} "
+                           f"out={'F=%d' % feats if proj is not None else 'D'}")
+                    print(f"[bf16] {tag}: max_abs {err:.4g} = {err / ulp:.2f} bf16 ulps of "
+                          f"max|y| {top:.4g} (rel {err / top:.3e}, tol {BF16_TOL:.3e}), "
+                          f"{(out != ref).sum().item()}/{out.numel()} elements differ; against "
+                          f"the f32 kernel: kernel rel {vs_f32:.3e}, plain rel {plain_vs_f32:.3e}; "
+                          f"bf16 kernel {ms:.4f} ms, plain {plain:.4f} ms, f32 kernel {f32_ms:.4f} "
+                          f"ms; bound {bound_ms:.4f} ms ({flop / 1e9:.3f} GFLOP at the bf16 peak, "
+                          f"{nbytes / 1e6:.2f} MB, {bound_by}) share {bound_ms / ms:.1%} ({card})")
+                    check(np.isfinite(err) and err <= BF16_TOL * top,
+                          f"bf16 kernel disagrees with its plain version at {tag}")
+                    check(vs_f32 <= BF16_F32_TOL and plain_vs_f32 <= BF16_F32_TOL,
+                          f"a bf16 stack is off the f32 kernel at {tag}")
+                    worst_abs = max(worst_abs, err)
+                    if name == "TED" and b2 == 16 and fold and proj is not None:
+                        main = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                                "bound_by": bound_by}  # the serving call
+
+    stack = random_normal_(TransMLP(35, 8, 512, "silu"), g).to(dev)
+    packed = fused_mlp.pack_transmlp_params(stack, fold_ln2=True, dtype=bf16)
+    x = torch.randn(16, 35, 512, generator=g).to(dev).to(bf16)
+    embs = torch.randn(BF16_PATH_STEPS, 16, 512, generator=g).to(dev).to(bf16)
+    torch.cuda.synchronize()
+    fused_mlp.fused_transmlp.bf16_launches = fused_mlp.fused_transmlp.launches = 0
+    fused_mlp.fused_transmlp_reference.calls = 0
+    t0 = time.perf_counter()
+    for k in range(BF16_PATH_STEPS):
+        x = fused_mlp.fused_transmlp(x, embs[k], packed)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = fused_mlp.fused_transmlp.bf16_launches
+    other = (fused_mlp.fused_transmlp.launches, fused_mlp.fused_transmlp_reference.calls)
+    print(f"[bf16] path: {BF16_PATH_STEPS} calls of the bf16 stack at TED 2B=16 through "
+          f"fused_transmlp: bf16 kernel launches {launches}, f32 kernel launches and plain calls "
+          f"{other}, {wall:.2f} ms host clock, out {tuple(x.shape)} {x.dtype} finite "
+          f"{bool(torch.isfinite(x).all())} ({card})")
+    check(launches == BF16_PATH_STEPS and other == (0, 0),
+          f"bf16 path: {launches} bf16 launches, f32 launches and plain calls {other}")
+    check(x.dtype == bf16 and bool(torch.isfinite(x).all()), "bf16 path: output not finite bf16")
+    print(f"[bf16] phase: {time.perf_counter() - t_phase:.1f} s")
+    return worst_abs, main, launches
 
 
 def _random_model(cfg, seed):
@@ -1922,6 +2049,7 @@ def _reset_counts():
     k3.fused_wav_forward_reference.calls = 0
     k3.fused_wav_backward_reference.calls = 0
     fused_mlp.fused_transmlp.launches = 0
+    fused_mlp.fused_transmlp.bf16_launches = 0
 
 
 def _k3_plain_calls():
@@ -2286,6 +2414,161 @@ def records_train_phase(card, beside):
                            os.path.join(sag_dir, "sag_best.npz"))
         return {"stream": s, "resident": r, "beat": beat, "gather_ms": gather_ms,
                 "send_ms": send_ms, "loader_ms": loader_ms, "eval": evals}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+RAW_TED_CLIPS, RAW_TED_SECONDS = 40, 20  # 26 windows a clip: 1,040 TED windows
+RAW_BEAT_NAMES = tuple(f"{speaker}_{r}" for speaker in ("2_scott", "4_lawrence")
+                       for r in ("0_9_9", "0_10_10", "0_11_11"))  # all in BEAT's train split
+RAW_BEAT_SECONDS = 40  # 57 windows a recording: 342 BEAT windows
+RAW_RAG_EPOCHS, RAW_BEAT_EPOCHS, AE_EPOCHS = 5, 3, 10
+AE_MANIFEST = os.path.join("tests", "manifests", "gesture_ae_ted.json")
+
+
+def records_build_phase(card):
+    """Records built from raw files through the port's scripts, then trained
+    through K2 and the gesture autoencoder on the card: raw TED clips
+    (npz, ``write_raw_ted_clips``) through ``build_ted_records.main`` in
+    f32 and PCM16; a raw BEAT directory (two speakers, train recordings:
+    BVH at 120 fps, WAV, TextGrid, csv, txt, json) through
+    ``build_beat_records.main``; both read by the loaders onto the card;
+    ``train_rag --fused_train`` from the TED records at B=512 and the BEAT
+    records at B=128 (K2's launches counted, finite and falling losses);
+    ``train_gesture_autoencoder`` on the TED records at batch 512,
+    base 32 (finite, falling reconstruction MSE; the npz has the Flax
+    module's keys and shapes, ``tests/manifests/gesture_ae_ted.json``, and
+    loads into the port's model). Builds are host work: their seconds are
+    printed, with each run's step ms."""
+    import shutil
+    import tempfile
+
+    from livelyspeaker_tpu_torch.data import DataLoader, TedWindowDataset
+    from livelyspeaker_tpu_torch.data.beat import BeatWindowDataset, beat_official_split
+    from livelyspeaker_tpu_torch.data.synthetic import (write_raw_beat_recordings,
+                                                        write_raw_ted_clips)
+    from livelyspeaker_tpu_torch.data.ted import pcm16_decode
+    from livelyspeaker_tpu_torch.models.embedding_net import GestureAutoencoder
+    from livelyspeaker_tpu_torch.scripts import (build_beat_records, build_ted_records,
+                                                 train_gesture_autoencoder)
+    from livelyspeaker_tpu_torch.utils.checkpoints import load_params_npz
+    from livelyspeaker_tpu_torch.utils.convert import flax_variables_to_state_dict
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_raw.")
+    try:
+        raw_ted, raw_beat = os.path.join(work, "raw_ted"), os.path.join(work, "raw_beat")
+        ted = {k: os.path.join(work, f"ted_{k}") for k in ("float32", "int16")}
+        beat_dir = os.path.join(work, "beat")
+        t0 = time.perf_counter()
+        write_raw_ted_clips(raw_ted, RAW_TED_CLIPS, RAW_TED_SECONDS, seed=51)
+        secs = {"write_ted": time.perf_counter() - t0}
+        n_ted = {}
+        for dtype, out in ted.items():
+            t0 = time.perf_counter()
+            n_ted[dtype], vocab = build_ted_records.main(
+                ["--clips_dir", raw_ted, "--out", out, "--audio_dtype", dtype])
+            secs[f"build_ted_{dtype}"] = time.perf_counter() - t0
+        for name in RAW_BEAT_NAMES:
+            split = beat_official_split(name, RAW_BEAT_SECONDS)
+            check(split == {"train": [(0.0, RAW_BEAT_SECONDS)], "val": [], "test": []},
+                  f"raw BEAT: {name} is not a train recording")
+        t0 = time.perf_counter()
+        write_raw_beat_recordings(raw_beat, RAW_BEAT_NAMES, RAW_BEAT_SECONDS, seed=52)
+        secs["write_beat"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_beat = build_beat_records.main(["--raw_dir", raw_beat, "--out", beat_dir,
+                                          "--speakers", "2", "4"])
+        secs["build_beat"] = time.perf_counter() - t0
+        print(f"[raw-records] TED: {RAW_TED_CLIPS} raw clips of {RAW_TED_SECONDS} s written in "
+              f"{secs['write_ted']:.2f} s, built into {n_ted['float32']} windows ("
+              f"{vocab.n_words} speakers) in {secs['build_ted_float32']:.2f} s (f32, "
+              f"{_dir_bytes(ted['float32']) / 2 ** 20:.1f} MiB) and {n_ted['int16']} in "
+              f"{secs['build_ted_int16']:.2f} s (PCM16, {_dir_bytes(ted['int16']) / 2 ** 20:.1f} "
+              f"MiB); BEAT: {len(RAW_BEAT_NAMES)} raw recordings of {RAW_BEAT_SECONDS} s "
+              f"(BVH at 120 fps, WAV, TextGrid, csv, txt, json) written in "
+              f"{secs['write_beat']:.2f} s, built into {n_beat} windows in "
+              f"{secs['build_beat']:.2f} s (host)")
+        check(n_ted["float32"] == n_ted["int16"] >= 2 * TRAIN_BATCH and n_beat >= 2 * BEAT_BATCH,
+              f"raw records: {n_ted} TED and {n_beat} BEAT windows, too few for two batches")
+
+        fields = ("motion", "audio", "vid")
+        first = {}
+        for dtype, root in ted.items():
+            loader = DataLoader(TedWindowDataset(root), TRAIN_BATCH, shuffle=False,
+                                fields=fields, device="cuda")
+            first[dtype] = next(iter(loader))
+        f32, pcm = first["float32"], first["int16"]
+        audio_err = (torch.from_numpy(pcm16_decode(pcm["audio"].cpu().numpy())).cuda()
+                     - f32["audio"]).abs().max().item()
+        beat_batch = next(iter(DataLoader(BeatWindowDataset(beat_dir), BEAT_BATCH, shuffle=False,
+                                          fields=("motion", "audio", "vid", "emo"),
+                                          device="cuda")))
+        torch.cuda.synchronize()
+        print(f"[raw-records] loaders onto the card: TED f32 motion "
+              f"{tuple(f32['motion'].shape)}, audio {f32['audio'].dtype}; PCM16 audio "
+              f"{pcm['audio'].dtype}, decoded within {audio_err:.3e} of the f32 records; BEAT "
+              f"motion {tuple(beat_batch['motion'].shape)}, emo {tuple(beat_batch['emo'].shape)}")
+        check(torch.equal(f32["motion"], pcm["motion"]) and torch.equal(f32["vid"], pcm["vid"]),
+              "raw records: the f32 and PCM16 TED records' motion or speakers differ")
+        check(pcm["audio"].dtype == torch.int16 and audio_err <= 2.0 ** -15,
+              "raw records: PCM16 audio off the f32 records by more than half a step")
+        check(tuple(beat_batch["motion"].shape) == (BEAT_BATCH, 47, 6, 34)
+              and bool(torch.isfinite(beat_batch["motion"]).all()),
+              "raw records: BEAT batch not finite [B, 47, 6, 34]")
+        del first, f32, pcm, beat_batch
+
+        _, ted_run = _records_rag_run(
+            "raw-ted", ["--dataset", "ted", "--data_dir", ted["float32"], "--fused_train",
+                        "--batch_size", str(TRAIN_BATCH), "--epochs", str(RAW_RAG_EPOCHS),
+                        "--lr", str(TRAIN_LR), "--latent_dim", "512", "--layers", str(LAYERS),
+                        "--n_speakers", "1400", "--seed", "14"],
+            os.path.join(work, "rag_ted"), card, want_decrease=True)
+        _, beat_run = _records_rag_run(
+            "raw-beat", ["--dataset", "beat", "--data_dir", beat_dir, "--fused_train",
+                         "--batch_size", str(BEAT_BATCH), "--epochs", str(RAW_BEAT_EPOCHS),
+                         "--lr", str(TRAIN_LR), "--seed", "15"],
+            os.path.join(work, "rag_beat"), card, want_decrease=True)
+
+        ae_dir = os.path.join(work, "ae")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = train_gesture_autoencoder.main(
+            ["--dataset", "ted", "--data_dir", ted["float32"], "--batch_size", str(TRAIN_BATCH),
+             "--base", "32", "--epochs", str(AE_EPOCHS), "--lr", "1e-3", "--log_interval", "1",
+             "--save_dir", ae_dir, "--seed", "13"])
+        torch.cuda.synchronize()
+        ae_wall = time.perf_counter() - t0
+        rows = _progress_rows(ae_dir, "recon_mse")
+        losses = [r["recon_mse"] for r in rows]
+        ae_ms = np.diff([0.0] + [r["elapsed_s"] for r in rows]) * 1e3
+        check(len(losses) == out["step"] > 5 and all(np.isfinite(losses)),
+              f"autoencoder: losses {losses} for {out['step']} steps")
+        ae_first, ae_last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        with open(AE_MANIFEST) as f:
+            manifest = {k: tuple(v) for k, v in json.load(f).items()}
+        with np.load(out["path"]) as z:
+            layout = {k: z[k].shape for k in z.files}
+        model = GestureAutoencoder(base=32)
+        model.load_state_dict(flax_variables_to_state_dict(load_params_npz(out["path"]), model))
+        feat = model.cuda().embed(torch.zeros(4, 34, 27, device="cuda"))
+        print(f"[raw-ae] {out['step']} steps at B={TRAIN_BATCH}, base 32: recon MSE first-5 mean "
+              f"{ae_first:.5f} last-5 mean {ae_last:.5f}; losses "
+              + " ".join(f"{v:.4f}" for v in losses)
+              + f"; step {np.median(ae_ms[2:]):.2f} ms median after the second (host clock "
+              f"between logged steps, each after its loss is read), {ae_wall:.2f} s for the run, "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"{os.path.basename(out['path'])}: {len(layout)} arrays, the Flax module's "
+              f"layout {layout == manifest}, loaded into the port ({card})")
+        check(ae_last < ae_first, f"autoencoder: MSE did not fall ({ae_first} -> {ae_last})")
+        check(layout == manifest, f"autoencoder npz is not the Flax layout of {AE_MANIFEST}")
+        check(tuple(feat.shape) == (4, 32) and bool(torch.isfinite(feat).all()),
+              "autoencoder: the loaded model's embedding is not finite [4, 32]")
+        print(f"[raw-records] step ms median: train_rag TED {ted_run['step_ms']:.2f} "
+              f"(B={TRAIN_BATCH}), BEAT {beat_run['step_ms']:.2f} (B={BEAT_BATCH}), autoencoder "
+              f"{np.median(ae_ms[2:]):.2f} (B={TRAIN_BATCH}) ({card})")
+        print(f"[raw-records] phase: {time.perf_counter() - t_phase:.1f} s")
+        return {"secs": secs, "ted": ted_run, "beat": beat_run, "ae_ms": float(np.median(ae_ms[2:]))}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2907,6 +3190,7 @@ def main():
     card = device_phase()
     build_phase()
     worst_abs, k1 = kernel_phase(card)
+    bf16_worst, bf16, bf16_launches = bf16_kernel_phase(card)
     launches = serving_phase(card, args.profile)
     beat_phase()
     launches += composition_phase(card, args.profile)
@@ -2914,6 +3198,7 @@ def main():
     train_worst, train_times = train_kernel_phase(card)
     train_launches, _, model, loop, train_stats = train_phase(card)
     launches += records_train_phase(card, train_stats)["eval"]["launches"]
+    records_build_phase(card)
     wav_worst, wav_times = wav_kernel_phase(card)
     _, wav_launches, wav_model, wav_loop, _ = train_phase(card, wav_kernels=True, beside=train_stats)
     fused_vs_eager_train_phase()
@@ -2941,6 +3226,10 @@ def main():
         "name": "fused_transmlp", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
         "max_abs_err": worst_abs, **k1, "library_ms": None,
+    }, {
+        "name": "fused_transmlp_bf16", "route": "cuda", "source": BF16_SOURCE,
+        "replaces": BF16_REPLACES, "launches": bf16_launches,
+        "max_abs_err": bf16_worst, **bf16, "library_ms": None,
     }]
     for k in ("fwd", "bwd_block", "wgrad", "reduce"):
         kernels.append({

@@ -14,4 +14,5 @@ from .ted import (
     resample_pose_seq,
     sample_windows_from_clip,
 )
+from .textgrid import Interval, Tier, parse_textgrid
 from .vocab import Vocab, build_vocab

@@ -6,11 +6,20 @@ arm motion, constant bone lengths) with matching 16 kHz audio and word
 timings, then routes them through the *real* offline pipeline
 (ted.build_ted_records), so windowing, filtering and dir-vec conversion run
 exactly as they would on real TED data.
+
+The port also writes raw inputs of the record-building scripts:
+:func:`write_raw_ted_clips` (the per-clip npz files of
+``scripts/build_ted_records.py --clips_dir``) and
+:func:`write_raw_beat_recordings` (a raw BEAT directory for
+``scripts/build_beat_records.py --raw_dir``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List
+import json
+import os
+import wave
+from typing import Dict, Iterable, List, Sequence
 
 import numpy as np
 
@@ -19,6 +28,8 @@ from ..ops.skeleton import DIR_VEC_PAIRS, MEAN_DIR_VEC
 
 __all__ = [
     "synthetic_clips",
+    "write_raw_ted_clips",
+    "write_raw_beat_recordings",
     "build_synthetic_ted_records",
     "SEMANTIC_TEMPLATES",
     "synthetic_semantic_clips",
@@ -490,3 +501,117 @@ def build_semantic_beat_records(
         ),
         out_dir,
     )
+
+
+def write_raw_ted_clips(out_dir: str, n_clips: int = 4, clip_seconds: float = 12.0,
+                        seed: int = 233) -> List[str]:
+    """:func:`synthetic_clips` as ``clip_{i:05d}.npz`` files in ``out_dir``,
+    each with ``vid``, ``skeletons``, ``audio``, ``words`` (an object array
+    of [word, start, end]), ``start_time`` and ``end_time``; returns the
+    paths."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for i, clip in enumerate(synthetic_clips(n_clips=n_clips, clip_seconds=clip_seconds,
+                                             seed=seed)):
+        path = os.path.join(out_dir, f"clip_{i:05d}.npz")
+        words = np.empty(len(clip["words"]), dtype=object)
+        words[:] = [list(w) for w in clip["words"]]
+        np.savez(path, vid=clip["vid"], skeletons=clip["skeletons"], audio=clip["audio"],
+                 words=words, start_time=clip["start_time"], end_time=clip["end_time"])
+        paths.append(path)
+    return paths
+
+
+def _textgrid_text(words: Sequence, seconds: float) -> str:
+    """A long-format TextGrid with one interval tier of ``words`` (marks
+    with a double quote are written with Praat's doubled quotes)."""
+    items = "".join(
+        f"        intervals [{i + 1}]:\n            xmin = {s!r}\n            xmax = {e!r}\n"
+        f'            text = "{w.replace(chr(34), chr(34) * 2)}"\n'
+        for i, (w, s, e) in enumerate(words))
+    return ('File type = "ooTextFile"\nObject class = "TextGrid"\n\nxmin = 0\n'
+            f"xmax = {seconds!r}\ntiers? <exists>\nsize = 1\nitem []:\n    item [1]:\n"
+            f'        class = "IntervalTier"\n        name = "words"\n        xmin = 0\n'
+            f"        xmax = {seconds!r}\n        intervals: size = {len(words)}\n" + items)
+
+
+def _write_wav(path: str, audio: np.ndarray, sr: int, sample_width: int, channels: int) -> None:
+    if sample_width == 1:
+        pcm = np.clip(np.round(audio * 128.0 + 128.0), 0, 255).astype(np.uint8)
+    elif sample_width == 2:
+        pcm = np.clip(np.round(audio * 32768.0), -32768, 32767).astype(np.int16)
+    else:
+        pcm = np.round(audio.astype(np.float64) * 2147483647.0).astype(np.int32)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(channels)
+        w.setsampwidth(sample_width)
+        w.setframerate(sr)
+        w.writeframes(np.repeat(pcm, channels).tobytes())
+
+
+def write_raw_beat_recordings(root: str, names: Sequence[str], seconds: float = 12.0,
+                              seed: int = 233, bvh_fps: int = 120, sr: int = 16000,
+                              sample_width: int = 2, channels: int = 1) -> List[str]:
+    """A raw BEAT directory (``<root>/<speaker>/<name>.*``) for each name
+    (``<speaker>_<alias>_<r0>_<r1>_<r2>``): a ``.bvh`` of the 47-joint chain
+    (Hips, then the 46 joints of the 141-channel projection) at ``bvh_fps``,
+    a ``.wav`` at ``sr`` of ``sample_width`` bytes and ``channels``
+    channels, a ``.TextGrid`` of timed words with silent gaps, an emotion
+    ``.csv``, a semantic ``.txt`` and the facial ``.json`` at 60 fps; each
+    from ``seed`` and the name's position. Returns the name stems."""
+    from .beat import SPINE_NECK_141_JOINTS
+    from .bvh import BvhData, BvhJoint, write_bvh
+
+    stems = []
+    for k, name in enumerate(names):
+        rng = np.random.default_rng(seed + k)
+        sdir = os.path.join(root, name.split("_")[0])
+        os.makedirs(sdir, exist_ok=True)
+        stem = os.path.join(sdir, name)
+        joints = {"Hips": BvhJoint("Hips", None, (0, 0, 0),
+                                   ["Xposition", "Yposition", "Zposition",
+                                    "Xrotation", "Yrotation", "Zrotation"], [])}
+        order = [("Hips", c) for c in joints["Hips"].channels]
+        prev = "Hips"
+        for jn in SPINE_NECK_141_JOINTS:
+            joints[jn] = BvhJoint(jn, prev, (0, 1, 0), ["Xrotation", "Yrotation", "Zrotation"], [])
+            joints[prev].children.append(jn)
+            order += [(jn, c) for c in joints[jn].channels]
+            prev = jn
+        t = int(seconds * bvh_fps)
+        frames = 20.0 * _smooth_noise(rng, t, len(order), bvh_fps).astype(np.float64)
+        write_bvh(BvhData(joints, "Hips", 1.0 / bvh_fps, frames, order), stem + ".bvh")
+
+        audio = 0.1 * rng.normal(size=int(seconds * sr))
+        _write_wav(stem + ".wav", audio, sr, sample_width, channels)
+
+        words, t0 = [], 0.0
+        while t0 < seconds - 0.6:
+            dur = float(np.round(rng.uniform(0.15, 0.5), 3))
+            gap = float(np.round(rng.uniform(0.0, 0.3), 3))
+            if gap > 0.05:
+                words.append(("", t0, t0 + gap))
+                t0 += gap
+            word = str(rng.choice(_WORDS))
+            words.append((f'"{word}"' if rng.random() < 0.05 else word, t0, t0 + dur))
+            t0 += dur
+        words.append(("", t0, float(seconds)))
+        with open(stem + ".TextGrid", "w", encoding="utf-8") as f:
+            f.write(_textgrid_text(words, float(seconds)))
+
+        cuts = np.sort(rng.uniform(0, seconds, size=3))
+        spans = list(zip(np.r_[0.0, cuts], np.r_[cuts, seconds]))
+        with open(stem + ".csv", "w") as f:
+            f.writelines(f"emo{i},{s:.3f},{e:.3f},{e - s:.3f},{int(rng.integers(0, 8))}\n"
+                         for i, (s, e) in enumerate(spans))
+        with open(stem + ".txt", "w") as f:
+            f.writelines(f"sem\t{s:.3f}\t{e:.3f}\t{e - s:.3f}\t{rng.uniform():.3f}\t{w}\n"
+                         for w, s, e in words if w)
+        n_face = int(seconds * 60)
+        weights = np.round(rng.uniform(0, 1, size=(n_face, 52)), 4)
+        with open(stem + ".json", "w") as f:
+            json.dump({"names": [f"bs{i}" for i in range(52)],
+                       "frames": [{"time": i / 60.0, "weights": weights[i].tolist()}
+                                  for i in range(n_face)]}, f)
+        stems.append(stem)
+    return stems

@@ -11,6 +11,16 @@ Unlike the TPU kernel, nothing is padded: the packed token mix is [L, S, S]
 and the pose projection [D, F]. The kernel spreads each sequence over a
 thread-block cluster; :func:`transmlp_geometry` picks the cluster from the
 shapes and the clusters the card holds at once.
+
+The JAX kernel's bf16 option is here too: ``pack_transmlp_params(...,
+dtype=torch.bfloat16)`` and ``pack_out_proj(..., dtype=torch.bfloat16)``
+store the three weight matrices in bf16 (LayerNorm parameters and biases
+stay f32), and bf16 ``x`` and ``emb`` then go to a kernel of their own
+(``csrc/fused_transmlp_bf16.cu``, one CTA a sequence, bf16 tensor cores with
+f32 accumulation) or, on the CPU, to the plain bf16 version. A bf16 pack
+stores ``ch_w`` as [L, D_out, D_in] and ``out_w`` as [F, D], the layout the
+tensor cores read. float32 stays the default, and no path of the package
+uses bf16.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ __all__ = [
     "pack_transmlp_params",
     "pack_out_proj",
     "fused_transmlp_reference",
+    "fused_transmlp_bf16_reference",
     "fused_transmlp",
     "launch_stack",
     "TransMLPGeometry",
@@ -43,14 +54,30 @@ KERNEL_ACT_CODES = {"silu": 0, "relu": 1, "gelu": 2, "lrelu": 3, "lrelu01": 4, "
 ACTIVATIONS = {k: KERNEL_ACT_CODES[k] for k in ("silu", "relu", "gelu")}
 
 
+DTYPES = (torch.float32, torch.bfloat16)  # what the packs and the kernels take
+
+
+def _pack_dtype(dtype) -> torch.dtype:
+    if dtype not in DTYPES:
+        raise TypeError(f"fused_transmlp packs float32 or bfloat16 weights, not {dtype}")
+    return dtype
+
+
 @torch.no_grad()
-def pack_transmlp_params(backbone, fold_ln2: bool = False) -> Dict[str, torch.Tensor]:
+def pack_transmlp_params(backbone, fold_ln2: bool = False,
+                         dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """Stack a ``TransMLP``'s per-block weights into layer-major tensors.
 
     The channel mix is stored ``[L, D_in, D_out]``. ``fold_ln2=True`` folds
     LN2's affine into it, ``(z*g + beta) @ W == z @ (g[:, None] * W) +
     beta @ W``; the bias fold uses the unscaled W. The returned dict then has
-    no ``ln2_*`` keys, which is how the kernel tells the layouts apart."""
+    no ``ln2_*`` keys, which is how the kernel tells the layouts apart.
+
+    ``dtype=torch.bfloat16`` (the JAX pack's ``dtype=jnp.bfloat16``) rounds
+    the token mix and the channel mix to bf16 after the fold, which is done
+    in f32; the LayerNorm parameters and the biases stay f32. Its channel
+    mix is stored ``[L, D_out, D_in]``, as the bf16 kernel reads it."""
+    dtype = _pack_dtype(dtype)
     blocks = backbone.blocks()
     stack = lambda f: torch.stack([f(b) for b in blocks]).contiguous()
     ch_w = stack(lambda b: b.channel_mix.weight.t())
@@ -69,14 +96,23 @@ def pack_transmlp_params(backbone, fold_ln2: bool = False) -> Dict[str, torch.Te
     else:
         out["ln2_scale"] = g
         out["ln2_bias"] = beta
+    if dtype == torch.bfloat16:
+        out["token_w"] = out["token_w"].to(dtype)
+        ch_w = ch_w.transpose(1, 2).to(dtype)
     out["ch_w"] = ch_w.contiguous()
     out["ch_b"] = ch_b.contiguous()
     return out
 
 
 @torch.no_grad()
-def pack_out_proj(layer: torch.nn.Linear) -> Dict[str, torch.Tensor]:
-    """A ``[D] -> [F]`` Linear as ``{'out_w': [D, F], 'out_b': [F]}``."""
+def pack_out_proj(layer: torch.nn.Linear,
+                  dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """A ``[D] -> [F]`` Linear as ``{'out_w': [D, F], 'out_b': [F]}``; with
+    ``dtype=torch.bfloat16``, ``out_w`` is the bf16 ``[F, D]`` weight and
+    ``out_b`` stays f32."""
+    if _pack_dtype(dtype) == torch.bfloat16:
+        return {"out_w": layer.weight.detach().to(dtype).contiguous(),
+                "out_b": layer.bias.detach().contiguous()}
     return {
         "out_w": layer.weight.t().contiguous(),
         "out_b": layer.bias.detach().contiguous(),
@@ -104,8 +140,11 @@ def fused_transmlp_reference(
     act_name: str = "silu",
     out_proj: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on any device."""
+    """Plain PyTorch version of the kernel, on any device; bf16 ``x`` takes
+    :func:`fused_transmlp_bf16_reference`."""
     fused_transmlp_reference.calls += 1
+    if x.dtype == torch.bfloat16:
+        return fused_transmlp_bf16_reference(x, emb, packed, act_name, out_proj)
     act = _act(act_name)
     emb = emb.reshape(emb.shape[0], 1, -1)
     folded = "ln2_scale" not in packed
@@ -124,6 +163,46 @@ def fused_transmlp_reference(
 
 
 fused_transmlp_reference.calls = 0
+
+
+def _bf16_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b of bf16 values: the f32 sum, rounded once to bf16."""
+    return (a.float() + b.float()).to(torch.bfloat16)
+
+
+def fused_transmlp_bf16_reference(
+    x: torch.Tensor,
+    emb: torch.Tensor,
+    packed: Dict[str, torch.Tensor],
+    act_name: str = "silu",
+    out_proj: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Plain version of the bf16 stack, rounding where the JAX kernel does
+    with ``x.dtype == bfloat16``: the residual stream is bf16 and each add
+    is rounded to bf16; each LayerNorm takes its statistics in f32, applies
+    its f32 affine (or none, folded) and rounds the rows to bf16; each
+    product multiplies bf16 operands with f32 accumulation and adds its f32
+    bias, the activation runs in f32 and the result is rounded to bf16
+    before the residual add. The pose projection's output is bf16. Takes a
+    bf16 pack (:func:`pack_transmlp_params` with ``dtype=torch.bfloat16``)."""
+    act = _act(act_name)
+    bf16 = torch.bfloat16
+    emb = emb.reshape(emb.shape[0], 1, -1)
+    folded = "ln2_scale" not in packed
+    for l in range(packed["token_w"].shape[0]):
+        x = _bf16_add(x, emb)
+        h = (_ln_core(x.float()) * packed["ln1_scale"][l] + packed["ln1_bias"][l]).to(bf16)
+        h = torch.einsum("ij,bjd->bid", packed["token_w"][l].float(), h.float())
+        x = _bf16_add(x, act(h + packed["token_b"][l][None, :, None]).to(bf16))
+        h = _ln_core(x.float())
+        if not folded:
+            h = h * packed["ln2_scale"][l] + packed["ln2_bias"][l]
+        h = h.to(bf16).float() @ packed["ch_w"][l].float().t()
+        x = _bf16_add(x, act(h + packed["ch_b"][l]).to(bf16))
+    if out_proj is not None:
+        return (x.float() @ out_proj["out_w"].float().t() + out_proj["out_b"]).to(bf16)
+    return x
+
 
 # The kernel's limits and its shared-memory layout (csrc/fused_transmlp.cu)
 MAX_SEQ, MAX_DIM, DIM_STEP = 36, 512, 16
@@ -170,6 +249,20 @@ def _geometry(d: int, cluster: int, smem_bytes=_smem_bytes) -> TransMLPGeometry:
     return TransMLPGeometry(cluster, dc, k_slices, smem, SM_SHARED // (smem + 1024))
 
 
+def check_limits(b: int, s: int, d: int, f: Optional[int] = None) -> None:
+    """Raise ``ValueError`` on a shape the kernels do not take: S above
+    36, D not a multiple of 16 in [16, 512], F outside [1, 512]."""
+    if b < 0:
+        raise ValueError(f"fused_transmlp: batch {b} < 0")
+    if not 1 <= s <= MAX_SEQ:
+        raise ValueError(f"fused_transmlp: S={s}; the kernel takes 1 <= S <= {MAX_SEQ}")
+    if not (DIM_STEP <= d <= MAX_DIM and d % DIM_STEP == 0):
+        raise ValueError(f"fused_transmlp: D={d}; the kernel takes a multiple of "
+                         f"{DIM_STEP} in [{DIM_STEP}, {MAX_DIM}]")
+    if f is not None and not 1 <= f <= MAX_DIM:
+        raise ValueError(f"fused_transmlp: F={f}; the kernel takes 1 <= F <= {MAX_DIM}")
+
+
 def transmlp_geometry(b: int, s: int, d: int,
                       resident: Optional[Dict[int, int]] = None,
                       smem_bytes=_smem_bytes) -> TransMLPGeometry:
@@ -188,13 +281,7 @@ def transmlp_geometry(b: int, s: int, d: int,
     barriers and LayerNorm exchanges per FLOP. At TED's and BEAT's D = 512
     on an H100 SXM that is 8 CTAs up to 2B = 15 and 4 from 2B = 16, the
     serving batch, on (``chip_smoke.py`` times 8 against 4)."""
-    if b < 0:
-        raise ValueError(f"fused_transmlp: batch {b} < 0")
-    if not 1 <= s <= MAX_SEQ:
-        raise ValueError(f"fused_transmlp: S={s}; the kernel takes 1 <= S <= {MAX_SEQ}")
-    if not (DIM_STEP <= d <= MAX_DIM and d % DIM_STEP == 0):
-        raise ValueError(f"fused_transmlp: D={d}; the kernel takes a multiple of "
-                         f"{DIM_STEP} in [{DIM_STEP}, {MAX_DIM}]")
+    check_limits(b, s, d)
     resident = H100_RESIDENT_CLUSTERS if resident is None else resident
     sizes = [n for n in cluster_sizes(d) if d // n >= min(64, d)]
     for n in sizes:
@@ -203,9 +290,10 @@ def transmlp_geometry(b: int, s: int, d: int,
     return _geometry(d, sizes[-1], smem_bytes)
 
 
-def _check(name: str, t: torch.Tensor, shape, device, who: str = "fused_transmlp") -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{who}: {name} is {t.dtype}; the kernel is f32 only")
+def _check(name: str, t: torch.Tensor, shape, device, who: str = "fused_transmlp",
+           dtype: torch.dtype = torch.float32, rule: str = "the kernel is f32 only") -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{who}: {name} is {t.dtype}; {rule}")
     if t.device != device:
         raise ValueError(f"{who}: {name} is on {t.device}, x on {device}")
     if tuple(t.shape) != tuple(shape):
@@ -260,13 +348,40 @@ def fused_transmlp(
 ) -> torch.Tensor:
     """The whole mixer stack; with ``out_proj`` the pose projection is fused
     in and the result is [B, S, F], else [B, S, D]. A CPU tensor runs the
-    plain version; a CUDA tensor launches the kernel or raises."""
+    plain version; a CUDA tensor launches the kernel or raises. f32 inputs
+    and an f32 pack take the f32 kernel; bf16 ``x`` and ``emb`` and a bf16
+    pack take the bf16 kernel; any other mix raises, on either device."""
+    _stack_dtype(x, emb, packed, out_proj)
     if x.device.type == "cpu":
         return fused_transmlp_reference(x, emb, packed, act_name, out_proj)
     if x.device.type != "cuda":
         raise ValueError(f"fused_transmlp: no kernel for device {x.device}")
     _act(act_name)  # raises on a name the kernel lacks
     return launch_stack(x, emb, packed, ACTIVATIONS[act_name], out_proj)
+
+
+# Which tensors a bf16 pack rounds to bf16; the rest stay f32.
+BF16_TENSORS = ("x", "emb", "token_w", "ch_w", "out_w")
+DTYPE_RULE = ("the kernels take x, emb and the weight matrices all f32, or x, emb, token_w, "
+              "ch_w and out_w bf16 with f32 LayerNorm parameters and biases")
+
+
+def _stack_tensors(x, emb, packed, out_proj) -> Dict[str, torch.Tensor]:
+    return {"x": x, "emb": emb, **packed, **(out_proj or {})}
+
+
+def _stack_dtype(x: torch.Tensor, emb: torch.Tensor, packed: Dict[str, torch.Tensor],
+                out_proj: Optional[Dict[str, torch.Tensor]] = None) -> torch.dtype:
+    """The route a call takes, float32 or bfloat16 (``x``'s dtype); raises
+    ``TypeError`` naming the first tensor that does not fit it."""
+    if x.dtype not in DTYPES:
+        raise TypeError(f"fused_transmlp: x is {x.dtype}; {DTYPE_RULE}")
+    for name, t in _stack_tensors(x, emb, packed, out_proj).items():
+        want = x.dtype if name in BF16_TENSORS else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"fused_transmlp: {name} is {t.dtype} and x is {x.dtype}; "
+                            f"{DTYPE_RULE}")
+    return x.dtype
 
 
 def launch_stack(
@@ -281,7 +396,18 @@ def launch_stack(
     (the training route's no-grad calls also use the leaky relus); checks
     every tensor and raises on what the kernel does not take. ``cluster``
     overrides :func:`transmlp_geometry`'s choice (for measurement); the
-    kernel refuses a cluster it cannot take, and the wrapper raises."""
+    kernel refuses a cluster it cannot take, and the wrapper raises.
+
+    bf16 ``x`` goes to the bf16 kernel (:func:`launch_stack_bf16`), which
+    runs one CTA a sequence and takes no ``cluster``; any dtype but f32 and
+    bf16 raises."""
+    if x.dtype == torch.bfloat16:
+        if cluster is not None:
+            raise ValueError("fused_transmlp: the bf16 kernel runs one CTA a sequence; "
+                             f"cluster={cluster} is for the f32 kernel")
+        return launch_stack_bf16(x, emb, packed, act_code, out_proj)
+    if x.dtype != torch.float32:
+        raise TypeError(f"fused_transmlp: x is {x.dtype}; {DTYPE_RULE}")
     b, s, d = x.shape
     if cluster is None:
         cluster = transmlp_geometry(b, s, d, resident_clusters(d, x.device)).cluster
@@ -289,8 +415,8 @@ def launch_stack(
     num_layers = packed["token_w"].shape[0]
     folded = "ln2_scale" not in packed
     dev = x.device
-    _check("x", x, (b, s, d), dev)
-    _check("emb", emb, (b, d), dev)
+    _check("x", x, (b, s, d), dev, rule=DTYPE_RULE)
+    _check("emb", emb, (b, d), dev, rule=DTYPE_RULE)
     shapes = {
         "ln1_scale": (num_layers, d), "ln1_bias": (num_layers, d),
         "token_w": (num_layers, s, s), "token_b": (num_layers, s),
@@ -299,13 +425,13 @@ def launch_stack(
     if not folded:
         shapes.update(ln2_scale=(num_layers, d), ln2_bias=(num_layers, d))
     for k, shp in shapes.items():
-        _check(k, packed[k], shp, dev)
+        _check(k, packed[k], shp, dev, rule=DTYPE_RULE)
         if k not in ("token_w", "token_b") and packed[k].data_ptr() % 16:
             raise ValueError(f"fused_transmlp: {k} is not 16-byte aligned")
     if out_proj is not None:
         f = out_proj["out_w"].shape[1]
-        _check("out_w", out_proj["out_w"], (d, f), dev)
-        _check("out_b", out_proj["out_b"], (f,), dev)
+        _check("out_w", out_proj["out_w"], (d, f), dev, rule=DTYPE_RULE)
+        _check("out_b", out_proj["out_b"], (f,), dev, rule=DTYPE_RULE)
         ow, ob = out_proj["out_w"].data_ptr(), out_proj["out_b"].data_ptr()
     else:
         f, ow, ob = d, None, None
@@ -329,3 +455,68 @@ def launch_stack(
 
 
 fused_transmlp.launches = 0
+fused_transmlp.bf16_launches = 0  # the bf16 kernel's, counted by launch_stack_bf16
+
+_bf16_bound = None
+
+
+def _bf16_launcher():
+    global _bf16_bound
+    if _bf16_bound is None:
+        fn = load_library("fused_transmlp_bf16").fused_transmlp_bf16_launch
+        # x, emb, 10 weights, out; B, S, D, L, F, act; stream
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bf16_bound = fn
+    return _bf16_bound
+
+
+def launch_stack_bf16(
+    x: torch.Tensor,
+    emb: torch.Tensor,
+    packed: Dict[str, torch.Tensor],
+    act_code: int,
+    out_proj: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Launch the bf16 kernel (``csrc/fused_transmlp_bf16.cu``) on CUDA
+    tensors: bf16 ``x`` [B, S, D] and ``emb``, a bf16 pack; returns bf16
+    [B, S, F] with ``out_proj``, else [B, S, D]. Checks every tensor and
+    raises on what the kernel does not take."""
+    b, s, d = x.shape
+    emb = emb.reshape(b, d)
+    num_layers = packed["token_w"].shape[0]
+    f = out_proj["out_w"].shape[0] if out_proj is not None else None
+    check_limits(b, s, d, f)
+    dev = x.device
+    shapes = {
+        "x": (b, s, d), "emb": (b, d),
+        "ln1_scale": (num_layers, d), "ln1_bias": (num_layers, d),
+        "token_w": (num_layers, s, s), "token_b": (num_layers, s),
+        "ch_w": (num_layers, d, d), "ch_b": (num_layers, d),
+    }
+    if "ln2_scale" in packed:
+        shapes.update(ln2_scale=(num_layers, d), ln2_bias=(num_layers, d))
+    if out_proj is not None:
+        shapes.update(out_w=(f, d), out_b=(f,))
+    tensors = _stack_tensors(x, emb, packed, out_proj)
+    for k, shp in shapes.items():
+        want = torch.bfloat16 if k in BF16_TENSORS else torch.float32
+        _check(k, tensors[k], shp, dev, dtype=want, rule=DTYPE_RULE)
+        if k in ("x", "emb", "ch_w", "out_w") and tensors[k].data_ptr() % 16:
+            raise ValueError(f"fused_transmlp: {k} is not 16-byte aligned")
+    out = torch.empty((b, s, f or d), dtype=torch.bfloat16, device=dev)
+    ptr = lambda k: tensors[k].data_ptr() if k in tensors else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _bf16_launcher()(
+            ptr("x"), ptr("emb"), ptr("ln1_scale"), ptr("ln1_bias"), ptr("token_w"),
+            ptr("token_b"), ptr("ln2_scale"), ptr("ln2_bias"), ptr("ch_w"), ptr("ch_b"),
+            ptr("out_w"), ptr("out_b"), out.data_ptr(), b, s, d, num_layers, f or 0,
+            act_code, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"fused_transmlp bf16 kernel launch failed with cudaError {err} "
+            f"(B={b}, S={s}, D={d}, L={num_layers}, F={f})")
+    fused_transmlp.bf16_launches += 1
+    return out

@@ -22,7 +22,7 @@ from torch import nn
 
 from ..diffusion.resample import LossSecondMomentState
 from ..utils.checkpoints import load_params_npz
-from ..utils.convert import state_dict_to_jax_params
+from ..utils.convert import flatten_tree, state_dict_to_jax_params
 from .trainer import AdamWState, TrainState
 
 __all__ = ["CheckpointManager", "save_args", "load_args", "save_params_npz",
@@ -127,15 +127,4 @@ class CheckpointManager:
 def save_params_npz(path: str, params: Mapping[str, torch.Tensor], model: nn.Module) -> None:
     """Write ``params`` (state_dict keys of ``model``: its parameters, or an
     EMA of them) as the JAX package's flat ``{'a/b/c': array}`` npz."""
-    flat: Dict[str, np.ndarray] = {}
-
-    def visit(node, prefix):
-        for k, v in node.items():
-            key = f"{prefix}/{k}" if prefix else k
-            if isinstance(v, dict):
-                visit(v, key)
-            else:
-                flat[key] = v
-
-    visit(state_dict_to_jax_params(params, model), "")
-    np.savez(path, **flat)
+    np.savez(path, **flatten_tree(state_dict_to_jax_params(params, model)))

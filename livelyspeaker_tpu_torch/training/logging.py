@@ -2,9 +2,10 @@
 
 A copy of ``livelyspeaker_tpu/training/logging.py``, whose package imports
 JAX: the mean-aggregating ``KVLogger`` with stdout/JSON/CSV sinks, the
-``TrainPlatform`` interface with ``NoPlatform``, and the per-quartile
-diffusion-loss breakdown. The TensorBoard and ClearML platforms are not
-ported yet.
+``TrainPlatform`` interface with ``NoPlatform``, ``TensorboardPlatform``
+(over ``torch.utils.tensorboard``) and ``ClearmlPlatform`` (which imports
+the optional ``clearml`` when built, and raises ``ImportError`` without it),
+and the per-quartile diffusion-loss breakdown.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import numpy as np
 __all__ = [
     "KVLogger",
     "TrainPlatform",
+    "TensorboardPlatform",
+    "ClearmlPlatform",
     "NoPlatform",
     "log_loss_quartiles",
 ]
@@ -124,6 +127,48 @@ class TrainPlatform:
 
     def close(self):
         pass
+
+
+class TensorboardPlatform(TrainPlatform):
+    """Scalars as TensorBoard events in ``save_dir``."""
+
+    def __init__(self, save_dir: str):
+        super().__init__(save_dir)
+        from torch.utils.tensorboard import SummaryWriter  # lazy
+
+        self.writer = SummaryWriter(log_dir=save_dir)
+
+    def report_scalar(self, name, value, iteration, group_name=None):
+        self.writer.add_scalar(f"{group_name}/{name}", value, iteration)
+
+    def close(self):
+        self.writer.close()
+
+
+class ClearmlPlatform(TrainPlatform):
+    """ClearML reporting backend (train_platforms.py:17-28); lazily imports
+    the optional dependency."""
+
+    def __init__(self, save_dir: str):
+        super().__init__(save_dir)
+        from clearml import Task  # optional dep
+
+        name = os.path.basename(save_dir)
+        self.task = Task.init(
+            project_name="livelyspeaker_tpu", task_name=name
+        )
+        self.logger = self.task.get_logger()
+
+    def report_scalar(self, name, value, iteration, group_name=None):
+        self.logger.report_scalar(
+            title=group_name, series=name, iteration=iteration, value=value
+        )
+
+    def report_args(self, args, name):
+        self.task.connect(args, name=name)
+
+    def close(self):
+        self.task.close()
 
 
 class NoPlatform(TrainPlatform):

@@ -17,6 +17,22 @@ JAX package) gives: nested dicts of numpy arrays.
 type from the model, since a torch ``weight`` alone does not say which Flax
 name it had.
 
+Trees with BatchNorm statistics, ConvTranspose or GRU weights (the gesture
+autoencoder and its decoders, ``models/embedding_net.py``) need the model to
+tell their layouts apart: :func:`flax_variables_to_state_dict` maps a Flax
+``{"params", "batch_stats"}`` pair onto a model's state_dict and
+:func:`state_dict_to_flax_variables` back, with
+
+- ConvTranspose ``kernel`` [k, in, out] -> ConvTranspose1d ``weight``
+  [in, out, k] with the tap axis flipped (Flax's ``transpose_kernel=False``
+  does not flip it; torch's transposed conv does);
+- BatchNorm ``scale``/``bias`` (params) and ``mean``/``var`` (batch_stats)
+  -> the port's ``BatchNorm`` ``weight``/``bias`` and buffers;
+- a bidirectional ``nn.GRU`` from Flax's cells ``GRUCell_{2i}`` (layer i,
+  forward) and ``GRUCell_{2i+1}`` (backward), gates r, z, n stacked: the
+  input kernels and biases of ``ir``, ``iz``, ``in``, the hidden kernels of
+  ``hr``, ``hz``, ``hn`` and ``bias_hh`` = [0, 0, ``hn`` bias].
+
 The released PyTorch checkpoints map onto the port's modules by name alone
 (the layouts are torch's on both sides, but for the RAG's token mix and
 LayerNorm vectors): :func:`rag_state_dict_from_reference` for the RAG,
@@ -29,6 +45,7 @@ encoder. The JAX package's evaluator parameters carry over through
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -38,16 +55,17 @@ from torch import nn
 __all__ = ["jax_params_to_state_dict", "state_dict_to_jax_params", "random_normal_params",
            "rag_state_dict_from_reference", "sag_state_dict_from_reference",
            "clip_text_state_dict_from_openai",
-           "pose_embedding_state_dict_from_torch"]
+           "pose_embedding_state_dict_from_torch", "flax_variables_to_state_dict",
+           "state_dict_to_flax_variables", "flatten_tree"]
 
 
-def _flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
-    """{'a': {'b': x}} -> {'a/b': x}."""
+def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{'a': {'b': x}} -> {'a/b': x}: the JAX package's flat npz layout."""
     flat = {}
     for k, v in tree.items():
         key = f"{prefix}/{k}" if prefix else str(k)
         if isinstance(v, Mapping):
-            flat.update(_flatten_tree(v, key))
+            flat.update(flatten_tree(v, key))
         else:
             flat[key] = np.asarray(v)
     return flat
@@ -66,7 +84,7 @@ def _convert_leaf(name: str, a: np.ndarray):
 def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """The port's state_dict for a JAX ``params`` tree of numpy arrays."""
     out = {}
-    for path, a in _flatten_tree(params).items():
+    for path, a in flatten_tree(params).items():
         *parents, leaf = path.split("/")
         name, arr = _convert_leaf(leaf, a)
         out[".".join(parents + [name])] = torch.from_numpy(
@@ -103,6 +121,93 @@ def state_dict_to_jax_params(state_dict: Mapping[str, torch.Tensor],
             node = node.setdefault(p, {})
         node[name] = np.ascontiguousarray(arr)
     return tree
+
+
+_GATES = ("r", "z", "n")
+_GRU_CELL = re.compile(r"GRUCell_(\d+)$")
+
+
+def _set(tree: Dict, path, value: np.ndarray) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = np.ascontiguousarray(value, dtype=np.float32)
+
+
+def flax_variables_to_state_dict(variables: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """``model``'s state_dict from a Flax ``{"params", "batch_stats"}`` tree
+    of numpy arrays (as ``load_params_npz`` reads the npz the JAX package's
+    gesture-autoencoder script writes). ``model`` says which leaves are
+    transposed convs; GRU cells go to the ``gru`` module beside them."""
+    out: Dict[str, torch.Tensor] = {}
+    cells: Dict[tuple, Dict[str, np.ndarray]] = {}
+    for path, a in flatten_tree(variables.get("params", {})).items():
+        *parents, leaf = path.split("/")
+        cell = next((i for i, p in enumerate(parents) if _GRU_CELL.match(p)), None)
+        if cell is not None:
+            key = (tuple(parents[:cell]), int(_GRU_CELL.match(parents[cell]).group(1)))
+            cells.setdefault(key, {})["/".join(parents[cell + 1:] + [leaf])] = a
+            continue
+        module = model.get_submodule(".".join(parents))
+        if isinstance(module, nn.ConvTranspose1d) and leaf == "kernel":
+            name, a = "weight", np.ascontiguousarray(a[::-1].transpose(1, 2, 0))
+        else:
+            name, a = _convert_leaf(leaf, a)
+        out[".".join(parents + [name])] = _f32(a)
+    for path, a in flatten_tree(variables.get("batch_stats", {})).items():
+        out[path.replace("/", ".")] = _f32(a)
+    for (parents, j), leaves in cells.items():
+        gru = ".".join(list(parents) + ["gru"])
+        suffix = f"l{j // 2}" + ("_reverse" if j % 2 else "")
+        hidden = leaves["hn/kernel"].shape[1]
+        out[f"{gru}.weight_ih_{suffix}"] = _f32(np.concatenate(
+            [leaves[f"i{g}/kernel"].T for g in _GATES]))
+        out[f"{gru}.weight_hh_{suffix}"] = _f32(np.concatenate(
+            [leaves[f"h{g}/kernel"].T for g in _GATES]))
+        out[f"{gru}.bias_ih_{suffix}"] = _f32(np.concatenate(
+            [leaves[f"i{g}/bias"] for g in _GATES]))
+        out[f"{gru}.bias_hh_{suffix}"] = _f32(np.concatenate(
+            [np.zeros(2 * hidden, np.float32), leaves["hn/bias"]]))
+    return out
+
+
+def state_dict_to_flax_variables(state_dict: Mapping[str, torch.Tensor],
+                                 model: nn.Module) -> Dict:
+    """The Flax ``{"params", "batch_stats"}`` tree of ``model``'s state_dict;
+    the inverse of :func:`flax_variables_to_state_dict`. Raises if a GRU's
+    hidden r or z bias is not zero: Flax's cell has none."""
+    from ..models.embedding_net import BatchNorm
+
+    params: Dict = {}
+    stats: Dict = {}
+    for key, value in state_dict.items():
+        *parents, leaf = key.split(".")
+        module = model.get_submodule(".".join(parents))
+        a = value.detach().to("cpu", torch.float32).numpy()
+        if isinstance(module, BatchNorm):
+            if leaf in ("mean", "var"):
+                _set(stats, parents + [leaf], a)
+            else:
+                _set(params, parents + ["scale" if leaf == "weight" else leaf], a)
+        elif isinstance(module, nn.GRU):
+            kind, layer = leaf.rsplit("_l", 1)
+            j = 2 * int(layer.split("_")[0]) + layer.endswith("_reverse")
+            cell = parents[:-1] + [f"GRUCell_{j}"]
+            side = "i" if kind.endswith("ih") else "h"
+            parts = np.split(a, 3)
+            if kind == "bias_hh":
+                if np.any(parts[0]) or np.any(parts[1]):
+                    raise ValueError(f"{key}: the r and z thirds must be 0 for Flax's GRUCell")
+                _set(params, cell + ["hn", "bias"], parts[2])
+                continue
+            for g, part in zip(_GATES, parts):
+                _set(params, cell + [side + g, "kernel" if kind.startswith("weight") else "bias"],
+                     part.T if kind.startswith("weight") else part)
+        elif isinstance(module, nn.ConvTranspose1d) and leaf == "weight":
+            _set(params, parents + ["kernel"], a.transpose(2, 0, 1)[::-1])
+        else:
+            name, a = _jax_leaf(module, leaf, a)
+            _set(params, parents + [name], a)
+    return {"params": params, "batch_stats": stats}
 
 
 def random_normal_params(tree: Mapping, rng: np.random.Generator) -> Dict:

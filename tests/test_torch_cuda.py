@@ -177,6 +177,94 @@ def test_kernel_repeat_gives_same_bits(cuda_device):
         assert torch.equal(a, b)
 
 
+BF16_TOL = 2.0 ** -6  # bf16 kernel against its plain version, relative to max|plain|
+
+
+def _k1_bf16_case(device, b, seq, dim, layers, act="silu", fold=True, feats=27, seed=7):
+    g = torch.Generator().manual_seed(seed)
+    stack = _stack(device, seq, dim, layers, act, seed)
+    lin = random_normal_(torch.nn.Linear(dim, feats), g).to(device)
+    x = torch.randn(b, seq, dim, generator=g).to(device)
+    emb = torch.randn(b, dim, generator=g).to(device)
+    return (fused_mlp.pack_transmlp_params(stack, fold_ln2=fold, dtype=torch.bfloat16),
+            x.bfloat16(), emb.bfloat16(), fused_mlp.pack_out_proj(lin, dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,seq,dim,layers,feats", [
+    (16, 35, 512, 8, 27), (16, 36, 512, 8, 282), (3, 10, 64, 2, 5), (5, 20, 48, 2, 9),
+    (2, 36, 16, 1, 3), (1, 1, 32, 1, 1), (133, 17, 272, 2, 512)])
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_bf16_kernel_matches_plain(cuda_device, b, seq, dim, layers, feats, fold, act):
+    """The bf16 kernel against the plain bf16 version on the same inputs:
+    max|kernel - plain| <= 2^-6 max|plain| (a few bf16 ulps of max|y|: sums
+    taken in another order move single roundings, which later blocks carry);
+    bf16 out, one launch counted, the plain version not run by the wrapper."""
+    packed, x, emb, op = _k1_bf16_case(cuda_device, b, seq, dim, layers, act, fold, feats)
+    for proj in (None, op):
+        launches = fused_mlp.fused_transmlp.bf16_launches
+        calls = fused_mlp.fused_transmlp_reference.calls
+        out = fused_mlp.fused_transmlp(x, emb, packed, act, out_proj=proj)
+        assert fused_mlp.fused_transmlp.bf16_launches == launches + 1
+        assert fused_mlp.fused_transmlp_reference.calls == calls
+        ref = fused_mlp.fused_transmlp_reference(x, emb, packed, act, out_proj=proj)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+        assert _rel(out.float(), ref.float()) <= BF16_TOL
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_repeat_gives_same_bits_and_launch_stack_routes(cuda_device):
+    packed, x, emb, op = _k1_bf16_case(cuda_device, 16, 35, 512, 8)
+    a = fused_mlp.fused_transmlp(x, emb, packed, out_proj=op)
+    b = fused_mlp.launch_stack(x, emb, packed, 0, op)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    packed, x, emb, op = _k1_bf16_case(cuda_device, 2, 35, 64, 1)
+    calls = fused_mlp.fused_transmlp_reference.calls
+    launches = fused_mlp.fused_transmlp.bf16_launches
+    with pytest.raises(TypeError, match="emb is torch.float32"):
+        fused_mlp.fused_transmlp(x, emb.float(), packed)
+    with pytest.raises(TypeError, match="x is torch.float16"):
+        fused_mlp.fused_transmlp(x.half(), emb.half(), packed)
+    with pytest.raises(TypeError, match="token_w is torch.bfloat16"):
+        fused_mlp.fused_transmlp(x.float(), emb.float(), packed)
+    with pytest.raises(TypeError, match="ch_b is torch.bfloat16"):
+        fused_mlp.launch_stack(x, emb, {**packed, "ch_b": packed["ch_b"].bfloat16()}, 0)
+    with pytest.raises(ValueError, match="cluster"):
+        fused_mlp.launch_stack(x, emb, packed, 0, cluster=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_mlp.fused_transmlp(x.transpose(0, 1).contiguous().transpose(0, 1), emb, packed)
+    shifted = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_mlp.fused_transmlp(shifted.view(x.shape), emb, packed)
+    with pytest.raises(ValueError, match="S=40"):
+        big, xb, eb, _ = _k1_bf16_case(cuda_device, 2, 40, 64, 1)
+        fused_mlp.fused_transmlp(xb, eb, big)
+    with pytest.raises(ValueError, match="D=520"):
+        wide, xw, ew, _ = _k1_bf16_case(cuda_device, 2, 35, 520, 1)
+        fused_mlp.fused_transmlp(xw, ew, wide)
+    _, _, _, too_many = _k1_bf16_case(cuda_device, 2, 35, 64, 1, feats=513)
+    with pytest.raises(ValueError, match="F=513"):
+        fused_mlp.fused_transmlp(x, emb, packed, out_proj=too_many)
+    assert fused_mlp.fused_transmlp_reference.calls == calls  # never the plain version
+    assert fused_mlp.fused_transmlp.bf16_launches == launches
+
+
+@pytest.mark.cuda
+def test_train_kernels_refuse_bf16(cuda_device):
+    """K2's and K3's kernel entries stay f32: the JAX package has no bf16
+    training kernel."""
+    packed, x, emb, _ = _k1_bf16_case(cuda_device, 2, 35, 64, 1, fold=False)
+    with pytest.raises(TypeError, match="f32"):
+        fused_mlp_train.fused_transmlp_train_forward(x, emb, packed, "silu")
+
+
 @pytest.mark.cuda
 def test_resident_clusters_from_the_card(cuda_device):
     """The wrapper asks the card how many clusters of each size it holds

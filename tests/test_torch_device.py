@@ -3,8 +3,8 @@ CPU: without a CUDA device ``RAGSampler``, ``LivelySpeakerPipeline``,
 ``build_rag_server``, ``TrainLoop``, the HTTP front end's ``build_server``,
 the four eval scripts' ``main``, ``EmbeddingSpaceEvaluator``, the BEAT
 FID embedder, and the measurement and generation scripts (``bench_serve``,
-``bench_train``, ``profile``, ``generate``) raise unless ``device="cpu"``
-(``--device cpu``) is passed, and run with it. Each new script answers
+``bench_train``, ``profile``, ``generate``) and ``train_gesture_autoencoder``
+raise unless ``device="cpu"`` (``--device cpu``) is passed, and run with it. Each new script answers
 ``--help`` when run as ``python -m livelyspeaker_tpu_torch.scripts.<name>``."""
 
 import contextlib
@@ -45,6 +45,7 @@ from livelyspeaker_tpu_torch.scripts import (
     eval_rag_ted,
     generate,
     profile,
+    train_gesture_autoencoder,
 )
 from livelyspeaker_tpu_torch.scripts.serve import build_server
 from livelyspeaker_tpu_torch.serving import ServeConfig, build_rag_server
@@ -253,19 +254,31 @@ def _generate(model, device=None):
     return torch.device(device)
 
 
+def _train_gesture_ae(model, device=None):
+    """``train_gesture_autoencoder.main`` for one step on tiny records."""
+    with tempfile.TemporaryDirectory() as d, _one_torch_thread():
+        build_synthetic_ted_records(os.path.join(d, "records"), n_clips=1, clip_seconds=4)
+        out = train_gesture_autoencoder.main(
+            ["--data_dir", os.path.join(d, "records"), "--batch_size", "2", "--epochs", "1",
+             "--base", "8", "--save_dir", os.path.join(d, "ae")]
+            + (["--device", device] if device else []))
+    return next(out["model"].parameters()).device
+
+
 @pytest.mark.parametrize("entry", [_sampler, _pipeline, _server, _train, _front_end,
                                    _eval_script(eval_rag_ted, beat=False),
                                    _eval_script(eval_rag_beat, beat=True),
                                    _eval_script(eval_livelyspeaker_ted, beat=False),
                                    _eval_script(eval_livelyspeaker_beat, beat=True),
                                    _evaluator, _beat_embedder, _bench_serve, _bench_train,
-                                   _profile, _generate],
+                                   _profile, _generate, _train_gesture_ae],
                          ids=["RAGSampler", "LivelySpeakerPipeline", "build_rag_server",
                               "TrainLoop", "serve.build_server", "eval_rag_ted.main",
                               "eval_rag_beat.main", "eval_livelyspeaker_ted.main",
                               "eval_livelyspeaker_beat.main", "EmbeddingSpaceEvaluator",
                               "load_beat_embedder", "bench_serve.main", "bench_train.main",
-                              "profile.main", "generate.run"])
+                              "profile.main", "generate.run",
+                              "train_gesture_autoencoder.main"])
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(no_card, entry):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         entry(_model())
@@ -287,7 +300,8 @@ def test_place_model_rule(no_card):
 @pytest.mark.parametrize("script", ["eval_rag_ted", "eval_rag_beat", "eval_livelyspeaker_ted",
                                     "eval_livelyspeaker_beat", "convert_checkpoint", "profile",
                                     "bench_data", "bench_train", "bench_serve", "soak_serve",
-                                    "generate"])
+                                    "generate", "build_ted_records", "build_beat_records",
+                                    "train_gesture_autoencoder"])
 def test_new_scripts_answer_help(script, monkeypatch, capsys):
     """``python -m livelyspeaker_tpu_torch.scripts.<script> --help``, run
     the way ``-m`` runs it, in this process."""
