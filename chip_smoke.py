@@ -173,7 +173,28 @@ the fused WavEncoder stack (K3). Checks:
    with --sag_path (20) and --long over 10 s (100 a window, [150, 27]),
    then main at BEAT (100; the npz's motion [34, 282]); the plain version
    never; the RAG-only clip against the eager modules from the same seeded
-   generator within rel 1e-4.
+   generator within rel 1e-4;
+15. data parallelism (``data_parallel_phase``, run after the first training
+   run of 8.), on a mesh that names the one card twice
+   (``parallel.create_mesh(devices=["cuda:0", "cuda:0"])``, the same code
+   a mesh of two cards runs), at TED full width: the data-parallel step
+   with fused_train_backbone at a global batch of 512 (two shards of 256)
+   against the single-device step, identical shards with
+   fold_shard_rng=False against the step at 256 and different shards with
+   injected t, noise, style and drop against the step at 512 (loss within
+   rel 1e-5, parameters within 1e-4; AdamW eps 1e-3, as the CPU parity
+   tests take it); TrainLoop(mesh=) for 3 steps: K2 twice the
+   single-device launches, the two replicas bit-identical, moments
+   included; the 24-request burst through build_rag_server on the mesh
+   (K1 2 x 20 a batch); the sharded sampler against the single-device one
+   (DDIM-20 at eta 0, noise and style injected) within rel 1e-4, K1 40
+   launches against 20; one composed batch of 8 through
+   LivelySpeakerPipeline(mesh=) (K1 2 x 20); train_rag --device
+   cuda:0,cuda:0 --fused_train at B=512 from synthetic records (K2 twice
+   the launches, falling losses); on a one-card machine
+   serving_mesh(ServeConfig(data_parallel=2)) and eval_rag_ted
+   --data_parallel 2 raise; a step's and a burst's wall with one shard and
+   with two on the card, in turns.
 
 With ``--profile DIR`` it also profiles a second burst of the 24 serving
 requests, 3 composed TED batches and 3 steps of each training run with
@@ -2184,11 +2205,12 @@ class _Tee:
         self.out.flush()
 
 
-def _records_rag_run(tag, argv, save_dir, card, want_decrease):
+def _records_rag_run(tag, argv, save_dir, card, want_decrease, shards=1):
     """train_rag.main(argv) with every step logged: checks K2's launches
-    (forward 1 a step, each backward kernel LAYERS a step), no plain
-    version and no K1, finite losses (falling with ``want_decrease``);
-    returns the loop and its numbers."""
+    (forward 1 a step, each backward kernel LAYERS a step, times
+    ``shards`` on a data-parallel mesh), no plain version and no K1, finite
+    losses (falling with ``want_decrease``); returns the loop and its
+    numbers."""
     from livelyspeaker_tpu_torch.ops import fused_mlp, fused_mlp_train as k2
     from livelyspeaker_tpu_torch.scripts import train_rag
 
@@ -2231,12 +2253,14 @@ def _records_rag_run(tag, argv, save_dir, card, want_decrease):
           f"for an epoch's first step (not epoch 1's, which follows epoch 0's checkpoint); "
           f"{stats['clips_s']:.1f} clips/s; {wall:.2f} s for the whole "
           f"run; peak memory {peak_gib:.2f} GiB ({card})")
-    print(f"[{tag}] K2 launches {launches} (per step: fwd 1, each backward kernel {LAYERS}); "
-          f"plain versions {plain}; K1 launches and plain calls {k1}")
-    check(launches["fwd"] == steps, f"{tag}: forward kernel launched {launches['fwd']} times")
+    print(f"[{tag}] K2 launches {launches} (per step: fwd {shards}, each backward kernel "
+          f"{shards * LAYERS}); plain versions {plain}; K1 launches and plain calls {k1}")
+    check(launches["fwd"] == shards * steps,
+          f"{tag}: forward kernel launched {launches['fwd']} times")
     for k in ("bwd_block", "wgrad", "reduce"):
-        check(launches[k] == LAYERS * steps, f"{tag}: {k} launched {launches[k]} times")
+        check(launches[k] == shards * LAYERS * steps, f"{tag}: {k} launched {launches[k]} times")
     check(plain == (0, 0) and k1 == (0, 0), f"{tag}: a plain version or K1 ran on the training path")
+    stats["launches"] = launches
     if want_decrease:
         check(last < first, f"{tag}: loss did not decrease ({first:.5f} -> {last:.5f})")
     return loop, stats
@@ -2294,8 +2318,8 @@ def records_train_phase(card, beside):
         chunk = np.random.default_rng(0).permutation(len(ds))[:TRAIN_BATCH]
         gather_ms = wall_ms(lambda: ds.batch(chunk, fields=fields), reps=5)
         host = ds.batch(chunk, fields=fields)
-        slots = _PinnedSlots(1, torch.device("cuda"))
-        send_ms = wall_ms(lambda: slots.send(host)[1].synchronize(), reps=5)  # pinned copy + H2D
+        slots = _PinnedSlots(1, [torch.device("cuda", 0)])
+        send_ms = wall_ms(lambda: slots.send(host)[1][0][1].synchronize(), reps=5)  # pinned copy + H2D
         stream = DataLoader(ds, TRAIN_BATCH, seed=10, fields=fields, device="cuda")
         for b in stream:  # a warm-up epoch: the host allocator's pinned blocks
             pass
@@ -3180,6 +3204,294 @@ def generate_phase(card):
         launches += c["k1"]
     return launches
 
+DP_BATCH, DP_STEPS, DP_EPOCHS = 512, 3, 5  # two shards of 256 on the one card
+
+
+def _dp_train_parts(model, lr):
+    """(state, single-device step, optimizer, config) of ``model``: AdamW
+    with eps 1e-3, as the CPU parity tests take it (its first step is
+    g / (|g| + eps): at 1e-8 the round-off of a gradient that is 0 in exact
+    arithmetic, such as the conv biases before an InstanceNorm, would turn
+    into a step of lr)."""
+    from livelyspeaker_tpu_torch.diffusion import DiffusionSchedule
+    from livelyspeaker_tpu_torch.training import TrainConfig, init_train_state
+    from livelyspeaker_tpu_torch.training.trainer import AdamW
+
+    tcfg = TrainConfig(lr=lr)
+    tx = AdamW(lr, eps=1e-3)
+    sched = DiffusionSchedule.create(steps=1000, schedule="cosine")
+    return init_train_state(dict(model.named_parameters()), tx, cfg=tcfg), sched, tx, tcfg
+
+
+def _max_param_diff(a, b):
+    return max((p - q).abs().max().item() for p, q in zip(a.parameters(), b.parameters()))
+
+
+def data_parallel_phase(card):
+    """Data parallelism (``parallel/``) on a mesh that names the one card
+    twice, at TED full width: (1) training through K2 on both shards at a
+    global batch of 512, held against the single-device step (identical
+    shards with fold_shard_rng=False against the step at 256; different
+    shards with injected t, noise, style and drop against the step at 512:
+    loss within rel 1e-5, parameters within 1e-4), then TrainLoop(mesh=)
+    for 3 steps (the main path: K2 twice the single-device launches, the
+    replicas bit-identical, moments included); (2) the serving burst of 24
+    requests through build_rag_server on the mesh (K1 2 x 20 launches a
+    batch), the sharded sampler against the single-device one on a
+    deterministic route (DDIM-20 at eta 0, noise and style injected: rel
+    1e-4 of max|x|, K1 twice the launches) and one composed batch through
+    LivelySpeakerPipeline(mesh=); (3) train_rag --device cuda:0,cuda:0
+    --fused_train from synthetic records at B=512, and, on a one-card
+    machine, serving_mesh(data_parallel=2) and eval_rag_ted
+    --data_parallel 2 raising. Prints a step's and a burst's wall with one
+    shard and with two, in turns. Returns K1's and K2's main-path
+    launches."""
+    import copy
+    import shutil
+    import tempfile
+    from contextlib import redirect_stdout
+
+    from livelyspeaker_tpu_torch.data import HashTokenizer
+    from livelyspeaker_tpu_torch.data.synthetic import build_synthetic_ted_records
+    from livelyspeaker_tpu_torch.models import SAG, CLIPTextEncoder, RAG, RAGConfig
+    from livelyspeaker_tpu_torch.models.initializers import random_normal_
+    from livelyspeaker_tpu_torch.ops import fused_mlp, fused_mlp_train as k2
+    from livelyspeaker_tpu_torch.parallel import create_mesh, shard_train_step
+    from livelyspeaker_tpu_torch.pipeline import LivelySpeakerPipeline, RAGSampler
+    from livelyspeaker_tpu_torch.scripts import eval_rag_ted
+    from livelyspeaker_tpu_torch.scripts.eval_common import final_npz
+    from livelyspeaker_tpu_torch.serving import ServeConfig, build_rag_server, serving_mesh
+    from livelyspeaker_tpu_torch.training import make_train_step
+    from livelyspeaker_tpu_torch.training.loop import TrainLoop
+
+    t_phase = time.perf_counter()
+    two = create_mesh(devices=["cuda:0", "cuda:0"])
+    cfg = RAGConfig.ted(fused_train_backbone=True)
+    half = DP_BATCH // 2
+    rng = np.random.default_rng(60)
+
+    # (1a) identical shards, the parent's stream on both, against the step at 256
+    base = RAG(cfg, generator=torch.Generator().manual_seed(61)).cuda()
+    single, dp = base, copy.deepcopy(base)
+    state, sched, tx, tcfg = _dp_train_parts(single, TRAIN_LR)
+    dstate = _dp_train_parts(dp, TRAIN_LR)[0]
+    step = make_train_step(single, sched, tx, tcfg)
+    dstep = shard_train_step(dp, sched, tx, tcfg, two, fold_shard_rng=False)
+    shard = _train_batch(cfg, rng, half)
+    state, m = step(state, shard, torch.Generator(device="cuda").manual_seed(1))
+    dstate, dm = dstep(dstate, {k: torch.cat([v, v]) for k, v in shard.items()},
+                       torch.Generator(device="cuda").manual_seed(1))
+    rel, diff = abs(dm["loss"] - m["loss"]) / abs(m["loss"]), _max_param_diff(single, dp)
+    print(f"[data-parallel] identical shards of {half}, fold_shard_rng=False, against the "
+          f"single step at {half}: loss {dm['loss']:.6f} / {m['loss']:.6f} (rel {rel:.3e}, tol "
+          f"1e-5), max |param diff| {diff:.3e} (tol 1e-4)")
+    check(rel <= 1e-5 and diff <= 1e-4, "data-parallel: identical shards disagree with the "
+          "single-device step")
+
+    # (1b) different shards, injected draws, against the step at 512
+    single, dp = copy.deepcopy(base), copy.deepcopy(base)
+    state, sched, tx, tcfg = _dp_train_parts(single, TRAIN_LR)
+    dstate = _dp_train_parts(dp, TRAIN_LR)[0]
+    step = make_train_step(single, sched, tx, tcfg)
+    dstep = shard_train_step(dp, sched, tx, tcfg, two)
+    batch = _train_batch(cfg, rng, DP_BATCH)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    draws = {"t": torch.randint(0, 1000, (DP_BATCH,), generator=g, device="cuda"),
+             "noise": torch.randn(batch["motion"].shape, generator=g, device="cuda"),
+             "style_eps": torch.randn((DP_BATCH, 1, cfg.latent_dim), generator=g, device="cuda"),
+             "cond_drop": (torch.rand((DP_BATCH,), generator=g, device="cuda") < 0.1).float()}
+    state, m = step(state, batch, None, **draws)
+    dstate, dm = dstep(dstate, batch, None, **draws)
+    rel, diff = abs(dm["loss"] - m["loss"]) / abs(m["loss"]), _max_param_diff(single, dp)
+    ps = _rel(dm["loss_per_sample"], m["loss_per_sample"])
+    print(f"[data-parallel] two different shards of {half}, injected t, noise, style and drop, "
+          f"against the single step at {DP_BATCH}: loss {dm['loss']:.6f} / {m['loss']:.6f} (rel "
+          f"{rel:.3e}, tol 1e-5), per-sample losses rel {ps:.3e}, max |param diff| {diff:.3e} "
+          f"(tol 1e-4)")
+    check(rel <= 1e-5 and ps <= 1e-5 and diff <= 1e-4,
+          "data-parallel: two shards disagree with the single-device step on their batch")
+    check(torch.equal(dm["t"], draws["t"]), "data-parallel: t not gathered in shard order")
+
+    # one step's wall, one shard at 512 against two of 256, in turns
+    gen = lambda i: torch.Generator(device="cuda").manual_seed(100 + i)
+    box = {"single": [state, step], "two": [dstate, dstep]}
+
+    def run(name, n=4):
+        st, fn = box[name]
+        for i in range(n):
+            st, _ = fn(st, batch, gen(i))
+        box[name][0] = st
+
+    for name in box:
+        run(name, 1)  # warm-up
+    step_ms = {k: [] for k in box}
+    for name in ("single", "two", "two", "single"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(name)
+        torch.cuda.synchronize()
+        step_ms[name].append((time.perf_counter() - t0) * 1e3 / 4)
+    print(f"[data-parallel] train step at B={DP_BATCH}, host ms a step, synchronised, 4 steps a "
+          f"turn, in turns: one shard {step_ms['single']}, two shards of {half} on the one card "
+          f"{step_ms['two']} ({card})")
+    del box, single, dp, state, dstate, step, dstep
+
+    # (1c) the main path: TrainLoop over the mesh, counts set to 0 just before
+    model = RAG(cfg, generator=torch.Generator().manual_seed(62)).cuda()
+    loop = TrainLoop(model, sched, None, [batch] * DP_STEPS, cfg=tcfg, num_epochs=1,
+                     log_interval=1, seed=63, mesh=two)
+    torch.cuda.synchronize()
+    _reset_counts()
+    fused_mlp.fused_transmlp_reference.calls = 0
+    state = loop.run_loop()
+    torch.cuda.synchronize()
+    k2_launches = dict(k2.LAUNCHES)
+    plain = (k2.fused_transmlp_train_forward_reference.calls,
+             k2.fused_transmlp_train_backward_reference.calls,
+             fused_mlp.fused_transmlp.launches)
+    r0, r1 = loop.step_fn.replicas
+    s0, s1 = loop.step_fn.states()
+    same = all(torch.equal(a, b) and torch.equal(s0.opt_state.mu[k], s1.opt_state.mu[k])
+               and torch.equal(s0.opt_state.nu[k], s1.opt_state.nu[k])
+               for (k, a), b in zip(r0.named_parameters(), r1.parameters()))
+    print(f"[data-parallel] TrainLoop(mesh=[cuda:0, cuda:0]) {state.step} steps at "
+          f"B={DP_BATCH}: K2 launches {k2_launches} (per step: fwd 2, each backward kernel "
+          f"{2 * LAYERS}); plain versions and K1 {plain}; replicas bit-identical, moments "
+          f"included: {same}")
+    check(state.step == DP_STEPS, f"data-parallel: {state.step} steps ran")
+    check(k2_launches["fwd"] == 2 * DP_STEPS, "data-parallel: K2's forward count")
+    for k in ("bwd_block", "wgrad", "reduce"):
+        check(k2_launches[k] == 2 * LAYERS * DP_STEPS, f"data-parallel: {k} launched "
+              f"{k2_launches[k]} times")
+    check(plain == (0, 0, 0), "data-parallel: a plain version or K1 ran on the training path")
+    check(same, "data-parallel: the replicas differ after the steps")
+    del loop, model, state, batch
+
+    # (2) serving: the burst through the batcher on the mesh
+    scfg = RAGConfig.ted()
+    rag = _random_model(scfg, seed=64)
+    batchers = {"single": build_rag_server(rag, ServeConfig()),
+                "two": build_rag_server(rag, ServeConfig(data_parallel=2), mesh=two)}
+    srng = np.random.default_rng(65)
+    audio = [(0.1 * srng.normal(size=batchers["two"].n_samples)).astype(np.float32)
+             for _ in range(24)]
+    speakers = srng.integers(0, scfg.n_speakers, size=len(audio))
+    guidances = srng.choice([1.0, 1.5, 2.0, 2.5], size=len(audio))
+    try:
+        for b in batchers.values():
+            b.generate(audio[0], timeout=600)
+            b.reset_stats()
+        fused_mlp.fused_transmlp.launches = 0
+        fused_mlp.fused_transmlp_reference.calls = 0
+        results, errors, wall, threads = _burst(batchers["two"], audio, speakers, guidances, 3)
+        k1_burst = fused_mlp.fused_transmlp.launches
+        k1_plain = fused_mlp.fused_transmlp_reference.calls
+        stats = batchers["two"].stats()
+        burst_s = {"single": [], "two": [wall]}
+        for name in ("single", "single", "two"):  # in turns with the counted burst
+            burst_s[name].append(_burst(batchers[name], audio, speakers, guidances, 3)[2])
+    finally:
+        for b in batchers.values():
+            b.close()
+    check(not errors, f"data-parallel serving: a request failed: {errors[:1]}")
+    check(all(not t.is_alive() for t in threads), "data-parallel serving: a client thread hung")
+    for r in results:
+        check(r is not None and r.shape == (9, 3, 34) and np.isfinite(r).all(),
+              "data-parallel serving: a clip is missing, misshapen or non-finite")
+    batches = stats["batches_served"]
+    print(f"[data-parallel] serving burst of {len(audio)} requests through build_rag_server on "
+          f"the mesh: {batches} batches, K1 launches {k1_burst} (2 x 20 a batch), plain version "
+          f"{k1_plain}; p50 {stats['latency_ms_p50']:.1f} ms, p95 {stats['latency_ms_p95']:.1f} "
+          f"ms")
+    check(k1_burst == 2 * 20 * batches and k1_plain == 0,
+          f"data-parallel serving: {k1_burst} K1 launches for {batches} batches")
+    print(f"[data-parallel] burst wall, s, in turns (two, single, single, two): one shard "
+          f"{burst_s['single']}, two shards on the one card {burst_s['two']} ({card})")
+
+    # the sharded sampler against the single-device one, deterministic route
+    cond = _cond(scfg, srng, 8)
+    cond["style_eps"] = torch.from_numpy(
+        srng.normal(size=(8, 1, scfg.latent_dim)).astype(np.float32)).cuda()
+    noise = torch.from_numpy(srng.normal(size=(8, 9, 3, 34)).astype(np.float32)).cuda()
+    outs, counts = {}, {}
+    for name, kw in (("single", {}), ("two", {"mesh": two})):
+        sampler = RAGSampler(rag, steps=1000, timestep_respacing="ddim20", method="ddim",
+                             use_fused=True, **kw)
+        n0 = fused_mlp.fused_transmlp.launches
+        outs[name] = sampler(cond, torch.Generator(device="cuda").manual_seed(3),
+                             guidance=1.5, noise=noise)
+        torch.cuda.synchronize()
+        counts[name] = fused_mlp.fused_transmlp.launches - n0
+    rel = _rel(outs["two"], outs["single"])
+    print(f"[data-parallel] sharded sampler (DDIM-20, eta 0, noise and style injected) against "
+          f"the single-device one, batch 8: rel {rel:.3e} (tol {SLICE_TOL}); K1 launches "
+          f"{counts['two']} against {counts['single']}")
+    check(rel <= SLICE_TOL and bool(torch.isfinite(outs["two"]).all()),
+          "data-parallel: the sharded sampler disagrees with the single-device one")
+    check(counts == {"single": 20, "two": 40}, f"data-parallel: K1 launches {counts}")
+
+    # one composed batch through LivelySpeakerPipeline(mesh=)
+    g = torch.Generator().manual_seed(66)
+    sag = random_normal_(SAG(njoints=9, nfeats=3, latent_dim=512, generator=g), g)
+    clip = random_normal_(CLIPTextEncoder(generator=g), g)
+    pipe = LivelySpeakerPipeline(rag, sag, clip, HashTokenizer(), use_fused=True, mesh=two)
+    ccond = _cond(scfg, srng, len(SENTENCES))
+    fused_mlp.fused_transmlp.launches = 0
+    fused_mlp.fused_transmlp_reference.calls = 0
+    t0 = time.perf_counter()
+    out = pipe(SENTENCES, ccond, torch.Generator(device="cuda").manual_seed(4), guidance=1.5)
+    torch.cuda.synchronize()
+    comp_ms = (time.perf_counter() - t0) * 1e3
+    k1_comp, comp_plain = fused_mlp.fused_transmlp.launches, fused_mlp.fused_transmlp_reference.calls
+    print(f"[data-parallel] composed batch of {len(SENTENCES)} through LivelySpeakerPipeline("
+          f"mesh=[cuda:0, cuda:0]): K1 launches {k1_comp} (2 x {COMPOSED_STEPS}), plain "
+          f"version {comp_plain}, {comp_ms:.1f} ms on the host clock (its first call)")
+    check(tuple(out.shape) == (len(SENTENCES), 9, 3, 34) and bool(torch.isfinite(out).all()),
+          "data-parallel composition: shape or non-finite clip")
+    check(k1_comp == 2 * COMPOSED_STEPS and comp_plain == 0,
+          f"data-parallel composition: K1 launched {k1_comp} times")
+    del pipe, sag, clip, rag
+
+    # (3) the scripts
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp.")
+    try:
+        ted_dir, save_dir = os.path.join(work, "ted"), os.path.join(work, "run")
+        build_synthetic_ted_records(ted_dir, n_clips=RECORD_CLIPS, clip_seconds=RECORD_SECONDS,
+                                    seed=67)
+        argv = ["--dataset", "ted", "--data_dir", ted_dir, "--device", "cuda:0,cuda:0",
+                "--fused_train", "--batch_size", str(DP_BATCH), "--epochs", str(DP_EPOCHS),
+                "--lr", str(TRAIN_LR), "--latent_dim", "512", "--layers", str(LAYERS),
+                "--n_speakers", "1400", "--seed", "12"]
+        run_loop, run = _records_rag_run("data-parallel train_rag", argv, save_dir, card,
+                                         want_decrease=True, shards=2)
+        check(run_loop.mesh is not None and run_loop.mesh.size == 2,
+              "data-parallel train_rag: the loop is not on a mesh of two")
+        if torch.cuda.device_count() == 1:
+            try:
+                serving_mesh(ServeConfig(data_parallel=2))
+                raised = None
+            except (ValueError, RuntimeError) as e:
+                raised = str(e)
+            print(f"[data-parallel] serving_mesh(ServeConfig(data_parallel=2)) on one card: "
+                  f"raised {raised!r}")
+            check(raised is not None, "serving_mesh(data_parallel=2) ran on one card")
+            try:
+                with redirect_stdout(sys.stderr):
+                    eval_rag_ted.main(["--model_path", final_npz(save_dir), "--data_dir",
+                                       ted_dir, "--data_parallel", "2", "--fused"])
+                raised = None
+            except SystemExit as e:
+                raised = str(e)
+            print(f"[data-parallel] eval_rag_ted --data_parallel 2 on one card: raised "
+                  f"{raised!r}")
+            check(raised is not None, "eval_rag_ted --data_parallel 2 ran on one card")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[data-parallel] phase wall {time.perf_counter() - t_phase:.1f} s")
+    for k in k2_launches:
+        k2_launches[k] += run["launches"][k]
+    return k1_burst + k1_comp, k2_launches
+
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3197,6 +3509,10 @@ def main():
     launches += front_end_phase(card)
     train_worst, train_times = train_kernel_phase(card)
     train_launches, _, model, loop, train_stats = train_phase(card)
+    dp_k1, dp_k2 = data_parallel_phase(card)
+    launches += dp_k1
+    for k, n in dp_k2.items():
+        train_launches[k] += n
     launches += records_train_phase(card, train_stats)["eval"]["launches"]
     records_build_phase(card)
     wav_worst, wav_times = wav_kernel_phase(card)

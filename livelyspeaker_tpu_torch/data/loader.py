@@ -20,6 +20,14 @@ Where the port differs, it is in the device handling:
 - :class:`DeviceDataLoader` stages the kept fields on the device once and
   gathers each batch there by an index vector. ``device=None`` means the
   card, and it raises where there is none (``utils/device.py``'s rule).
+- With a ``mesh`` (``parallel.create_mesh``) instead of a device, both
+  yield a list of one batch a shard, in shard order (JAX ``data/loader.py:
+  66-82``, whose batch is one array laid out over the mesh). The streaming
+  loader's batch leaves the host as N shards: one pinned copy a slot, each
+  shard's rows sent to its card on that card's copy stream, one event a
+  card. The resident loader holds its copy once a distinct device (a mesh
+  that names one card twice holds it once) and gathers each shard's rows
+  on its device.
 
 JSON fields (``sentence``, ``words``) pass through as Python lists.
 """
@@ -56,6 +64,21 @@ def _batches(idx: np.ndarray, batch_size: int, drop_last: bool, start_batch: int
         yield chunk
 
 
+def _mesh_devices(device, mesh, who: str) -> Optional[List[torch.device]]:
+    """The devices a batch goes to (one a shard), or None for host batches."""
+    if mesh is not None:
+        if device is not None:
+            raise ValueError(f"{who} takes a device or a mesh, not both")
+        return list(mesh.devices)
+    return None if device is None else [torch.device(device)]
+
+
+def _split_rows(n_rows: int, n: int):
+    if n_rows % n:
+        raise ValueError(f"batch {n_rows} must divide the mesh data axis ({n})")
+    return [(i * n_rows // n, (i + 1) * n_rows // n) for i in range(n)]
+
+
 class DeviceDataLoader:
     """Device-resident batching: stage the whole dataset on the device once,
     then gather each batch there by a [B] index vector.
@@ -65,7 +88,8 @@ class DeviceDataLoader:
     device memory (1,040 TED windows hold about 150 MB of f32 audio).
 
     Same iteration contract as :class:`DataLoader` (``set_epoch``,
-    ``drop_last``, ``len``); yields dicts of device tensors. ``device=None``
+    ``drop_last``, ``len``); yields dicts of device tensors, or with a
+    ``mesh`` a list of one dict a shard. ``device=None`` (and no mesh)
     means the card."""
 
     def __init__(
@@ -78,15 +102,18 @@ class DeviceDataLoader:
         seed: int = 233,
         fields: Optional[Sequence[str]] = None,
         device: Optional[Union[str, torch.device]] = None,
+        mesh=None,
     ):
-        if device is None:
+        self.mesh = mesh
+        if mesh is None and device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
                     "DeviceDataLoader stages the dataset on an NVIDIA GPU by default and "
                     'torch.cuda.is_available() is False; pass device="cpu" to stage it in '
                     "host memory")
             device = "cuda"
-        self.device = torch.device(device)
+        self._shard_devices = _mesh_devices(device, mesh, "DeviceDataLoader")
+        self.device = self._shard_devices[0]
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -98,15 +125,17 @@ class DeviceDataLoader:
                 else dataset.batch(np.arange(n)))
         # array fields only, in their stored dtypes (PCM16 audio is decoded
         # by the WavEncoder on the device)
-        self._dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                     for k, v in host.items()
-                     if isinstance(v, np.ndarray) and v.dtype != object}
+        fields = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in host.items()
+                  if isinstance(v, np.ndarray) and v.dtype != object}
+        self._dev = {d: {k: v.to(d) for k, v in fields.items()}
+                     for d in dict.fromkeys(self._shard_devices)}
         self._n = n
 
     @property
     def nbytes(self) -> int:
-        """Device bytes the staged fields hold."""
-        return sum(v.numel() * v.element_size() for v in self._dev.values())
+        """Device bytes the staged fields hold, over every device."""
+        return sum(v.numel() * v.element_size() for staged in self._dev.values()
+                   for v in staged.values())
 
     def set_epoch(self, epoch: int, start_batch: int = 0) -> None:
         """``start_batch`` makes the next iteration begin at that batch of
@@ -123,20 +152,26 @@ class DeviceDataLoader:
         idx = epoch_indices(self._n, self._seed, self.epoch, self.shuffle)
         self.epoch += 1
         start, self._start_batch = self._start_batch, 0
+        n = len(self._shard_devices)
         for chunk in _batches(idx, self.batch_size, self.drop_last, start):
-            ci = torch.from_numpy(chunk).to(self.device)
-            yield {k: torch.index_select(v, 0, ci) for k, v in self._dev.items()}
+            shards = []
+            for (lo, hi), dev in zip(_split_rows(len(chunk), n), self._shard_devices):
+                ci = torch.from_numpy(chunk[lo:hi]).to(dev)
+                shards.append({k: torch.index_select(v, 0, ci)
+                               for k, v in self._dev[dev].items()})
+            yield shards if self.mesh is not None else shards[0]
 
 
 class _PinnedSlots:
     """The pinned host buffers of the prefetch slots of one iteration, each
-    guarded by the CUDA event recorded after its host-to-device copy."""
+    guarded by the CUDA events recorded after its host-to-device copies,
+    one a card (each card has its copy stream)."""
 
-    def __init__(self, n_slots: int, device: torch.device):
-        self.device = device
-        self.stream = torch.cuda.Stream(device)
+    def __init__(self, n_slots: int, devices: Sequence[torch.device]):
+        self.devices = list(devices)
+        self.streams = {d: torch.cuda.Stream(d) for d in dict.fromkeys(self.devices)}
         self.buffers: List[Dict[str, torch.Tensor]] = [{} for _ in range(n_slots)]
-        self.events: List[Optional[torch.cuda.Event]] = [None] * n_slots
+        self.events: List[list] = [[] for _ in range(n_slots)]
         self.next = 0
 
     def _buffer(self, slot: int, key: str, arr: np.ndarray) -> torch.Tensor:
@@ -150,23 +185,35 @@ class _PinnedSlots:
         return buf[: arr.shape[0]]
 
     def send(self, batch: Dict):
-        """(batch with its arrays on the device, the event the consumer's
-        stream waits on)."""
+        """(one batch a device of ``devices``, its rows of the arrays sent
+        there; the (device, event) pairs the consumer's streams wait on)."""
         slot = self.next
         self.next = (slot + 1) % len(self.buffers)
-        if self.events[slot] is not None:
-            self.events[slot].synchronize()  # the slot's last copy has finished
-        out = dict(batch)
-        with torch.cuda.stream(self.stream):
-            for k, v in batch.items():
-                if isinstance(v, np.ndarray) and v.dtype != object:
-                    pinned = self._buffer(slot, k, v)
-                    pinned.numpy()[...] = v
-                    out[k] = pinned.to(self.device, non_blocking=True)
+        for _, event in self.events[slot]:
+            event.synchronize()  # the slot's last copies have finished
+        pinned = {}
+        for k, v in batch.items():
+            if isinstance(v, np.ndarray) and v.dtype != object:
+                pinned[k] = self._buffer(slot, k, v)
+                pinned[k].numpy()[...] = v
+        rows = len(next(iter(batch.values())))
+        outs = []
+        for (lo, hi), dev in zip(_split_rows(rows, len(self.devices)), self.devices):
+            out = {}
+            with torch.cuda.stream(self.streams[dev]):
+                for k, v in batch.items():
+                    if k in pinned:
+                        out[k] = pinned[k][lo:hi].to(dev, non_blocking=True)
+                    else:
+                        out[k] = v if len(self.devices) == 1 else v[lo:hi]
+            outs.append(out)
+        events = []
+        for dev, stream in self.streams.items():
             event = torch.cuda.Event()
-            event.record(self.stream)
-        self.events[slot] = event
-        return out, event
+            event.record(stream)
+            events.append((dev, event))
+        self.events[slot] = events
+        return outs, events
 
 
 class DataLoader:
@@ -175,7 +222,8 @@ class DataLoader:
 
     ``device=None`` yields host numpy batches; with a ``device`` the array
     fields arrive as tensors on it (through pinned buffers and a copy stream
-    on a CUDA device, see the module docstring)."""
+    on a CUDA device, see the module docstring), and with a ``mesh`` as a
+    list of one batch a shard, each on its device."""
 
     def __init__(
         self,
@@ -191,13 +239,16 @@ class DataLoader:
         host_id: int = 0,
         num_hosts: int = 1,
         fields: Optional[Sequence[str]] = None,
+        mesh=None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.collate = collate
-        self.device = None if device is None else torch.device(device)
+        self.mesh = mesh
+        self._shard_devices = _mesh_devices(device, mesh, "DataLoader")
+        self.device = None if self._shard_devices is None else self._shard_devices[0]
         self.prefetch = prefetch
         self.host_id = host_id
         self.num_hosts = num_hosts
@@ -242,14 +293,21 @@ class DataLoader:
             yield batch
 
     def _to_device(self, batch: Dict, slots: Optional[_PinnedSlots]):
-        """(batch as it is yielded, the CUDA event it waits on or None)."""
-        if self.device is None:
-            return batch, None
+        """(batch as it is yielded, the (device, CUDA event) pairs it waits
+        on)."""
+        if self._shard_devices is None:
+            return batch, []
         if slots is not None:
-            return slots.send(batch)
-        return {k: torch.from_numpy(v).to(self.device)
-                if isinstance(v, np.ndarray) and v.dtype != object else v
-                for k, v in batch.items()}, None
+            outs, events = slots.send(batch)
+        elif self.mesh is not None:
+            from ..parallel.mesh import shard_batch
+
+            outs, events = shard_batch(batch, self.mesh), []
+        else:
+            outs, events = [{k: torch.from_numpy(v).to(self.device)
+                             if isinstance(v, np.ndarray) and v.dtype != object else v
+                             for k, v in batch.items()}], []
+        return (outs if self.mesh is not None else outs[0]), events
 
     def __iter__(self) -> Iterator[Dict]:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -260,7 +318,7 @@ class DataLoader:
         if self.device is not None and self.device.type == "cuda":
             # a slot per batch the queue holds, one being filled and one
             # whose copy may still run: the event wait seldom blocks
-            slots = _PinnedSlots(self.prefetch + 2, self.device)
+            slots = _PinnedSlots(self.prefetch + 2, self._shard_devices)
 
         def put_or_stop(item) -> bool:
             """Bounded put that gives up when the consumer is gone, so an
@@ -292,14 +350,15 @@ class DataLoader:
                     if err:
                         raise err[0]
                     return
-                batch, event = item
-                if event is not None:
-                    current = torch.cuda.current_stream(self.device)
-                    current.wait_event(event)
-                    for v in batch.values():
-                        if isinstance(v, torch.Tensor):
-                            # memory allocated on the copy stream, used on this one
-                            v.record_stream(current)
+                batch, events = item
+                for dev, event in events:
+                    torch.cuda.current_stream(dev).wait_event(event)
+                if events:
+                    for shard in (batch if self.mesh is not None else [batch]):
+                        for v in shard.values():
+                            if isinstance(v, torch.Tensor):
+                                # memory allocated on a copy stream, used on the current one
+                                v.record_stream(torch.cuda.current_stream(v.device))
                 yield batch
         finally:
             # on break, exception or collection of the generator: stop the

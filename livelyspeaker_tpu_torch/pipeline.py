@@ -9,6 +9,12 @@ motion sketch from a CLIP text embedding, and the RAG refines it, q-sampled
 to step T - ``skip_timesteps`` of the respaced chain, under CFG.
 :func:`generate_long_form` and :func:`generate_long_form_stream` chain
 windows over audio of any length through either.
+
+Both take a ``mesh`` (``parallel.create_mesh``), as the JAX classes do: the
+batch is split over its shards, each of which runs the whole chain on a
+replica of the models with its own folded generator
+(``parallel/sampling.py``), and the clips come back in order on shard 0's
+device.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ from .models.clip_text import CLIPTextEncoder
 from .models.fast_rag import make_fused_cfg_denoiser
 from .models.rag import RAG
 from .models.sag import SAG
+from .parallel.mesh import check_divisible, replicate_module, sync_replicas
+from .parallel.sampling import shard_sample_fn
 from .utils.device import place_model
 
 __all__ = ["RAGSampler", "LivelySpeakerPipeline", "generate_long_form",
@@ -41,6 +49,12 @@ class RAGSampler:
     ``use_fused=True`` runs each denoise step through the fused TransMLP
     kernel (``models/fast_rag.py``); ``False`` runs the eager modules.
 
+    ``mesh`` splits every batch over the mesh's shards (the batch must
+    divide its size): each shard samples its rows on its own replica of the
+    model with ``fold_in(generator, shard)``, so the draws differ from an
+    unsharded call's (same law). ``device`` must then be None; the model
+    goes to the mesh's first device.
+
     Construction pins ``torch.backends.cudnn.allow_tf32 = False`` for the
     process: cuDNN's default runs the f32 WavEncoder convs in TF32 (about
     three decimal digits), and the port computes in f32 throughout."""
@@ -56,10 +70,16 @@ class RAGSampler:
         use_fused: bool = False,
         guidance_schedule: Optional[str] = None,
         device: Optional[Union[str, torch.device]] = None,
+        mesh=None,
     ):
         torch.backends.cudnn.allow_tf32 = False
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("RAGSampler takes a mesh or a device, not both")
+            device = mesh.devices[0]
         self.device = place_model(model, device, "RAGSampler")
         self.model = model.eval()
+        self.mesh = mesh
         self.method = method
         self.use_fused = use_fused
         self.guidance_schedule = guidance_schedule
@@ -68,6 +88,15 @@ class RAGSampler:
         )
         self._timestep_map = sched.timestep_map.tolist()  # host copy, no sync
         self.sched = sched.to(self.device)
+        if mesh is not None:
+            self.replicas = replicate_module(self.model, mesh)
+            scheds = {d: sched.to(d) for d in dict.fromkeys(mesh.devices)}
+            # args: cond, guidance, generator, init_image, inpainting, noise
+            self._sharded = shard_sample_fn(
+                lambda m, *a, **kw: self._chain(m, scheds[next(m.parameters()).device],
+                                                *a, **kw),
+                mesh, self.replicas, batched=(True, True, False, True, True, True),
+                rng_arg=2)
 
     def _guidance_schedule_fn(self, skip_timesteps: int):
         """Schedule normalised to the executed window: its boundary is the
@@ -99,6 +128,25 @@ class RAGSampler:
         if bad:
             raise ValueError(f"checkpoint leaf shape/dtype mismatch at: {', '.join(bad)}")
         self.model.load_state_dict(state_dict)
+        if self.mesh is not None:
+            sync_replicas(self.replicas)
+
+    def _chain(self, model, sched, cond, guidance, generator, init_image, inpainting, noise,
+               *, skip_timesteps, gsched):
+        c = model.cfg
+        make = make_fused_cfg_denoiser if self.use_fused else make_cfg_denoiser
+        denoise = make(model, cond, guidance, guidance_schedule=gsched)
+        return sample_loop(
+            denoise,
+            sched,
+            (cond["vid"].shape[0], c.njoints, c.nfeats, c.nframes),
+            generator,
+            method=self.method,
+            skip_timesteps=skip_timesteps,
+            init_image=init_image,
+            inpainting=inpainting,
+            noise=noise,
+        )
 
     @torch.no_grad()
     def __call__(
@@ -110,26 +158,27 @@ class RAGSampler:
         skip_timesteps: int = 0,
         init_image: Optional[torch.Tensor] = None,
         inpainting: Optional[Inpainting] = None,
+        noise: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Sample clips [B, J, F, T] for the conditioning in ``cond`` (on the
         model's device); ``guidance`` is a scalar or a per-sample [B].
         ``inpainting`` (its tensors on the model's device) holds frames to a
-        constraint at every step."""
-        c = self.model.cfg
-        b = cond["vid"].shape[0]
+        constraint at every step; ``noise`` [B, J, F, T] replaces the
+        initial draw."""
         gsched = self._guidance_schedule_fn(skip_timesteps)
-        make = make_fused_cfg_denoiser if self.use_fused else make_cfg_denoiser
-        denoise = make(self.model, cond, guidance, guidance_schedule=gsched)
-        return sample_loop(
-            denoise,
-            self.sched,
-            (b, c.njoints, c.nfeats, c.nframes),
-            generator,
-            method=self.method,
-            skip_timesteps=skip_timesteps,
-            init_image=init_image,
-            inpainting=inpainting,
-        )
+        args = (cond, guidance, generator, init_image, inpainting, noise)
+        if self.mesh is None:
+            return self._chain(self.model, self.sched, *args, skip_timesteps=skip_timesteps,
+                               gsched=gsched)
+        b = cond["vid"].shape[0]
+        check_divisible(b, self.mesh)
+        if inpainting is not None:  # a broadcast mask or motion: one row each
+            c = self.model.cfg
+            full = (b, c.njoints, c.nfeats, c.nframes)
+            inpainting = inpainting._replace(mask=inpainting.mask.expand(full),
+                                             motion=inpainting.motion.expand(full))
+        args = (cond, guidance, generator, init_image, inpainting, noise)
+        return self._sharded(*args, skip_timesteps=skip_timesteps, gsched=gsched)
 
 
 class LivelySpeakerPipeline:
@@ -142,7 +191,10 @@ class LivelySpeakerPipeline:
     the modules; both stages run in ``eval()`` under ``torch.no_grad()``.
     ``use_fused=True`` runs each refinement step through the fused TransMLP
     kernel. ``tokenizer`` maps a list of sentences to int ids [B, 77]
-    (``data.clip_tokenizer``)."""
+    (``data.clip_tokenizer``). ``mesh`` splits the batch over its shards
+    for every stage: the CLIP encode and the SAG decode on each shard's
+    replicas, and the refinement through the sharded :class:`RAGSampler`
+    (``device`` must then be None)."""
 
     def __init__(
         self,
@@ -158,8 +210,14 @@ class LivelySpeakerPipeline:
         guidance_schedule: Optional[str] = None,
         use_fused: bool = False,
         device: Optional[Union[str, torch.device]] = None,
+        mesh=None,
     ):
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("LivelySpeakerPipeline takes a mesh or a device, not both")
+            device = mesh.devices[0]
         self.device = place_model(sag, device, "LivelySpeakerPipeline")
+        self.mesh = mesh
         self.rag_sampler = RAGSampler(
             rag,
             steps=steps,
@@ -167,21 +225,30 @@ class LivelySpeakerPipeline:
             method=method,
             use_fused=use_fused,
             guidance_schedule=guidance_schedule,
-            device=self.device,
+            device=None if mesh is not None else self.device,
+            mesh=mesh,
         )
         self.sag = sag.eval()
         self.clip_text = clip_text.to(self.device).eval()
         self.tokenizer = tokenizer
         self.skip_timesteps = skip_timesteps
+        if mesh is not None:
+            stages = list(zip(replicate_module(self.clip_text, mesh),
+                              replicate_module(self.sag, mesh)))
+            self._sharded_sketch = shard_sample_fn(
+                lambda m, tokens, seed: m[1].decode(m[0](tokens), seed), mesh, stages,
+                batched=(True, True))
 
     @torch.no_grad()
     def semantic_sketch(self, sentences: Sequence[str],
                         seed_motion: torch.Tensor) -> torch.Tensor:
         """The SAG decode of the CLIP text features of ``sentences``, seeded
         by the first frames of ``seed_motion`` [B, J, F, T]."""
-        tokens = torch.from_numpy(self.tokenizer(list(sentences))).to(self.device)
-        z = self.clip_text(tokens)
-        return self.sag.decode(z, seed_motion.to(self.device, torch.float32))
+        tokens = torch.from_numpy(self.tokenizer(list(sentences)))
+        seed = seed_motion.to(self.device, torch.float32)
+        if self.mesh is not None:
+            return self._sharded_sketch(tokens, seed)
+        return self.sag.decode(self.clip_text(tokens.to(self.device)), seed)
 
     @torch.no_grad()
     def __call__(
@@ -240,7 +307,9 @@ def generate_long_form(
     at least): the windows of :func:`long_form_window_grid`, generated in
     order, each seeded with the previous window's last ``n_pre_seq`` frames
     (the RAG's seed-frame conditioning). With ``pipeline`` and
-    ``sentences`` (cycled) each window is a LivelySpeaker composition.
+    ``sentences`` (cycled) each window is a LivelySpeaker composition. A
+    sampler with a mesh runs each window as a batch of the mesh's size
+    (rows copied from the window) and keeps row 0.
     Every window draws from ``generator`` in turn (the JAX package splits a
     key per window instead). :func:`generate_long_form_stream` yields the
     same frames window by window."""
@@ -271,19 +340,22 @@ def generate_long_form_stream(
     nf, pre = c.nframes, c.n_pre_seq
     n_windows, excess, _, _, offsets = long_form_window_grid(len(audio), nf, pre, fps=fps, sr=sr)
     dev = sampler.device
-    seed = np.zeros((1, c.njoints, c.nfeats, nf), np.float32)
+    mesh = getattr(sampler, "mesh", None)
+    rows = mesh.size if mesh is not None else 1
+    seed = np.zeros((rows, c.njoints, c.nfeats, nf), np.float32)
     win_samples = int(round(nf / fps * sr))
-    vid = torch.tensor([speaker], device=dev)
+    vid = torch.full((rows,), speaker, device=dev)
     for w in range(n_windows):
-        wav = np.zeros((1, win_samples), np.float32)
+        wav = np.zeros((rows, win_samples), np.float32)
         chunk = np.asarray(audio[offsets[w]: offsets[w] + win_samples], np.float32)
-        wav[0, : len(chunk)] = chunk
+        wav[:, : len(chunk)] = chunk
         cond = {"audio": torch.from_numpy(wav).to(dev), "vid": vid,
                 "origin_x": torch.tensor(seed, device=dev)}
         if c.num_emotions:  # a BEAT model needs its emotion token
-            cond["emo"] = torch.tensor([emotion], device=dev)
+            cond["emo"] = torch.full((rows,), emotion, device=dev)
         if pipeline is not None and sentences:
-            clip = pipeline([sentences[w % len(sentences)]], cond, generator, guidance=guidance)
+            clip = pipeline([sentences[w % len(sentences)]] * rows, cond, generator,
+                            guidance=guidance)
         else:
             clip = sampler(cond, generator, guidance=guidance)
         clip = clip[0].cpu().numpy()  # [J, F, nf]
@@ -293,4 +365,4 @@ def generate_long_form_stream(
             out = out[:, :, :-excess]
         yield w, out
         seed[:] = 0.0
-        seed[0, :, :, :pre] = clip[:, :, -pre:]
+        seed[:, :, :, :pre] = clip[:, :, -pre:]

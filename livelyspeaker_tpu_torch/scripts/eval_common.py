@@ -27,16 +27,24 @@ __all__ = ["load_sag_params", "load_clip", "load_tokenizer", "build_pipeline",
            "load_beat_embedder", "mesh_from_args", "final_npz", "PhaseClock"]
 
 
-def mesh_from_args(args, batch_size: Optional[int] = None) -> None:
-    """None at ``--data_parallel 1``; above 1 this raises: the port evaluates
-    on one card, and sharded sampling is not ported. ``batch_size`` is the
-    batch the sampler sees, as in the JAX function."""
+def mesh_from_args(args, batch_size: Optional[int] = None):
+    """The mesh of ``--data_parallel``: None at 1; above 1 the first N
+    cards (``--device cpu``: the CPU N times), over which the sampler splits
+    each batch. Raises where there are fewer cards, or where N does not
+    divide ``batch_size``, the batch the sampler sees (``args.batch_size``
+    by default), as the JAX function does."""
+    from ..parallel.mesh import data_parallel_mesh
+
     dp = getattr(args, "data_parallel", 1)
-    if dp > 1:
-        raise SystemExit(
-            f"--data_parallel {dp} (batch {batch_size or args.batch_size}): the port "
-            "evaluates on one card; sampling sharded over devices is not ported")
-    return None
+    if dp <= 1:
+        return None
+    eff = batch_size if batch_size is not None else getattr(args, "batch_size", None)
+    if eff and eff % dp:
+        raise SystemExit(f"batch size {eff} must be a multiple of --data_parallel {dp}")
+    try:
+        return data_parallel_mesh(dp, args.device)
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(f"--data_parallel {dp}: {e}") from e
 
 
 def load_sag_params(path: str) -> Dict[str, torch.Tensor]:
@@ -77,10 +85,11 @@ def load_tokenizer(args):
             else HashTokenizer())
 
 
-def build_pipeline(args, rag, njoints: int, nfeats: int):
+def build_pipeline(args, rag, njoints: int, nfeats: int, mesh=None):
     """The two-stage composition: the SAG's sketch, q-sampled to T - skip,
     refined by ``rag`` under CFG (test_LivelySpeaker_ted.py:85-113,
-    test_LivelySpeaker_beat.py:101-130), on ``args.device``."""
+    test_LivelySpeaker_beat.py:101-130), on ``args.device``, or split over
+    ``mesh``."""
     from ..models import SAG
     from ..pipeline import LivelySpeakerPipeline
 
@@ -111,7 +120,8 @@ def build_pipeline(args, rag, njoints: int, nfeats: int):
         skip_timesteps=args.skip_steps or 80,  # test_LivelySpeaker_beat.py:232
         guidance_schedule=getattr(args, "guidance_schedule", None),
         use_fused=getattr(args, "fused", False),
-        device=args.device,
+        device=None if mesh is not None else args.device,
+        mesh=mesh,
     )
 
 

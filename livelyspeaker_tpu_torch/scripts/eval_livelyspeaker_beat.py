@@ -76,7 +76,7 @@ def main(argv: Optional[List[str]] = None) -> List[tuple]:
 
     dataset = BeatWindowDataset(args.data_dir)
     batch_size = min(args.batch_size, max(len(dataset), 1))
-    mesh_from_args(args, batch_size=batch_size)
+    mesh = mesh_from_args(args, batch_size=batch_size)
     loader = DataLoader(dataset, batch_size=batch_size, shuffle=True, drop_last=True, seed=233)
 
     cfg = RAGConfig.beat(
@@ -93,7 +93,7 @@ def main(argv: Optional[List[str]] = None) -> List[tuple]:
     args.nfeats = cfg.nfeats
     model.load_state_dict(load_rag_params(args.model_path, args))
 
-    pipe = build_pipeline(args, model, cfg.njoints, cfg.nfeats)
+    pipe = build_pipeline(args, model, cfg.njoints, cfg.nfeats, mesh)
     clock = PhaseClock(pipe.device)
     embed = load_beat_embedder(args)
     results = run_sweep(dataset, loader, pipe, embed, cfg.njoints, cfg.nframes, clock=clock)

@@ -48,7 +48,7 @@ def main(argv: Optional[List[str]] = None) -> List[tuple]:
 
     dataset = TedWindowDataset(args.data_dir)
     batch_size = min(args.batch_size, max(len(dataset), 1))
-    mesh_from_args(args, batch_size=batch_size)
+    mesh = mesh_from_args(args, batch_size=batch_size)
     loader = DataLoader(dataset, batch_size=batch_size, shuffle=True, drop_last=True, seed=233)
 
     cfg = RAGConfig(
@@ -59,7 +59,7 @@ def main(argv: Optional[List[str]] = None) -> List[tuple]:
     )
     rag = RAG(cfg)
     rag.load_state_dict(load_rag_params(args.model_path, args))
-    pipe = build_pipeline(args, rag, args.njoints, args.nfeats)
+    pipe = build_pipeline(args, rag, args.njoints, args.nfeats, mesh)
     device = pipe.device
     clock = PhaseClock(device)
 

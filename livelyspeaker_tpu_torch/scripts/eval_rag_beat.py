@@ -89,7 +89,7 @@ def main(argv: Optional[List[str]] = None) -> List[tuple]:
 
     dataset = BeatWindowDataset(args.data_dir)
     batch_size = min(args.batch_size, max(len(dataset), 1))
-    mesh_from_args(args, batch_size=batch_size)
+    mesh = mesh_from_args(args, batch_size=batch_size)
     loader = DataLoader(dataset, batch_size=batch_size, shuffle=True, drop_last=True, seed=233)
 
     cfg = RAGConfig.beat(
@@ -103,12 +103,13 @@ def main(argv: Optional[List[str]] = None) -> List[tuple]:
     model = RAG(cfg)
     args.num_emotions = 8
     model.load_state_dict(load_rag_params(args.model_path, args))
-    sampler = sampler_from_args(model, args)
+    sampler = sampler_from_args(model, args, mesh)
     device = sampler.device
     clock = PhaseClock(device)
     embed = load_beat_embedder(args)
 
-    pipe = build_pipeline(args, model, cfg.njoints, cfg.nfeats) if args.sag_path else None
+    pipe = (build_pipeline(args, model, cfg.njoints, cfg.nfeats, mesh) if args.sag_path
+            else None)
 
     aligner = Alignment(0.3, 2)  # test_RAG_beat.py:43
     n_joints = dataset.cfg.njoints

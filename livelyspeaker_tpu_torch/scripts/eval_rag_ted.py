@@ -62,9 +62,9 @@ def load_rag_params(path: str, args) -> Dict[str, torch.Tensor]:
     raise ValueError(f"unknown checkpoint format: {path}")
 
 
-def sampler_from_args(model: RAG, args) -> RAGSampler:
+def sampler_from_args(model: RAG, args, mesh=None) -> RAGSampler:
     """The eval's sampler: the respacing, solver and guidance schedule of
-    ``args``, on ``args.device``."""
+    ``args``, on ``args.device``, or split over ``mesh``."""
     return RAGSampler(
         model,
         steps=args.diffusion_steps,
@@ -74,7 +74,8 @@ def sampler_from_args(model: RAG, args) -> RAGSampler:
             "ddim" if args.timestep_respacing.startswith("ddim") else "ddpm"),
         use_fused=args.fused,
         guidance_schedule=args.guidance_schedule,
-        device=args.device,
+        device=None if mesh is not None else args.device,
+        mesh=mesh,
     )
 
 
@@ -124,7 +125,7 @@ def main(argv: Optional[List[str]] = None) -> List[tuple]:
 
     dataset = TedWindowDataset(args.data_dir)
     batch_size = min(args.batch_size, max(len(dataset), 1))
-    mesh_from_args(args, batch_size=batch_size)
+    mesh = mesh_from_args(args, batch_size=batch_size)
     loader = DataLoader(dataset, batch_size=batch_size, shuffle=True, drop_last=True, seed=233)
 
     cfg = RAGConfig(
@@ -141,7 +142,7 @@ def main(argv: Optional[List[str]] = None) -> List[tuple]:
     )
     model = RAG(cfg)
     model.load_state_dict(load_rag_params(args.model_path, args))
-    sampler = sampler_from_args(model, args)
+    sampler = sampler_from_args(model, args, mesh)
     device = sampler.device
     clock = PhaseClock(device)
 

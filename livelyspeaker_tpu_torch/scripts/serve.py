@@ -233,7 +233,8 @@ def _parser() -> argparse.ArgumentParser:
                    help="respacing of text requests' refinement, apart from "
                         "--timestep_respacing: --skip_steps counts steps of this grid")
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="devices a batch is split over; the port serves from one")
+                   help="devices each batch is split over: the first N cards, or the CPU N "
+                        "times with --device cpu (max_batch must be a multiple of it)")
     p.add_argument("--reload_token", type=str, default="",
                    help="enables POST /v1/reload for requests that carry this token")
     p.add_argument("--device", type=str, default=None,
@@ -250,13 +251,11 @@ def build_server(argv: Optional[List[str]] = None) -> Tuple[ThreadingHTTPServer,
     from ..data import CLIPTokenizer, HashTokenizer
     from ..models import SAG, CLIPTextEncoder, RAG, RAGConfig
     from ..pipeline import LivelySpeakerPipeline
-    from ..serving import ServeConfig, build_rag_server
+    from ..serving import ServeConfig, build_rag_server, serving_mesh
     from ..training.checkpoints import load_args
     from ..utils.convert import clip_text_state_dict_from_openai
 
     args = _parser().parse_args(argv)
-    if args.data_parallel != 1:
-        raise SystemExit(f"--data_parallel {args.data_parallel}: the port serves from one card")
     try:
         saved = load_args(args.model_path)
     except FileNotFoundError:
@@ -284,7 +283,15 @@ def build_server(argv: Optional[List[str]] = None) -> Tuple[ThreadingHTTPServer,
         sampler=args.sampler,
         use_fused=not args.no_fused,
         pipeline_depth=args.pipeline_depth,
+        data_parallel=args.data_parallel,
     )
+    try:
+        # one mesh for the batcher's sampler and the composition: text
+        # batches shard exactly like plain ones
+        mesh = serving_mesh(serve_cfg, args.device)
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(f"--data_parallel {args.data_parallel}: {e}") from e
+    device = None if mesh is not None else args.device
 
     composition = None
     if args.sag_path:
@@ -305,7 +312,7 @@ def build_server(argv: Optional[List[str]] = None) -> Tuple[ThreadingHTTPServer,
             model, sag, clip, tok, steps=args.steps,
             timestep_respacing=args.composition_respacing, skip_timesteps=args.skip_steps,
             guidance_schedule=args.guidance_schedule, use_fused=not args.no_fused,
-            device=args.device)
+            device=device, mesh=mesh)
         n_spaced = composition.rag_sampler.sched.num_timesteps
         if not 0 < n_spaced - args.skip_steps:
             raise SystemExit(
@@ -313,7 +320,8 @@ def build_server(argv: Optional[List[str]] = None) -> Tuple[ThreadingHTTPServer,
                 f"{args.composition_respacing} grid ({n_spaced} steps); lower --skip_steps "
                 "or use a finer --composition_respacing")
 
-    batcher = build_rag_server(model, serve_cfg, composition=composition, device=args.device)
+    batcher = build_rag_server(model, serve_cfg, composition=composition, device=device,
+                               mesh=mesh)
     try:
         # warm both routes through the batcher (cuBLAS, cuDNN, the kernel's
         # build and the allocator) before the first client waits on them

@@ -38,7 +38,7 @@ from ..training.logging import KVLogger
 from ..utils.config import add_all_groups
 from ..utils.convert import flatten_tree, state_dict_to_flax_variables
 from ..utils.device import place_model
-from .train_rag import synthetic_records_dir
+from .train_rag import refuse_device_list, synthetic_records_dir
 
 __all__ = ["parse_args", "main", "save_autoencoder_npz"]
 
@@ -67,6 +67,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     """Train as ``argv`` says; returns ``{"step", "losses", "model", "path"}``
     (``losses``: the logged reconstruction MSEs)."""
     args = parse_args(argv)
+    refuse_device_list(args, "the gesture autoencoder")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.dataset == "synthetic":

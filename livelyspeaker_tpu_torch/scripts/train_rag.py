@@ -14,12 +14,16 @@ Port of the JAX package's ``scripts/train_rag.py``:
 The same options, datasets, save schedule (``model{step:09d}.npz`` in the
 JAX package's flat npz, ``args.json``, whole-state checkpoints) and resume
 as the JAX script. ``--fused_train`` runs the mixer backbone through the
-fused CUDA training kernels. The run is on the card unless ``--device``
-names another device; ``--device cpu`` runs the plain versions on the CPU.
+fused CUDA training kernels.
 
-The JAX script's mesh options have no counterpart on one card and raise:
-``--pipeline_parallel`` above 1, ``--fsdp``, and a ``--device`` that names
-more than one device.
+Where it runs, as the JAX script's mesh (``scripts/train_rag.py:88-135``):
+by default every local card, data-parallel when there are several
+(``parallel.shard_train_step``: each card a slice of the batch, the
+gradients averaged); ``--device cpu`` one CPU shard; a list such as
+``--device cpu,cpu`` or ``--device cuda:0,cuda:1`` names the mesh's
+devices (a device may repeat). The batch must be a multiple of the
+mesh's size. ``--pipeline_parallel`` above 1 and ``--fsdp`` (with or
+without ``--fused_train``) are later slices of the port and raise.
 """
 
 from __future__ import annotations
@@ -35,11 +39,13 @@ from ..data import DataLoader, DeviceDataLoader, TedWindowDataset
 from ..diffusion import DiffusionSchedule
 from ..models import RAG, RAGConfig
 from ..training import TrainConfig
+from ..parallel import create_mesh
 from ..training.loop import TrainLoop
 from ..utils.config import train_args
 from ..utils.device import place_model
 
-__all__ = ["main", "synthetic_records_dir", "refuse_mesh_options", "TRAIN_FIELDS"]
+__all__ = ["main", "synthetic_records_dir", "refuse_mesh_options", "refuse_device_list",
+           "mesh_from_devices", "TRAIN_FIELDS"]
 
 # the record fields a training step reads
 TRAIN_FIELDS = {"ted": ("motion", "audio", "vid"), "beat": ("motion", "audio", "vid", "emo")}
@@ -66,18 +72,42 @@ def synthetic_records_dir() -> str:
 
 
 def refuse_mesh_options(args) -> None:
-    """The JAX script's mesh options: each raises, none falls back."""
+    """The JAX script's mesh options that are later slices of the port:
+    each raises, none falls back."""
     if args.pipeline_parallel > 1:
         raise SystemExit(
-            f"--pipeline_parallel {args.pipeline_parallel}: the port trains on one card; "
-            "pipeline stages over a mesh are not ported")
+            f"--pipeline_parallel {args.pipeline_parallel}: pipeline stages over a mesh are "
+            "not ported yet; the port trains data-parallel only")
     if args.fsdp:
-        raise SystemExit("--fsdp: the port trains on one card; sharded parameters are "
-                         "not ported")
-    devices = [d for d in (args.device or "").replace(",", " ").split() if d]
-    if len(devices) > 1:
-        raise SystemExit(f"--device {args.device!r} names {len(devices)} devices: the port "
-                         "trains on one card; data-parallel training is not ported")
+        raise SystemExit("--fsdp: sharded parameters are not ported yet; the port trains "
+                         "data-parallel over replicated parameters only")
+
+
+def _device_names(args) -> List[str]:
+    return [d for d in (args.device or "").replace(",", " ").split() if d]
+
+
+def refuse_device_list(args, what: str) -> None:
+    """The SAG and the gesture autoencoder train on one device, as in the
+    JAX scripts, which have no mesh."""
+    names = _device_names(args)
+    if len(names) > 1:
+        raise SystemExit(f"--device {args.device!r} names {len(names)} devices: the JAX "
+                         f"script trains {what} on one device, and so does the port")
+
+
+def mesh_from_devices(args):
+    """The training mesh of ``--device``: the devices of a list; by default
+    every local card when there are several; else None (one device)."""
+    names = _device_names(args)
+    try:
+        if len(names) > 1:
+            return create_mesh(devices=names)
+        if not names and torch.cuda.device_count() > 1:
+            return create_mesh()
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(f"--device {args.device!r}: {e}") from e
+    return None
 
 
 def _dataset(args):
@@ -120,18 +150,24 @@ def main(argv: Optional[List[str]] = None) -> TrainLoop:
         audio_bf16=bool(args.audio_bf16),
     )
     model = RAG(cfg, generator=torch.Generator().manual_seed(args.seed))
-    device = place_model(model, args.device, "train_rag")
+    mesh = mesh_from_devices(args)
+    device = place_model(model, mesh.devices[0] if mesh is not None else args.device,
+                         "train_rag")
     n_params = sum(p.numel() for p in model.parameters())
     print(f"Total params: {n_params / 1e6:.2f}M")
 
     fields = TRAIN_FIELDS["beat" if args.dataset == "beat" else "ted"]
     batch_size = min(args.batch_size, max(len(dataset) // 2, 1))
+    if mesh is not None and batch_size % mesh.size:
+        raise SystemExit(f"batch size {batch_size} must be a multiple of the {mesh.size} "
+                         "devices of the mesh")
+    place = dict(device=None, mesh=mesh) if mesh is not None else dict(device=device)
     if args.device_resident:
         loader = DeviceDataLoader(dataset, batch_size, shuffle=True, seed=args.seed,
-                                  fields=fields, device=device)
+                                  fields=fields, **place)
     else:
         loader = DataLoader(dataset, batch_size, shuffle=True, seed=args.seed,
-                            fields=fields, device=device)
+                            fields=fields, **place)
 
     sched = DiffusionSchedule.create(steps=args.diffusion_steps, schedule=args.noise_schedule)
     tcfg = TrainConfig(
@@ -158,7 +194,7 @@ def main(argv: Optional[List[str]] = None) -> TrainLoop:
         seed=args.seed,
         args_to_save=vars(args),
         resume=bool(args.resume_checkpoint),
-        device=device,
+        **place,
     )
     loop.run_loop()
     print(f"done at step {loop.step}")

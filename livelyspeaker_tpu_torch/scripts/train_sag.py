@@ -17,7 +17,8 @@ npz, which the JAX package and the port's ``scripts/serve.py --sag_path``
 read.
 
 Where the port differs: the run is on the card unless ``--device`` names
-another device (``--device cpu`` for the CPU); dropout draws from torch's
+another device (``--device cpu`` for the CPU; a list of devices raises: the
+JAX script has no mesh either); dropout draws from torch's
 default generator, seeded from ``--seed``, where the JAX script splits
 ``jax.random`` keys; ``HashTokenizer``'s ids are salted per process, as in
 the JAX package. The KV log also records ``elapsed_s`` at each line.
@@ -39,7 +40,7 @@ from ..training.checkpoints import save_args, save_params_npz
 from ..training.logging import KVLogger
 from ..utils.config import add_all_groups
 from ..utils.device import place_model
-from .train_rag import refuse_mesh_options, synthetic_records_dir
+from .train_rag import refuse_device_list, refuse_mesh_options, synthetic_records_dir
 
 __all__ = ["main", "parse_args", "make_sag_train_step"]
 
@@ -129,6 +130,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     """Train as ``argv`` says; returns ``{"step", "best_fgd", "model"}``."""
     args = parse_args(argv)
     refuse_mesh_options(args)
+    refuse_device_list(args, "the SAG")
     torch.manual_seed(args.seed)  # the dropout masks
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

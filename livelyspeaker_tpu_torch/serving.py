@@ -39,6 +39,7 @@ __all__ = [
     "GestureRequest",
     "GestureBatcher",
     "build_rag_server",
+    "serving_mesh",
 ]
 
 
@@ -60,7 +61,8 @@ class ServeConfig:
     # Dispatched-but-uncollected batches that may wait for the collector;
     # 0 makes the worker finish each batch itself.
     pipeline_depth: int = 2
-    # Only 1: the port serves from one card.
+    # Shard each served batch over this many devices (serving_mesh);
+    # max_batch must be a multiple of it
     data_parallel: int = 1
 
 
@@ -465,17 +467,39 @@ class GestureBatcher:
             r.done.set()
 
 
+def serving_mesh(cfg: ServeConfig, device=None):
+    """The one mesh every server component shares (JAX ``serving.py:
+    600-615``), or None at ``data_parallel`` 1. Every served batch is padded
+    to ``max_batch`` rows, in both buckets of the batcher, so ``max_batch``
+    must be a multiple of ``data_parallel``. With ``device=None`` the mesh
+    is the first ``data_parallel`` cards, and this raises where there are
+    fewer; ``device="cpu"`` names the CPU ``data_parallel`` times."""
+    from .parallel.mesh import data_parallel_mesh
+
+    if cfg.max_batch % cfg.data_parallel:
+        raise ValueError(f"max_batch {cfg.max_batch} must be a multiple of data_parallel "
+                         f"{cfg.data_parallel}")
+    return data_parallel_mesh(cfg.data_parallel, device)
+
+
 def build_rag_server(model, cfg: Optional[ServeConfig] = None, *,
                      composition: Optional[LivelySpeakerPipeline] = None,
-                     device=None) -> GestureBatcher:
+                     device=None, mesh=None) -> GestureBatcher:
     """Wire a RAG model (and optionally a composition over the same RAG)
     into a ready-to-serve batcher on the card: ``device=None`` moves the
     model to ``cuda`` (or leaves it on the CUDA device it is on) and raises
     where there is none; ``device="cpu"`` serves on the CPU with the plain
-    versions of the kernels."""
+    versions of the kernels. With ``cfg.data_parallel`` above 1 each served
+    batch is split over ``mesh`` (``serving_mesh(cfg, device)`` unless
+    given; a composition must be built on the same mesh)."""
     cfg = cfg or ServeConfig()
-    if cfg.data_parallel != 1:
-        raise ValueError("the port serves from one device: data_parallel must be 1")
+    if mesh is None:
+        mesh = serving_mesh(cfg, device)
+    if mesh is not None:
+        if mesh.size != cfg.data_parallel:
+            raise ValueError(f"a mesh of {mesh.size} devices for data_parallel "
+                             f"{cfg.data_parallel}")
+        device = None
     sampler = RAGSampler(
         model,
         steps=cfg.steps,
@@ -483,5 +507,6 @@ def build_rag_server(model, cfg: Optional[ServeConfig] = None, *,
         method=cfg.sampler,
         use_fused=cfg.use_fused,
         device=device,
+        mesh=mesh,
     )
     return GestureBatcher(sampler, cfg, composition=composition)

@@ -7,6 +7,11 @@ interrupted epoch), and the params and EMA npz export.
 
 Each step draws from its own generator, seeded from (seed, global step), so
 a resumed run replays the draws of an uninterrupted one.
+
+With a ``mesh`` (``parallel.create_mesh``) of more than one device, or with
+``use_shard_map``, the loop trains through the data-parallel step of
+``parallel/training.py``; ``state`` is shard 0's, the checkpoint holds that
+one copy, and a resume restores every replica from it.
 """
 
 from __future__ import annotations
@@ -39,7 +44,13 @@ class TrainLoop:
     The loop runs on the card unless the caller asks otherwise: with
     ``device=None`` the model is moved to ``cuda`` (one already on a CUDA
     device stays there) and construction raises where there is none;
-    ``device="cpu"``, or any explicit device, is taken as given."""
+    ``device="cpu"``, or any explicit device, is taken as given.
+
+    ``mesh`` puts the model on its first device and, when it has more than
+    one device or ``use_shard_map`` is set, trains data-parallel over it
+    (``parallel.shard_train_step``); ``device`` must then be None. The
+    data may then yield the global batch or a list of one batch a shard
+    (``DataLoader(mesh=...)``)."""
 
     def __init__(
         self,
@@ -59,8 +70,17 @@ class TrainLoop:
         args_to_save: Optional[Dict] = None,
         resume: bool = False,
         device: Optional[Union[str, torch.device]] = None,
+        mesh=None,
+        use_shard_map: bool = False,
     ):
+        if use_shard_map and mesh is None:
+            raise ValueError("use_shard_map=True requires a mesh")
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("TrainLoop takes a mesh or a device, not both")
+            device = mesh.devices[0]
         self.device = place_model(model, device, "TrainLoop")
+        self.mesh = mesh
         self.model = model.train()
         self.sched = sched
         self.data = data
@@ -80,7 +100,12 @@ class TrainLoop:
         self.state: TrainState = init_train_state(
             dict(model.named_parameters()), tx, cfg=self.cfg,
             num_timesteps=sched.num_timesteps)
-        self.step_fn = make_train_step(model, sched, tx, self.cfg)
+        if mesh is not None and (use_shard_map or mesh.size > 1):
+            from ..parallel.training import shard_train_step
+
+            self.step_fn = shard_train_step(model, sched, tx, self.cfg, mesh)
+        else:
+            self.step_fn = make_train_step(model, sched, tx, self.cfg)
         self.ckpt = CheckpointManager(save_dir) if save_dir else None
         self.start_step = 0
         if save_dir and args_to_save is not None:
@@ -144,7 +169,8 @@ class TrainLoop:
         for k, v in metrics.items():
             self.logger.logkv_mean(k, v)
         self.logger.logkv("step", self.step)
-        self.logger.logkv("samples", self.step * batch["motion"].shape[0])
+        shards = batch if isinstance(batch, (list, tuple)) else [batch]
+        self.logger.logkv("samples", self.step * sum(b["motion"].shape[0] for b in shards))
         self.logger.logkv("elapsed_s", time.time() - t_start)
         for k, v in self.logger.dumpkvs().items():
             self.platform.report_scalar(name=k, value=v, iteration=self.step,

@@ -15,7 +15,7 @@ sync per step reads the finiteness check and the scalar metrics together.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +32,8 @@ from ..diffusion import (
 from ..models.rag import RAG
 
 __all__ = ["TrainState", "TrainConfig", "AdamW", "AdamWState", "make_optimizer",
-           "make_loss_fn", "make_train_step", "init_train_state", "global_norm"]
+           "make_loss_fn", "make_train_step", "make_step_parts", "StepParts", "ShardGrads",
+           "init_train_state", "global_norm"]
 
 
 class TrainConfig:
@@ -206,6 +207,147 @@ def make_loss_fn(model: RAG, sched: DiffusionSchedule, cfg: TrainConfig) -> Call
     return loss_fn
 
 
+class ShardGrads(NamedTuple):
+    """What one shard's forward and backward give the apply half of a step."""
+
+    loss: torch.Tensor  # the scalar loss, detached
+    grads: List[torch.Tensor]  # in the order of ``state.params``
+    t: torch.Tensor  # [B] timesteps
+    losses: torch.Tensor  # [B] per-sample losses, detached
+    means: torch.Tensor  # [3]: rot_mse, vel_mse, kld (0 where the loss has none)
+    terms: Tuple[str, ...]  # which of rot_mse, vel_mse, kld the loss has
+
+
+class StepParts(NamedTuple):
+    """The train step in its halves, so that a data-parallel step can
+    average between them (``parallel/training.py``):
+
+    - ``shard_grads(state, batch, generator, *, t, noise, style_eps,
+      cond_drop) -> ShardGrads``: the loss, its terms and its gradients on
+      one batch, with no host sync;
+    - ``read_host(state, sg) -> dict``: the step's one host sync, the
+      finite checks, the norms and the scalar metrics;
+    - ``sampler_update(state, sg, host)``: the loss-aware history after
+      the step (the state's own when the sampler is uniform or a loss is
+      not finite);
+    - ``apply(state, grads, host, sampler_state) -> TrainState``: AdamW
+      (skipped when a gradient is not finite) and the EMA;
+    - ``metrics(sg, host) -> dict``."""
+
+    shard_grads: Callable[..., ShardGrads]
+    read_host: Callable[..., Dict]
+    sampler_update: Callable[..., Optional[LossSecondMomentState]]
+    apply: Callable[..., TrainState]
+    metrics: Callable[..., Dict]
+
+
+_TERMS = ("rot_mse", "vel_mse", "kld")
+
+
+def make_step_parts(
+    model: RAG,
+    sched: DiffusionSchedule,
+    tx: AdamW,
+    cfg: TrainConfig,
+) -> StepParts:
+    """The halves of :func:`make_train_step` for ``model`` on its device."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    use_loss_aware = cfg.schedule_sampler in _LOSS_AWARE_NAMES
+    if not use_loss_aware and cfg.schedule_sampler != "uniform":
+        raise NotImplementedError(f"unknown schedule_sampler: {cfg.schedule_sampler!r}")
+    device = next(model.parameters()).device
+    sched = sched.to(device)
+    num_t = sched.num_timesteps
+    loss_fn = make_loss_fn(model, sched, cfg)
+
+    def shard_grads(state: TrainState, batch, generator: Optional[torch.Generator] = None, *,
+                    t=None, noise=None, style_eps=None, cond_drop=None) -> ShardGrads:
+        batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()
+                 if k in ("motion", "audio", "vid", "mask", "emo")}
+        as_dev = lambda v: None if v is None else torch.as_tensor(v).to(device)
+        noise, style_eps, cond_drop = as_dev(noise), as_dev(style_eps), as_dev(cond_drop)
+        b = batch["motion"].shape[0]
+        if t is None and use_loss_aware:
+            t, weights = loss_aware_sample_t(state.sampler_state, generator, b, device)
+        elif t is None:
+            t, weights = uniform_sample_t(generator, b, num_t, device)
+        else:
+            t = as_dev(t).long()
+            weights = torch.ones((b,), dtype=torch.float32, device=device)
+            if use_loss_aware:  # the importance weights of the given t
+                w = state.sampler_state.weights().to(device)
+                weights = 1.0 / (num_t * (w / w.sum())[t])
+
+        params = list(state.params.values())
+        loss, terms = loss_fn(batch, t, weights, generator, noise, style_eps, cond_drop)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        means = torch.stack([terms[k].detach().float().mean() if k in terms
+                             else loss.new_zeros(()) for k in _TERMS])
+        return ShardGrads(loss.detach(), grads, t, terms["loss_per_sample"].detach(), means,
+                          tuple(k for k in _TERMS if k in terms))
+
+    def read_host(state: TrainState, sg: ShardGrads) -> Dict:
+        # one host sync: a max-abs norm is finite iff every element is
+        params = list(state.params.values())
+        n = len(params)
+        host = torch.cat([
+            torch.stack(torch._foreach_norm(sg.grads, float("inf"))),
+            torch.stack(torch._foreach_norm(sg.grads)),
+            torch.stack(torch._foreach_norm(params)),
+            torch.stack([sg.loss, torch.isfinite(sg.losses).all().float(),
+                         sg.t.float().mean()]),
+            sg.means,
+        ]).tolist()
+        loss_v, losses_finite, t_mean, *means = host[3 * n:]
+        return {
+            "grads_finite": all(v == v and abs(v) != float("inf") for v in host[:n]),
+            "grad_norm": sum(v * v for v in host[n:2 * n]) ** 0.5,
+            "param_norm": sum(v * v for v in host[2 * n:3 * n]) ** 0.5,
+            "loss": loss_v, "losses_finite": losses_finite, "t_mean": t_mean,
+            "means": dict(zip(_TERMS, means)),
+        }
+
+    def sampler_update(state: TrainState, sg: ShardGrads, host: Dict):
+        if use_loss_aware and host["losses_finite"]:
+            return loss_aware_update(state.sampler_state, sg.t, sg.losses)
+        return state.sampler_state
+
+    def apply(state: TrainState, grads: List[torch.Tensor], host: Dict,
+              sampler_state) -> TrainState:
+        names = list(state.params)
+        opt_state = state.opt_state
+        if host["grads_finite"]:
+            updates, opt_state = tx.update(dict(zip(names, grads)), opt_state, state.params)
+            with torch.no_grad():
+                torch._foreach_add_(list(state.params.values()), [updates[k] for k in names])
+
+        ema = state.ema_params
+        if cfg.ema_rate > 0 and ema is not None:
+            rate = cfg.ema_rate
+            if cfg.ema_warmup:
+                rate = min(rate, (1.0 + state.step) / (10.0 + state.step))
+            ema = ema_update(ema, state.params, rate)
+        return TrainState(step=state.step + 1, params=state.params, opt_state=opt_state,
+                          sampler_state=sampler_state, ema_params=ema)
+
+    def metrics(sg: ShardGrads, host: Dict) -> Dict:
+        out = {
+            "loss": host["loss"],
+            "grad_norm": host["grad_norm"],
+            "param_norm": host["param_norm"],
+            "t_mean": host["t_mean"],
+            "skipped_nonfinite": 0.0 if host["grads_finite"] else 1.0,
+            "t": sg.t,
+            "loss_per_sample": sg.losses,
+        }
+        out.update((k, host["means"][k]) for k in sg.terms)
+        return out
+
+    return StepParts(shard_grads, read_host, sampler_update, apply, metrics)
+
+
 def make_train_step(
     model: RAG,
     sched: DiffusionSchedule,
@@ -224,87 +366,14 @@ def make_train_step(
 
     Building the step pins TF32 off for matmul and cuDNN: the WavEncoder's
     f32 convs would otherwise run in TF32."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    use_loss_aware = cfg.schedule_sampler in _LOSS_AWARE_NAMES
-    if not use_loss_aware and cfg.schedule_sampler != "uniform":
-        raise NotImplementedError(f"unknown schedule_sampler: {cfg.schedule_sampler!r}")
-    device = next(model.parameters()).device
-    sched = sched.to(device)
-    num_t = sched.num_timesteps
-    loss_fn = make_loss_fn(model, sched, cfg)
+    parts = make_step_parts(model, sched, tx, cfg)
 
     def train_step(state: TrainState, batch, generator: Optional[torch.Generator] = None, *,
                    t=None, noise=None, style_eps=None, cond_drop=None):
-        batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()
-                 if k in ("motion", "audio", "vid", "mask", "emo")}
-        as_dev = lambda v: None if v is None else torch.as_tensor(v).to(device)
-        noise, style_eps, cond_drop = as_dev(noise), as_dev(style_eps), as_dev(cond_drop)
-        b = batch["motion"].shape[0]
-        if t is None and use_loss_aware:
-            t, weights = loss_aware_sample_t(state.sampler_state, generator, b, device)
-        elif t is None:
-            t, weights = uniform_sample_t(generator, b, num_t, device)
-        else:
-            t = as_dev(t).long()
-            weights = torch.ones((b,), dtype=torch.float32, device=device)
-            if use_loss_aware:  # the importance weights of the given t
-                w = state.sampler_state.weights().to(device)
-                weights = 1.0 / (num_t * (w / w.sum())[t])
-
-        names = list(state.params)
-        params = [state.params[k] for k in names]
-        loss, terms = loss_fn(batch, t, weights, generator, noise, style_eps, cond_drop)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        losses_ps = terms["loss_per_sample"].detach()
-
-        # one host sync: a max-abs norm is finite iff every element is
-        n = len(params)
-        means = [terms[k].detach().float().mean() if k in terms else loss.new_zeros(())
-                 for k in ("rot_mse", "vel_mse", "kld")]
-        host = torch.cat([
-            torch.stack(torch._foreach_norm(grads, float("inf"))),
-            torch.stack(torch._foreach_norm(grads)),
-            torch.stack(torch._foreach_norm(params)),
-            torch.stack([loss.detach(), torch.isfinite(losses_ps).all().float(),
-                         t.float().mean(), *means]),
-        ]).tolist()
-        grads_finite = all(v == v and abs(v) != float("inf") for v in host[:n])
-        grad_norm = sum(v * v for v in host[n:2 * n]) ** 0.5
-        param_norm = sum(v * v for v in host[2 * n:3 * n]) ** 0.5
-        loss_v, losses_finite, t_mean, rot, vel, kld = host[3 * n:]
-
-        opt_state = state.opt_state
-        if grads_finite:
-            updates, opt_state = tx.update(dict(zip(names, grads)), opt_state, state.params)
-            with torch.no_grad():
-                torch._foreach_add_(params, [updates[k] for k in names])
-
-        sampler_state = state.sampler_state
-        if use_loss_aware and losses_finite:
-            sampler_state = loss_aware_update(sampler_state, t, losses_ps)
-
-        ema = state.ema_params
-        if cfg.ema_rate > 0 and ema is not None:
-            rate = cfg.ema_rate
-            if cfg.ema_warmup:
-                rate = min(rate, (1.0 + state.step) / (10.0 + state.step))
-            ema = ema_update(ema, state.params, rate)
-
-        metrics = {
-            "loss": loss_v,
-            "grad_norm": grad_norm,
-            "param_norm": param_norm,
-            "t_mean": t_mean,
-            "skipped_nonfinite": 0.0 if grads_finite else 1.0,
-            "t": t,
-            "loss_per_sample": losses_ps,
-        }
-        for k, v in (("rot_mse", rot), ("vel_mse", vel), ("kld", kld)):
-            if k in terms:
-                metrics[k] = v
-        return TrainState(step=state.step + 1, params=state.params, opt_state=opt_state,
-                          sampler_state=sampler_state, ema_params=ema), metrics
+        sg = parts.shard_grads(state, batch, generator, t=t, noise=noise, style_eps=style_eps,
+                               cond_drop=cond_drop)
+        host = parts.read_host(state, sg)
+        new = parts.apply(state, sg.grads, host, parts.sampler_update(state, sg, host))
+        return new, parts.metrics(sg, host)
 
     return train_step

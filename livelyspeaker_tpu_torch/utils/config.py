@@ -132,8 +132,8 @@ def add_sampling_options(p: argparse.ArgumentParser):
     g.add_argument("--fused", action="store_true",
                    help="sample through the fused TransMLP CUDA kernel")
     g.add_argument("--data_parallel", type=int, default=1,
-                   help="devices an eval batch is split over (the port "
-                        "runs on one)")
+                   help="devices an eval batch is split over: the first N "
+                        "cards, or the CPU N times with --device cpu")
     g.add_argument("--sampler", type=str, default="",
                    choices=["", "ddpm", "ddim", "plms", "dpmpp"],
                    help="override the sampler (default: ddim when respaced, "

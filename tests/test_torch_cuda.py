@@ -1292,3 +1292,38 @@ def test_pinned_loader_delivers_the_cpu_bits(cuda_device):
                 assert torch.equal(a[k].cpu(), b[k]), (n, k)
             n += 1
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resident", [False, True], ids=["streaming", "resident"])
+def test_two_shard_loader_delivers_the_cpu_bits(cuda_device, resident):
+    """A mesh that names the card twice: each batch leaves the host as two
+    shards (pinned slots, one copy stream and one event for the card) or is
+    gathered twice from one resident copy; the shards, in order, are the
+    CPU route's batch, with the consumer's stream kept busy."""
+    from livelyspeaker_tpu_torch.parallel import create_mesh
+
+    ds = _LoaderRows()
+    mesh = create_mesh(devices=["cuda:0", "cuda:0"])
+    kw = dict(batch_size=64, seed=3)
+    if resident:
+        gpu = loader.DeviceDataLoader(ds, mesh=mesh, fields=("audio", "vid", "pcm"), **kw)
+        assert list(gpu._dev) == [torch.device("cuda", 0)]  # held once
+    else:
+        gpu = loader.DataLoader(ds, mesh=mesh, prefetch=2, **kw)
+    cpu = loader.DataLoader(ds, device="cpu", **kw)
+    busy = torch.randn(2048, 2048, device="cuda")
+    n = 0
+    while n < 20:
+        for shards, b in zip(gpu, cpu, strict=True):
+            for _ in range(4):
+                busy = torch.tanh(busy @ busy * 1e-3)
+            assert len(shards) == 2 and all(s["audio"].shape[0] == 32 for s in shards)
+            for k in ("audio", "vid", "pcm"):
+                whole = torch.cat([s[k] for s in shards])
+                assert whole.device.type == "cuda" and whole.dtype == b[k].dtype
+                assert torch.equal(whole.cpu(), b[k]), (n, k)
+            if not resident:
+                assert shards[0]["sentence"] + shards[1]["sentence"] == b["sentence"]
+            n += 1
+    torch.cuda.synchronize()

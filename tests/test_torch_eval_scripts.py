@@ -343,8 +343,15 @@ def test_real_run_on_the_cpu_is_finite(script, files):
 
 
 def test_data_parallel_raises_rather_than_run_on_one_card(files):
-    with pytest.raises(SystemExit, match="not ported"):
-        eval_rag_ted.main(_argv(files, "rag_ted", ["--device", "cpu", "--data_parallel", "2"]))
+    """``--device cpu --data_parallel 2`` splits each batch over the CPU
+    twice (the sketch and the refinement a shard) and every number is
+    finite; a ``--data_parallel`` that does not divide the batch raises
+    rather than run on fewer shards."""
+    argv = REAL_RUNS["eval_livelyspeaker_ted"](files) + SMALL + ["--fused", "--data_parallel", "2"]
+    results, _ = _run_printing(eval_livelyspeaker_ted.main, argv)
+    assert results and all(np.isfinite(r).all() for r in results), results
+    with pytest.raises(SystemExit, match="multiple of --data_parallel 3"):
+        eval_rag_ted.main(_argv(files, "rag_ted", ["--device", "cpu", "--data_parallel", "3"]))
 
 
 def test_final_npz_picks_the_latest_model_and_not_the_ema(tmp_path):

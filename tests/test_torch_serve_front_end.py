@@ -439,8 +439,18 @@ def test_build_server_serves_the_checkpoints(tmp_path, small_clip_tower):
 
 def test_build_server_refuses_what_it_cannot_serve(tmp_path, small_clip_tower):
     _, paths = _checkpoints(tmp_path)
-    with pytest.raises(SystemExit, match="data_parallel"):
-        serve.build_server(_argv(paths, "--data_parallel", "2"))
+    # --data_parallel 2 on the CPU serves: one mesh of two CPU shards under
+    # the batcher's sampler and the composition, both routes warmed
+    srv, batcher = serve.build_server(_argv(paths, "--data_parallel", "2"))
+    try:
+        assert batcher.sampler.mesh.size == 2
+        assert batcher.composition.rag_sampler.mesh is batcher.sampler.mesh
+        assert batcher.stats()["requests_served"] == 2
+    finally:
+        srv.server_close()
+        batcher.close()
+    with pytest.raises(SystemExit, match="data_parallel"):  # max_batch 2
+        serve.build_server(_argv(paths, "--data_parallel", "3"))
     with pytest.raises(SystemExit, match="skip_steps"):
         serve.build_server(_argv(paths, "--skip_steps", "5"))
     with pytest.raises(SystemExit):  # argparse: not a sampler

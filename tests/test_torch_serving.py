@@ -215,8 +215,20 @@ def test_reload_params_swaps_and_validates():
 
 
 def test_build_rag_server_is_single_device():
+    """data_parallel=2 on the CPU: every padded batch is split over two
+    shards of the CPU, and the request is answered; a max_batch that two
+    shards cannot split raises."""
+    cfg = ServeConfig(max_batch=4, steps=50, timestep_respacing="ddim5", sampler="ddim",
+                      data_parallel=2)
+    batcher = build_rag_server(_model(), cfg, device="cpu")
+    try:
+        assert batcher.sampler.mesh.size == 2 and len(batcher.sampler.replicas) == 2
+        clip = batcher.generate(np.zeros(batcher.n_samples, np.float32), timeout=120)
+        assert clip.shape == (9, 3, 34) and np.isfinite(clip).all()
+    finally:
+        batcher.close()
     with pytest.raises(ValueError, match="data_parallel"):
-        build_rag_server(_model(), ServeConfig(data_parallel=2), device="cpu")
+        build_rag_server(_model(), ServeConfig(max_batch=3, data_parallel=2), device="cpu")
 
 
 def test_port_imports_without_jax_triton_or_nvcc():

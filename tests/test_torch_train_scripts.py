@@ -335,11 +335,16 @@ def test_train_sag_checkpoint_is_served(records, tmp_path, monkeypatch):
 @pytest.mark.parametrize("flags,match", [
     (["--pipeline_parallel", "2"], "pipeline_parallel"),
     (["--fsdp"], "fsdp"),
-    (["--device", "cuda:0,cuda:1"], "one card"),
+    (["--device", "cuda:0,cuda:1"], "CUDA devices"),
 ])
 def test_mesh_options_raise(records, tmp_path, script, flags, match):
+    """train_rag raises for a list that names absent cards (it trains over
+    a list that is there); train_sag trains on one device, as the JAX
+    script does, and refuses any list."""
     if script is train_sag and flags[0] == "--pipeline_parallel":
         match = None  # argparse refuses it first, as in the JAX script
+    if script is train_sag and flags[0] == "--device":
+        match = "on one device"
     with pytest.raises(SystemExit, match=match):
         script.main(["--dataset", "ted", "--data_dir", records["ted"], "--save_dir",
                      str(tmp_path), *flags])
