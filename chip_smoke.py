@@ -194,7 +194,23 @@ the fused WavEncoder stack (K3). Checks:
    the launches, falling losses); on a one-card machine
    serving_mesh(ServeConfig(data_parallel=2)) and eval_rag_ted
    --data_parallel 2 raise; a step's and a burst's wall with one shard and
-   with two on the card, in turns.
+   with two on the card, in turns;
+16. several processes, FSDP and pipeline stages (``multihost_phase``,
+   ``fsdp_phase``, ``pipeline_phase``, after 15.): two processes join a
+   gloo group on cuda:0 (``parallel.init_distributed``; NCCL refuses two
+   ranks on one card) and each trains 3 steps of the fused TED model on
+   its 256 rows of a global batch of 512 with injected draws: K2 in each
+   process (forward 3, each backward kernel 24, plain versions 0), both
+   ranks' params the same bits, rank 0's loss and params against the
+   in-process [cuda:0, cuda:0] step within rel 1e-5 and 1e-4; a one-rank
+   NCCL group trains the same 3 steps (NCCL's all-reduce on the card), and
+   the demo script runs on two gloo processes (--platform cuda, equal
+   losses); each timed run alone on the card; then train_rag on the eager backbone at TED B=512 for 3 steps:
+   --fsdp on [cuda:0, cuda:0] against the replicated run (losses within
+   rel 1e-5, each shard's persistent state about half), --pipeline_parallel
+   2 on [cuda:0, cuda:0] against the plain step on cuda:0, and
+   --pipeline_parallel 2 --fsdp on cuda:0 named four times (2 rows of 2
+   stages) against the replicated two-shard run; each run's step ms.
 
 With ``--profile DIR`` it also profiles a second burst of the 24 serving
 requests, 3 composed TED batches and 3 steps of each training run with
@@ -209,8 +225,11 @@ kernels' JSON report; the last line is {"ok": true, "device": {...}}.
 import argparse
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -3493,6 +3512,325 @@ def data_parallel_phase(card):
     return k1_burst + k1_comp, k2_launches
 
 
+MH_BATCH, MH_STEPS, MH_TIMEOUT = 512, 3, 300  # the global batch: 256 a process
+
+
+def _mh_data(cfg):
+    """The multi-process phase's global batch and each step's draws, the
+    same on every process (numpy, seeded)."""
+    rng = np.random.default_rng(70)
+    batch = _train_batch(cfg, rng, MH_BATCH)
+    draws = []
+    for _ in range(MH_STEPS):
+        d = {"t": rng.integers(0, 1000, size=(MH_BATCH,)),
+             "noise": rng.normal(size=(MH_BATCH, cfg.njoints, cfg.nfeats, cfg.nframes))
+             .astype(np.float32),
+             "style_eps": rng.normal(size=(MH_BATCH, 1, cfg.latent_dim)).astype(np.float32),
+             "cond_drop": (rng.random(MH_BATCH) < 0.1).astype(np.float32)}
+        draws.append({k: torch.from_numpy(v).cuda() for k, v in d.items()})
+    return batch, draws
+
+
+def _mh_model():
+    from livelyspeaker_tpu_torch.models import RAG, RAGConfig
+
+    cfg = RAGConfig.ted(fused_train_backbone=True)
+    return cfg, RAG(cfg, generator=torch.Generator().manual_seed(71)).cuda()
+
+
+def _wait_for(path, procs=()):
+    """Poll for ``path`` (a gate or a result file), MH_TIMEOUT at most; a
+    process of ``procs`` that fails meanwhile fails the phase."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if any(p.poll() for p in procs):
+            _finish(procs, f"multihost: waiting for {os.path.basename(path)}")
+        check(time.perf_counter() - t0 < MH_TIMEOUT, f"multihost: no {path}")
+        time.sleep(0.01)
+
+
+def _mh_train(mesh, rows, gate=None):
+    """MH_STEPS data-parallel steps of the fused TED model over ``mesh`` on
+    ``rows`` of each global batch, once the file ``gate`` exists (the set-up
+    before it is not timed): (model, losses, step ms, K2 launches, plain
+    calls)."""
+    from livelyspeaker_tpu_torch.ops import fused_mlp_train as k2
+    from livelyspeaker_tpu_torch.parallel import global_batch, shard_train_step
+
+    cfg, model = _mh_model()
+    state, sched, tx, tcfg = _dp_train_parts(model, TRAIN_LR)
+    step = shard_train_step(model, sched, tx, tcfg, mesh)
+    batch, draws = _mh_data(cfg)
+    torch.cuda.synchronize()
+    if gate is not None:
+        _wait_for(gate)
+    _reset_counts()
+    losses, ms = [], []
+    for d in draws:
+        t0 = time.perf_counter()
+        state, m = step(state, global_batch({k: v[rows] for k, v in batch.items()}, mesh), None,
+                        **{k: v[rows] for k, v in d.items()})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"])
+    plain = (k2.fused_transmlp_train_forward_reference.calls,
+             k2.fused_transmlp_train_backward_reference.calls)
+    return model, losses, ms, dict(k2.LAUNCHES), plain
+
+
+def multihost_worker(rank, world, port, backend, out_dir):
+    """One process of ``multihost_phase``: joins the group on cuda:0, sets
+    up, trains its rows once ``out_dir/go_{backend}`` exists, and writes its
+    numbers (and rank 0 its params) to ``out_dir``."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from livelyspeaker_tpu_torch.parallel import create_mesh, init_distributed
+
+    init_distributed(f"localhost:{port}", world, rank, local_device_ids=[0], backend=backend)
+    try:
+        mesh = create_mesh(devices=["cuda:0"])
+        rows = slice(rank * MH_BATCH // world, (rank + 1) * MH_BATCH // world)
+        model, losses, ms, launches, plain = _mh_train(
+            mesh, rows, gate=os.path.join(out_dir, f"go_{backend}"))
+        flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu()
+        if rank == 0:
+            torch.save(flat, os.path.join(out_dir, f"params_{backend}.pt"))
+        with open(os.path.join(out_dir, f"{backend}_rank{rank}.part"), "w") as f:
+            json.dump({"losses": losses, "ms": ms, "launches": launches, "plain": plain,
+                       "sha256": hashlib.sha256(flat.numpy().tobytes()).hexdigest(),
+                       "data": mesh.shape["data"], "backend": dist.get_backend()}, f)
+        os.replace(os.path.join(out_dir, f"{backend}_rank{rank}.part"),
+                   os.path.join(out_dir, f"{backend}_rank{rank}.json"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _start(cmds):
+    """Start the commands from this checkout's root."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return [subprocess.Popen(c, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True) for c in cmds]
+
+
+def _finish(procs, tag):
+    """Wait for the processes (MH_TIMEOUT each); every one is killed and
+    joined whatever happens. Returns their outputs."""
+    try:
+        outs = [p.communicate(timeout=MH_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=60)
+    for p, out in zip(procs, outs):
+        if p.returncode:
+            print(out[-4000:])
+        check(p.returncode == 0, f"{tag}: a process exited with {p.returncode}")
+    return outs
+
+
+def _worker_cmd(rank, world, port, backend, out_dir):
+    code = (f"import chip_smoke; chip_smoke.multihost_worker({rank}, {world}, {port}, "
+            f"{backend!r}, {out_dir!r})")
+    return [sys.executable, "-c", code]
+
+
+def multihost_phase(card):
+    """Multi-process data parallelism over torch.distributed on the one
+    card: two processes join a gloo group on cuda:0 and each trains
+    MH_STEPS steps of the fused TED model on its 256 rows of a global batch
+    of 512 with injected draws (K2 in each process); both ranks must hold
+    the same bits, and rank 0's loss and params must agree with the
+    in-process [cuda:0, cuda:0] mesh step on the same batch and draws within
+    the data-parallel phase's gates (loss rel 1e-5, params 1e-4). A one-rank
+    NCCL group trains the same steps (NCCL's init and all-reduce on the
+    card), and the demo script runs on two gloo processes (--platform
+    cuda). The processes start together and set up at once; the timed
+    steps run one after another, each alone on the card: the gloo pair,
+    the NCCL rank, the in-process reference; then the demo. Returns K2's
+    launches in the processes."""
+    from livelyspeaker_tpu_torch.parallel import create_mesh
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_mh.")
+    procs = []
+    try:
+        port, demo_port, nccl_port = _free_port(), _free_port(), _free_port()
+        procs = _start([_worker_cmd(r, 2, port, "gloo", work) for r in (0, 1)]
+                       + [_worker_cmd(0, 1, nccl_port, "nccl", work)])
+        result = lambda name: os.path.join(work, f"{name}.json")
+        open(os.path.join(work, "go_gloo"), "w").close()
+        for r in (0, 1):
+            _wait_for(result(f"gloo_rank{r}"), procs)
+        open(os.path.join(work, "go_nccl"), "w").close()
+        _wait_for(result("nccl_rank0"), procs)
+        _finish(procs, "multihost gloo ranks and one-rank nccl")
+        model, losses, ms, _, _ = _mh_train(create_mesh(devices=["cuda:0", "cuda:0"]),
+                                            slice(None))
+        ranks = []
+        for r in (0, 1):
+            with open(result(f"gloo_rank{r}")) as f:
+                ranks.append(json.load(f))
+        with open(result("nccl_rank0")) as f:
+            nccl = json.load(f)
+        got = torch.load(os.path.join(work, "params_gloo.pt"), weights_only=True)
+        procs = _start([[sys.executable, "-m",
+                         "livelyspeaker_tpu_torch.scripts.train_multihost_demo",
+                         "--process_id", str(r), "--coordinator", f"localhost:{demo_port}",
+                         "--platform", "cuda", "--backend", "gloo"] for r in (0, 1)])
+        outs = _finish(procs, "multihost demo")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(work, ignore_errors=True)
+
+    for r, res in enumerate(ranks):
+        print(f"[multihost] gloo rank {r} of 2 on cuda:0, mesh data {res['data']}: losses "
+              + " ".join(f"{v:.6f}" for v in res["losses"]) + f"; step ms {res['ms']} "
+              f"(the two processes share the card; {card}); K2 launches "
+              f"{res['launches']}, plain versions {res['plain']}")
+        check(res["data"] == 2 and res["backend"] == "gloo", f"multihost: rank {r}'s mesh")
+        check(res["launches"]["fwd"] == MH_STEPS and res["plain"] == [0, 0],
+              f"multihost: rank {r} launched K2's forward {res['launches']['fwd']} times")
+        for k in ("bwd_block", "wgrad", "reduce"):
+            check(res["launches"][k] == LAYERS * MH_STEPS,
+                  f"multihost: rank {r} launched {k} {res['launches'][k]} times")
+    check(ranks[0]["sha256"] == ranks[1]["sha256"], "multihost: the ranks' params differ")
+    check(ranks[0]["losses"] == ranks[1]["losses"], "multihost: the ranks' losses differ")
+
+    names = [k for k, _ in model.named_parameters()]
+    ref = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], losses))
+    diffs = [(a - b).abs().max().item() for a, b in zip(
+        got.split([p.numel() for p in model.parameters()]),
+        ref.split([p.numel() for p in model.parameters()]))]
+    diff = max(diffs)
+    outside = max(d for k, d in zip(names, diffs) if k not in ZERO_GRAD)
+    print(f"[multihost] two gloo processes against the in-process [cuda:0, cuda:0] step "
+          f"({ms} ms a step, {card}): loss rel {rel:.3e} (tol 1e-5), max |param diff| "
+          f"{diff:.3e} (tol 1e-4) at {names[diffs.index(diff)]}, {outside:.3e} outside the "
+          f"conv biases before an InstanceNorm (gradient 0 in exact arithmetic), "
+          f"bit-identical: {bool(torch.equal(got, ref))}")
+    check(rel <= 1e-5 and diff <= 1e-4, "multihost: the processes disagree with the mesh step")
+    del model
+
+    print(f"[multihost] one-rank nccl group (backend {nccl['backend']}): losses "
+          + " ".join(f"{v:.6f}" for v in nccl["losses"]) + f"; step ms {nccl['ms']} ({card}); "
+          f"K2 launches {nccl['launches']}")
+    check(nccl["backend"] == "nccl" and nccl["data"] == 1, "multihost: the nccl group")
+    check(nccl["launches"]["fwd"] == MH_STEPS and nccl["plain"] == [0, 0],
+          "multihost: the nccl rank's K2 launches")
+    check(all(np.isfinite(nccl["losses"])), "multihost: the nccl rank's loss is not finite")
+    demo_losses = []
+    for out in outs:
+        check("multihost demo OK" in out, "multihost demo: no 'multihost demo OK'")
+        demo_losses.append(re.findall(r"loss=([0-9.]+)", out))
+        print("[multihost] demo: " + " | ".join(
+            line for line in out.splitlines() if line.startswith("[p")))
+    check(len(demo_losses[0]) == 3 and demo_losses[0] == demo_losses[1],
+          f"multihost demo: the processes print other losses {demo_losses}")
+    print(f"[multihost] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {k: ranks[0]["launches"][k] + ranks[1]["launches"][k] + nccl["launches"][k]
+            for k in ranks[0]["launches"]}
+
+
+MESH_RECORD_CLIPS = 60  # 1,560 windows: one epoch of 3 steps at B=512
+
+
+def _state_bytes(state):
+    """Bytes of a train state's params, Adam moments and EMA (one shard)."""
+    trees = (state.params, state.opt_state.mu, state.opt_state.nu, state.ema_params or {})
+    return sum(t.numel() * t.element_size() for tree in trees for t in tree.values())
+
+
+def _mesh_records(work):
+    from livelyspeaker_tpu_torch.data.synthetic import build_synthetic_ted_records
+
+    ted_dir = os.path.join(work, "ted")
+    if not os.path.exists(os.path.join(ted_dir, "meta.json")):
+        build_synthetic_ted_records(ted_dir, n_clips=MESH_RECORD_CLIPS,
+                                    clip_seconds=RECORD_SECONDS, seed=72)
+    return ted_dir
+
+
+def _mesh_run(tag, work, flags, card):
+    """train_rag on the eager backbone at TED B=512 for one epoch (3 steps),
+    with ``flags``: the loop and its numbers; K2 must not run."""
+    argv = ["--dataset", "ted", "--data_dir", _mesh_records(work), "--batch_size",
+            str(TRAIN_BATCH), "--epochs", "1", "--lr", str(TRAIN_LR), "--latent_dim", "512",
+            "--layers", str(LAYERS), "--n_speakers", "1400", "--seed", "13", *flags]
+    return _records_rag_run(tag, argv, os.path.join(work, tag.replace(" ", "_")), card,
+                            want_decrease=False, shards=0)
+
+
+def fsdp_phase(card, work):
+    """train_rag --fsdp --device cuda:0,cuda:0 (eager backbone, TED B=512,
+    3 steps) against the replicated data-parallel run on the same
+    mesh: the losses within rel 1e-5, each shard's persistent state (params,
+    Adam moments) about half the replicated shard's. Returns the replicated
+    run's losses."""
+    t_phase = time.perf_counter()
+    rep_loop, rep = _mesh_run("replicated", work, ["--device", "cuda:0,cuda:0"], card)
+    rep_bytes = [_state_bytes(s) for s in rep_loop.step_fn.states()]
+    del rep_loop
+    torch.cuda.empty_cache()
+    loop, run = _mesh_run("fsdp", work, ["--device", "cuda:0,cuda:0", "--fsdp"], card)
+    states = loop.step_fn.states()
+    nbytes = [_state_bytes(s) for s in states]
+    freed = all(p.numel() == 0 for r in loop.step_fn.replicas
+                for k, p in r.named_parameters() if k in loop.step_fn.shards.dims)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], rep["losses"]))
+    ratio = max(a / b for a, b in zip(nbytes, rep_bytes))
+    mib = lambda xs: [round(x / 2 ** 20, 2) for x in xs]
+    print(f"[fsdp] {len(loop.step_fn.shards.dims)} of {len(states[0].params)} leaves sharded; "
+          f"persistent state a shard {mib(nbytes)} MiB against {mib(rep_bytes)} replicated "
+          f"(ratio {ratio:.3f}); gathered weights freed after the step: {freed}; peak memory "
+          f"{run['peak_gib']:.2f} GiB against {rep['peak_gib']:.2f}")
+    print(f"[fsdp] losses against the replicated run: rel {rel:.3e} (tol 1e-5); step "
+          f"{run['step_ms']:.2f} ms against {rep['step_ms']:.2f} ({card})")
+    check(rel <= 1e-5, "fsdp: the losses disagree with the replicated run's")
+    check(0.45 <= ratio <= 0.6, f"fsdp: a shard holds {ratio:.3f} of the replicated state")
+    check(freed, "fsdp: a replica kept its gathered weights")
+    print(f"[fsdp] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return rep["losses"]
+
+
+def pipeline_phase(card, work, replicated_losses):
+    """train_rag --pipeline_parallel 2 --device cuda:0,cuda:0 (one row of two
+    stages) against the plain step on cuda:0, then --pipeline_parallel 2
+    --fsdp over cuda:0 named four times (2 data rows of 2 stages) against
+    the replicated two-shard run of ``fsdp_phase`` (the same folded
+    streams): eager backbone, TED B=512, 3 steps, losses within
+    rel 1e-5."""
+    t_phase = time.perf_counter()
+    plain = _mesh_run("plain", work, ["--device", "cuda:0"], card)[1]
+    one_row = _mesh_run("pipeline", work, ["--device", "cuda:0,cuda:0",
+                                           "--pipeline_parallel", "2"], card)
+    check(one_row[0].mesh.shape == {"data": 1, "stage": 2}, "pipeline: the mesh")
+    rows = _mesh_run("pipeline fsdp", work, ["--device", ",".join(["cuda:0"] * 4),
+                                             "--pipeline_parallel", "2", "--fsdp"], card)
+    check(rows[0].mesh.shape == {"data": 2, "stage": 2} and rows[0].fsdp, "pipeline: the mesh")
+    rel1 = max(abs(a - b) / abs(b) for a, b in zip(one_row[1]["losses"], plain["losses"]))
+    rel2 = max(abs(a - b) / abs(b) for a, b in zip(rows[1]["losses"], replicated_losses))
+    print(f"[pipeline] one row of 2 stages against the plain step: loss rel {rel1:.3e}; 2 rows "
+          f"of 2 stages with fsdp against the replicated two-shard run: rel {rel2:.3e} (tol "
+          f"1e-5); step {one_row[1]['step_ms']:.2f} and {rows[1]['step_ms']:.2f} ms against "
+          f"{plain['step_ms']:.2f} plain ({card})")
+    check(rel1 <= 1e-5 and rel2 <= 1e-5, "pipeline: the losses disagree")
+    print(f"[pipeline] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -3513,6 +3851,13 @@ def main():
     launches += dp_k1
     for k, n in dp_k2.items():
         train_launches[k] += n
+    for k, n in multihost_phase(card).items():
+        train_launches[k] += n
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh.")
+    try:
+        pipeline_phase(card, work, fsdp_phase(card, work))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     launches += records_train_phase(card, train_stats)["eval"]["launches"]
     records_build_phase(card)
     wav_worst, wav_times = wav_kernel_phase(card)

@@ -23,8 +23,8 @@ from torch import nn
 
 from .initializers import dense_default_, lecun_normal_, xavier_uniform_
 
-__all__ = ["sinusoidal_table", "get_activation", "TimestepEmbedder",
-           "MLPBlock", "TransMLP"]
+__all__ = ["sinusoidal_table", "get_activation", "timestep_embedding", "mlp_block",
+           "TimestepEmbedder", "MLPBlock", "TransMLP"]
 
 
 def sinusoidal_table(
@@ -40,6 +40,10 @@ def sinusoidal_table(
     pe[:, 0::2] = np.sin(position * div_term)
     pe[:, 1::2] = np.cos(position * div_term)
     return torch.tensor(pe, dtype=dtype)
+
+
+LN_EPS = 1e-5  # both LayerNorms of a block
+PE_MAX_LEN = 5000  # rows of the timestep embedding's PE table
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -62,10 +66,33 @@ def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     return _ACTIVATIONS[name]
 
 
+def timestep_embedding(pe: torch.Tensor, t: torch.Tensor, fc1_w: torch.Tensor,
+                       fc1_b: torch.Tensor, fc2_w: torch.Tensor,
+                       fc2_b: torch.Tensor) -> torch.Tensor:
+    """``TimestepEmbedder``'s arithmetic on given weights: [B, 1, D]."""
+    h = F.linear(F.silu(F.linear(pe[t].to(fc1_w.dtype), fc1_w, fc1_b)), fc2_w, fc2_b)
+    return h[:, None, :]
+
+
+def mlp_block(x: torch.Tensor, emb: Optional[torch.Tensor], ln1_w: torch.Tensor,
+              ln1_b: torch.Tensor, token_w: torch.Tensor, token_b: torch.Tensor,
+              ln2_w: torch.Tensor, ln2_b: torch.Tensor, ch_w: torch.Tensor,
+              ch_b: torch.Tensor, act: Callable) -> torch.Tensor:
+    """``MLPBlock``'s arithmetic on given weights (the channel mix in
+    torch's [out, in] layout); the pipeline stages run it on stacked
+    weights."""
+    if emb is not None:
+        x = x + emb
+    d = x.shape[-1:]
+    h = torch.einsum("ij,bjd->bid", token_w, F.layer_norm(x, d, ln1_w, ln1_b, LN_EPS))
+    x = x + act(h + token_b[None, :, None])
+    return x + act(F.linear(F.layer_norm(x, d, ln2_w, ln2_b, LN_EPS), ch_w, ch_b))
+
+
 class TimestepEmbedder(nn.Module):
     """t -> PE-table lookup -> Linear/SiLU/Linear, returned as [B, 1, D]."""
 
-    def __init__(self, latent_dim: int, max_len: int = 5000,
+    def __init__(self, latent_dim: int, max_len: int = PE_MAX_LEN,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.register_buffer(
@@ -75,8 +102,8 @@ class TimestepEmbedder(nn.Module):
         self.fc2 = dense_default_(nn.Linear(latent_dim, latent_dim), generator)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        h = self.fc2(F.silu(self.fc1(self.pe[t].to(self.fc1.weight.dtype))))
-        return h[:, None, :]
+        return timestep_embedding(self.pe, t, self.fc1.weight, self.fc1.bias,
+                                  self.fc2.weight, self.fc2.bias)
 
 
 class MLPBlock(nn.Module):
@@ -86,11 +113,11 @@ class MLPBlock(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.act = get_activation(act)
-        self.ln1 = nn.LayerNorm(dim, eps=1e-5)
+        self.ln1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.token_mix_kernel = nn.Parameter(torch.empty(seq_len, seq_len))
         lecun_normal_(self.token_mix_kernel, seq_len, generator)
         self.token_mix_bias = nn.Parameter(torch.zeros(seq_len))
-        self.ln2 = nn.LayerNorm(dim, eps=1e-5)
+        self.ln2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.channel_mix = nn.Linear(dim, dim)
         # xavier-uniform with gain 1e-8: every block starts near the identity
         xavier_uniform_(self.channel_mix.weight, 1e-8, generator)
@@ -98,11 +125,9 @@ class MLPBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 emb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if emb is not None:
-            x = x + emb
-        h = torch.einsum("ij,bjd->bid", self.token_mix_kernel, self.ln1(x))
-        x = x + self.act(h + self.token_mix_bias[None, :, None])
-        return x + self.act(self.channel_mix(self.ln2(x)))
+        return mlp_block(x, emb, self.ln1.weight, self.ln1.bias, self.token_mix_kernel,
+                         self.token_mix_bias, self.ln2.weight, self.ln2.bias,
+                         self.channel_mix.weight, self.channel_mix.bias, self.act)
 
 
 class TransMLP(nn.Module):

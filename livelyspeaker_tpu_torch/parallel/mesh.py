@@ -1,31 +1,49 @@
-"""The device mesh, batch sharding, replicas and per-shard random streams.
+"""The device mesh, batch sharding, replicas, collectives, per-shard random
+streams, and the parameter rules with FSDP.
 
-Port of ``livelyspeaker_tpu/parallel/mesh.py:73-113``. The JAX package's
-mesh is a 2-axis ``jax.sharding.Mesh`` (``data`` for the batch, ``model``
-for tensor parallelism) over which GSPMD or ``shard_map`` place the work.
-Here one process drives every shard, as one JAX process drives its local
-devices: a :class:`Mesh` is an ordered list of ``torch.device``s on the
-``data`` axis, and the ``model`` axis has size 1.
+Port of ``livelyspeaker_tpu/parallel/mesh.py``. The JAX package's mesh is
+a 2-axis ``jax.sharding.Mesh`` (``data`` for the batch, ``model`` for
+tensor parallelism) over which GSPMD or ``shard_map`` place the work. Here
+one process drives each of its local shards, as one JAX process drives its
+local devices: a :class:`Mesh` is an ordered list of ``torch.device``s on
+the ``data`` axis, and the ``model`` axis has size 1.
 
 - Each shard holds its own replica of a module (:func:`replicate_module`:
   shard 0 is the module itself, the others ``copy.deepcopy`` of it on their
   devices), so a mesh may name one device twice: ``[cpu, cpu]`` on the
   CPU, ``[cuda:0, cuda:0]`` on one card. The code that runs is the same as
   on as many cards; only the device ids differ.
-- Collectives are plain tensor ops in a fixed order: a mean over shards
-  (:func:`pmean`) sums on shard 0's device in shard order and divides by
+- When ``torch.distributed`` is initialised (``multihost.init_distributed``)
+  the mesh also spans the process group: ``shape["data"]`` is the world
+  size times the local devices, and local shard i of process r is global
+  shard ``r * local + i``. Without a process group the mesh is the
+  process's own.
+- Collectives are tensor ops in a fixed order: a mean over shards
+  (:func:`pmean`) sums the local shards on shard 0's device in shard order,
+  then (across processes) all-reduces that sum, and divides by the global
   N; a tiled all-gather (:func:`gather_batch`) concatenates in shard order
-  there. Shards on one card therefore run one after the other.
+  there, and :func:`gather_processes` places each process's rows at their
+  offset in a zero buffer and all-reduces its bytes, which is exact
+  (x + 0 = x, byte by byte) on both backends. Shards on one card run one
+  after the other.
 - :func:`fold_in` is ``jax.random.fold_in(key, axis_index)``: one
   ``torch.Generator`` per shard, on that shard's device, derived from the
-  parent's state and the shard index. torch's streams are not threefry's,
-  so a sharded chain draws other numbers than an unsharded one (same law).
+  parent's state and the global shard index. torch's streams are not
+  threefry's, so a sharded chain draws other numbers than an unsharded one
+  (same law).
+- The parameter rules (``mesh.py:100-222`` of the JAX package) match the
+  Flax path of each torch parameter (``utils/convert.py``'s name map) and
+  carry each dim through its transpose: the port's spec of a tensor names
+  the dim the JAX spec names for its Flax counterpart. A spec is a tuple
+  of one axis name or None a dim. :func:`fsdp_shard_params` slices a train
+  state over the data axis (ZeRO-3: params, Adam moments and the EMA hold
+  1/N of every sharded leaf on each shard); the step that trains it is
+  ``parallel.training.fsdp_train_step``.
 
 The JAX module's ``batch_sharding`` and ``replicated`` are
-:func:`shard_batch` and :func:`replicate_module` here. Tensor parallelism
-and FSDP (``mesh.py:115-223`` of the JAX package) are a later slice:
-``model_parallel > 1`` and the JAX names of those rules raise
-``NotImplementedError``.
+:func:`shard_batch` and :func:`replicate_module` here. Tensor-parallel
+compute over a model axis above 1 is a later slice: ``model_parallel > 1``
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,28 +52,45 @@ import contextlib
 import copy
 import dataclasses
 import hashlib
-from typing import Any, List, Optional, Sequence
+import re
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..utils.convert import jax_leaf_layout
 
 __all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "create_mesh", "data_parallel_mesh",
            "replicate_module",
            "sync_replicas", "shard_batch", "gather_batch", "check_divisible", "pmean",
-           "fold_in", "shard_generators", "on_device", "later_slice", "param_spec",
-           "param_shardings", "shard_params", "fsdp_param_shardings", "fsdp_shard_params",
+           "gather_processes", "fold_in", "shard_generators", "on_device", "refuse_tensor_parallel",
+           "param_spec", "param_shardings", "shard_params", "FSDP_MIN_SIZE",
+           "fsdp_param_shardings", "fsdp_shard_params", "FSDPShards",
            "preserve_state_shardings"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
-_LATER_SLICE = ("is a later slice of the port (ROADMAP.md, queue 1, item 9); the mesh "
-                "is data-parallel only")
+_LATER_SLICE = ("is a later slice of the port (ROADMAP.md, queue 1, item 9): tensor-"
+                "parallel compute over a model axis above 1")
+
+
+def _process_group() -> Tuple[bool, int, int]:
+    """(whether a process group is initialised, its world size, this
+    process's rank): (False, 1, 0) without one."""
+    if dist.is_available() and dist.is_initialized():
+        return True, dist.get_world_size(), dist.get_rank()
+    return False, 1, 0
 
 
 class Mesh:
-    """An ordered list of devices of one type on the ``data`` axis; the
-    ``model`` axis has size 1. A device may appear more than once."""
+    """An ordered list of this process's devices, of one type, on the
+    ``data`` axis; the ``model`` axis has size 1. A device may appear more
+    than once. Under an initialised process group the data axis spans every
+    process (``shape["data"]`` = world size x local devices); ``size`` is
+    the number of local shards; its collectives go through the group
+    (``distributed``), even a group of one process."""
 
     def __init__(self, devices: Sequence):
         devs = [torch.device(d) for d in devices]
@@ -65,14 +100,21 @@ class Mesh:
             raise ValueError(f"a mesh holds devices of one type, got {devs}")
         self.devices = tuple(torch.device(d.type, 0) if d.type == "cuda" and d.index is None
                              else d for d in devs)
-        self.shape = {DATA_AXIS: len(self.devices), MODEL_AXIS: 1}
+        self.distributed, self.process_count, self.process_index = _process_group()
+        self.shape = {DATA_AXIS: self.process_count * len(self.devices), MODEL_AXIS: 1}
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
+    def shard_index(self, i: int) -> int:
+        """The global data index of local shard i."""
+        return self.process_index * self.size + i
+
     def __repr__(self) -> str:
-        return f"Mesh({[str(d) for d in self.devices]})"
+        span = f", process {self.process_index} of {self.process_count}" \
+            if self.process_count > 1 else ""
+        return f"Mesh({[str(d) for d in self.devices]}{span})"
 
 
 def create_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
@@ -83,9 +125,7 @@ def create_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
     There is no fallback: asking for more cards than the machine has raises,
     and so does the default where there is no card (name CPU devices, e.g.
     ``devices=["cpu", "cpu"]``, to run the plain versions on the CPU)."""
-    if model_parallel != 1:
-        raise NotImplementedError(f"model_parallel={model_parallel} (tensor parallelism) "
-                                  + _LATER_SLICE)
+    refuse_tensor_parallel("create_mesh", model_parallel)
     n_cards = torch.cuda.device_count()
     if devices is None:
         if n_cards == 0:
@@ -222,21 +262,60 @@ def gather_batch(shards: Sequence[Any], device: Optional[torch.device] = None) -
     return first
 
 
-def pmean(per_shard: Sequence[List[torch.Tensor]]) -> List[torch.Tensor]:
+def _exact_all_reduce(flat: torch.Tensor) -> None:
+    """Sum ``flat`` over the process group in place, byte by byte: exact
+    where at most one process holds a non-zero byte (an all-gather into a
+    zero buffer), on gloo and NCCL alike."""
+    dist.all_reduce(flat.view(torch.uint8))
+
+
+def _all_reduce_sum(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The elementwise sums over the process group, one flat all-reduce a
+    dtype."""
+    out = list(tensors)
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat)
+        for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+            out[i] = part.view(tensors[i].shape)
+    return out
+
+
+def pmean(per_shard: Sequence[List[torch.Tensor]], mesh: Optional[Mesh] = None
+          ) -> List[torch.Tensor]:
     """The mean over shards of lists of tensors: summed on shard 0's device
-    in shard order, then divided by N (``jax.lax.pmean`` of one value a
-    shard). The result lies on shard 0's device."""
+    in shard order, then, on a mesh that spans processes, summed over the
+    process group, then divided by the global N (``jax.lax.pmean`` of one
+    value a shard). The result lies on shard 0's device."""
     acc = list(per_shard[0])
     for shard in per_shard[1:]:
         acc = torch._foreach_add(acc, [x.to(a.device) for x, a in zip(shard, acc)])
-    return torch._foreach_div(acc, float(len(per_shard)))
+    n = len(per_shard)
+    if mesh is not None and mesh.distributed:
+        acc, n = _all_reduce_sum(acc), mesh.shape[DATA_AXIS]
+    return torch._foreach_div(acc, float(n))
+
+
+def gather_processes(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The all-gather over the process group of this process's rows of a
+    tiled batch (``x``, in local shard order): the global batch in global
+    shard order, on ``x``'s device; ``x`` itself on a process's own mesh."""
+    if not mesh.distributed:
+        return x
+    rows = x.shape[0]
+    out = x.new_zeros((mesh.process_count * rows,) + tuple(x.shape[1:]))
+    out[mesh.process_index * rows:(mesh.process_index + 1) * rows] = x
+    _exact_all_reduce(out)
+    return out
 
 
 def fold_in(generator: torch.Generator, index: int,
             device: Optional[torch.device] = None) -> torch.Generator:
     """A new generator on ``device`` (the parent's by default) whose seed is
-    a hash of the parent's current state and ``index``: deterministic in
-    both, and the parent is not advanced (``jax.random.fold_in``)."""
+    a hash of the parent's current state and ``index`` (a global shard
+    index: every process seeds the parent alike): deterministic in both,
+    and the parent is not advanced (``jax.random.fold_in``)."""
     state = generator.get_state().numpy().tobytes()
     digest = hashlib.blake2b(state + int(index).to_bytes(8, "little"), digest_size=8).digest()
     seed = int.from_bytes(digest, "little") & (2 ** 63 - 1)
@@ -245,7 +324,8 @@ def fold_in(generator: torch.Generator, index: int,
 
 def shard_generators(generator: Optional[torch.Generator], mesh: Mesh,
                      fold: bool = True) -> List[Optional[torch.Generator]]:
-    """One generator a shard, on its device: ``fold_in(generator, i)``, or
+    """One generator a local shard, on its device: ``fold_in(generator,
+    mesh.shard_index(i))``, or
     with ``fold=False`` a copy of the parent's state on every shard (every
     shard draws what the parent would). The parent then advances by one
     draw, so the next call derives other streams. None gives None a shard
@@ -253,7 +333,7 @@ def shard_generators(generator: Optional[torch.Generator], mesh: Mesh,
     if generator is None:
         return [None] * mesh.size
     if fold:
-        gens = [fold_in(generator, i, d) for i, d in enumerate(mesh.devices)]
+        gens = [fold_in(generator, mesh.shard_index(i), d) for i, d in enumerate(mesh.devices)]
     else:
         state = generator.get_state()
         gens = []
@@ -269,18 +349,270 @@ def shard_generators(generator: Optional[torch.Generator], mesh: Mesh,
     return gens
 
 
-def later_slice(name: str, what: str):
-    """A stand-in for a JAX name of a later slice: calling it raises."""
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(f"{name} ({what}) " + _LATER_SLICE)
-    refuse.__name__ = name
-    return refuse
+def refuse_tensor_parallel(what: str, model_parallel: int) -> None:
+    """Raise for a model axis above 1 (the later slice), naming ``what``."""
+    if model_parallel != 1:
+        raise NotImplementedError(f"{what}: model_parallel={model_parallel} " + _LATER_SLICE)
 
 
-# tensor parallelism and FSDP, ``mesh.py:115-223`` of the JAX package
-param_spec = later_slice("param_spec", "tensor parallelism")
-param_shardings = later_slice("param_shardings", "tensor parallelism")
-shard_params = later_slice("shard_params", "tensor parallelism")
-fsdp_param_shardings = later_slice("fsdp_param_shardings", "FSDP")
-fsdp_shard_params = later_slice("fsdp_shard_params", "FSDP")
-preserve_state_shardings = later_slice("preserve_state_shardings", "FSDP")
+# --- the parameter rules (``mesh.py:100-113`` of the JAX package) -----------
+#
+# A regex over the Flax path of a parameter and the spec of its Flax layout.
+# Only the wide (latent x latent or wider) matmuls carry a model-axis rule;
+# everything small replicates.
+_PARAM_RULES = (
+    (re.compile(r"channel_mix/kernel$"), (None, MODEL_AXIS)),
+    (re.compile(r"input_mapping/kernel$"), (None, MODEL_AXIS)),
+    (re.compile(r"(linear1|mlp_c_fc)/kernel$"), (None, MODEL_AXIS)),
+    (re.compile(r"(linear2|mlp_c_proj)/kernel$"), (MODEL_AXIS, None)),
+    (re.compile(r"embed_timestep/fc[12]/kernel$"), (None, MODEL_AXIS)),
+    (re.compile(r"(speaker_mu|speaker_logvar)/kernel$"), (None, MODEL_AXIS)),
+    (re.compile(r"in_proj_weight$"), (MODEL_AXIS, None)),
+    (re.compile(r"token_embedding$"), (None, MODEL_AXIS)),
+    (re.compile(r"speaker_embedding/embedding$"), (None, MODEL_AXIS)),
+)
+
+Spec = Tuple[Optional[str], ...]
+
+
+def _flax_layout(model: torch.nn.Module, name: str, ndim: int) -> Tuple[str, Tuple[int, ...]]:
+    """(Flax path, perm) of ``model``'s parameter ``name``: torch dim i is
+    Flax dim perm[i] (``utils/convert.py``)."""
+    *parents, leaf = name.split(".")
+    flax_leaf, perm = jax_leaf_layout(model.get_submodule(".".join(parents)), leaf, ndim)
+    return "/".join(parents + [flax_leaf]), perm
+
+
+def _flax_spec(path: str, ndim: int) -> List[Optional[str]]:
+    """The rule's spec of a Flax leaf, padded with None to its rank."""
+    spec: List[Optional[str]] = []
+    for rx, rule in _PARAM_RULES:
+        if rx.search(path):
+            spec = list(rule)
+            break
+    return (spec + [None] * ndim)[:ndim]
+
+
+def param_spec(model: torch.nn.Module, name: str) -> Spec:
+    """The rules' spec of ``model``'s parameter ``name``, in torch's dims:
+    the JAX ``param_spec`` of its Flax path carried through the transpose."""
+    ndim = model.get_parameter(name).ndim
+    path, perm = _flax_layout(model, name, ndim)
+    flax = _flax_spec(path, ndim)
+    return tuple(flax[perm[i]] for i in range(ndim))
+
+
+def param_shardings(model: torch.nn.Module, mesh) -> Dict[str, Spec]:
+    """{name: spec} under the rules; every leaf replicates on a mesh without
+    a model axis (the pipeline mesh). The port's model axis has size 1
+    (``create_mesh``), which every ruled dim divides."""
+    if MODEL_AXIS not in mesh.shape:
+        return {name: (None,) * p.ndim for name, p in model.named_parameters()}
+    return {name: param_spec(model, name) for name, _ in model.named_parameters()}
+
+
+def shard_params(model: torch.nn.Module, mesh) -> List[torch.nn.Module]:
+    """Place ``model`` on the mesh under the rules. Every mesh of the port has
+    a model axis of size 1, where every rule places the whole tensor on each
+    shard: one replica a shard (:func:`replicate_module`)."""
+    return replicate_module(model, mesh)
+
+
+# --- FSDP (ZeRO-style fully sharded data parallelism, ``mesh.py:115-222``) ---
+#
+# Every large leaf is also split over the data axis, so that params, Adam
+# moments and the EMA hold 1/N of it on each shard; a step all-gathers the
+# weights before its forward and keeps only its slice of the averaged
+# gradient.
+
+#: Leaves smaller than this stay replicated: gathering a tiny vector a step
+#: costs more than holding N copies.
+FSDP_MIN_SIZE = 2**13
+
+
+def fsdp_param_shardings(model: torch.nn.Module, mesh,
+                         min_size: int = FSDP_MIN_SIZE) -> Dict[str, Spec]:
+    """{name: spec}: the rules, plus the data axis on the largest still free
+    dim that it divides of every leaf of at least ``min_size`` elements. The
+    dim is chosen in the Flax layout, as the JAX function chooses it (its
+    ties go to the first Flax dim), then carried to torch's."""
+    data_size = mesh.shape[DATA_AXIS]
+    out = {}
+    for name, p in model.named_parameters():
+        path, perm = _flax_layout(model, name, p.ndim)
+        spec = _flax_spec(path, p.ndim)
+        shape = [p.shape[perm.index(j)] for j in range(p.ndim)]  # the Flax shape
+        if MODEL_AXIS not in mesh.shape:  # drop the rule, keep the leaf for FSDP
+            spec = [None if a == MODEL_AXIS else a for a in spec]
+        if p.numel() >= min_size and data_size > 1:
+            free = [j for j in range(p.ndim)
+                    if spec[j] is None and shape[j] % data_size == 0 and shape[j] >= data_size]
+            if free:
+                spec[max(free, key=lambda j: shape[j])] = DATA_AXIS
+        out[name] = tuple(spec[perm[i]] for i in range(p.ndim))
+    return out
+
+
+def _cut(x: torch.Tensor, dim: int, g: int, n: int, device) -> torch.Tensor:
+    """Global shard g's slice (of n) of ``x`` along ``dim``: a contiguous
+    copy on ``device``."""
+    rows = x.shape[dim] // n
+    return x.narrow(dim, g * rows, rows).contiguous().to(device, copy=True)
+
+
+class FSDPShards:
+    """A train state sliced over the data axis, and one replica a local
+    shard to compute with.
+
+    ``states[i]`` is local shard i's ``TrainState``: for a sharded leaf
+    (``dims``: its split dim) its params, ``mu``, ``nu`` and EMA hold the
+    shard's slice; for the rest they are full, the params being the
+    replica's own tensors. Between steps a replica's sharded parameters hold
+    no storage; :meth:`gather` fills them with the full weights, :meth:`free`
+    empties them again."""
+
+    def __init__(self, model: torch.nn.Module, mesh, min_size: int = FSDP_MIN_SIZE):
+        self.mesh = mesh
+        specs = fsdp_param_shardings(model, mesh, min_size)
+        self.dims = {k: s.index(DATA_AXIS) for k, s in specs.items() if DATA_AXIS in s}
+        self.shapes = {k: p.shape for k, p in model.named_parameters()}
+        self.replicas = replicate_module(model, mesh)
+        self.states: List[Any] = [None] * mesh.size
+
+    def load(self, state) -> List[Any]:
+        """Slice a full ``state`` (one TrainState, any device) over the
+        shards; the replicas' sharded parameters are then freed."""
+        n = self.mesh.shape[DATA_AXIS]
+        for i, (r, dev) in enumerate(zip(self.replicas, self.mesh.devices)):
+            g = self.mesh.shard_index(i)
+
+            def part(full: Dict[str, torch.Tensor], own=None):
+                out = {}
+                for k, v in full.items():
+                    if k in self.dims:
+                        out[k] = _cut(v, self.dims[k], g, n, dev)
+                    elif own is not None:
+                        own[k].copy_(v)
+                        out[k] = own[k]
+                    else:
+                        out[k] = v.to(dev, copy=True)
+                return out
+
+            with torch.no_grad():
+                params = part(state.params, dict(r.named_parameters()))
+            opt = dataclasses.replace(state.opt_state, mu=part(state.opt_state.mu),
+                                      nu=part(state.opt_state.nu))
+            ema = None if state.ema_params is None else part(state.ema_params)
+            self.states[i] = dataclasses.replace(state, params=params, opt_state=opt,
+                                                 ema_params=ema)
+        for i in range(self.mesh.size):
+            self.free(i)
+        return list(self.states)
+
+    def _gather(self, slices: Sequence[Dict[str, torch.Tensor]], device) -> Dict[str, torch.Tensor]:
+        """The full tensors of the sharded leaves on ``device``, from each
+        local shard's slices: each slice copied to its global place in one
+        zero buffer, then (across processes) an exact all-reduce of it."""
+        keys = list(self.dims)
+        if not keys:
+            return {}
+        sizes = [int(np.prod(self.shapes[k])) for k in keys]
+        flat = torch.zeros(sum(sizes), dtype=slices[0][keys[0]].dtype, device=device)
+        full = {k: t.view(self.shapes[k]) for k, t in zip(keys, flat.split(sizes))}
+        n = self.mesh.shape[DATA_AXIS]
+        for i, part in enumerate(slices):
+            g = self.mesh.shard_index(i)
+            for k in keys:
+                d = self.dims[k]
+                rows = self.shapes[k][d] // n
+                full[k].narrow(d, g * rows, rows).copy_(part[k])
+        if self.mesh.distributed:
+            _exact_all_reduce(flat)
+        return full
+
+    def gather(self, i: int) -> None:
+        """Replica i's sharded parameters filled with the full weights."""
+        full = self._gather([s.params for s in self.states], self.mesh.devices[i])
+        for k, p in self.replicas[i].named_parameters():
+            if k in full:
+                p.data = full[k]
+
+    def free(self, i: int) -> None:
+        """Replica i's sharded parameters emptied (no storage)."""
+        for k, p in self.replicas[i].named_parameters():
+            if k in self.dims:
+                p.data = p.data.new_empty(0)
+
+    def slice_grads(self, grads: Sequence[torch.Tensor], i: int) -> List[torch.Tensor]:
+        """Local shard i's part of the averaged gradients (in the order of
+        the parameters): its slice of a sharded leaf, all of the rest, on
+        its device."""
+        n, g, dev = self.mesh.shape[DATA_AXIS], self.mesh.shard_index(i), self.mesh.devices[i]
+        return [_cut(x, self.dims[k], g, n, dev) if k in self.dims else x.to(dev)
+                for k, x in zip(self.shapes, grads)]
+
+    def gathered_state(self):
+        """One full copy of the train state, on shard 0's device: what a
+        checkpoint holds."""
+        s0, dev = self.states[0], self.mesh.devices[0]
+
+        def whole(parts):
+            full = self._gather(parts, dev)
+            return {k: full[k] if k in full else v.detach().clone() for k, v in parts[0].items()}
+
+        opt = dataclasses.replace(s0.opt_state, mu=whole([s.opt_state.mu for s in self.states]),
+                                  nu=whole([s.opt_state.nu for s in self.states]))
+        ema = None if s0.ema_params is None else whole([s.ema_params for s in self.states])
+        return dataclasses.replace(s0, params=whole([s.params for s in self.states]),
+                                   opt_state=opt, ema_params=ema)
+
+
+def fsdp_shard_params(model: torch.nn.Module, state, mesh,
+                      min_size: int = FSDP_MIN_SIZE) -> FSDPShards:
+    """``state`` (a full TrainState over ``model``'s parameters) sliced over
+    the mesh's data axis: one replica a local shard (shard 0 is ``model``),
+    and each shard's state holding its slice of every leaf that
+    :func:`fsdp_param_shardings` shards (ZeRO-3 memory); the rest
+    replicated."""
+    shards = FSDPShards(model, mesh, min_size)
+    shards.load(state)
+    return shards
+
+
+def _layout(state) -> Dict[str, Tuple]:
+    """(shape, device) of every tensor leaf of a TrainState."""
+    out = {}
+
+    def walk(prefix, tree):
+        if isinstance(tree, torch.Tensor):
+            out[prefix] = (tuple(tree.shape), tree.device)
+        elif isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(f"{prefix}/{k}", v)
+        elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+            for f in dataclasses.fields(tree):
+                walk(f"{prefix}/{f.name}", getattr(tree, f.name))
+
+    walk("", state)
+    return out
+
+
+def preserve_state_shardings(step_fn, state):
+    """Wrap a ``(state, batch, ...) -> (state, metrics)`` step so that the
+    state it returns must have the placement of ``state``: every tensor leaf
+    the same (slice) shape on the same device, else it raises. This pins an
+    FSDP state's slices across steps (and the status quo of a replicated
+    one). The wrapper carries the step's attributes (``replicas``,
+    ``states``, ...)."""
+    layout = _layout(state)
+
+    def wrapped(st, batch, *args, **kw):
+        new_state, metrics = step_fn(st, batch, *args, **kw)
+        got = _layout(new_state)
+        if got != layout:
+            moved = sorted(k for k in set(got) | set(layout) if got.get(k) != layout.get(k))
+            raise RuntimeError(f"the step changed the state's placement: {moved[:5]}")
+        return new_state, metrics
+
+    wrapped.__dict__.update(getattr(step_fn, "__dict__", {}))
+    return wrapped

@@ -36,7 +36,11 @@ def shard_sample_fn(fn: Callable, mesh: Mesh, replicas: Sequence, batched: Seque
     are passed unchanged. ``rng_arg`` names the argument that holds the
     ``torch.Generator`` (or None), replaced on each shard by its folded
     generator. The outputs are concatenated in shard order on shard 0's
-    device. The global batch must divide the mesh size."""
+    device. The global batch must divide the mesh size. A mesh that spans
+    processes raises: nothing samples across processes."""
+    if mesh.process_count > 1:
+        raise ValueError("sampling runs within one process, as in the JAX package; the mesh "
+                         f"{mesh} spans {mesh.process_count} processes")
     if rng_arg is not None and batched[rng_arg]:
         raise ValueError(f"argument {rng_arg} is the generator and cannot be batched")
     n = mesh.size

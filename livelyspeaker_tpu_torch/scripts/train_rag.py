@@ -16,14 +16,23 @@ JAX package's flat npz, ``args.json``, whole-state checkpoints) and resume
 as the JAX script. ``--fused_train`` runs the mixer backbone through the
 fused CUDA training kernels.
 
-Where it runs, as the JAX script's mesh (``scripts/train_rag.py:88-135``):
+Where it runs, as the JAX script's mesh (``scripts/train_rag.py:66-189``):
 by default every local card, data-parallel when there are several
 (``parallel.shard_train_step``: each card a slice of the batch, the
 gradients averaged); ``--device cpu`` one CPU shard; a list such as
 ``--device cpu,cpu`` or ``--device cuda:0,cuda:1`` names the mesh's
 devices (a device may repeat). The batch must be a multiple of the
-mesh's size. ``--pipeline_parallel`` above 1 and ``--fsdp`` (with or
-without ``--fused_train``) are later slices of the port and raise.
+mesh's data rows. ``--pipeline_parallel N`` lays those devices out as
+data rows of N GPipe stages (``parallel.create_pipeline_mesh``) and runs
+the mixer stack over each row's stages; ``--fsdp`` slices the params, Adam
+moments and EMA over the data axis (``parallel.fsdp_train_step``). Both
+compose; the JAX script's refusals stand: ``--pipeline_parallel`` with
+``--fused_train``, layers not divisible by N, and ``--fsdp`` with
+``--fused_train`` on more than one device.
+
+    python -m livelyspeaker_tpu_torch.scripts.train_rag --dataset synthetic \
+        --device cpu,cpu,cpu,cpu --pipeline_parallel 2 --fsdp --latent_dim 32 \
+        --layers 2 --batch_size 8 --epochs 1
 """
 
 from __future__ import annotations
@@ -39,7 +48,8 @@ from ..data import DataLoader, DeviceDataLoader, TedWindowDataset
 from ..diffusion import DiffusionSchedule
 from ..models import RAG, RAGConfig
 from ..training import TrainConfig
-from ..parallel import create_mesh
+from ..parallel import create_mesh, create_pipeline_mesh, make_pipeline_backbone_factory
+from ..parallel.training import FSDP_FUSED_REFUSAL
 from ..training.loop import TrainLoop
 from ..utils.config import train_args
 from ..utils.device import place_model
@@ -71,20 +81,29 @@ def synthetic_records_dir() -> str:
     return data_dir
 
 
-def refuse_mesh_options(args) -> None:
-    """The JAX script's mesh options that are later slices of the port:
-    each raises, none falls back."""
-    if args.pipeline_parallel > 1:
-        raise SystemExit(
-            f"--pipeline_parallel {args.pipeline_parallel}: pipeline stages over a mesh are "
-            "not ported yet; the port trains data-parallel only")
-    if args.fsdp:
-        raise SystemExit("--fsdp: sharded parameters are not ported yet; the port trains "
-                         "data-parallel over replicated parameters only")
-
-
 def _device_names(args) -> List[str]:
     return [d for d in (args.device or "").replace(",", " ").split() if d]
+
+
+def refuse_mesh_options(args) -> None:
+    """What the JAX script refuses of its mesh options
+    (``scripts/train_rag.py:72-83, 97-102``), in its words."""
+    pp = args.pipeline_parallel
+    if pp > 1:
+        if args.fused_train:
+            raise SystemExit(
+                "--pipeline_parallel does not compose with --fused_train "
+                "(the fused custom-VJP kernel is a single-chip whole-stack "
+                "program; the pipeline shards the stack over 'stage')"
+            )
+        if args.layers % pp:
+            raise SystemExit(
+                f"--layers {args.layers} not divisible by "
+                f"--pipeline_parallel {pp}"
+            )
+    n_devices = len(_device_names(args)) or max(torch.cuda.device_count(), 1)
+    if args.fsdp and args.fused_train and n_devices > 1:
+        raise SystemExit(FSDP_FUSED_REFUSAL)
 
 
 def refuse_device_list(args, what: str) -> None:
@@ -97,14 +116,18 @@ def refuse_device_list(args, what: str) -> None:
 
 
 def mesh_from_devices(args):
-    """The training mesh of ``--device``: the devices of a list; by default
-    every local card when there are several; else None (one device)."""
-    names = _device_names(args)
+    """The training mesh of ``--device``: the devices of a list, by default
+    every local card; laid out in pipelines of ``--pipeline_parallel``
+    stages when that is above 1. None (one device, no mesh) when there is
+    one device and neither ``--pipeline_parallel`` nor ``--fsdp``."""
+    names = _device_names(args) or None
+    pp = args.pipeline_parallel
     try:
-        if len(names) > 1:
+        if pp > 1:
+            return create_pipeline_mesh(pipeline_parallel=pp, devices=names)
+        if args.fsdp or len(names or ()) > 1 or (
+                not names and torch.cuda.device_count() > 1):
             return create_mesh(devices=names)
-        if not names and torch.cuda.device_count() > 1:
-            return create_mesh()
     except (ValueError, RuntimeError) as e:
         raise SystemExit(f"--device {args.device!r}: {e}") from e
     return None
@@ -160,7 +183,7 @@ def main(argv: Optional[List[str]] = None) -> TrainLoop:
     batch_size = min(args.batch_size, max(len(dataset) // 2, 1))
     if mesh is not None and batch_size % mesh.size:
         raise SystemExit(f"batch size {batch_size} must be a multiple of the {mesh.size} "
-                         "devices of the mesh")
+                         "data rows of the mesh")
     place = dict(device=None, mesh=mesh) if mesh is not None else dict(device=device)
     if args.device_resident:
         loader = DeviceDataLoader(dataset, batch_size, shuffle=True, seed=args.seed,
@@ -180,6 +203,9 @@ def main(argv: Optional[List[str]] = None) -> TrainLoop:
         ema_warmup=args.ema_warmup,
         kld_weight=0.0 if args.dataset == "beat" else 0.01,
     )
+    backbone_factory = None
+    if args.pipeline_parallel > 1:
+        backbone_factory = make_pipeline_backbone_factory(cfg, mesh)
     loop = TrainLoop(
         model,
         sched,
@@ -194,6 +220,8 @@ def main(argv: Optional[List[str]] = None) -> TrainLoop:
         seed=args.seed,
         args_to_save=vars(args),
         resume=bool(args.resume_checkpoint),
+        backbone_factory=backbone_factory,
+        fsdp=bool(args.fsdp),
         **place,
     )
     loop.run_loop()

@@ -40,7 +40,7 @@ from ..training.checkpoints import save_args, save_params_npz
 from ..training.logging import KVLogger
 from ..utils.config import add_all_groups
 from ..utils.device import place_model
-from .train_rag import refuse_device_list, refuse_mesh_options, synthetic_records_dir
+from .train_rag import refuse_device_list, synthetic_records_dir
 
 __all__ = ["main", "parse_args", "make_sag_train_step"]
 
@@ -129,7 +129,9 @@ def _evaluator(args, device):
 def main(argv: Optional[List[str]] = None) -> Dict:
     """Train as ``argv`` says; returns ``{"step", "best_fgd", "model"}``."""
     args = parse_args(argv)
-    refuse_mesh_options(args)
+    if args.fsdp:
+        raise SystemExit("--fsdp: the JAX script trains the SAG on one device, with no "
+                         "mesh, and so does the port")
     refuse_device_list(args, "the SAG")
     torch.manual_seed(args.seed)  # the dropout masks
     torch.backends.cuda.matmul.allow_tf32 = False

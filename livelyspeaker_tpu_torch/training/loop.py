@@ -8,10 +8,14 @@ interrupted epoch), and the params and EMA npz export.
 Each step draws from its own generator, seeded from (seed, global step), so
 a resumed run replays the draws of an uninterrupted one.
 
-With a ``mesh`` (``parallel.create_mesh``) of more than one device, or with
+With a ``mesh`` (``parallel.create_mesh``) of more than one shard, or with
 ``use_shard_map``, the loop trains through the data-parallel step of
 ``parallel/training.py``; ``state`` is shard 0's, the checkpoint holds that
-one copy, and a resume restores every replica from it.
+one copy, and a resume restores every replica from it. With ``fsdp`` it
+trains through the fully sharded step: ``state`` is shard 0's slices, pinned to their placement
+(``parallel.preserve_state_shardings``), a checkpoint holds one gathered
+copy, and a resume slices it again. ``backbone_factory`` (the pipeline
+stages, ``parallel.pipeline``) runs each shard's mixer stack.
 """
 
 from __future__ import annotations
@@ -46,11 +50,14 @@ class TrainLoop:
     device stays there) and construction raises where there is none;
     ``device="cpu"``, or any explicit device, is taken as given.
 
-    ``mesh`` puts the model on its first device and, when it has more than
-    one device or ``use_shard_map`` is set, trains data-parallel over it
-    (``parallel.shard_train_step``); ``device`` must then be None. The
-    data may then yield the global batch or a list of one batch a shard
-    (``DataLoader(mesh=...)``)."""
+    ``mesh`` puts the model on its first device and, when its data axis has
+    more than one shard or ``use_shard_map`` is set, trains data-parallel
+    over it (``parallel.shard_train_step``); ``device`` must then be None.
+    The data may then yield the global batch or a list of one batch a
+    shard (``DataLoader(mesh=...)``). ``fsdp`` (with a mesh) trains the
+    fully sharded step (``parallel.fsdp_train_step``) instead. ``backbone_factory``: see
+    ``training.trainer.make_loss_fn``; refused with ``use_shard_map``, as in
+    the JAX loop."""
 
     def __init__(
         self,
@@ -72,9 +79,19 @@ class TrainLoop:
         device: Optional[Union[str, torch.device]] = None,
         mesh=None,
         use_shard_map: bool = False,
+        backbone_factory=None,
+        fsdp: bool = False,
     ):
         if use_shard_map and mesh is None:
             raise ValueError("use_shard_map=True requires a mesh")
+        if fsdp and mesh is None:
+            raise ValueError("fsdp=True requires a mesh")
+        if use_shard_map and backbone_factory is not None:
+            raise ValueError(
+                "backbone_factory (pipeline parallelism) and "
+                "use_shard_map (fused-kernel DP) are separate mesh "
+                "programs; drop one"
+            )
         if mesh is not None:
             if device is not None:
                 raise ValueError("TrainLoop takes a mesh or a device, not both")
@@ -100,12 +117,23 @@ class TrainLoop:
         self.state: TrainState = init_train_state(
             dict(model.named_parameters()), tx, cfg=self.cfg,
             num_timesteps=sched.num_timesteps)
-        if mesh is not None and (use_shard_map or mesh.size > 1):
+        self.fsdp = fsdp
+        if fsdp:
+            from ..parallel.training import fsdp_train_step
+
+            self.step_fn = fsdp_train_step(model, sched, tx, self.cfg, mesh,
+                                           backbone_factory=backbone_factory)
+        elif mesh is not None and (use_shard_map or mesh.shape["data"] > 1):
             from ..parallel.training import shard_train_step
 
-            self.step_fn = shard_train_step(model, sched, tx, self.cfg, mesh)
+            self.step_fn = shard_train_step(model, sched, tx, self.cfg, mesh,
+                                            backbone_factory=backbone_factory)
         else:
-            self.step_fn = make_train_step(model, sched, tx, self.cfg)
+            step = make_train_step(model, sched, tx, self.cfg, backbone_factory=backbone_factory)
+            # a mesh of one shard: the loaders yield a list of one batch
+            self.step_fn = step if mesh is None else (
+                lambda st, batch, gen: step(st, batch[0] if isinstance(batch, (list, tuple))
+                                            else batch, gen))
         self.ckpt = CheckpointManager(save_dir) if save_dir else None
         self.start_step = 0
         if save_dir and args_to_save is not None:
@@ -116,6 +144,11 @@ class TrainLoop:
                 self.state = restored
                 self.start_step = step
                 print(f"resumed from step {step}")
+        if fsdp:  # slice the full state over the shards, then pin the slices
+            from ..parallel.mesh import preserve_state_shardings
+
+            self.state = self.step_fn.shard(self.state)
+            self.step_fn = preserve_state_shardings(self.step_fn, self.state)
         self.host_step = self.start_step
 
     @property
@@ -177,12 +210,14 @@ class TrainLoop:
                                         group_name="Loss")
 
     def save(self) -> None:
+        """Checkpoint and npz export at this step: one full copy (gathered
+        from the shards under FSDP)."""
         if self.ckpt.latest_step() == self.step:
             return  # already saved at this step
-        self.ckpt.save(self.step, self.state)
-        save_params_npz(f"{self.save_dir}/model{self.step:09d}.npz",
-                        self.state.params, self.model)
-        if self.state.ema_params is not None:
+        state = self.step_fn.gathered_state() if self.fsdp else self.state
+        self.ckpt.save(self.step, state)
+        save_params_npz(f"{self.save_dir}/model{self.step:09d}.npz", state.params, self.model)
+        if state.ema_params is not None:
             save_params_npz(f"{self.save_dir}/model_ema{self.step:09d}.npz",
-                            self.state.ema_params, self.model)
+                            state.ema_params, self.model)
         print(f"saved checkpoint at step {self.step}")

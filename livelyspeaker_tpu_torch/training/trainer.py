@@ -117,12 +117,14 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: AdamWState,
-               params: Mapping[str, torch.Tensor]
+               params: Mapping[str, torch.Tensor], clip_norm: Optional[torch.Tensor] = None
                ) -> Tuple[Dict[str, torch.Tensor], AdamWState]:
+        """``clip_norm``: the global norm to clip by, where ``grads`` are
+        only a slice of the gradient (FSDP); by default theirs."""
         names = list(grads)
         g = [grads[k] for k in names]
         if self.grad_clip > 0:
-            norm = global_norm(g)
+            norm = global_norm(g) if clip_norm is None else clip_norm
             g = [torch.where(norm < self.grad_clip, x, x / norm * self.grad_clip) for x in g]
         b1, b2 = self.b1, self.b2
         mu = torch._foreach_add(torch._foreach_mul(g, 1 - b1),
@@ -171,11 +173,18 @@ def init_train_state(
                       sampler_state=sampler_state, ema_params=ema_params)
 
 
-def make_loss_fn(model: RAG, sched: DiffusionSchedule, cfg: TrainConfig) -> Callable:
+def make_loss_fn(model: RAG, sched: DiffusionSchedule, cfg: TrainConfig,
+                 backbone_factory: Optional[Callable] = None) -> Callable:
     """``loss_fn(batch, t, weights, generator=None, noise=None,
     style_eps=None, cond_drop=None) -> (loss, terms)``: the training loss of
     one batch already on the model's device, as the train step
-    differentiates it. ``sched`` must be on that device too."""
+    differentiates it. ``sched`` must be on that device too.
+
+    ``backbone_factory(params) -> backbone_apply`` routes the mixer stack
+    through another forward built from the live parameters (``params``:
+    the model's, or their compute-dtype copies, by state_dict key), as the
+    JAX step's hook does (``trainer.py:138-200``); the pipeline stages
+    (``parallel.pipeline.make_pipeline_backbone_factory``) plug in here."""
     compute_dtype = getattr(torch, cfg.compute_dtype)
 
     def loss_fn(batch, t, weights, generator=None, noise=None, style_eps=None,
@@ -188,15 +197,20 @@ def make_loss_fn(model: RAG, sched: DiffusionSchedule, cfg: TrainConfig) -> Call
         if compute_dtype != torch.float32:
             apply_params = {k: p.to(compute_dtype) if p.dtype == torch.float32 else p
                             for k, p in model.named_parameters()}
+            backbone_apply = backbone_factory(apply_params) if backbone_factory else None
 
             def model_fn(x_t, t_model):
                 out = torch.func.functional_call(
                     model, apply_params, (x_t.to(compute_dtype), t_model, cond),
-                    {"train": True, "generator": generator})
+                    {"train": True, "generator": generator, "backbone_apply": backbone_apply})
                 return {k: v.to(torch.float32) for k, v in out.items()}
         else:
+            backbone_apply = (backbone_factory(dict(model.named_parameters()))
+                              if backbone_factory else None)
+
             def model_fn(x_t, t_model):
-                return model(x_t, t_model, cond, train=True, generator=generator)
+                return model(x_t, t_model, cond, train=True, generator=generator,
+                             backbone_apply=backbone_apply)
 
         terms = training_losses(model_fn, sched, batch["motion"], t, generator,
                                 mask=batch.get("mask"), loss_type=cfg.loss_type,
@@ -225,13 +239,17 @@ class StepParts(NamedTuple):
     - ``shard_grads(state, batch, generator, *, t, noise, style_eps,
       cond_drop) -> ShardGrads``: the loss, its terms and its gradients on
       one batch, with no host sync;
-    - ``read_host(state, sg) -> dict``: the step's one host sync, the
-      finite checks, the norms and the scalar metrics;
+    - ``read_host(state, sg, norms=None) -> dict``: the step's one host
+      sync, the finite checks, the norms and the scalar metrics (``norms``:
+      the [3, m] inf-norms and 2-norms of the gradients and the 2-norms of
+      the parameters over which the global norms run, by default those of
+      ``sg.grads`` and ``state.params``);
     - ``sampler_update(state, sg, host)``: the loss-aware history after
       the step (the state's own when the sampler is uniform or a loss is
       not finite);
-    - ``apply(state, grads, host, sampler_state) -> TrainState``: AdamW
-      (skipped when a gradient is not finite) and the EMA;
+    - ``apply(state, grads, host, sampler_state, clip_norm=None) ->
+      TrainState``: AdamW (skipped when a gradient is not finite) and the
+      EMA;
     - ``metrics(sg, host) -> dict``."""
 
     shard_grads: Callable[..., ShardGrads]
@@ -249,6 +267,7 @@ def make_step_parts(
     sched: DiffusionSchedule,
     tx: AdamW,
     cfg: TrainConfig,
+    backbone_factory: Optional[Callable] = None,
 ) -> StepParts:
     """The halves of :func:`make_train_step` for ``model`` on its device."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -259,7 +278,7 @@ def make_step_parts(
     device = next(model.parameters()).device
     sched = sched.to(device)
     num_t = sched.num_timesteps
-    loss_fn = make_loss_fn(model, sched, cfg)
+    loss_fn = make_loss_fn(model, sched, cfg, backbone_factory)
 
     def shard_grads(state: TrainState, batch, generator: Optional[torch.Generator] = None, *,
                     t=None, noise=None, style_eps=None, cond_drop=None) -> ShardGrads:
@@ -288,17 +307,19 @@ def make_step_parts(
         return ShardGrads(loss.detach(), grads, t, terms["loss_per_sample"].detach(), means,
                           tuple(k for k in _TERMS if k in terms))
 
-    def read_host(state: TrainState, sg: ShardGrads) -> Dict:
+    def read_host(state: TrainState, sg: ShardGrads,
+                  norms: Optional[torch.Tensor] = None) -> Dict:
         # one host sync: a max-abs norm is finite iff every element is
-        params = list(state.params.values())
-        n = len(params)
+        if norms is None:
+            norms = torch.stack([torch.stack(torch._foreach_norm(sg.grads, float("inf"))),
+                                 torch.stack(torch._foreach_norm(sg.grads)),
+                                 torch.stack(torch._foreach_norm(list(state.params.values())))])
+        n = norms.shape[1]
         host = torch.cat([
-            torch.stack(torch._foreach_norm(sg.grads, float("inf"))),
-            torch.stack(torch._foreach_norm(sg.grads)),
-            torch.stack(torch._foreach_norm(params)),
+            norms.reshape(-1),
             torch.stack([sg.loss, torch.isfinite(sg.losses).all().float(),
-                         sg.t.float().mean()]),
-            sg.means,
+                         sg.t.float().mean()]).to(norms.device),
+            sg.means.to(norms.device),
         ]).tolist()
         loss_v, losses_finite, t_mean, *means = host[3 * n:]
         return {
@@ -315,11 +336,12 @@ def make_step_parts(
         return state.sampler_state
 
     def apply(state: TrainState, grads: List[torch.Tensor], host: Dict,
-              sampler_state) -> TrainState:
+              sampler_state, clip_norm: Optional[torch.Tensor] = None) -> TrainState:
         names = list(state.params)
         opt_state = state.opt_state
         if host["grads_finite"]:
-            updates, opt_state = tx.update(dict(zip(names, grads)), opt_state, state.params)
+            updates, opt_state = tx.update(dict(zip(names, grads)), opt_state, state.params,
+                                           clip_norm)
             with torch.no_grad():
                 torch._foreach_add_(list(state.params.values()), [updates[k] for k in names])
 
@@ -353,6 +375,7 @@ def make_train_step(
     sched: DiffusionSchedule,
     tx: AdamW,
     cfg: TrainConfig,
+    backbone_factory: Optional[Callable] = None,
 ) -> Callable[..., Tuple[TrainState, Dict]]:
     """The train step, ``step(state, batch, generator=None, *, t=None,
     noise=None, style_eps=None, cond_drop=None) -> (state, metrics)``.
@@ -364,9 +387,11 @@ def make_train_step(
     and ``cond_drop`` [B] replace those draws. Metrics: floats, and the
     per-sample 't' and 'loss_per_sample' as device tensors.
 
+    ``backbone_factory``: see :func:`make_loss_fn`.
+
     Building the step pins TF32 off for matmul and cuDNN: the WavEncoder's
     f32 convs would otherwise run in TF32."""
-    parts = make_step_parts(model, sched, tx, cfg)
+    parts = make_step_parts(model, sched, tx, cfg, backbone_factory)
 
     def train_step(state: TrainState, batch, generator: Optional[torch.Generator] = None, *,
                    t=None, noise=None, style_eps=None, cond_drop=None):

@@ -102,11 +102,17 @@ def add_training_options(p: argparse.ArgumentParser):
                         "(params and features stay f32; the mixer is "
                         "unaffected, models/audio_encoder.py)")
     g.add_argument("--pipeline_parallel", type=int, default=0,
-                   help="GPipe stages of the JAX package's mesh; the port "
-                        "trains on one card and refuses a value above 1")
+                   help="GPipe stages for the mixer stack: the --device list "
+                        "laid out as data rows of this many stages "
+                        "(parallel/pipeline.py); layers must divide evenly. RAG "
+                        "trainer only; not with --fused_train")
     g.add_argument("--fsdp", action="store_true",
-                   help="fully sharded parameters in the JAX package's "
-                        "mesh; the port trains on one card and refuses it")
+                   help="fully shard params, Adam moments and the EMA over the "
+                        "data axis (ZeRO-3; parallel/training.py: "
+                        "fsdp_train_step): weights gathered before each "
+                        "shard's forward, gradients cut to its slice. RAG "
+                        "trainer only; not with --fused_train on more than "
+                        "one device")
     g.add_argument("--device_resident", type=int, default=0,
                    help="1: stage the whole dataset in device memory once "
                         "and gather batches there by index (the host sends "

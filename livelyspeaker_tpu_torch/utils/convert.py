@@ -53,6 +53,7 @@ import torch
 from torch import nn
 
 __all__ = ["jax_params_to_state_dict", "state_dict_to_jax_params", "random_normal_params",
+           "jax_leaf_layout",
            "rag_state_dict_from_reference", "sag_state_dict_from_reference",
            "clip_text_state_dict_from_openai",
            "pose_embedding_state_dict_from_torch", "flax_variables_to_state_dict",
@@ -93,17 +94,25 @@ def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _jax_leaf(module: nn.Module, name: str, a: np.ndarray):
+def jax_leaf_layout(module: nn.Module, name: str, ndim: int):
+    """(Flax leaf name, perm) of ``module``'s parameter ``name``: the torch
+    tensor is the Flax array transposed by ``perm``, so torch dim i is Flax
+    dim ``perm[i]``."""
     if name == "weight":
         if isinstance(module, nn.Linear):
-            return "kernel", a.T
+            return "kernel", (1, 0)
         if isinstance(module, nn.Conv1d):
-            return "kernel", a.transpose(2, 1, 0)
+            return "kernel", (2, 1, 0)
         if isinstance(module, nn.LayerNorm):
-            return "scale", a
+            return "scale", tuple(range(ndim))
         if isinstance(module, nn.Embedding):
-            return "embedding", a
-    return name, a
+            return "embedding", tuple(range(ndim))
+    return name, tuple(range(ndim))
+
+
+def _jax_leaf(module: nn.Module, name: str, a: np.ndarray):
+    name, perm = jax_leaf_layout(module, name, a.ndim)
+    return name, a.transpose(np.argsort(perm))
 
 
 def state_dict_to_jax_params(state_dict: Mapping[str, torch.Tensor],

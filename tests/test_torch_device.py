@@ -46,6 +46,7 @@ from livelyspeaker_tpu_torch.scripts import (
     generate,
     profile,
     train_gesture_autoencoder,
+    train_multihost_demo,
 )
 from livelyspeaker_tpu_torch.scripts.serve import build_server
 from livelyspeaker_tpu_torch.serving import ServeConfig, build_rag_server
@@ -265,20 +266,38 @@ def _train_gesture_ae(model, device=None):
     return next(out["model"].parameters()).device
 
 
+def _multihost_demo(model, device=None):
+    """The demo as a group of one process, one step on two local shards."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with _one_torch_thread():
+        losses = train_multihost_demo.main(
+            ["--coordinator", f"localhost:{port}", "--num_processes", "1", "--process_id", "0",
+             "--devices_per_process", "2", "--steps", "1", "--local_batch", "2",
+             "--latent_dim", str(model.cfg.latent_dim), "--layers", str(model.cfg.num_layers)]
+            + (["--platform", device] if device else []))
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    return torch.device(device)
+
+
 @pytest.mark.parametrize("entry", [_sampler, _pipeline, _server, _train, _front_end,
                                    _eval_script(eval_rag_ted, beat=False),
                                    _eval_script(eval_rag_beat, beat=True),
                                    _eval_script(eval_livelyspeaker_ted, beat=False),
                                    _eval_script(eval_livelyspeaker_beat, beat=True),
                                    _evaluator, _beat_embedder, _bench_serve, _bench_train,
-                                   _profile, _generate, _train_gesture_ae],
+                                   _profile, _generate, _train_gesture_ae, _multihost_demo],
                          ids=["RAGSampler", "LivelySpeakerPipeline", "build_rag_server",
                               "TrainLoop", "serve.build_server", "eval_rag_ted.main",
                               "eval_rag_beat.main", "eval_livelyspeaker_ted.main",
                               "eval_livelyspeaker_beat.main", "EmbeddingSpaceEvaluator",
                               "load_beat_embedder", "bench_serve.main", "bench_train.main",
                               "profile.main", "generate.run",
-                              "train_gesture_autoencoder.main"])
+                              "train_gesture_autoencoder.main",
+                              "train_multihost_demo.main"])
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(no_card, entry):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         entry(_model())
@@ -301,7 +320,7 @@ def test_place_model_rule(no_card):
                                     "eval_livelyspeaker_beat", "convert_checkpoint", "profile",
                                     "bench_data", "bench_train", "bench_serve", "soak_serve",
                                     "generate", "build_ted_records", "build_beat_records",
-                                    "train_gesture_autoencoder"])
+                                    "train_gesture_autoencoder", "train_multihost_demo"])
 def test_new_scripts_answer_help(script, monkeypatch, capsys):
     """``python -m livelyspeaker_tpu_torch.scripts.<script> --help``, run
     the way ``-m`` runs it, in this process."""

@@ -166,9 +166,11 @@ def test_create_mesh_shapes():
     (lambda: create_mesh(n_devices=3, devices=CPU2), ValueError, "2 devices named"),
     (lambda: create_mesh(devices=["cuda:0", "cpu"]), ValueError, "one type|CUDA devices"),
     (lambda: create_mesh(devices=CPU2, model_parallel=2), NotImplementedError, "tensor"),
-    (lambda: parallel.shard_params({}, None), NotImplementedError, "tensor"),
-    (lambda: parallel.fsdp_shard_params({}, None), NotImplementedError, "FSDP"),
-    (lambda: parallel.create_pipeline_mesh(2), NotImplementedError, "pipeline"),
+    (lambda: parallel.pipeline_spec({}, tensor_parallel=True), NotImplementedError, "tensor"),
+    (lambda: parallel.fsdp_train_step(_own_init_model(fused_train_backbone=True),
+                                      DiffusionSchedule.create(steps=20), AdamW(LR),
+                                      TrainConfig(), _mesh()), ValueError, "--fsdp needs"),
+    (lambda: parallel.create_pipeline_mesh(devices=["cpu"] * 3), ValueError, "pipeline"),
     (lambda: shard_batch({"x": torch.zeros(3)}, create_mesh(devices=CPU2)), ValueError,
      "must divide"),
 ], ids=["more-cards", "more-than-named", "mixed", "model-parallel", "tp", "fsdp",

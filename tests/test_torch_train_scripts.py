@@ -333,14 +333,16 @@ def test_train_sag_checkpoint_is_served(records, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("script", [train_rag, train_sag])
 @pytest.mark.parametrize("flags,match", [
-    (["--pipeline_parallel", "2"], "pipeline_parallel"),
-    (["--fsdp"], "fsdp"),
+    (["--pipeline_parallel", "2", "--fused_train"], "pipeline_parallel"),
+    (["--fsdp", "--fused_train", "--device", "cpu,cpu"], "fsdp"),
     (["--device", "cuda:0,cuda:1"], "CUDA devices"),
 ])
 def test_mesh_options_raise(records, tmp_path, script, flags, match):
-    """train_rag raises for a list that names absent cards (it trains over
-    a list that is there); train_sag trains on one device, as the JAX
-    script does, and refuses any list."""
+    """train_rag raises what the JAX script refuses (``--pipeline_parallel``
+    or ``--fsdp`` on several devices with ``--fused_train``) and a list
+    that names absent cards (it trains over a list that is there);
+    train_sag trains on one device, as the JAX script does, and refuses
+    ``--fsdp`` and any list."""
     if script is train_sag and flags[0] == "--pipeline_parallel":
         match = None  # argparse refuses it first, as in the JAX script
     if script is train_sag and flags[0] == "--device":
