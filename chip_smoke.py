@@ -210,7 +210,17 @@ the fused WavEncoder stack (K3). Checks:
    rel 1e-5, each shard's persistent state about half), --pipeline_parallel
    2 on [cuda:0, cuda:0] against the plain step on cuda:0, and
    --pipeline_parallel 2 --fsdp on cuda:0 named four times (2 rows of 2
-   stages) against the replicated two-shard run; each run's step ms.
+   stages) against the replicated two-shard run; each run's step ms;
+17. the native record gather (``native_gather_check``, first in the
+   records phase): the library must be loaded; on the streaming run's
+   first TED batch of 512 the motion transpose-crop, the audio prefix (f32
+   and int16) and the vec_seq prefix give numpy indexing's bytes, and
+   both are timed in turns (host ms a batch);
+18. tensor parallelism (``tensor_parallel_phase``, on cuda:0 named four
+   and eight times): the eager sampler, 3 FSDP steps at B=512 over data 2 x
+   model 2 and a pipeline of 2 stages x model 2 against one device, each
+   device's persistent state bytes, and the fused kernels' refusals in the
+   JAX package's words.
 
 With ``--profile DIR`` it also profiles a second burst of the 24 serving
 requests, 3 composed TED batches and 3 steps of each training run with
@@ -2285,6 +2295,59 @@ def _records_rag_run(tag, argv, save_dir, card, want_decrease, shards=1):
     return loop, stats
 
 
+def native_gather_check(ds, card, turns=5):
+    """The native record gather (``data/native.py``) on the streaming loader's
+    first TED batch of 512 (epoch 0 of the records runs' seed): the library
+    must be loaded (no numpy fallback on the card); the motion
+    (transpose-crop 42 -> 34 frames, [T, 27] -> [27, T]), the audio (prefix,
+    as f32 records hold it and as int16 PCM made from it) and vec_seq
+    (prefix) gathered natively give numpy indexing's bytes; both timed in
+    turns over the same indices (host ms a batch, medians). Returns the
+    native and numpy ms a batch of each field."""
+    from livelyspeaker_tpu_torch.data import native
+    from livelyspeaker_tpu_torch.data.loader import epoch_indices
+
+    check(native.available(), "native gather: the library is not loaded (g++ output: "
+          f"{native.build_log()[-2000:]!r})")
+    t_phase = time.perf_counter()
+    rec = ds.records
+    whole = lambda f: np.concatenate([rec._shard(i)[f] for i in range(len(rec.shard_names))])
+    vec, audio = whole("vec_seq"), whole("audio")
+    vec = vec.reshape(len(vec), vec.shape[1], -1)  # [N, 42, 27]: gather_field's view
+    pcm = np.clip(np.round(audio * 32767.0), -32768, 32767).astype(np.int16)
+    idx = epoch_indices(len(ds), 10, 0)[:TRAIN_BATCH]
+    n, t_audio = ds.cfg.n_poses, ds.cfg.audio_length
+    cases = {
+        "motion": (lambda: native.gather_rows_transpose_crop(vec, idx, n),
+                   lambda: np.ascontiguousarray(vec[idx, :n].transpose(0, 2, 1))),
+        "audio_f32": (lambda: native.gather_rows_prefix(audio, idx, t_audio),
+                      lambda: np.ascontiguousarray(audio[idx, :t_audio])),
+        "audio_int16": (lambda: native.gather_rows_prefix(pcm, idx, t_audio),
+                        lambda: np.ascontiguousarray(pcm[idx, :t_audio])),
+        "vec_seq": (lambda: native.gather_rows_prefix(vec, idx, n),
+                    lambda: np.ascontiguousarray(vec[idx, :n])),
+    }
+    ms = {}
+    for name, (nat, ref) in cases.items():
+        a, b = nat(), ref()
+        check(a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b),
+              f"native gather: {name} differs from numpy indexing")
+        times = {"native": [], "numpy": []}
+        for _ in range(turns):
+            for which, fn in (("native", nat), ("numpy", ref)):
+                t0 = time.perf_counter()
+                fn()
+                times[which].append((time.perf_counter() - t0) * 1e3)
+        ms[name] = {k: float(np.median(v)) for k, v in times.items()}
+        print(f"[native-gather] {name} {tuple(a.shape)} {a.dtype} ({a.nbytes / 1e6:.1f} MB): "
+              f"same bytes as numpy indexing; {ms[name]['native']:.3f} ms native, "
+              f"{ms[name]['numpy']:.3f} ms numpy (host ms a batch of {TRAIN_BATCH}, median of "
+              f"{turns} turns; {card})")
+    print(f"[native-gather] library {native._paths()[0].name}, check wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return ms
+
+
 def records_train_phase(card, beside):
     """Training from records through the port's entry points at full width:
     synthetic TED and BEAT records built here; train_rag --fused_train on
@@ -2331,8 +2394,9 @@ def records_train_phase(card, beside):
         check(n_ted >= 2 * TRAIN_BATCH and n_beat >= 2 * BEAT_BATCH,
               f"records: {n_ted} TED and {n_beat} BEAT windows, too few for two batches")
 
-        # the host side of the streaming loader at B=512
+        # the host side of the streaming loader at B=512, through the native gather
         ds = TedWindowDataset(ted_dir)
+        gather = native_gather_check(ds, card)
         fields = train_rag.TRAIN_FIELDS["ted"]
         chunk = np.random.default_rng(0).permutation(len(ds))[:TRAIN_BATCH]
         gather_ms = wall_ms(lambda: ds.batch(chunk, fields=fields), reps=5)
@@ -2456,7 +2520,7 @@ def records_train_phase(card, beside):
                            final_npz(os.path.join(work, "beat_run")),
                            os.path.join(sag_dir, "sag_best.npz"))
         return {"stream": s, "resident": r, "beat": beat, "gather_ms": gather_ms,
-                "send_ms": send_ms, "loader_ms": loader_ms, "eval": evals}
+                "send_ms": send_ms, "loader_ms": loader_ms, "eval": evals, "native": gather}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3831,6 +3895,174 @@ def pipeline_phase(card, work, replicated_losses):
     print(f"[pipeline] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+TP_SAMPLE_BATCH, TP_STEPS, TP_PIPE_BATCH = 16, 3, 64
+
+
+def _device_state_bytes(states, layout):
+    """{(data row, model column): bytes} of each row's persistent state
+    (params, Adam moments, EMA): a slice ``name.j`` of a split leaf on
+    column j, every other leaf on column 0, its row's first device."""
+    out = {}
+    for i, state in enumerate(states):
+        for tree in (state.params, state.opt_state.mu, state.opt_state.nu,
+                     state.ema_params or {}):
+            for k, t in tree.items():
+                key = (i, layout[k][2])
+                out[key] = out.get(key, 0) + t.numel() * t.element_size()
+    return out
+
+
+def tensor_parallel_phase(card):
+    """Tensor parallelism (``parallel/tensor_parallel.py``) at TED full width
+    (D=512, L=8, S=35, silu) over cuda:0 named four times (data 2 x model 2):
+    the eager RAGSampler (DDIM-20 at eta 0, noise and style injected, batch
+    16) against the single-device eager sampler within rel 1e-4 of max|x|,
+    K1 never launched; 3 FSDP steps at B=512 on the eager backbone against
+    the replicated single-device step (injected draws; loss within rel 1e-5
+    each step, params within 1e-4), each device's persistent state bytes
+    beside the replicated run's; a pipeline forward of 2 stages x model 2
+    (cuda:0 named eight times, 2 data rows) against the sequential backbone
+    within rel 1e-5 of max|x|; the fused sampler and the fused step on the
+    mesh raising the JAX package's words. The ms printed are plumbing on
+    one card (the devices of a group run in turns), not speed."""
+    import copy
+
+    from livelyspeaker_tpu_torch import parallel
+    from livelyspeaker_tpu_torch.models import RAG, RAGConfig
+    from livelyspeaker_tpu_torch.models.mlp_backbone import TransMLP
+    from livelyspeaker_tpu_torch.models.initializers import random_normal_
+    from livelyspeaker_tpu_torch.ops import fused_mlp
+    from livelyspeaker_tpu_torch.parallel.sampling import TP_FUSED_REFUSAL as SAMPLE_WORDS
+    from livelyspeaker_tpu_torch.parallel.training import TP_FUSED_REFUSAL as TRAIN_WORDS
+    from livelyspeaker_tpu_torch.pipeline import RAGSampler
+    from livelyspeaker_tpu_torch.training import make_train_step
+
+    t_phase = time.perf_counter()
+    mesh = parallel.create_mesh(devices=["cuda:0"] * 4, model_parallel=2)
+    check(mesh.shape == {"data": 2, "model": 2}, f"tensor-parallel: mesh {mesh.shape}")
+    cfg = RAGConfig.ted()
+    rng = np.random.default_rng(90)
+
+    # (1) the sampler
+    rag = _random_model(cfg, seed=91)
+    b = TP_SAMPLE_BATCH
+    cond = _cond(cfg, rng, b)
+    cond["style_eps"] = torch.from_numpy(
+        rng.normal(size=(b, 1, cfg.latent_dim)).astype(np.float32)).cuda()
+    noise = torch.from_numpy(rng.normal(size=(b, 9, 3, 34)).astype(np.float32)).cuda()
+    samplers = {name: RAGSampler(rag, steps=1000, timestep_respacing="ddim20", method="ddim",
+                                 **kw) for name, kw in (("single", {}), ("tp", {"mesh": mesh}))}
+    fused_mlp.fused_transmlp.launches = 0
+    outs = {name: sampler(cond, None, guidance=1.5, noise=noise)
+            for name, sampler in samplers.items()}  # also the warm-up
+    ms = {name: [] for name in samplers}
+    for name in ("single", "tp", "tp", "single"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samplers[name](cond, None, guidance=1.5, noise=noise)
+        torch.cuda.synchronize()
+        ms[name].append(round((time.perf_counter() - t0) * 1e3, 1))
+    rel = _rel(outs["tp"], outs["single"])
+    split = sum(isinstance(m, parallel.TPWeight) for m in samplers["tp"].replicas[0].modules())
+    print(f"[tensor-parallel] eager RAGSampler on data 2 x model 2 ({split} weights in slices a "
+          f"replica) against the single-device one, DDIM-20 at eta 0, batch {b}: rel {rel:.3e} "
+          f"(tol {SLICE_TOL}); K1 launches {fused_mlp.fused_transmlp.launches}; host ms a call "
+          f"(synchronised, after a warm-up, in turns) {ms['tp']} against {ms['single']} ({card})")
+    check(rel <= SLICE_TOL and bool(torch.isfinite(outs["tp"]).all()),
+          "tensor-parallel: the sampler disagrees with the single-device one")
+    check(fused_mlp.fused_transmlp.launches == 0, "tensor-parallel: K1 ran on the eager route")
+    del samplers, outs
+
+    # (2) FSDP over data x model against the replicated single-device step
+    base = RAG(cfg, generator=torch.Generator().manual_seed(92)).cuda()
+    single, tp = base, copy.deepcopy(base)
+    state, sched, tx, tcfg = _dp_train_parts(single, TRAIN_LR)
+    fstate = _dp_train_parts(tp, TRAIN_LR)[0]
+    rep_bytes = _state_bytes(state)
+    step = make_train_step(single, sched, tx, tcfg)
+    fstep = parallel.fsdp_train_step(tp, sched, tx, tcfg, mesh)
+    rels, step_ms = [], {"single": [], "fsdp": []}
+    g = torch.Generator(device="cuda").manual_seed(93)
+    for i in range(TP_STEPS):
+        batch = _train_batch(cfg, rng, TRAIN_BATCH)
+        draws = {"t": torch.randint(0, 1000, (TRAIN_BATCH,), generator=g, device="cuda"),
+                 "noise": torch.randn(batch["motion"].shape, generator=g, device="cuda"),
+                 "style_eps": torch.randn((TRAIN_BATCH, 1, cfg.latent_dim), generator=g,
+                                          device="cuda"),
+                 "cond_drop": (torch.rand((TRAIN_BATCH,), generator=g, device="cuda")
+                               < 0.1).float()}
+        for name, fn in (("single", step), ("fsdp", fstep)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "single":
+                state, m = fn(state, batch, None, **draws)
+            else:
+                fstate, fm = fn(fstate, batch, None, **draws)
+            torch.cuda.synchronize()
+            step_ms[name].append(round((time.perf_counter() - t0) * 1e3, 2))
+        rels.append(abs(fm["loss"] - m["loss"]) / abs(m["loss"]))
+    full = fstep.gathered_state()
+    diff = max((full.params[k] - v).abs().max().item() for k, v in state.params.items())
+    dev_bytes = _device_state_bytes(fstep.states(), fstep.shards.layout)
+    mib = lambda x: round(x / 2 ** 20, 2)
+    print(f"[tensor-parallel] fsdp_train_step on data 2 x model 2, eager backbone, B="
+          f"{TRAIN_BATCH}, injected draws, {TP_STEPS} steps against the single-device step: "
+          f"loss rel {[f'{r:.3e}' for r in rels]} (tol 1e-5), max |param diff| {diff:.3e} (tol "
+          f"1e-4); {len(fstep.shards.dims)} of {len(fstate.params)} leaves sharded over data")
+    print(f"[tensor-parallel] persistent state a device (data row, model column) MiB "
+          f"{ {k: mib(v) for k, v in sorted(dev_bytes.items())} } against {mib(rep_bytes)} "
+          f"replicated; step host ms (synchronised, in turns, the first a warm-up) fsdp "
+          f"{step_ms['fsdp']}, single {step_ms['single']} ({card})")
+    check(max(rels) <= 1e-5 and diff <= 1e-4,
+          "tensor-parallel: the FSDP step disagrees with the single-device step")
+    check(max(dev_bytes.values()) < 0.5 * rep_bytes,
+          "tensor-parallel: a device holds half of the replicated state or more")
+    del single, tp, base, state, fstate, step, fstep, full
+
+    # (3) GPipe stages with column-parallel channel mixes
+    torch.manual_seed(94)
+    g = torch.Generator().manual_seed(94)
+    backbone = random_normal_(TransMLP(cfg.seq_len, LAYERS, cfg.latent_dim, cfg.mlpact,
+                                       generator=g), g).cuda()
+    x = torch.from_numpy(rng.normal(size=(TP_PIPE_BATCH, cfg.seq_len, cfg.latent_dim))
+                         .astype(np.float32)).cuda()
+    t = torch.from_numpy(rng.integers(0, 1000, size=(TP_PIPE_BATCH,))).cuda()
+    pmesh = parallel.create_pipeline_mesh(devices=["cuda:0"] * 8, pipeline_parallel=2,
+                                          model_parallel=2)
+    check(pmesh.shape == {"data": 2, "stage": 2, "model": 2}, f"tensor-parallel: {pmesh.shape}")
+    with torch.no_grad():
+        stacked = parallel.stack_block_params(dict(backbone.named_parameters()), LAYERS)
+        emb = backbone.embed_timestep(t)
+        seq = backbone(x, t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        piped = parallel.pipeline_forward(stacked, x, emb, pmesh, num_microbatches=2,
+                                          act=cfg.mlpact)
+        torch.cuda.synchronize()
+        pipe_ms = (time.perf_counter() - t0) * 1e3
+    rel = _rel(piped, seq)
+    print(f"[tensor-parallel] pipeline_forward on data 2 x stage 2 x model 2 against the "
+          f"sequential backbone, batch {TP_PIPE_BATCH}: rel {rel:.3e} (tol 1e-5); host ms "
+          f"{pipe_ms:.1f} ({card})")
+    check(rel <= 1e-5, "tensor-parallel: the pipeline disagrees with the sequential backbone")
+
+    # (4) the fused kernels refuse the model axis, with the JAX package's words
+    words = {}
+    try:
+        RAGSampler(rag, use_fused=True, mesh=mesh)
+    except ValueError as e:
+        words["sampler"] = str(e)
+    fused = RAG(RAGConfig.ted(fused_train_backbone=True)).cuda()
+    try:
+        parallel.shard_train_step(fused, sched, tx, tcfg, mesh)
+    except ValueError as e:
+        words["step"] = str(e)
+    print(f"[tensor-parallel] refusals: {words}")
+    check(words == {"sampler": SAMPLE_WORDS.format(2), "step": TRAIN_WORDS.format(2)},
+          "tensor-parallel: the fused kernels did not refuse the model axis")
+    print(f"[tensor-parallel] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -3858,6 +4090,7 @@ def main():
         pipeline_phase(card, work, fsdp_phase(card, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    tensor_parallel_phase(card)
     launches += records_train_phase(card, train_stats)["eval"]["launches"]
     records_build_phase(card)
     wav_worst, wav_times = wav_kernel_phase(card)

@@ -2,9 +2,12 @@
 shards.
 
 Port of ``livelyspeaker_tpu/data/records.py`` with the same on-disk format,
-so records written by either package are read by the other. The gathers
-are numpy fancy indexing (the JAX package's own fallback when its C++
-gather library is not built); the C++ gather is not part of the port.
+so records written by either package are read by the other. A batch's
+array fields are gathered per shard by the native record gather
+(``data/native.py``: memcpy rows out of the memory-mapped shards, with the
+window crop and the motion transpose fused in), which falls back to numpy
+indexing where the library cannot be built or a shard array is not
+C-contiguous; the bytes are the same either way.
 
 Layout:
     root/meta.json                     {"fields": {...}, "shards": [...]}
@@ -20,19 +23,9 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from .native import gather_rows, gather_rows_prefix, gather_rows_transpose_crop
+
 __all__ = ["ShardWriter", "ShardedDataset"]
-
-
-def _gather_rows(src: np.ndarray, rows: np.ndarray) -> np.ndarray:
-    """src[rows] as one contiguous batch buffer."""
-    return np.ascontiguousarray(src[rows])
-
-
-def _gather_rows_transpose_crop(src: np.ndarray, rows: np.ndarray, t_out: int) -> np.ndarray:
-    """src[rows, :t_out] with each [T, C] row transposed to [C, t_out]."""
-    if src.ndim != 3 or src.dtype != np.float32:
-        raise ValueError(f"transpose_crop needs f32 [N, T, C] rows, not {src.dtype} {src.shape}")
-    return np.ascontiguousarray(src[rows, :t_out].transpose(0, 2, 1))
 
 
 class ShardWriter:
@@ -184,7 +177,7 @@ class ShardedDataset:
         prefix: Optional[int] = None,
         transpose_crop: Optional[int] = None,
     ) -> np.ndarray:
-        """Gather one array field across shards.
+        """Gather one array field across shards through the native gather.
 
         ``prefix`` keeps only the first N entries along each row's leading
         axis (the window or audio crop); ``transpose_crop`` also transposes
@@ -193,19 +186,19 @@ class ShardedDataset:
         """
         si, local, order, inv = self._grouped(indices)
         if transpose_crop is not None:
-            fn = lambda a, r: _gather_rows_transpose_crop(
+            fn = lambda a, r: gather_rows_transpose_crop(
                 a.reshape(a.shape[0], a.shape[1], -1), r, transpose_crop
             )
         elif prefix is not None:
-            fn = lambda a, r: np.ascontiguousarray(a[r, :prefix])
+            fn = lambda a, r: gather_rows_prefix(a, r, prefix)
         else:
-            fn = _gather_rows
+            fn = gather_rows
         return self._gather_grouped(field, si, local, order, inv, fn)
 
     def batch(
         self, indices: Sequence[int], fields: Optional[Sequence[str]] = None
     ) -> Dict[str, Any]:
-        """Assemble a batch: one gather per array field and shard; JSON
+        """Assemble a batch: one native gather per array field and shard; JSON
         fields stay Python lists. ``fields`` restricts assembly to the
         listed record fields (the training path needs 3 of them, see
         ted.py)."""
@@ -216,7 +209,7 @@ class ShardedDataset:
                 out[f] = [self._shard(int(s))[f][int(l)]
                           for s, l in zip(si, local)]
                 continue
-            out[f] = self._gather_grouped(f, si, local, order, inv, _gather_rows)
+            out[f] = self._gather_grouped(f, si, local, order, inv, gather_rows)
         return out
 
     def iter_shards(self) -> Iterator[Dict[str, Any]]:

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from .initializers import dense_default_
+from .products import in_projection, lookup
 
 __all__ = ["CLIPTextConfig", "CLIPTextEncoder", "quick_gelu"]
 
@@ -63,10 +64,7 @@ class _ResidualAttentionBlock(nn.Module):
         d, h = self.width, self.heads
         hd = d // h
         y = self.ln_1(x)
-        w, b = self.attn_in_proj_weight, self.attn_in_proj_bias
-        q = y @ w[:d].T + b[:d]
-        k = y @ w[d:2 * d].T + b[d:2 * d]
-        v = y @ w[2 * d:].T + b[2 * d:]
+        q, k, v = in_projection(y, y, y, self.attn_in_proj_weight, self.attn_in_proj_bias, d)
         bsz, length, _ = y.shape
         sh = lambda a: a.reshape(bsz, length, h, hd).transpose(1, 2)
         q, k, v = sh(q), sh(k), sh(v)
@@ -98,7 +96,7 @@ class CLIPTextEncoder(nn.Module):
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         tokens = tokens.long()
         n = tokens.shape[1]
-        x = self.token_embedding[tokens] + self.positional_embedding[None, :n]
+        x = lookup(self.token_embedding, tokens) + self.positional_embedding[None, :n]
         causal = torch.triu(
             torch.full((n, n), float("-inf"), dtype=x.dtype, device=x.device), diagonal=1)
         for i in range(self.cfg.layers):

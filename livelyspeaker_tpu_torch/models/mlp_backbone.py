@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .initializers import dense_default_, lecun_normal_, xavier_uniform_
+from .products import linear
 
 __all__ = ["sinusoidal_table", "get_activation", "timestep_embedding", "mlp_block",
            "TimestepEmbedder", "MLPBlock", "TransMLP"]
@@ -70,7 +71,7 @@ def timestep_embedding(pe: torch.Tensor, t: torch.Tensor, fc1_w: torch.Tensor,
                        fc1_b: torch.Tensor, fc2_w: torch.Tensor,
                        fc2_b: torch.Tensor) -> torch.Tensor:
     """``TimestepEmbedder``'s arithmetic on given weights: [B, 1, D]."""
-    h = F.linear(F.silu(F.linear(pe[t].to(fc1_w.dtype), fc1_w, fc1_b)), fc2_w, fc2_b)
+    h = linear(F.silu(linear(pe[t].to(fc1_w.dtype), fc1_w, fc1_b)), fc2_w, fc2_b)
     return h[:, None, :]
 
 
@@ -86,7 +87,7 @@ def mlp_block(x: torch.Tensor, emb: Optional[torch.Tensor], ln1_w: torch.Tensor,
     d = x.shape[-1:]
     h = torch.einsum("ij,bjd->bid", token_w, F.layer_norm(x, d, ln1_w, ln1_b, LN_EPS))
     x = x + act(h + token_b[None, :, None])
-    return x + act(F.linear(F.layer_norm(x, d, ln2_w, ln2_b, LN_EPS), ch_w, ch_b))
+    return x + act(linear(F.layer_norm(x, d, ln2_w, ln2_b, LN_EPS), ch_w, ch_b))
 
 
 class TimestepEmbedder(nn.Module):

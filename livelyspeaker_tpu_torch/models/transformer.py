@@ -23,6 +23,7 @@ from torch import nn
 
 from .initializers import dense_default_, xavier_uniform_
 from .mlp_backbone import get_activation
+from .products import in_projection
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerDecoderLayer", "TransformerEncoder", "TransformerDecoder"]
@@ -52,10 +53,7 @@ class MultiHeadAttention(nn.Module):
     ) -> torch.Tensor:
         d, h = self.d_model, self.num_heads
         hd = d // h
-        w, b = self.in_proj_weight, self.in_proj_bias
-        q = query @ w[:d].T + b[:d]
-        k = key @ w[d:2 * d].T + b[d:2 * d]
-        v = value @ w[2 * d:].T + b[2 * d:]
+        q, k, v = in_projection(query, key, value, self.in_proj_weight, self.in_proj_bias, d)
 
         def split_heads(x):
             bsz, length, _ = x.shape

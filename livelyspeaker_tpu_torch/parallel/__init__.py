@@ -4,9 +4,9 @@ devices, within one process or across a process group.
 Port of ``livelyspeaker_tpu/parallel/``: the mesh, the parameter rules and
 FSDP (``mesh.py``), the data-parallel and fully sharded train steps
 (``training.py``), the sampler (``sampling.py``), multi-process training
-(``multihost.py``) and GPipe stages (``pipeline.py``). Tensor-parallel
-compute over a model axis above 1 is a later slice of the port: a mesh
-with one raises ``NotImplementedError``.
+(``multihost.py``), GPipe stages (``pipeline.py``) and the tensor-parallel
+products over a model axis above 1 (``tensor_parallel.py``), which GSPMD
+inserts in the JAX package.
 """
 
 from .mesh import (
@@ -26,6 +26,7 @@ from .mesh import (
     replicate_module,
     shard_batch,
     shard_params,
+    sync_replicas,
 )
 from .multihost import global_batch, init_distributed, process_local_batch_size
 from .pipeline import (
@@ -38,4 +39,5 @@ from .pipeline import (
     stack_block_params,
 )
 from .sampling import shard_sample_fn
+from .tensor_parallel import TPWeight, tp_replica
 from .training import fsdp_train_step, shard_train_step

@@ -5,14 +5,27 @@ Port of ``livelyspeaker_tpu/parallel/mesh.py``. The JAX package's mesh is
 a 2-axis ``jax.sharding.Mesh`` (``data`` for the batch, ``model`` for
 tensor parallelism) over which GSPMD or ``shard_map`` place the work. Here
 one process drives each of its local shards, as one JAX process drives its
-local devices: a :class:`Mesh` is an ordered list of ``torch.device``s on
-the ``data`` axis, and the ``model`` axis has size 1.
+local devices: a :class:`Mesh` is an ordered list of ``torch.device``s laid
+out as JAX lays them (``reshape(n // k, k)``): data rows by model columns.
+A data row is a shard: its batch slice, activations and outputs live on
+its first device (``mesh.devices``), and its model group
+(:meth:`Mesh.model_group`, k devices) holds the slices of the weights the
+rules split over the ``model`` axis.
 
 - Each shard holds its own replica of a module (:func:`replicate_module`:
   shard 0 is the module itself, the others ``copy.deepcopy`` of it on their
   devices), so a mesh may name one device twice: ``[cpu, cpu]`` on the
   CPU, ``[cuda:0, cuda:0]`` on one card. The code that runs is the same as
   on as many cards; only the device ids differ.
+- On a model axis above 1, :func:`shard_params` gives each data row a
+  tensor-parallel replica (``tensor_parallel.tp_replica``): each parameter
+  the rules split (the JAX divisibility rule applied: a ruled dim the axis
+  does not divide leaves the whole leaf replicated) is held as k slices,
+  slice j on the row's j-th device, and its products are the column-, row-
+  parallel and embedding products of ``parallel/tensor_parallel.py``;
+  every other parameter is whole on the row's first device. A model group
+  never spans processes. The devices of a group share their row's random
+  stream, as GSPMD shares one key over the model axis.
 - When ``torch.distributed`` is initialised (``multihost.init_distributed``)
   the mesh also spans the process group: ``shape["data"]`` is the world
   size times the local devices, and local shard i of process r is global
@@ -41,9 +54,7 @@ the ``data`` axis, and the ``model`` axis has size 1.
   ``parallel.training.fsdp_train_step``.
 
 The JAX module's ``batch_sharding`` and ``replicated`` are
-:func:`shard_batch` and :func:`replicate_module` here. Tensor-parallel
-compute over a model axis above 1 is a later slice: ``model_parallel > 1``
-raises ``NotImplementedError``.
+:func:`shard_batch` and :func:`replicate_module` here.
 """
 
 from __future__ import annotations
@@ -60,20 +71,18 @@ import torch
 import torch.distributed as dist
 
 from ..utils.convert import jax_leaf_layout
+from .tensor_parallel import merge_values, split_values, tp_layout, tp_replica
 
 __all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "create_mesh", "data_parallel_mesh",
-           "replicate_module",
+           "replicate_module", "whole_state_dict",
            "sync_replicas", "shard_batch", "gather_batch", "check_divisible", "pmean",
-           "gather_processes", "fold_in", "shard_generators", "on_device", "refuse_tensor_parallel",
+           "gather_processes", "fold_in", "shard_generators", "on_device",
            "param_spec", "param_shardings", "shard_params", "FSDP_MIN_SIZE",
            "fsdp_param_shardings", "fsdp_shard_params", "FSDPShards",
            "preserve_state_shardings"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-
-_LATER_SLICE = ("is a later slice of the port (ROADMAP.md, queue 1, item 9): tensor-"
-                "parallel compute over a model axis above 1")
 
 
 def _process_group() -> Tuple[bool, int, int]:
@@ -85,27 +94,39 @@ def _process_group() -> Tuple[bool, int, int]:
 
 
 class Mesh:
-    """An ordered list of this process's devices, of one type, on the
-    ``data`` axis; the ``model`` axis has size 1. A device may appear more
-    than once. Under an initialised process group the data axis spans every
-    process (``shape["data"]`` = world size x local devices); ``size`` is
-    the number of local shards; its collectives go through the group
+    """This process's devices, of one type, as data rows of
+    ``model_parallel`` devices each (``reshape(n // k, k)``, row-major). A
+    device may appear more than once. ``devices`` holds each row's first
+    device, where its shard lives; ``model_group(i)`` all of row i's.
+    Under an initialised process group the data axis spans every process
+    (``shape["data"]`` = world size x local rows); ``size`` is the number of
+    local shards (rows); its collectives go through the group
     (``distributed``), even a group of one process."""
 
-    def __init__(self, devices: Sequence):
+    def __init__(self, devices: Sequence, model_parallel: int = 1):
         devs = [torch.device(d) for d in devices]
         if not devs:
             raise ValueError("a mesh needs at least one device")
         if len({d.type for d in devs}) != 1:
             raise ValueError(f"a mesh holds devices of one type, got {devs}")
-        self.devices = tuple(torch.device(d.type, 0) if d.type == "cuda" and d.index is None
-                             else d for d in devs)
+        devs = [torch.device(d.type, 0) if d.type == "cuda" and d.index is None else d
+                for d in devs]
+        k = model_parallel
+        if k < 1 or len(devs) % k:
+            raise ValueError(f"{len(devs)} devices do not divide into model groups of "
+                             f"model_parallel={k} (a model group never spans processes)")
+        self.groups = tuple(tuple(devs[r * k:(r + 1) * k]) for r in range(len(devs) // k))
+        self.devices = tuple(g[0] for g in self.groups)
         self.distributed, self.process_count, self.process_index = _process_group()
-        self.shape = {DATA_AXIS: self.process_count * len(self.devices), MODEL_AXIS: 1}
+        self.shape = {DATA_AXIS: self.process_count * len(self.devices), MODEL_AXIS: k}
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    def model_group(self, i: int) -> Tuple[torch.device, ...]:
+        """Local row i's devices along the model axis, its shard's first."""
+        return self.groups[i]
 
     def shard_index(self, i: int) -> int:
         """The global data index of local shard i."""
@@ -114,18 +135,21 @@ class Mesh:
     def __repr__(self) -> str:
         span = f", process {self.process_index} of {self.process_count}" \
             if self.process_count > 1 else ""
-        return f"Mesh({[str(d) for d in self.devices]}{span})"
+        rows = [str(d) for d in self.devices] if self.shape[MODEL_AXIS] == 1 else \
+            [[str(d) for d in g] for g in self.groups]
+        return f"Mesh({rows}{span})"
 
 
 def create_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
                 devices: Optional[Sequence] = None) -> Mesh:
     """A mesh over ``devices`` (any list, repeats allowed), or else over the
-    first ``n_devices`` local cards (all of them by default).
+    first ``n_devices`` local cards (all of them by default), laid out as
+    data rows of ``model_parallel`` devices (``ValueError`` where that does
+    not divide the count).
 
     There is no fallback: asking for more cards than the machine has raises,
     and so does the default where there is no card (name CPU devices, e.g.
     ``devices=["cpu", "cpu"]``, to run the plain versions on the CPU)."""
-    refuse_tensor_parallel("create_mesh", model_parallel)
     n_cards = torch.cuda.device_count()
     if devices is None:
         if n_cards == 0:
@@ -148,7 +172,7 @@ def create_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
             if d.type == "cuda" and (d.index or 0) >= n_cards:
                 raise ValueError(f"the mesh names {d}, but this machine has {n_cards} "
                                  "CUDA devices")
-    return Mesh(devices)
+    return Mesh(devices, model_parallel)
 
 
 def data_parallel_mesh(n: int, device=None) -> Optional[Mesh]:
@@ -181,19 +205,42 @@ def on_device(device: torch.device):
 
 
 def replicate_module(module: torch.nn.Module, mesh: Mesh) -> List[torch.nn.Module]:
-    """One replica a shard: ``module`` itself, moved to shard 0's device,
-    then a deep copy of it on each other shard's device (bit-identical)."""
+    """One whole replica a shard: ``module`` itself, moved to shard 0's
+    device, then a deep copy of it on each other shard's device
+    (bit-identical). The model axis is not used: :func:`shard_params`
+    splits the ruled weights over it."""
     module.to(mesh.devices[0])
     return [module] + [copy.deepcopy(module).to(d) for d in mesh.devices[1:]]
 
 
+def whole_state_dict(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``module.state_dict()`` under the model's names: the slices of a
+    tensor-parallel replica concatenated on its first device."""
+    sd = module.state_dict()
+    layout = tp_layout(module)
+    if all(dim is None for _, dim, _, _ in layout.values()):
+        return sd
+    dev = next(module.parameters()).device
+    whole = {k: v for k, v in sd.items() if k not in layout}
+    whole.update(merge_values({k: sd[k] for k in layout}, layout, dev))
+    return whole
+
+
 @torch.no_grad()
-def sync_replicas(replicas: Sequence[torch.nn.Module]) -> None:
-    """Copy replica 0's parameters and buffers into every other replica."""
-    src = replicas[0].state_dict()
-    for r in replicas[1:]:
+def sync_replicas(replicas: Sequence[torch.nn.Module],
+                  source: Optional[torch.nn.Module] = None) -> None:
+    """Copy the parameters and buffers of ``source`` (replica 0 by default;
+    whole or tensor-parallel) into every replica; a tensor-parallel replica
+    takes its slices (the re-slice of a hot-swapped checkpoint)."""
+    src = replicas[0] if source is None else source
+    whole = whole_state_dict(src)
+    for r in replicas:
+        if r is src:
+            continue
+        layout = tp_layout(r)
         for k, v in r.state_dict().items():
-            v.copy_(src[k])
+            name, dim, j, n = layout.get(k, (k, None, 0, 1))
+            v.copy_(whole[name] if dim is None else whole[name].chunk(n, dim)[j])
 
 
 def _map(tree, leaf_fn):
@@ -271,10 +318,10 @@ def _exact_all_reduce(flat: torch.Tensor) -> None:
 
 def _all_reduce_sum(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
     """The elementwise sums over the process group, one flat all-reduce a
-    dtype."""
+    dtype and device."""
     out = list(tensors)
-    for dtype in dict.fromkeys(t.dtype for t in tensors):
-        idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
+    for key in dict.fromkeys((t.dtype, t.device) for t in tensors):
+        idx = [i for i, t in enumerate(tensors) if (t.dtype, t.device) == key]
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
         dist.all_reduce(flat)
         for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
@@ -349,12 +396,6 @@ def shard_generators(generator: Optional[torch.Generator], mesh: Mesh,
     return gens
 
 
-def refuse_tensor_parallel(what: str, model_parallel: int) -> None:
-    """Raise for a model axis above 1 (the later slice), naming ``what``."""
-    if model_parallel != 1:
-        raise NotImplementedError(f"{what}: model_parallel={model_parallel} " + _LATER_SLICE)
-
-
 # --- the parameter rules (``mesh.py:100-113`` of the JAX package) -----------
 #
 # A regex over the Flax path of a parameter and the spec of its Flax layout.
@@ -402,20 +443,39 @@ def param_spec(model: torch.nn.Module, name: str) -> Spec:
     return tuple(flax[perm[i]] for i in range(ndim))
 
 
+def _divides(spec: Sequence[Optional[str]], shape: Sequence[int], k: int) -> bool:
+    """Whether the model axis of size k divides every dim ``spec`` puts on it
+    (``mesh.py:136-155``: else the whole leaf replicates)."""
+    return all(shape[i] % k == 0 for i, a in enumerate(spec) if a == MODEL_AXIS)
+
+
 def param_shardings(model: torch.nn.Module, mesh) -> Dict[str, Spec]:
     """{name: spec} under the rules; every leaf replicates on a mesh without
-    a model axis (the pipeline mesh). The port's model axis has size 1
-    (``create_mesh``), which every ruled dim divides."""
-    if MODEL_AXIS not in mesh.shape:
-        return {name: (None,) * p.ndim for name, p in model.named_parameters()}
-    return {name: param_spec(model, name) for name, _ in model.named_parameters()}
+    a model axis (a pipeline mesh of one model column), and so does a leaf
+    with a ruled dim that the model axis does not divide."""
+    k = mesh.shape.get(MODEL_AXIS, 0)
+    out = {}
+    for name, p in model.named_parameters():
+        spec = param_spec(model, name) if k else (None,) * p.ndim
+        out[name] = spec if _divides(spec, p.shape, k or 1) else (None,) * p.ndim
+    return out
 
 
 def shard_params(model: torch.nn.Module, mesh) -> List[torch.nn.Module]:
-    """Place ``model`` on the mesh under the rules. Every mesh of the port has
-    a model axis of size 1, where every rule places the whole tensor on each
-    shard: one replica a shard (:func:`replicate_module`)."""
-    return replicate_module(model, mesh)
+    """Place ``model`` on the mesh under the rules: one replica a data row.
+    With one device a row (a model axis of 1, or a pipeline mesh, whose
+    model axis splits only the channel mix inside its stages) these are
+    :func:`replicate_module`'s. Otherwise each is a tensor-parallel replica
+    (``tensor_parallel.tp_replica``) over the row's model group: every
+    ruled parameter held as k slices, slice j on the group's j-th device,
+    the rest whole on its first; ``model`` itself stays whole, on the first
+    row's first device."""
+    if len(mesh.model_group(0)) == 1:
+        return replicate_module(model, mesh)
+    dims = {name: spec.index(MODEL_AXIS) for name, spec in param_shardings(model, mesh).items()
+            if MODEL_AXIS in spec}
+    model.to(mesh.devices[0])
+    return [tp_replica(model, mesh.model_group(i), dims) for i in range(mesh.size)]
 
 
 # --- FSDP (ZeRO-style fully sharded data parallelism, ``mesh.py:115-222``) ---
@@ -432,11 +492,13 @@ FSDP_MIN_SIZE = 2**13
 
 def fsdp_param_shardings(model: torch.nn.Module, mesh,
                          min_size: int = FSDP_MIN_SIZE) -> Dict[str, Spec]:
-    """{name: spec}: the rules, plus the data axis on the largest still free
-    dim that it divides of every leaf of at least ``min_size`` elements. The
+    """{name: spec}: the rules (a ruled dim the model axis does not divide
+    replicates the leaf), plus the data axis on the largest still free dim
+    that it divides of every leaf of at least ``min_size`` elements. The
     dim is chosen in the Flax layout, as the JAX function chooses it (its
     ties go to the first Flax dim), then carried to torch's."""
     data_size = mesh.shape[DATA_AXIS]
+    model_size = mesh.shape.get(MODEL_AXIS, 1)
     out = {}
     for name, p in model.named_parameters():
         path, perm = _flax_layout(model, name, p.ndim)
@@ -444,6 +506,8 @@ def fsdp_param_shardings(model: torch.nn.Module, mesh,
         shape = [p.shape[perm.index(j)] for j in range(p.ndim)]  # the Flax shape
         if MODEL_AXIS not in mesh.shape:  # drop the rule, keep the leaf for FSDP
             spec = [None if a == MODEL_AXIS else a for a in spec]
+        if not _divides(spec, shape, model_size):
+            spec = [None] * p.ndim
         if p.numel() >= min_size and data_size > 1:
             free = [j for j in range(p.ndim)
                     if spec[j] is None and shape[j] % data_size == 0 and shape[j] >= data_size]
@@ -464,38 +528,51 @@ class FSDPShards:
     """A train state sliced over the data axis, and one replica a local
     shard to compute with.
 
-    ``states[i]`` is local shard i's ``TrainState``: for a sharded leaf
-    (``dims``: its split dim) its params, ``mu``, ``nu`` and EMA hold the
-    shard's slice; for the rest they are full, the params being the
-    replica's own tensors. Between steps a replica's sharded parameters hold
-    no storage; :meth:`gather` fills them with the full weights, :meth:`free`
-    empties them again."""
+    The replicas are :func:`shard_params`'s: on a model axis above 1, each
+    a tensor-parallel replica whose parameter ``name.j`` is slice j of a
+    ruled leaf, on the row's j-th device. The state of a shard is keyed by
+    its replica's parameter names. ``states[i]`` is local shard i's
+    ``TrainState``: for a leaf sliced over the data axis (``dims``: its
+    split dim) its params, ``mu``, ``nu`` and EMA hold the shard's slice
+    (of the model slice, on a model axis above 1: each device holds its
+    slice of every leaf sharded on either axis); for the rest they are
+    full, the params being the replica's own tensors. Between steps a
+    replica's data-sharded parameters hold no storage; :meth:`gather` fills
+    them with the weights whole over the data axis, :meth:`free` empties
+    them again."""
 
     def __init__(self, model: torch.nn.Module, mesh, min_size: int = FSDP_MIN_SIZE):
         self.mesh = mesh
         specs = fsdp_param_shardings(model, mesh, min_size)
-        self.dims = {k: s.index(DATA_AXIS) for k, s in specs.items() if DATA_AXIS in s}
-        self.shapes = {k: p.shape for k, p in model.named_parameters()}
-        self.replicas = replicate_module(model, mesh)
+        self.names = [name for name, _ in model.named_parameters()]
+        self.replicas = shard_params(model, mesh)
+        self.layout = tp_layout(self.replicas[0])
+        self.dims = {k: specs[name].index(DATA_AXIS) for k, (name, *_) in self.layout.items()
+                     if DATA_AXIS in specs[name]}
+        self.shapes = {k: p.shape for k, p in self.replicas[0].named_parameters()}
         self.states: List[Any] = [None] * mesh.size
 
+    def _devices(self, i: int) -> Dict[str, torch.device]:
+        return {k: p.device for k, p in self.replicas[i].named_parameters()}
+
     def load(self, state) -> List[Any]:
-        """Slice a full ``state`` (one TrainState, any device) over the
-        shards; the replicas' sharded parameters are then freed."""
+        """Slice a full ``state`` (one TrainState over the model's
+        parameter names, any device) over the shards; the replicas' sharded
+        parameters are then freed."""
         n = self.mesh.shape[DATA_AXIS]
-        for i, (r, dev) in enumerate(zip(self.replicas, self.mesh.devices)):
-            g = self.mesh.shard_index(i)
+        for i, r in enumerate(self.replicas):
+            g, devs = self.mesh.shard_index(i), self._devices(i)
 
             def part(full: Dict[str, torch.Tensor], own=None):
                 out = {}
-                for k, v in full.items():
+                for k, v in split_values(full, self.layout, devs).items():
                     if k in self.dims:
-                        out[k] = _cut(v, self.dims[k], g, n, dev)
+                        out[k] = _cut(v, self.dims[k], g, n, devs[k])
                     elif own is not None:
                         own[k].copy_(v)
                         out[k] = own[k]
                     else:
-                        out[k] = v.to(dev, copy=True)
+                        out[k] = v
                 return out
 
             with torch.no_grad():
@@ -509,30 +586,35 @@ class FSDPShards:
             self.free(i)
         return list(self.states)
 
-    def _gather(self, slices: Sequence[Dict[str, torch.Tensor]], device) -> Dict[str, torch.Tensor]:
-        """The full tensors of the sharded leaves on ``device``, from each
-        local shard's slices: each slice copied to its global place in one
-        zero buffer, then (across processes) an exact all-reduce of it."""
+    def _gather(self, slices: Sequence[Dict[str, torch.Tensor]],
+                devices: Dict[str, torch.device]) -> Dict[str, torch.Tensor]:
+        """The tensors of the sharded leaves whole over the data axis, each
+        on ``devices[key]``, from each local shard's slices: each slice
+        copied to its global place in one zero buffer a device, then
+        (across processes) an exact all-reduce of each buffer."""
         keys = list(self.dims)
         if not keys:
             return {}
-        sizes = [int(np.prod(self.shapes[k])) for k in keys]
-        flat = torch.zeros(sum(sizes), dtype=slices[0][keys[0]].dtype, device=device)
-        full = {k: t.view(self.shapes[k]) for k, t in zip(keys, flat.split(sizes))}
-        n = self.mesh.shape[DATA_AXIS]
-        for i, part in enumerate(slices):
-            g = self.mesh.shard_index(i)
-            for k in keys:
-                d = self.dims[k]
-                rows = self.shapes[k][d] // n
-                full[k].narrow(d, g * rows, rows).copy_(part[k])
-        if self.mesh.distributed:
-            _exact_all_reduce(flat)
+        n, full = self.mesh.shape[DATA_AXIS], {}
+        for dev in dict.fromkeys(devices[k] for k in keys):
+            on = [k for k in keys if devices[k] == dev]
+            sizes = [int(np.prod(self.shapes[k])) for k in on]
+            flat = torch.zeros(sum(sizes), dtype=slices[0][on[0]].dtype, device=dev)
+            full.update({k: t.view(self.shapes[k]) for k, t in zip(on, flat.split(sizes))})
+            for i, part in enumerate(slices):
+                g = self.mesh.shard_index(i)
+                for k in on:
+                    d = self.dims[k]
+                    rows = self.shapes[k][d] // n
+                    full[k].narrow(d, g * rows, rows).copy_(part[k])
+            if self.mesh.distributed:
+                _exact_all_reduce(flat)
         return full
 
     def gather(self, i: int) -> None:
-        """Replica i's sharded parameters filled with the full weights."""
-        full = self._gather([s.params for s in self.states], self.mesh.devices[i])
+        """Replica i's sharded parameters filled with the weights whole over
+        the data axis."""
+        full = self._gather([s.params for s in self.states], self._devices(i))
         for k, p in self.replicas[i].named_parameters():
             if k in full:
                 p.data = full[k]
@@ -545,20 +627,22 @@ class FSDPShards:
 
     def slice_grads(self, grads: Sequence[torch.Tensor], i: int) -> List[torch.Tensor]:
         """Local shard i's part of the averaged gradients (in the order of
-        the parameters): its slice of a sharded leaf, all of the rest, on
-        its device."""
-        n, g, dev = self.mesh.shape[DATA_AXIS], self.mesh.shard_index(i), self.mesh.devices[i]
-        return [_cut(x, self.dims[k], g, n, dev) if k in self.dims else x.to(dev)
+        its replica's parameters): its slice of a sharded leaf, all of the
+        rest, each on its parameter's device."""
+        n, g, devs = self.mesh.shape[DATA_AXIS], self.mesh.shard_index(i), self._devices(i)
+        return [_cut(x, self.dims[k], g, n, devs[k]) if k in self.dims else x.to(devs[k])
                 for k, x in zip(self.shapes, grads)]
 
     def gathered_state(self):
-        """One full copy of the train state, on shard 0's device: what a
-        checkpoint holds."""
-        s0, dev = self.states[0], self.mesh.devices[0]
+        """One full copy of the train state over the model's parameter
+        names, on shard 0's device: what a checkpoint holds."""
+        s0, dev0 = self.states[0], self.mesh.devices[0]
 
         def whole(parts):
-            full = self._gather(parts, dev)
-            return {k: full[k] if k in full else v.detach().clone() for k, v in parts[0].items()}
+            full = self._gather(parts, {k: dev0 for k in self.shapes})
+            merged = merge_values({k: full.get(k, v) for k, v in parts[0].items()},
+                                  self.layout, dev0)
+            return {name: merged[name] for name in self.names}
 
         opt = dataclasses.replace(s0.opt_state, mu=whole([s.opt_state.mu for s in self.states]),
                                   nu=whole([s.opt_state.nu for s in self.states]))
@@ -570,10 +654,10 @@ class FSDPShards:
 def fsdp_shard_params(model: torch.nn.Module, state, mesh,
                       min_size: int = FSDP_MIN_SIZE) -> FSDPShards:
     """``state`` (a full TrainState over ``model``'s parameters) sliced over
-    the mesh's data axis: one replica a local shard (shard 0 is ``model``),
-    and each shard's state holding its slice of every leaf that
-    :func:`fsdp_param_shardings` shards (ZeRO-3 memory); the rest
-    replicated."""
+    the mesh's data axis: one replica a local shard (:func:`shard_params`'s;
+    on a model axis of 1, shard 0 is ``model``), and each shard's state
+    holding its slice of every leaf that :func:`fsdp_param_shardings`
+    shards (ZeRO-3 memory); the rest replicated."""
     shards = FSDPShards(model, mesh, min_size)
     shards.load(state)
     return shards

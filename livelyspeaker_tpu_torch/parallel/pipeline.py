@@ -16,8 +16,14 @@ Composable with data parallelism: a pipeline mesh is a grid of data rows
 by stages (:func:`create_pipeline_mesh`). A row is one shard of the
 data-parallel (or FSDP) step, its replica on the row's first device, and
 its backbone runs over the row's stage devices
-(:func:`make_pipeline_backbone_factory`). Tensor-parallel compute inside a
-stage (a model axis above 1) is a later slice and raises.
+(:func:`make_pipeline_backbone_factory`). With a model axis above 1 each
+stage is a model group of k devices, and the channel mix inside every
+stage is column-parallel over it (``pipeline.py:103-144`` of the JAX
+package): device j of the stage holds columns j of each block's ``ch_w``
+and ``ch_b`` and computes its slice of the mix, and a tiled all-gather in
+rank order re-forms the width on the stage's first device before the
+residual (``tensor_parallel.column_parallel``). The rest of the model stays
+whole on each row, as the JAX pipeline splits only the channel mix.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ import torch
 
 from ..models.mlp_backbone import (PE_MAX_LEN, get_activation, mlp_block, sinusoidal_table,
                                    timestep_embedding)
-from .mesh import DATA_AXIS, Mesh, create_mesh, refuse_tensor_parallel
+from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, create_mesh
+from .tensor_parallel import Split
 
 __all__ = ["STAGE_AXIS", "PipelineMesh", "create_pipeline_mesh", "stack_block_params",
            "pipeline_spec", "pipeline_forward", "make_pipeline_backbone_factory"]
@@ -37,40 +44,54 @@ STAGE_AXIS = "stage"
 
 
 class PipelineMesh(Mesh):
-    """Data rows by stages over this process's devices (repeats allowed):
-    ``grid[r][s]`` runs stage s of row r. As a :class:`Mesh` its shards are
-    the rows, each on its first stage's device; ``shape`` is ``{"data":
-    rows (times the processes), "stage": S}``, with no model axis."""
+    """Data rows by stages by model columns over this process's devices
+    (repeats allowed): ``stage_groups[r][s]`` are the k devices of stage s
+    of row r, ``grid[r][s]`` the first of them, which runs the stage's
+    block arithmetic. As a :class:`Mesh` its shards are the rows, each on
+    its first stage's first device, and a row's model group is that one
+    device (the model axis splits only the channel mix inside the stages);
+    ``shape`` is ``{"data": rows (times the processes), "stage": S}``, with
+    ``"model": k`` where k is above 1, as the JAX mesh has its axes."""
 
-    def __init__(self, grid: Sequence[Sequence]):
+    def __init__(self, grid: Sequence[Sequence], model_parallel: int = 1):
         rows = [[torch.device(d) for d in row] for row in grid]
         if not rows or len({len(row) for row in rows}) != 1:
             raise ValueError(f"a pipeline mesh is rows of equal length, got {grid}")
-        super().__init__([d for row in rows for d in row])  # checks the device type
-        first = self.devices[::len(rows[0])]
-        self.grid = tuple(self.devices[r * len(rows[0]):(r + 1) * len(rows[0])]
-                          for r in range(len(rows)))
-        self.devices = first
-        self.shape = {DATA_AXIS: self.process_count * len(first), STAGE_AXIS: len(rows[0])}
+        k = model_parallel
+        if len(rows[0]) % k:
+            raise ValueError(f"{len(rows[0])} devices a row do not divide into model groups "
+                             f"of model_parallel={k}")
+        super().__init__([d for row in rows for d in row], len(rows[0]))  # checks the type
+        n_stages = len(rows[0]) // k
+        self.stage_groups = tuple(tuple(row[s * k:(s + 1) * k] for s in range(n_stages))
+                                  for row in self.groups)
+        self.grid = tuple(tuple(g[0] for g in row) for row in self.stage_groups)
+        self.groups = tuple((row[0],) for row in self.grid)
+        self.shape = {DATA_AXIS: self.process_count * len(rows), STAGE_AXIS: n_stages}
+        if k > 1:
+            self.shape[MODEL_AXIS] = k
 
     def __repr__(self) -> str:
+        if MODEL_AXIS in self.shape:
+            return f"PipelineMesh({[[[str(d) for d in g] for g in r] for r in self.stage_groups]})"
         return f"PipelineMesh({[[str(d) for d in row] for row in self.grid]})"
 
 
 def create_pipeline_mesh(n_devices: Optional[int] = None, pipeline_parallel: int = 2,
                          model_parallel: int = 1,
                          devices: Optional[Sequence] = None) -> PipelineMesh:
-    """A grid of ``n / pipeline_parallel`` data rows by ``pipeline_parallel``
-    stages over ``devices`` (any list, repeats allowed), or else over the
-    first ``n_devices`` local cards (all of them by default), row-major as
-    the JAX mesh reshapes its device list."""
-    refuse_tensor_parallel("create_pipeline_mesh", model_parallel)
-    devs = list(create_mesh(n_devices=n_devices, devices=devices).devices)
-    if len(devs) % pipeline_parallel:
+    """A grid of ``n / (pipeline_parallel * model_parallel)`` data rows by
+    ``pipeline_parallel`` stages by ``model_parallel`` model columns over
+    ``devices`` (any list, repeats allowed), or else over the first
+    ``n_devices`` local cards (all of them by default), row-major as the JAX
+    mesh reshapes its device list (``pipeline.py:54-77``)."""
+    devs = [d for g in create_mesh(n_devices=n_devices, devices=devices).groups for d in g]
+    per_row = pipeline_parallel * model_parallel
+    if len(devs) % per_row:
         raise ValueError(f"{len(devs)} devices do not divide into pipelines of "
-                         f"{pipeline_parallel} stages")
-    s = pipeline_parallel
-    return PipelineMesh([devs[r * s:(r + 1) * s] for r in range(len(devs) // s)])
+                         f"{pipeline_parallel} stages of {model_parallel} model columns")
+    return PipelineMesh([devs[r * per_row:(r + 1) * per_row] for r in range(len(devs) // per_row)],
+                        model_parallel)
 
 
 _STACKED = {  # stacked name (the JAX module's): the block parameter, in mlp_block's order
@@ -94,29 +115,50 @@ def stack_block_params(backbone_params: Mapping[str, torch.Tensor],
 
 def pipeline_spec(stacked: Mapping[str, torch.Tensor],
                   tensor_parallel: bool = False) -> Dict[str, tuple]:
-    """Each stacked leaf's split: its leading layer axis over ``stage``.
-    The tensor-parallel split of the channel mix is a later slice."""
+    """Each stacked leaf's split: its leading layer axis over ``stage``;
+    with ``tensor_parallel`` the channel mix's output dim also over
+    ``model``. That is JAX's ``ch_w`` ``(stage, None, model)`` of the Flax
+    [L, D_in, D_out] layout carried to the port's [L, D_out, D_in]:
+    ``(stage, model, None)``; ``ch_b`` is ``(stage, model)``."""
+    spec = {k: (STAGE_AXIS,) + (None,) * (v.ndim - 1) for k, v in stacked.items()}
     if tensor_parallel:
-        refuse_tensor_parallel("pipeline_spec(tensor_parallel=True)", 2)
-    return {k: (STAGE_AXIS,) + (None,) * (v.ndim - 1) for k, v in stacked.items()}
+        spec["ch_w"] = (STAGE_AXIS, MODEL_AXIS, None)
+        spec["ch_b"] = (STAGE_AXIS, MODEL_AXIS)
+    return spec
 
 
-def _block(p: Mapping[str, torch.Tensor], l: int, x: torch.Tensor, emb: torch.Tensor,
+def _block(p: Mapping[str, Sequence], l: int, x: torch.Tensor, emb: torch.Tensor,
            act: Callable) -> torch.Tensor:
     """Block l of a stage's stacked parameters: ``MLPBlock``'s arithmetic
-    (``models/mlp_backbone.py: mlp_block``) on those weights."""
+    (``models/mlp_backbone.py: mlp_block``) on those weights. Under tensor
+    parallelism ``ch_w[l]`` and ``ch_b[l]`` are :class:`Split` s of the
+    stage's model group, and the channel mix is column-parallel."""
     return mlp_block(x, emb, *(p[name][l] for name in _STACKED), act)
 
 
+def _stage_params(stacked: Mapping[str, torch.Tensor], lo: int, hi: int,
+                  group: Sequence[torch.device]) -> Dict[str, Sequence]:
+    """Layers lo..hi-1 on a stage's devices: whole on its first; with a
+    model group of k, ``ch_w`` and ``ch_b`` as one :class:`Split` a layer,
+    output columns j on device j."""
+    split = ("ch_w", "ch_b") if len(group) > 1 else ()
+    out = {k: v[lo:hi].to(group[0]) for k, v in stacked.items() if k not in split}
+    for name in split:
+        parts = [c.to(dev) for c, dev in zip(stacked[name][lo:hi].chunk(len(group), 1), group)]
+        out[name] = [Split([c[l] for c in parts], 0) for l in range(hi - lo)]
+    return out
+
+
 def _pipeline_row(stacked: Mapping[str, torch.Tensor], x: torch.Tensor, emb: torch.Tensor,
-                  devices: Sequence[torch.device], m: int, act: Callable) -> torch.Tensor:
-    """One pipeline over ``devices`` (its stages), ``m`` microbatches: the
-    GPipe schedule of ``pipeline.py:200-225`` as a loop over M + S - 1
-    ticks. Returns the output on ``x``'s device."""
-    s_count = len(devices)
+                  groups: Sequence[Sequence[torch.device]], m: int,
+                  act: Callable) -> torch.Tensor:
+    """One pipeline over ``groups`` (its stages' model groups), ``m``
+    microbatches: the GPipe schedule of ``pipeline.py:200-225`` as a loop
+    over M + S - 1 ticks. Returns the output on ``x``'s device."""
+    s_count = len(groups)
+    devices = [g[0] for g in groups]
     per = stacked["ch_w"].shape[0] // s_count
-    stages = [{k: v[s * per:(s + 1) * per].to(dev) for k, v in stacked.items()}
-              for s, dev in enumerate(devices)]
+    stages = [_stage_params(stacked, s * per, (s + 1) * per, g) for s, g in enumerate(groups)]
     x_mb, emb_mb = x.chunk(m), emb.chunk(m)
     outputs: List[Optional[torch.Tensor]] = [None] * m
     leaving: List[Optional[torch.Tensor]] = [None] * s_count  # each stage's last output
@@ -149,17 +191,23 @@ def pipeline_forward(stacked: Mapping[str, torch.Tensor], x: torch.Tensor, emb: 
     each pipeline must divide M. With ``data_sharded`` the batch is split
     over the mesh's local data rows, each its own pipeline; else one row
     runs it all. ``row`` runs the whole batch on that row alone (a shard of
-    a data-parallel step). Returns [B, T, D] on ``x``'s device, the
-    sequential stack's numbers (same float ops a block)."""
+    a data-parallel step). On a mesh with a model axis above 1 the channel
+    mix of every stage is column-parallel over its model group. Returns [B,
+    T, D] on ``x``'s device, the sequential stack's numbers (same float ops
+    a block; under tensor parallelism each column the same dot product).
+    """
     n_stages = mesh.shape[STAGE_AXIS]
     n_layers = stacked["ch_w"].shape[0]
     if n_layers % n_stages:
         raise ValueError(f"layers {n_layers} not divisible by stages {n_stages}")
+    k = mesh.shape.get(MODEL_AXIS, 1)
+    if stacked["ch_w"].shape[1] % k:
+        raise ValueError(f"width {stacked['ch_w'].shape[1]} not divisible by the model axis {k}")
     m = num_microbatches if num_microbatches is not None else n_stages
     if row is not None:
-        rows = [mesh.grid[row]]
+        rows = [mesh.stage_groups[row]]
     else:
-        rows = list(mesh.grid) if data_sharded else [mesh.grid[0]]
+        rows = list(mesh.stage_groups) if data_sharded else [mesh.stage_groups[0]]
     if x.shape[0] % len(rows):
         raise ValueError(f"batch {x.shape[0]} must divide the mesh's {len(rows)} data rows")
     b = x.shape[0] // len(rows)

@@ -11,6 +11,12 @@ sharded chain draws other numbers than the unsharded one, on the eager
 route too (same law; with the draws injected, e.g. DDIM at eta 0 from a
 given ``noise``, the results agree).
 
+A shard is a data row of the mesh. On a model axis above 1 its replica is
+a tensor-parallel one (``mesh.shard_params``), which is the counterpart of
+the GSPMD route under the rules' shardings; the fused denoiser is refused
+there with the JAX package's words (``sampling.py:78-81``), as K1 is a
+single-card design.
+
 Each shard's launches are enqueued without a host sync, so shards on
 different cards overlap; shards on one card run one after the other.
 """
@@ -19,13 +25,16 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Sequence
 
-from .mesh import Mesh, gather_batch, on_device, shard_batch, shard_generators
+from .mesh import MODEL_AXIS, Mesh, gather_batch, on_device, shard_batch, shard_generators
 
-__all__ = ["shard_sample_fn"]
+__all__ = ["shard_sample_fn", "TP_FUSED_REFUSAL"]
+
+# the fused denoiser on a model axis above 1 (parallel/sampling.py:78-81 of the JAX package)
+TP_FUSED_REFUSAL = "shard_map sampling mode is data-parallel only; got model axis of size {}"
 
 
 def shard_sample_fn(fn: Callable, mesh: Mesh, replicas: Sequence, batched: Sequence[bool],
-                    *, rng_arg: Optional[int] = None) -> Callable:
+                    *, rng_arg: Optional[int] = None, fused: bool = False) -> Callable:
     """Wrap ``fn(replica, *args, **kw) -> [B, ...]`` for the mesh.
 
     ``replicas[i]`` is what shard i's call receives first (its model, or a
@@ -37,7 +46,11 @@ def shard_sample_fn(fn: Callable, mesh: Mesh, replicas: Sequence, batched: Seque
     ``torch.Generator`` (or None), replaced on each shard by its folded
     generator. The outputs are concatenated in shard order on shard 0's
     device. The global batch must divide the mesh size. A mesh that spans
-    processes raises: nothing samples across processes."""
+    processes raises: nothing samples across processes; so does ``fused``
+    (``fn`` runs the fused kernel) on a model axis above 1."""
+    k = mesh.shape.get(MODEL_AXIS, 1)
+    if fused and k != 1:
+        raise ValueError(TP_FUSED_REFUSAL.format(k))
     if mesh.process_count > 1:
         raise ValueError("sampling runs within one process, as in the JAX package; the mesh "
                          f"{mesh} spans {mesh.process_count} processes")

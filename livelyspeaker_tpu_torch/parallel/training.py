@@ -29,9 +29,18 @@ update the slices only.
 
 The JAX package trains with the data-parallel step only for the fused
 backbone on a multi-device mesh and otherwise lets GSPMD partition a plain
-jitted step; the port has no GSPMD, so both backbones train through these
-steps. ``backbone_factory`` (``parallel.pipeline``) runs each shard's mixer
-stack over its row of a pipeline mesh.
+jitted step, over replicated parameters or the rules' tensor-parallel
+shardings (``__graft_entry__.py:159-175``); the port has no GSPMD, so both
+backbones train through these steps, which are the counterparts of both
+JAX routes. On a model axis above 1 each data row trains its
+tensor-parallel replica (``mesh.shard_params``): its state is keyed by the
+replica's parameter names (slice j of a ruled leaf is ``name.j``, on the
+row's j-th device), the averages and the update run slice by slice, and
+``step.gathered_state()`` gives one whole state over the model's names.
+The fused backbone is refused there with the JAX package's words
+(``training.py:57-62``): K2 is a single-card design. ``backbone_factory``
+(``parallel.pipeline``) runs each shard's mixer stack over its row of a
+pipeline mesh.
 
 Random streams: each shard draws t, the noise, the condition drop and the
 style token from ``fold_in(generator, global shard index)``
@@ -55,7 +64,8 @@ from ..training.trainer import (
     make_step_parts,
 )
 from .mesh import DATA_AXIS, FSDP_MIN_SIZE, MODEL_AXIS, FSDPShards, Mesh, gather_batch, \
-    gather_processes, on_device, pmean, replicate_module, shard_batch, shard_generators
+    gather_processes, on_device, pmean, shard_batch, shard_generators, shard_params
+from .tensor_parallel import merge_values, split_values, tp_layout
 
 __all__ = ["shard_train_step", "fsdp_train_step"]
 
@@ -68,18 +78,43 @@ FSDP_FUSED_REFUSAL = (
     "explicit shard_map DP step over replicated params; drop one.")
 
 
-def _copy_state(state: TrainState, params: Dict[str, torch.Tensor]) -> TrainState:
-    """``state`` for a replica whose parameters are ``params``: the values
-    copied into them, the moments and the EMA copied to their device."""
-    dev = next(iter(params.values())).device
-    like = lambda d: None if d is None else {k: v.to(dev, copy=True) for k, v in d.items()}
+# the fused kernel on a model axis above 1 (parallel/training.py:57-62 of the JAX package)
+TP_FUSED_REFUSAL = ("shard_map training is data-parallel only; got model axis of size {} (the "
+                    "fused kernel is a single-chip design — a TP axis would silently replicate "
+                    "work)")
+
+
+def _copy_state(state: TrainState, replica: torch.nn.Module) -> TrainState:
+    """``state`` (over the model's parameter names) for ``replica``: the
+    values copied into its parameters, the moments and the EMA copied to
+    their devices, each cut to the replica's slice of a split leaf."""
+    params = dict(replica.named_parameters())
+    layout, devs = tp_layout(replica), {k: p.device for k, p in params.items()}
+    like = lambda d: None if d is None else split_values(d, layout, devs)
     with torch.no_grad():
-        for k, p in params.items():
-            p.copy_(state.params[k])
+        for k, v in like(state.params).items():
+            params[k].copy_(v)
     opt = state.opt_state
     return TrainState(step=state.step, params=params,
                       opt_state=AdamWState(count=opt.count, mu=like(opt.mu), nu=like(opt.nu)),
                       sampler_state=state.sampler_state, ema_params=like(state.ema_params))
+
+
+def _whole_state(state: TrainState, replica: torch.nn.Module, names, device) -> TrainState:
+    """A replica's ``state`` over the model's parameter ``names``, whole on
+    ``device`` (the slices of a split leaf concatenated)."""
+    layout = tp_layout(replica)
+
+    def whole(d):
+        if d is None:
+            return None
+        merged = merge_values(d, layout, device)
+        return {k: merged[k] for k in names}
+
+    opt = state.opt_state
+    return TrainState(step=state.step, params=whole(state.params),
+                      opt_state=AdamWState(count=opt.count, mu=whole(opt.mu), nu=whole(opt.nu)),
+                      sampler_state=state.sampler_state, ema_params=whole(state.ema_params))
 
 
 def _step_parts(replicas, sched, tx, cfg, backbone_factory):
@@ -116,10 +151,18 @@ def _averaged(per_shard, mesh: Mesh) -> Tuple[ShardGrads, list]:
     return sg, grads
 
 
-def _check_mesh(mesh: Mesh) -> None:
-    if mesh.shape.get(MODEL_AXIS, 1) != 1:
-        raise ValueError("data-parallel training takes a model axis of size 1, got "
-                         f"{mesh.shape[MODEL_AXIS]}")
+def _check_mesh(model, mesh: Mesh) -> None:
+    k = mesh.shape.get(MODEL_AXIS, 1)
+    if k != 1 and getattr(model.cfg, "fused_train_backbone", False):
+        raise ValueError(TP_FUSED_REFUSAL.format(k))
+
+
+def _norms(grads, params, device) -> torch.Tensor:
+    """[3, m] on ``device``: the inf-norm and 2-norm of each gradient and
+    the 2-norm of each parameter (each computed on its own device)."""
+    on = lambda ns: torch.stack([n.to(device) for n in ns])
+    return torch.stack([on(torch._foreach_norm(grads, float("inf"))),
+                        on(torch._foreach_norm(grads)), on(torch._foreach_norm(params))])
 
 
 def shard_train_step(
@@ -147,18 +190,27 @@ def shard_train_step(
     the norms of the averaged gradient, and 't' and 'loss_per_sample' of
     the global batch in global shard order on shard 0's device.
     ``step.replicas`` are the local replica modules, ``step.states()``
-    every local shard's state. ``backbone_factory(params, row=i)`` runs
-    shard i's backbone (``parallel.pipeline``)."""
-    _check_mesh(mesh)
-    replicas = replicate_module(model, mesh)
+    every local shard's state, ``step.gathered_state()`` shard 0's over
+    the model's names (a copy). ``backbone_factory(params, row=i)`` runs
+    shard i's backbone (``parallel.pipeline``).
+
+    On a model axis above 1 the replicas are tensor-parallel
+    (``mesh.shard_params``; ``model`` itself stays whole and is not
+    trained): the first call's state over ``model``'s names is cut to
+    each, and the states returned are keyed by replica 0's parameter
+    names. The fused backbone raises there (``TP_FUSED_REFUSAL``)."""
+    _check_mesh(model, mesh)
+    replicas = shard_params(model, mesh)
+    names = [name for name, _ in model.named_parameters()]
     parts = _step_parts(replicas, sched, tx, cfg, backbone_factory)
     states = [None] * mesh.size
+    dev0 = mesh.devices[0]
 
     def step(state: TrainState, batch, generator: Optional[torch.Generator] = None, *,
              t=None, noise=None, style_eps=None, cond_drop=None):
         if state is not states[0]:
-            states[:] = [state] + [_copy_state(state, dict(r.named_parameters()))
-                                   for r in replicas[1:]]
+            own = [state] if replicas[0] is model else []
+            states[:] = own + [_copy_state(state, r) for r in replicas[len(own):]]
         shards, drawn = _local_shards(batch, mesh, t, noise, style_eps, cond_drop)
         gens = shard_generators(generator, mesh, fold=fold_shard_rng)
         per_shard = []
@@ -167,16 +219,18 @@ def shard_train_step(
                 per_shard.append(parts[i].shard_grads(states[i], shards[i], gens[i],
                                                       **drawn[i]))
         sg, grads = _averaged(per_shard, mesh)
-        host = parts[0].read_host(states[0], sg)
+        host = parts[0].read_host(states[0], sg,
+                                  norms=_norms(grads, list(states[0].params.values()), dev0))
         sampler_state = parts[0].sampler_update(states[0], sg, host)
         for i, dev in enumerate(mesh.devices):
-            g = grads if i == 0 else [x.to(dev) for x in grads]
+            g = [x.to(p.device) for x, p in zip(grads, states[i].params.values())]
             with on_device(dev):
                 states[i] = parts[i].apply(states[i], g, host, sampler_state)
         return states[0], parts[0].metrics(sg, host)
 
     step.replicas = replicas
     step.states = lambda: list(states)
+    step.gathered_state = lambda: _whole_state(states[0], replicas[0], names, dev0)
     return step
 
 
@@ -185,14 +239,9 @@ def _fsdp_norms(shards: FSDPShards, grads_per_shard, mesh: Mesh) -> torch.Tensor
     and the 2-norm of each parameter over which the step's global norms
     run: every global shard's slice of a sharded leaf, and a replicated
     leaf once (global shard 0's)."""
-    dev0, inf = mesh.devices[0], float("inf")
-    rows = []
-    for i, grads in enumerate(grads_per_shard):
-        params = list(shards.states[i].params.values())
-        rows.append(torch.stack([torch.stack(torch._foreach_norm(grads, inf)),
-                                 torch.stack(torch._foreach_norm(grads)),
-                                 torch.stack(torch._foreach_norm(params))]).to(dev0))
-    local = torch.stack(rows)  # [local shards, 3, n]
+    dev0 = mesh.devices[0]
+    local = torch.stack([_norms(grads, list(shards.states[i].params.values()), dev0)
+                         for i, grads in enumerate(grads_per_shard)])  # [local shards, 3, n]
     every = gather_processes(local, mesh)  # [global shards, 3, n]
     sharded = torch.tensor([k in shards.dims for k in shards.shapes], device=dev0)
     return torch.cat([every[:, :, sharded].permute(1, 0, 2).reshape(3, -1),
@@ -218,10 +267,13 @@ def fsdp_train_step(
     0's sliced state). Returns shard 0's sliced state and the metrics of the
     global batch. ``step.shards`` is the :class:`~.mesh.FSDPShards`,
     ``step.states()`` every local shard's state, ``step.gathered_state()``
-    one full copy (a checkpoint's). The fused backbone is refused on more
-    than one shard, as the JAX script refuses ``--fsdp`` with
-    ``--fused_train``."""
-    _check_mesh(mesh)
+    one full copy (a checkpoint's). On a model axis above 1 each shard's
+    replica is tensor-parallel and its state holds each device's slice of
+    every leaf sharded on either axis (:class:`~.mesh.FSDPShards`). The
+    fused backbone is refused on more than one shard, as the JAX script
+    refuses ``--fsdp`` with ``--fused_train``, and on a model axis above 1
+    (``TP_FUSED_REFUSAL``)."""
+    _check_mesh(model, mesh)
     if getattr(model.cfg, "fused_train_backbone", False) and mesh.shape[DATA_AXIS] > 1 \
             and backbone_factory is None:
         raise ValueError(FSDP_FUSED_REFUSAL)

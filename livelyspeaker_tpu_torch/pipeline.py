@@ -31,7 +31,7 @@ from .models.clip_text import CLIPTextEncoder
 from .models.fast_rag import make_fused_cfg_denoiser
 from .models.rag import RAG
 from .models.sag import SAG
-from .parallel.mesh import check_divisible, replicate_module, sync_replicas
+from .parallel.mesh import check_divisible, replicate_module, shard_params, sync_replicas
 from .parallel.sampling import shard_sample_fn
 from .utils.device import place_model
 
@@ -49,11 +49,15 @@ class RAGSampler:
     ``use_fused=True`` runs each denoise step through the fused TransMLP
     kernel (``models/fast_rag.py``); ``False`` runs the eager modules.
 
-    ``mesh`` splits every batch over the mesh's shards (the batch must
-    divide its size): each shard samples its rows on its own replica of the
-    model with ``fold_in(generator, shard)``, so the draws differ from an
-    unsharded call's (same law). ``device`` must then be None; the model
-    goes to the mesh's first device.
+    ``mesh`` splits every batch over the mesh's shards (its data rows; the
+    batch must divide their number): each shard samples its rows on its own
+    replica of the model with ``fold_in(generator, shard)``, so the draws
+    differ from an unsharded call's (same law). On a model axis above 1 a
+    replica is tensor-parallel over its row's model group
+    (``parallel.shard_params``), and ``use_fused`` raises, as in the JAX
+    package. ``device`` must then be None; the model goes to the mesh's
+    first device and stays whole there (:meth:`update_params` loads it and
+    re-slices every replica from it).
 
     Construction pins ``torch.backends.cudnn.allow_tf32 = False`` for the
     process: cuDNN's default runs the f32 WavEncoder convs in TF32 (about
@@ -89,14 +93,13 @@ class RAGSampler:
         self._timestep_map = sched.timestep_map.tolist()  # host copy, no sync
         self.sched = sched.to(self.device)
         if mesh is not None:
-            self.replicas = replicate_module(self.model, mesh)
+            self.replicas = shard_params(self.model, mesh)
             scheds = {d: sched.to(d) for d in dict.fromkeys(mesh.devices)}
             # args: cond, guidance, generator, init_image, inpainting, noise
             self._sharded = shard_sample_fn(
-                lambda m, *a, **kw: self._chain(m, scheds[next(m.parameters()).device],
-                                                *a, **kw),
-                mesh, self.replicas, batched=(True, True, False, True, True, True),
-                rng_arg=2)
+                lambda m, *a, **kw: self._chain(m[0], scheds[m[1]], *a, **kw), mesh,
+                list(zip(self.replicas, mesh.devices)),
+                batched=(True, True, False, True, True, True), rng_arg=2, fused=use_fused)
 
     def _guidance_schedule_fn(self, skip_timesteps: int):
         """Schedule normalised to the executed window: its boundary is the
@@ -129,7 +132,7 @@ class RAGSampler:
             raise ValueError(f"checkpoint leaf shape/dtype mismatch at: {', '.join(bad)}")
         self.model.load_state_dict(state_dict)
         if self.mesh is not None:
-            sync_replicas(self.replicas)
+            sync_replicas(self.replicas, self.model)
 
     def _chain(self, model, sched, cond, guidance, generator, init_image, inpainting, noise,
                *, skip_timesteps, gsched):
@@ -193,8 +196,10 @@ class LivelySpeakerPipeline:
     kernel. ``tokenizer`` maps a list of sentences to int ids [B, 77]
     (``data.clip_tokenizer``). ``mesh`` splits the batch over its shards
     for every stage: the CLIP encode and the SAG decode on each shard's
-    replicas, and the refinement through the sharded :class:`RAGSampler`
-    (``device`` must then be None)."""
+    whole replicas (on its row's first device, as the JAX class keeps them
+    replicated), and the refinement through the sharded
+    :class:`RAGSampler`, tensor-parallel on a model axis above 1 (``device``
+    must then be None)."""
 
     def __init__(
         self,

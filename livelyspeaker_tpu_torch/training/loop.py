@@ -8,10 +8,12 @@ interrupted epoch), and the params and EMA npz export.
 Each step draws from its own generator, seeded from (seed, global step), so
 a resumed run replays the draws of an uninterrupted one.
 
-With a ``mesh`` (``parallel.create_mesh``) of more than one shard, or with
-``use_shard_map``, the loop trains through the data-parallel step of
-``parallel/training.py``; ``state`` is shard 0's, the checkpoint holds that
-one copy, and a resume restores every replica from it. With ``fsdp`` it
+With a ``mesh`` (``parallel.create_mesh``) of more than one shard or with a
+model axis above 1, or with ``use_shard_map``, the loop trains through the
+data-parallel step of ``parallel/training.py``; ``state`` is shard 0's, the
+checkpoint holds that one copy (whole over the model's names: under tensor
+parallelism gathered from shard 0's slices), and a resume restores every
+replica from it. With ``fsdp`` it
 trains through the fully sharded step: ``state`` is shard 0's slices, pinned to their placement
 (``parallel.preserve_state_shardings``), a checkpoint holds one gathered
 copy, and a resume slices it again. ``backbone_factory`` (the pipeline
@@ -118,12 +120,15 @@ class TrainLoop:
             dict(model.named_parameters()), tx, cfg=self.cfg,
             num_timesteps=sched.num_timesteps)
         self.fsdp = fsdp
+        # the step's state is slices: a checkpoint gathers one whole copy
+        self._gathered = fsdp or (mesh is not None and mesh.shape.get("model", 1) > 1)
         if fsdp:
             from ..parallel.training import fsdp_train_step
 
             self.step_fn = fsdp_train_step(model, sched, tx, self.cfg, mesh,
                                            backbone_factory=backbone_factory)
-        elif mesh is not None and (use_shard_map or mesh.shape["data"] > 1):
+        elif mesh is not None and (use_shard_map or mesh.shape["data"] > 1
+                                   or mesh.shape.get("model", 1) > 1):
             from ..parallel.training import shard_train_step
 
             self.step_fn = shard_train_step(model, sched, tx, self.cfg, mesh,
@@ -211,10 +216,10 @@ class TrainLoop:
 
     def save(self) -> None:
         """Checkpoint and npz export at this step: one full copy (gathered
-        from the shards under FSDP)."""
+        from the shards under FSDP or tensor parallelism)."""
         if self.ckpt.latest_step() == self.step:
             return  # already saved at this step
-        state = self.step_fn.gathered_state() if self.fsdp else self.state
+        state = self.step_fn.gathered_state() if self._gathered else self.state
         self.ckpt.save(self.step, state)
         save_params_npz(f"{self.save_dir}/model{self.step:09d}.npz", state.params, self.model)
         if state.ema_params is not None:

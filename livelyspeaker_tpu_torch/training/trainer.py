@@ -87,8 +87,11 @@ class TrainState:
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every element of every tensor."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+    """sqrt of the sum of squares over every element of every tensor (on
+    the first one's device, where they lie on several)."""
+    dev = tensors[0].device
+    return torch.linalg.vector_norm(torch.stack([n.to(dev) for n in
+                                                 torch._foreach_norm(tensors)]))
 
 
 class AdamW:
@@ -125,7 +128,8 @@ class AdamW:
         g = [grads[k] for k in names]
         if self.grad_clip > 0:
             norm = global_norm(g) if clip_norm is None else clip_norm
-            g = [torch.where(norm < self.grad_clip, x, x / norm * self.grad_clip) for x in g]
+            clip = lambda x, n: torch.where(n < self.grad_clip, x, x / n * self.grad_clip)
+            g = [clip(x, norm.to(x.device)) for x in g]
         b1, b2 = self.b1, self.b2
         mu = torch._foreach_add(torch._foreach_mul(g, 1 - b1),
                                 torch._foreach_mul([state.mu[k] for k in names], b1))

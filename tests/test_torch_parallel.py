@@ -165,8 +165,11 @@ def test_create_mesh_shapes():
      (ValueError, RuntimeError), "CUDA devices|is_available"),
     (lambda: create_mesh(n_devices=3, devices=CPU2), ValueError, "2 devices named"),
     (lambda: create_mesh(devices=["cuda:0", "cpu"]), ValueError, "one type|CUDA devices"),
-    (lambda: create_mesh(devices=CPU2, model_parallel=2), NotImplementedError, "tensor"),
-    (lambda: parallel.pipeline_spec({}, tensor_parallel=True), NotImplementedError, "tensor"),
+    (lambda: create_mesh(devices=["cpu"] * 3, model_parallel=2), ValueError,
+     "3 devices do not divide into model groups of model_parallel=2"),
+    (lambda: RAGSampler(_port_model(), use_fused=True,
+                        mesh=create_mesh(devices=["cpu"] * 4, model_parallel=2)), ValueError,
+     "shard_map sampling mode is data-parallel only; got model axis of size 2"),
     (lambda: parallel.fsdp_train_step(_own_init_model(fused_train_backbone=True),
                                       DiffusionSchedule.create(steps=20), AdamW(LR),
                                       TrainConfig(), _mesh()), ValueError, "--fsdp needs"),

@@ -226,10 +226,12 @@ def test_pipeline_composes_with_fsdp():
         s, torch.zeros(16, T, D), torch.zeros(16, 1, D),
         parallel.create_pipeline_mesh(devices=["cpu"] * 2), num_microbatches=3),
      ValueError, "per-pipeline batch 16 not divisible by M=3"),
-    (lambda s: parallel.create_pipeline_mesh(devices=["cpu"] * 4, model_parallel=2),
-     NotImplementedError, "later slice"),
-    (lambda s: parallel.pipeline_spec(s, tensor_parallel=True), NotImplementedError,
-     "later slice"),
+    (lambda s: parallel.create_pipeline_mesh(devices=["cpu"] * 6, model_parallel=2),
+     ValueError, "6 devices do not divide into pipelines of 2 stages of 2 model columns"),
+    (lambda s: parallel.shard_train_step(
+        RAG(RAGConfig.ted(**KW, fused_train_backbone=True)), DiffusionSchedule.create(steps=20),
+        AdamW(1e-3), TrainConfig(), parallel.create_mesh(devices=["cpu"] * 4, model_parallel=2)),
+     ValueError, "shard_map training is data-parallel only; got model axis of size 2"),
     (lambda s: TrainLoop(RAG(RAGConfig.ted(**KW)), DiffusionSchedule.create(steps=20), None,
                          [], mesh=parallel.create_mesh(devices=["cpu"] * 2),
                          use_shard_map=True, backbone_factory=lambda p, row=0: None),
