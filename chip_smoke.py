@@ -220,7 +220,22 @@ the fused WavEncoder stack (K3). Checks:
    and eight times): the eager sampler, 3 FSDP steps at B=512 over data 2 x
    model 2 and a pipeline of 2 stages x model 2 against one device, each
    device's persistent state bytes, and the fused kernels' refusals in the
-   JAX package's words.
+   JAX package's words;
+19. the studies (``studies_phase``, after 14.), each through its
+   ``main(argv)`` at full width and a reduced length: soak_flagship
+   --fused_train at B=512 (40 clips, 4 epochs of 2 steps, split at 2; its
+   three train_rag processes first without the cuDNN pin, read, then as
+   the script runs them, pinned: the resume bit-exact, fgd_ema within its
+   bound), measure_ema_warmup and measure_audio_bf16 (2 epochs each, fused),
+   K2's launches in every train_rag process (1 forward and 8 of each
+   backward kernel a step, against the steps taken); measure_long_form_seams
+   --fused over 10 s at ddim20 on the soak's checkpoint (K1 20 a window, the
+   random baseline too); both semantic-payoff studies (20 RAG and 20 SAG
+   steps, clip_layers 4, unfused); distill_rag (one round of 3 steps from
+   the soak's checkpoint) and measure_distill_quality (latent 256); every
+   FGD, recall and seam ratio finite; each study's wall seconds. The
+   multi-process comparison of 16. also runs once more with cuDNN pinned
+   in all three runs (the gap reported, the 1e-4 gate kept).
 
 With ``--profile DIR`` it also profiles a second burst of the 24 serving
 requests, 3 composed TED batches and 3 steps of each training run with
@@ -233,6 +248,7 @@ kernels' JSON report; the last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -2375,7 +2391,7 @@ def records_train_phase(card, beside):
     from livelyspeaker_tpu_torch.scripts.eval_common import final_npz
     from livelyspeaker_tpu_torch.training.checkpoints import load_args
     from livelyspeaker_tpu_torch.utils.checkpoints import load_params_npz
-    from livelyspeaker_tpu_torch.utils.convert import jax_params_to_state_dict
+    from livelyspeaker_tpu_torch.utils import convert
 
     work = tempfile.mkdtemp(prefix="chip_smoke_records.")
     try:
@@ -2487,10 +2503,10 @@ def records_train_phase(card, beside):
                         n_speakers=saved["n_speakers"], num_emotions=saved["num_emotions"])
         step = s["steps"]
         rag = RAG(cfg)
-        rag.load_state_dict(jax_params_to_state_dict(
+        rag.load_state_dict(convert.jax_params_to_state_dict(
             load_params_npz(os.path.join(rag_dir, f"model{step:09d}.npz"))))
         sag = SAG(njoints=cfg.njoints, nfeats=cfg.nfeats, latent_dim=512)
-        sag.load_state_dict(jax_params_to_state_dict(
+        sag.load_state_dict(convert.jax_params_to_state_dict(
             load_params_npz(os.path.join(sag_dir, "sag_best.npz"))))
         clip = CLIPTextEncoder(CLIPTextConfig(layers=12, embed_dim=512),
                                generator=torch.Generator().manual_seed(0))  # train_sag's tower
@@ -3642,15 +3658,32 @@ def _mh_train(mesh, rows, gate=None):
     return model, losses, ms, dict(k2.LAUNCHES), plain
 
 
-def multihost_worker(rank, world, port, backend, out_dir):
+@contextlib.contextmanager
+def cudnn_pinned(on=True):
+    """cuDNN pinned to deterministic algorithms (``deterministic = True``,
+    ``benchmark = False``) inside the block, as it was after."""
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    if on:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+
+
+def multihost_worker(rank, world, port, backend, out_dir, pinned=False):
     """One process of ``multihost_phase``: joins the group on cuda:0, sets
-    up, trains its rows once ``out_dir/go_{backend}`` exists, and writes its
+    up, trains its rows once ``out_dir/go_{backend}`` exists (with
+    ``pinned``, cuDNN pinned to deterministic algorithms), and writes its
     numbers (and rank 0 its params) to ``out_dir``."""
     import hashlib
 
     import torch.distributed as dist
 
     from livelyspeaker_tpu_torch.parallel import create_mesh, init_distributed
+
+    if pinned:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
 
     init_distributed(f"localhost:{port}", world, rank, local_device_ids=[0], backend=backend)
     try:
@@ -3703,10 +3736,65 @@ def _finish(procs, tag):
     return outs
 
 
-def _worker_cmd(rank, world, port, backend, out_dir):
+def _worker_cmd(rank, world, port, backend, out_dir, pinned=False):
     code = (f"import chip_smoke; chip_smoke.multihost_worker({rank}, {world}, {port}, "
-            f"{backend!r}, {out_dir!r})")
+            f"{backend!r}, {out_dir!r}, pinned={pinned})")
     return [sys.executable, "-c", code]
+
+
+def _flat_params(model):
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu()
+
+
+def _param_gap(model, got):
+    """(largest |got - model| over the parameters, its name, the largest
+    outside the conv biases before an InstanceNorm), ``got`` the flat
+    parameters of another run."""
+    names = [k for k, _ in model.named_parameters()]
+    sizes = [p.numel() for p in model.parameters()]
+    diffs = [(a - b).abs().max().item()
+             for a, b in zip(got.split(sizes), _flat_params(model).split(sizes))]
+    diff = max(diffs)
+    outside = max(d for k, d in zip(names, diffs) if k not in ZERO_GRAD)
+    return diff, names[diffs.index(diff)], outside
+
+
+def multihost_pinned_check(card):
+    """The gloo pair against the in-process [cuda:0, cuda:0] step once more
+    with cuDNN pinned to deterministic algorithms in all three runs: whether
+    the unpinned runs' gap at the WavEncoder's weights goes to 0. The gate
+    stays 1e-4; the bits are reported."""
+    from livelyspeaker_tpu_torch.parallel import create_mesh
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_mh_pinned.")
+    procs = []
+    try:
+        port = _free_port()
+        procs = _start([_worker_cmd(r, 2, port, "gloo", work, pinned=True) for r in (0, 1)])
+        open(os.path.join(work, "go_gloo"), "w").close()
+        for r in (0, 1):
+            _wait_for(os.path.join(work, f"gloo_rank{r}.json"), procs)
+        _finish(procs, "multihost pinned gloo ranks")
+        with cudnn_pinned():
+            model, losses, ms, _, _ = _mh_train(create_mesh(devices=["cuda:0", "cuda:0"]),
+                                                slice(None))
+        with open(os.path.join(work, "gloo_rank0.json")) as f:
+            rank0 = json.load(f)
+        got = torch.load(os.path.join(work, "params_gloo.pt"), weights_only=True)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(work, ignore_errors=True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(rank0["losses"], losses))
+    diff, leaf, outside = _param_gap(model, got)
+    exact = bool(torch.equal(got, _flat_params(model)))
+    print(f"[multihost] cuDNN pinned deterministic in all three runs: gloo pair against the "
+          f"in-process step ({ms} ms a step, {card}): loss rel {rel:.3e}, max |param diff| "
+          f"{diff:.3e} at {leaf}, {outside:.3e} outside the conv biases before an "
+          f"InstanceNorm, bit-identical: {exact}")
+    check(rel <= 1e-5 and diff <= 1e-4, "multihost pinned: the processes disagree with the mesh step")
+    return {"diff": diff, "leaf": leaf, "bit_identical": exact}
 
 
 def multihost_phase(card):
@@ -3773,19 +3861,13 @@ def multihost_phase(card):
     check(ranks[0]["sha256"] == ranks[1]["sha256"], "multihost: the ranks' params differ")
     check(ranks[0]["losses"] == ranks[1]["losses"], "multihost: the ranks' losses differ")
 
-    names = [k for k, _ in model.named_parameters()]
-    ref = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu()
     rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], losses))
-    diffs = [(a - b).abs().max().item() for a, b in zip(
-        got.split([p.numel() for p in model.parameters()]),
-        ref.split([p.numel() for p in model.parameters()]))]
-    diff = max(diffs)
-    outside = max(d for k, d in zip(names, diffs) if k not in ZERO_GRAD)
+    diff, leaf, outside = _param_gap(model, got)
     print(f"[multihost] two gloo processes against the in-process [cuda:0, cuda:0] step "
           f"({ms} ms a step, {card}): loss rel {rel:.3e} (tol 1e-5), max |param diff| "
-          f"{diff:.3e} (tol 1e-4) at {names[diffs.index(diff)]}, {outside:.3e} outside the "
+          f"{diff:.3e} (tol 1e-4) at {leaf}, {outside:.3e} outside the "
           f"conv biases before an InstanceNorm (gradient 0 in exact arithmetic), "
-          f"bit-identical: {bool(torch.equal(got, ref))}")
+          f"bit-identical: {bool(torch.equal(got, _flat_params(model)))}")
     check(rel <= 1e-5 and diff <= 1e-4, "multihost: the processes disagree with the mesh step")
     del model
 
@@ -3804,6 +3886,7 @@ def multihost_phase(card):
             line for line in out.splitlines() if line.startswith("[p")))
     check(len(demo_losses[0]) == 3 and demo_losses[0] == demo_losses[1],
           f"multihost demo: the processes print other losses {demo_losses}")
+    multihost_pinned_check(card)
     print(f"[multihost] phase wall {time.perf_counter() - t_phase:.1f} s")
     return {k: ranks[0]["launches"][k] + ranks[1]["launches"][k] + nccl["launches"][k]
             for k in ranks[0]["launches"]}
@@ -4063,6 +4146,247 @@ def tensor_parallel_phase(card):
     print(f"[tensor-parallel] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+STUDY_CLIPS, STUDY_EPOCHS = 40, 4  # 1,040 windows: 2 steps an epoch at B=512, 8 a soak run
+LONG_FORM_SECONDS = 10
+
+
+def dump_train_counts(out_dir):
+    """In a ``train_rag`` process the studies start: write K1's and K2's
+    launches and their plain versions' calls to ``out_dir`` at exit."""
+    from livelyspeaker_tpu_torch.ops import fused_mlp, fused_mlp_train as k2
+
+    counts = {"argv": sys.argv[1:], "k2": dict(k2.LAUNCHES),
+              "k2_plain": [k2.fused_transmlp_train_forward_reference.calls,
+                           k2.fused_transmlp_train_backward_reference.calls],
+              "k1": fused_mlp.fused_transmlp.launches}
+    with open(os.path.join(out_dir, f"train_{os.getpid()}.json"), "w") as f:
+        json.dump(counts, f)
+
+
+@contextlib.contextmanager
+def _counted_train_rag(count_dir):
+    """Every ``train_rag`` process a study starts (``eval_common.
+    run_train_rag``) writes its kernel counts to ``count_dir`` at exit: the
+    command the study asked for, run through ``runpy`` after registering
+    :func:`dump_train_counts` (the soak's cuDNN pin kept)."""
+    from livelyspeaker_tpu_torch.scripts import eval_common
+
+    orig = eval_common.train_rag_command
+    run_module = ("import runpy; runpy.run_module('livelyspeaker_tpu_torch.scripts.train_rag', "
+                  "run_name='__main__', alter_sys=True)")
+
+    def counted(argv, *, cudnn_deterministic=False):
+        cmd = orig(argv, cudnn_deterministic=cudnn_deterministic)
+        if cmd[1] == "-m":
+            cmd = [cmd[0], "-c", run_module] + cmd[3:]
+        cmd[2] = (f"import atexit, chip_smoke; atexit.register(chip_smoke.dump_train_counts, "
+                  f"{count_dir!r}); " + cmd[2])
+        return cmd
+
+    eval_common.train_rag_command = counted
+    try:
+        yield
+    finally:
+        eval_common.train_rag_command = orig
+
+
+def _train_counts(count_dir):
+    """The counts of the processes that wrote to ``count_dir``, emptied."""
+    out = []
+    for name in sorted(os.listdir(count_dir)):
+        with open(os.path.join(count_dir, name)) as f:
+            out.append(json.load(f))
+        os.unlink(os.path.join(count_dir, name))
+    return out
+
+
+def _run_steps(argv, spe):
+    """Steps a ``train_rag`` process took: its epochs, less those a resume
+    starts past (each study's runs resume only to the end of the split)."""
+    epochs = int(argv[argv.index("--epochs") + 1])
+    if "--resume_checkpoint" in argv:
+        epochs -= epochs // 2
+    return epochs * spe
+
+
+def _check_k2_counts(tag, procs, spe, total):
+    """K2's launches in a study's train_rag processes: 1 forward and LAYERS
+    of each backward kernel a step, no plain version, no K1; returns their
+    sum."""
+    launches = {k: 0 for k in ("fwd", "bwd_block", "wgrad", "reduce")}
+    steps = 0
+    for p in procs:
+        n = _run_steps(p["argv"], spe)
+        steps += n
+        check(p["k2"]["fwd"] == n and all(p["k2"][k] == LAYERS * n
+                                          for k in ("bwd_block", "wgrad", "reduce")),
+              f"{tag}: K2 launches {p['k2']} for {n} steps")
+        check(p["k2_plain"] == [0, 0] and p["k1"] == 0,
+              f"{tag}: plain versions {p['k2_plain']}, K1 {p['k1']} in a training process")
+        for k in launches:
+            launches[k] += p["k2"][k]
+    check(steps == total, f"{tag}: {steps} steps in {len(procs)} processes, want {total}")
+    print(f"[studies] {tag}: K2 launches {launches} over {steps} steps in {len(procs)} "
+          f"train_rag processes (per step: fwd 1, each backward kernel {LAYERS}); plain 0")
+    return launches
+
+
+def _median_step_ms(save_dir):
+    """Median step ms of a run logged every step, from the log's clock,
+    after its first two steps."""
+    rows = _progress_rows(save_dir, "loss")
+    ms = np.diff([r["elapsed_s"] for r in rows]) * 1e3
+    return float(np.median(ms[1:])) if len(ms) > 1 else float("nan")
+
+
+def studies_phase(card):
+    """The studies (``scripts/soak_flagship.py``, ``scripts/measure_*.py``,
+    ``experiments/distillation``) through their ``main(argv)`` on the card,
+    at full width and a reduced length: the soak's split run resumed bit for
+    bit with cuDNN pinned (and, read without the pin first, the largest
+    param difference and its leaf), its EMA within the script's bound; K2
+    in every train_rag process (1 forward and 8 of each backward kernel a
+    step, against the steps taken); K1 in the long-form run (20 a window at
+    ddim20, the random baseline included); every FGD, recall and seam
+    ratio finite. Prints each study's wall seconds. Returns (K1's launches,
+    K2's by kernel)."""
+    from livelyspeaker_tpu_torch.data import TedWindowDataset
+    from livelyspeaker_tpu_torch.experiments.distillation import distill_rag, \
+        measure_distill_quality
+    from livelyspeaker_tpu_torch.pipeline import long_form_window_grid
+    from livelyspeaker_tpu_torch.scripts import (
+        eval_common,
+        measure_audio_bf16,
+        measure_ema_warmup,
+        measure_long_form_seams,
+        measure_semantic_payoff,
+        measure_semantic_payoff_beat,
+        soak_flagship,
+    )
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_studies.")
+    counts = os.path.join(work, "counts")
+    os.makedirs(counts)
+    k2_total = {k: 0 for k in ("fwd", "bwd_block", "wgrad", "reduce")}
+    walls = {}
+
+    def add(launches):
+        for k in k2_total:
+            k2_total[k] += launches[k]
+
+    def finite(tag, values):
+        check(all(np.isfinite(v) for v in values), f"{tag}: not finite: {values}")
+
+    try:
+        with _counted_train_rag(counts):
+            soak = ["--epochs", str(STUDY_EPOCHS), "--n_clips", str(STUDY_CLIPS),
+                    "--log_interval", "1", "--fused_train"]
+            # the soak's runs without the pin: read, not gated
+            a = soak_flagship.parse_args(soak + ["--out", os.path.join(work, "soak_unpinned")])
+            t0 = time.perf_counter()
+            records = soak_flagship.build_records(a)
+            walls["records"] = time.perf_counter() - t0
+            spe = len(TedWindowDataset(records)) // TRAIN_BATCH  # steps an epoch
+            t0 = time.perf_counter()
+            unpinned = soak_flagship.train_runs(a, records, cudnn_deterministic=False)
+            walls["soak_unpinned_runs"] = time.perf_counter() - t0
+            unpinned_ms = _median_step_ms(unpinned["full_dir"])
+            print(f"[studies] soak without the cuDNN pin: full against split and resumed, "
+                  f"max |param diff| {unpinned['max_delta']:.3e} at {unpinned['leaf']}, "
+                  f"bit-exact {unpinned['max_delta'] == 0.0}; full run step "
+                  f"{unpinned_ms:.2f} ms median ({card})")
+            add(_check_k2_counts("soak unpinned", _train_counts(counts), spe,
+                                 2 * STUDY_EPOCHS * spe))
+
+            # the soak as its main runs it: pinned, gated
+            out_dir = os.path.join(work, "soak")
+            os.makedirs(out_dir)
+            os.symlink(records, os.path.join(out_dir, "records_ted"))
+            t0 = time.perf_counter()
+            try:
+                res = soak_flagship.main(soak + ["--out", out_dir])
+            except AssertionError as e:
+                check(False, f"soak_flagship: {e}")
+            walls["soak_flagship"] = time.perf_counter() - t0
+            pinned_ms = _median_step_ms(os.path.join(out_dir, "full"))
+            print(f"[studies] soak_flagship --fused_train ({STUDY_EPOCHS} epochs of {spe} steps "
+                  f"at B={TRAIN_BATCH}, split at {STUDY_EPOCHS // 2}, cuDNN pinned): "
+                  f"{json.dumps(res)}; full run step {pinned_ms:.2f} ms median against "
+                  f"{unpinned_ms:.2f} unpinned ({card})")
+            check(res["resume_bit_exact"], "soak: the resume is not bit-exact")
+            finite("soak", [res["fgd_raw"], res["fgd_ema"]])
+            add(_check_k2_counts("soak", _train_counts(counts), spe, 2 * STUDY_EPOCHS * spe))
+
+            short = ["--epochs", "2", "--n_clips", str(STUDY_CLIPS), "--log_interval", "1"]
+            for tag, module, keys in (
+                    ("measure_ema_warmup", measure_ema_warmup,
+                     ["fgd_raw_plain", "fgd_ema_plain", "fgd_raw_warmup", "fgd_ema_warmup"]),
+                    ("measure_audio_bf16", measure_audio_bf16,
+                     ["final_loss_f32", "final_loss_bf16", "fgd_f32", "fgd_bf16"])):
+                d = os.path.join(work, tag)
+                os.makedirs(d)
+                os.symlink(records, os.path.join(d, "records"))
+                t0 = time.perf_counter()
+                res = module.main(short + ["--out", d])
+                walls[tag] = time.perf_counter() - t0
+                print(f"[studies] {tag} (2 epochs of {spe} steps at B={TRAIN_BATCH}, fused): "
+                      f"{json.dumps(res)} ({card})")
+                finite(tag, [res[k] for k in keys])
+                add(_check_k2_counts(tag, _train_counts(counts), spe, 2 * 2 * spe))
+
+        # long form on the soak's trained checkpoint, K1 at ddim20
+        n_windows = long_form_window_grid(LONG_FORM_SECONDS * 16000, 34, 4)[0]
+        res, c, secs = _counted(lambda: measure_long_form_seams.main(
+            ["--model_path", eval_common.final_npz(os.path.join(out_dir, "full")),
+             "--seconds", str(LONG_FORM_SECONDS), "--respacing", "ddim20", "--fused"]))
+        walls["measure_long_form_seams"] = secs
+        want = 20 * n_windows * 2  # the trained model and the random baseline
+        print(f"[studies] measure_long_form_seams --fused over {LONG_FORM_SECONDS} s "
+              f"({n_windows} windows, ddim20): {json.dumps(res, sort_keys=True)}; K1 launches "
+              f"{c['k1']} (want {want}), plain {c['k1_plain']} ({card})")
+        check(c["k1"] == want and c["k1_plain"] == 0, f"long form: K1 {c['k1']}, want {want}")
+        for rep in (res["trained"], res["random_baseline"]):
+            check(rep["n_seams"] == n_windows - 1, f"long form: {rep['n_seams']} seams")
+            finite("long form", [rep[k] for k in ("ratio_p95", "seam_mean", "within_mean")])
+        k1 = c["k1"]
+
+        semantic = ["--rag_steps", "20", "--sag_steps", "20", "--samples_per_window", "1"]
+        for tag, module, metrics in (
+                ("measure_semantic_payoff", measure_semantic_payoff,
+                 ["mode_recall", "fgd", "cond_fgd_mean"]),
+                ("measure_semantic_payoff_beat", measure_semantic_payoff_beat,
+                 ["mode_recall", "srgr", "fid", "cond_fid_mean"])):
+            res, c, secs = _counted(lambda: module.main(semantic))
+            walls[tag] = secs
+            print(f"[studies] {tag} (latent 512, 8 blocks, clip_layers 4, 20 RAG and 20 SAG "
+                  f"steps at batch 64, ddim100, skip 80): {json.dumps(res)} ({card})")
+            finite(tag, [res["header"][k] for k in ("classifier_acc_on_real", "sketch_recall",
+                                                    "x0hat_recall_at_boundary")]
+                   + [r[k] for r in res["rows"] for k in metrics])
+            check(c["k1"] == 0 and c["k2"]["fwd"] == 0, f"{tag}: the unfused path ran a kernel")
+
+        t0 = time.perf_counter()
+        res = distill_rag.main(["--model_path", eval_common.final_npz(os.path.join(out_dir, "full")),
+                                "--data_dir", records, "--save_dir", os.path.join(work, "distill"),
+                                "--rounds", "1", "--steps_per_round", "3", "--log_interval", "1"])
+        walls["distill_rag"] = time.perf_counter() - t0
+        print(f"[studies] distill_rag (latent 512, 1 round of 3 steps at batch 128): "
+              f"{json.dumps(res)} ({card})")
+        check(all(os.path.exists(p) for p in res["students"]), "distill_rag: no student npz")
+        t0 = time.perf_counter()
+        res = measure_distill_quality.main(["--train_steps", "10", "--distill_steps", "5"])
+        walls["measure_distill_quality"] = time.perf_counter() - t0
+        print(f"[studies] measure_distill_quality (latent 256, 4 blocks, 10 teacher steps, 2 "
+              f"rounds of 5): {json.dumps(res)} ({card})")
+        finite("measure_distill_quality", [r["fgd"] for r in res["rows"]])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("[studies] wall s: " + " ".join(f"{k}={v:.2f}" for k, v in walls.items())
+          + f"; phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return k1, k2_total
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -4100,6 +4424,10 @@ def main():
     measure_launches, bench_train_launches = measure_phase(card, args.profile)
     launches += measure_launches + generate_phase(card)
     for k, n in bench_train_launches.items():
+        train_launches[k] += n
+    studies_k1, studies_k2 = studies_phase(card)
+    launches += studies_k1
+    for k, n in studies_k2.items():
         train_launches[k] += n
     if args.profile:
         wgrad_library_probe(card, args.profile)

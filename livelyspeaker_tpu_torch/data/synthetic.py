@@ -18,8 +18,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
+import tempfile
 import wave
-from typing import Dict, Iterable, List, Sequence
+from typing import Callable, Dict, Iterable, List, Sequence
 
 import numpy as np
 
@@ -27,6 +29,7 @@ from .ted import TedConfig, build_ted_records
 from ..ops.skeleton import DIR_VEC_PAIRS, MEAN_DIR_VEC
 
 __all__ = [
+    "build_once",
     "synthetic_clips",
     "write_raw_ted_clips",
     "write_raw_beat_recordings",
@@ -45,6 +48,21 @@ _WORDS = (
     "the quick brown fox jumps over lazy dog people talk about ideas "
     "gesture motion speech rhythm semantic generation model hands arms"
 ).split()
+
+
+def build_once(name: str, build: Callable[[str], object]) -> str:
+    """Records under the temporary directory's ``name``, built once by
+    ``build(dir)``: a build goes to a directory of its own and is renamed
+    into place, so concurrent runs never read a half-written set."""
+    d = os.path.join(tempfile.gettempdir(), name)
+    if not os.path.exists(os.path.join(d, "meta.json")):
+        tmp = tempfile.mkdtemp(prefix=name + ".")
+        build(tmp)
+        try:
+            os.rename(tmp, d)
+        except OSError:  # another run put its copy there first
+            shutil.rmtree(tmp, ignore_errors=True)
+    return d
 
 
 def _smooth_noise(rng: np.random.Generator, n: int, dims: int, fps: int) -> np.ndarray:

@@ -82,11 +82,25 @@ class EmbeddingSpaceEvaluator:
 
     def __init__(self, state_dict: Mapping[str, torch.Tensor], pose_dim: int = 27,
                  n_frames: int = 34, device: Optional[Union[str, torch.device]] = None):
-        self.net = TedEmbeddingEncoder(pose_dim=pose_dim, n_frames=n_frames)
-        self.net.load_state_dict(state_dict)
+        net = TedEmbeddingEncoder(pose_dim=pose_dim, n_frames=n_frames)
+        net.load_state_dict(state_dict)
+        self._setup(net, device)
+
+    def _setup(self, net: torch.nn.Module, device) -> None:
+        self.net = net
         self.device = place_model(self.net.eval(), device, "EmbeddingSpaceEvaluator")
         self.real_feat_list: List[np.ndarray] = []
         self.generated_feat_list: List[np.ndarray] = []
+
+    @classmethod
+    def from_module(cls, net: torch.nn.Module,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> "EmbeddingSpaceEvaluator":
+        """An evaluator over an encoder module as it is, with its own width
+        and weights (a seeded fixture, or ``BeatEmbeddingEncoder``)."""
+        self = cls.__new__(cls)
+        self._setup(net, device)
+        return self
 
     @classmethod
     def from_torch_checkpoint(cls, path: str, device: Optional[Union[str, torch.device]] = None

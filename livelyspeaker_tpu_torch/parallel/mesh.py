@@ -70,7 +70,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..utils.convert import jax_leaf_layout
+from ..utils import convert
 from .tensor_parallel import merge_values, split_values, tp_layout, tp_replica
 
 __all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "create_mesh", "data_parallel_mesh",
@@ -420,7 +420,7 @@ def _flax_layout(model: torch.nn.Module, name: str, ndim: int) -> Tuple[str, Tup
     """(Flax path, perm) of ``model``'s parameter ``name``: torch dim i is
     Flax dim perm[i] (``utils/convert.py``)."""
     *parents, leaf = name.split(".")
-    flax_leaf, perm = jax_leaf_layout(model.get_submodule(".".join(parents)), leaf, ndim)
+    flax_leaf, perm = convert.jax_leaf_layout(model.get_submodule(".".join(parents)), leaf, ndim)
     return "/".join(parents + [flax_leaf]), perm
 
 

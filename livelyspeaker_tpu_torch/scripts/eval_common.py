@@ -6,25 +6,38 @@ Port of the JAX package's ``scripts/eval_common.py`` (the reference repeats
 this loading in each eval script: ``scripts/test_LivelySpeaker_ted.py:38-54``,
 ``scripts_beat/test_LivelySpeaker_beat.py:33-41``). The weights live in the
 modules; every model goes to ``args.device``, which is the card unless it
-says otherwise (``utils/device.py``'s rule). The JAX module's
-``fixture_fgd`` and ``xt_boundary_probe`` serve its measurement studies only
-and are not ported.
+says otherwise (``utils/device.py``'s rule).
+
+What the measurement studies share (``soak_flagship``, ``measure_*``,
+``experiments/distillation``): :func:`fixture_fgd`, DDIM through
+``RAGSampler`` over a whole dataset scored against a frozen fixture
+embedder; :func:`fixture_evaluator`, that embedder with seeded weights
+(the JAX studies' ``PRNGKey(11)`` becomes ``torch.Generator`` seed 11);
+:func:`xt_boundary_probe`, the one-shot x0 at the skip boundary; and
+:func:`run_train_rag`, a ``train_rag`` run in a process of its own.
 """
 
 from __future__ import annotations
 
 import glob
 import os
+import subprocess
 import sys
 import time
 from contextlib import contextmanager
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 __all__ = ["load_sag_params", "load_clip", "load_tokenizer", "build_pipeline",
-           "load_beat_embedder", "mesh_from_args", "final_npz", "PhaseClock"]
+           "load_beat_embedder", "mesh_from_args", "final_npz", "PhaseClock",
+           "fixture_evaluator", "fixture_fgd", "xt_boundary_probe", "train_rag_steps",
+           "train_rag_command", "run_train_rag", "FIXTURE_SEED"]
+
+FIXTURE_SEED = 11  # the frozen fixture embedder's weights
+# the root of the checkout, where ``python -m livelyspeaker_tpu_torch...`` runs
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def mesh_from_args(args, batch_size: Optional[int] = None):
@@ -186,3 +199,167 @@ class PhaseClock:
         wall = time.perf_counter() - self._start
         return "seconds: " + " ".join(
             f"{k}={v:.3f}" for k, v in [("wall", wall)] + list(self.seconds.items()))
+
+
+def fixture_evaluator(pose_dim: int = 27, *, beat: bool = False, n_frames: int = 34,
+                      device=None):
+    """The frozen fixture embedder of the studies, seeded
+    (:data:`FIXTURE_SEED`): ``TedEmbeddingEncoder`` at ``pose_dim`` (27 on
+    TED, 282 for the BEAT soak), or with ``beat`` the 282-d
+    ``BeatEmbeddingEncoder`` of the BEAT semantic study. FGD deltas between
+    runs need a fixed embedding map, not trained weights; the reference's
+    trained evaluator waits for its release files."""
+    from ..eval import EmbeddingSpaceEvaluator
+    from ..models.embedding_net import BeatEmbeddingEncoder, TedEmbeddingEncoder
+
+    g = torch.Generator().manual_seed(FIXTURE_SEED)
+    net = (BeatEmbeddingEncoder(n_frames=n_frames, generator=g) if beat
+           else TedEmbeddingEncoder(pose_dim=pose_dim, n_frames=n_frames, generator=g))
+    return EmbeddingSpaceEvaluator.from_module(net, device)
+
+
+def _flat(m: np.ndarray, nframes: int) -> np.ndarray:
+    """[B, J, F, T] -> [B, T, J*F]."""
+    return m.transpose(0, 3, 1, 2).reshape(m.shape[0], nframes, -1)
+
+
+def fixture_fgd(model, dataset, model_path: str, fixture, *, batch_size: int = 64,
+                timestep_respacing: str = "ddim20", guidance: float = 1.0, seed: int = 233,
+                device=None) -> float:
+    """FGD of a checkpoint against a frozen fixture embedder: ``model_path``
+    (the portable npz) loaded into ``model``, the whole ``dataset`` sampled
+    in order (batches of ``batch_size``, the tail dropped) by DDIM through
+    ``RAGSampler`` (unfused, as the JAX sampler defaults), on ``device``
+    (the card by default). One ``torch.Generator`` seeded ``seed`` drives
+    the chains where the JAX loop splits a key a batch."""
+    from ..data import DataLoader
+    from ..pipeline import RAGSampler
+    from ..utils import convert
+    from ..utils.checkpoints import load_params_npz
+
+    model.load_state_dict(convert.jax_params_to_state_dict(load_params_npz(model_path)))
+    sampler = RAGSampler(model, steps=1000, timestep_respacing=timestep_respacing,
+                         method="ddim", device=device)
+    loader = DataLoader(dataset, batch_size=batch_size, shuffle=False, drop_last=True, seed=seed)
+    fixture.reset()
+    generator = torch.Generator(device=sampler.device).manual_seed(seed)
+    nf = model.cfg.nframes
+    for batch in loader:
+        cond = {"audio": batch["audio"], "vid": batch["vid"], "origin_x": batch["motion"]}
+        if "emo" in batch:  # BEAT conditioning (scripts_beat RAG.py:125-126)
+            cond["emo"] = batch["emo"]
+        cond = {k: torch.from_numpy(np.asarray(v)).to(sampler.device) for k, v in cond.items()}
+        sample = sampler(cond, generator, guidance=guidance).cpu().numpy()
+        # TED windows carry the flat vec_seq; BEAT's rot6d motion flattens
+        # as the FID protocol does (test_RAG_beat.py)
+        real = batch["vec_seq"] if "vec_seq" in batch else _flat(batch["motion"], nf)
+        fixture.push_samples(_flat(sample, nf), real)
+    fgd, _ = fixture.get_scores()
+    return float(fgd)
+
+
+@torch.no_grad()
+def xt_boundary_probe(spaced, base_sched, model, motion, cond, skip: int, *,
+                      noise: Optional[torch.Tensor] = None,
+                      style_eps: Optional[torch.Tensor] = None,
+                      noise_seed: int = 5, style_seed: int = 6):
+    """The x_t probe of the two semantic-payoff studies: real ``motion``
+    q-sampled (under ``base_sched``, unspaced) to the noise level of the
+    skip boundary, and the denoiser's one-shot x0 there. Returns
+    ``(t_boundary, x0_hat)``, x0_hat on the host.
+
+    A classifier that scores x0_hat about 1.0 says the denoiser keeps the
+    mode content x_t carries (a low composed recall is then the refinement
+    eroding it); about chance says the model memorised x0 = f(cond), and no
+    sketch can survive. ``spaced`` is the respaced schedule the sampler
+    runs: its ``timestep_map`` turns the boundary index ``num_timesteps -
+    skip - 1`` (``skip`` in respaced steps; out of range raises) into an
+    original-process timestep. ``noise`` and ``style_eps`` [B, 1, D]
+    replace the draws of ``torch.Generator``s seeded ``noise_seed`` and
+    ``style_seed`` (the JAX function's keys 5 and 6)."""
+    n = int(spaced.num_timesteps)
+    idx = n - int(skip) - 1
+    if not 0 <= idx < n:
+        raise ValueError(f"skip {skip} out of range for {n} respaced steps")
+    t_boundary = int(spaced.timestep_map[idx])
+    device = next(model.parameters()).device
+    motion = torch.as_tensor(np.asarray(motion, np.float32)).to(device)
+    b = motion.shape[0]
+    if noise is None:
+        noise = torch.randn(motion.shape, device=device,
+                            generator=torch.Generator(device).manual_seed(noise_seed))
+    if style_eps is None:
+        style_eps = torch.randn((b, 1, model.cfg.latent_dim), device=device,
+                                generator=torch.Generator(device).manual_seed(style_seed))
+    from ..diffusion.sampling import q_sample
+
+    t = torch.full((b,), t_boundary, dtype=torch.long, device=device)
+    xb = q_sample(base_sched.to(device), motion, t, noise.to(device))
+    cond = {**cond, "style_eps": style_eps.to(device)}
+    x0_hat = model(xb, t, cond, train=False)["output"]
+    return t_boundary, x0_hat.cpu().numpy()
+
+
+def train_rag_steps(model, train_ds, fields: Sequence[str], steps: int, batch_size: int,
+                    lr: float, device, kld_weight: float = 0.01) -> None:
+    """``steps`` AdamW steps of ``model`` (in place) on batches gathered on
+    the device, the draws of step i from ``training.loop.step_generator(0,
+    i)`` (the JAX loop folds step i into key 0)."""
+    from ..data import DeviceDataLoader
+    from ..diffusion import DiffusionSchedule
+    from ..training import TrainConfig
+    from ..training.loop import step_generator
+    from ..training.trainer import init_train_state, make_optimizer, make_train_step
+
+    loader = DeviceDataLoader(train_ds, batch_size=min(batch_size, len(train_ds)),
+                              shuffle=True, seed=233, fields=fields, device=device)
+    sched = DiffusionSchedule.create(steps=1000, schedule="cosine").to(device)
+    tcfg = TrainConfig(lr=lr, kld_weight=kld_weight)
+    tx = make_optimizer(tcfg)
+    state = init_train_state(dict(model.named_parameters()), tx, cfg=tcfg, num_timesteps=1000)
+    step = make_train_step(model, sched, tx, tcfg)
+    model.train()
+    done, t0, m = 0, time.time(), None
+    while done < steps:
+        for batch in loader:
+            if done >= steps:
+                break
+            state, m = step(state, batch, step_generator(0, done, device))
+            done += 1
+    model.eval()
+    print(f"RAG trained: {done} steps loss={m['loss']:.4f} ({time.time() - t0:.0f}s)",
+          file=sys.stderr)
+
+
+def train_rag_command(argv, *, cudnn_deterministic: bool = False):
+    """The command of one run of the port's ``train_rag`` on ``argv`` in a
+    process of its own: ``python -m livelyspeaker_tpu_torch.scripts.train_rag
+    argv``, or with ``cudnn_deterministic`` the same module run after
+    ``torch.backends.cudnn.deterministic = True`` and ``benchmark = False``
+    (the soak's pin; ``train_rag`` has no flag for it)."""
+    if not cudnn_deterministic:
+        return [sys.executable, "-m", "livelyspeaker_tpu_torch.scripts.train_rag", *argv]
+    code = ("import runpy, torch; torch.backends.cudnn.deterministic = True; "
+            "torch.backends.cudnn.benchmark = False; "
+            "runpy.run_module('livelyspeaker_tpu_torch.scripts.train_rag', "
+            "run_name='__main__', alter_sys=True)")
+    return [sys.executable, "-c", code, *argv]
+
+
+def run_train_rag(argv, *, device=None, cudnn_deterministic: bool = False,
+                  capture: bool = False) -> subprocess.CompletedProcess:
+    """Run :func:`train_rag_command` from the checkout's root, with
+    ``--device`` passed through where one is given; raises with the run's
+    last output when it fails. ``capture`` keeps its stdout and stderr."""
+    argv = list(argv) + (["--device", str(device)] if device is not None else [])
+    cmd = train_rag_command(argv, cudnn_deterministic=cudnn_deterministic)
+    print("+", " ".join(cmd), file=sys.stderr, flush=True)
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=capture, text=True)
+    if capture:
+        sys.stderr.write(proc.stderr[-2000:])
+    print(f"  -> rc={proc.returncode} in {time.time() - t0:.0f}s", file=sys.stderr, flush=True)
+    if proc.returncode:
+        tail = (proc.stdout or "")[-2000:] + (proc.stderr or "")[-2000:]
+        raise RuntimeError(f"train_rag failed ({proc.returncode}): {' '.join(argv)}\n{tail}")
+    return proc

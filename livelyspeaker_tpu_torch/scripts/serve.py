@@ -60,10 +60,10 @@ __all__ = ["make_handler", "build_server", "main"]
 
 
 def _load_state_dict(path: str):
+    from ..utils import convert
     from ..utils.checkpoints import load_params_npz
-    from ..utils.convert import jax_params_to_state_dict
 
-    return jax_params_to_state_dict(load_params_npz(path))
+    return convert.jax_params_to_state_dict(load_params_npz(path))
 
 
 def make_handler(batcher: GestureBatcher, reload_token: str = ""):

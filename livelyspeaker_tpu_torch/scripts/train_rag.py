@@ -37,9 +37,6 @@ compose; the JAX script's refusals stand: ``--pipeline_parallel`` with
 
 from __future__ import annotations
 
-import os
-import shutil
-import tempfile
 from typing import List, Optional
 
 import torch
@@ -64,21 +61,15 @@ SYNTHETIC_DIR = "livelyspeaker_tpu_torch_synth"
 
 def synthetic_records_dir() -> str:
     """The synthetic TED records of ``--dataset synthetic`` (8 clips of
-    20 s), built once into the temporary directory. A build goes to a
-    directory of its own and is renamed into place, so concurrent runs
-    never read a half-written set."""
-    from ..data.synthetic import build_synthetic_ted_records
+    20 s), built once into the temporary directory
+    (``data.synthetic.build_once``)."""
+    from ..data.synthetic import build_once, build_synthetic_ted_records
 
-    data_dir = os.path.join(tempfile.gettempdir(), SYNTHETIC_DIR)
-    if not os.path.exists(os.path.join(data_dir, "meta.json")):
+    def build(d):
         print("building synthetic records...")
-        tmp = tempfile.mkdtemp(prefix=SYNTHETIC_DIR + ".")
-        build_synthetic_ted_records(tmp, n_clips=8, clip_seconds=20)
-        try:
-            os.rename(tmp, data_dir)
-        except OSError:  # another run put its copy there first
-            shutil.rmtree(tmp, ignore_errors=True)
-    return data_dir
+        build_synthetic_ted_records(d, n_clips=8, clip_seconds=20)
+
+    return build_once(SYNTHETIC_DIR, build)
 
 
 def _device_names(args) -> List[str]:

@@ -6,7 +6,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["place_model"]
+__all__ = ["place_model", "resolve_device"]
 
 
 def place_model(model: torch.nn.Module, device: Optional[Union[str, torch.device]],
@@ -21,11 +21,19 @@ def place_model(model: torch.nn.Module, device: Optional[Union[str, torch.device
         current = next(model.parameters()).device
         if current.type == "cuda":
             return current
+    device = resolve_device(device, who)
+    model.to(device)
+    return next(model.parameters()).device
+
+
+def resolve_device(device: Optional[Union[str, torch.device]], who: str) -> torch.device:
+    """The device an entry point runs on, by :func:`place_model`'s rule,
+    for one that has no model yet: ``None`` is ``cuda`` and raises without
+    a CUDA device; an explicit device is taken as given."""
+    if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 f"{who} runs on an NVIDIA GPU by default and torch.cuda.is_available() is "
                 'False; pass device="cpu" to run the plain PyTorch versions on the CPU')
         device = "cuda"
-    device = torch.device(device)
-    model.to(device)
-    return next(model.parameters()).device
+    return torch.device(device)

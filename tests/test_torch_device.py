@@ -3,13 +3,22 @@ CPU: without a CUDA device ``RAGSampler``, ``LivelySpeakerPipeline``,
 ``build_rag_server``, ``TrainLoop``, the HTTP front end's ``build_server``,
 the four eval scripts' ``main``, ``EmbeddingSpaceEvaluator``, the BEAT
 FID embedder, and the measurement and generation scripts (``bench_serve``,
-``bench_train``, ``profile``, ``generate``) and ``train_gesture_autoencoder``
-raise unless ``device="cpu"`` (``--device cpu``) is passed, and run with it. Each new script answers
-``--help`` when run as ``python -m livelyspeaker_tpu_torch.scripts.<name>``."""
+``bench_train``, ``profile``, ``generate``), ``train_gesture_autoencoder``,
+the studies (``soak_flagship``, ``measure_*``) and the distillation
+experiments raise unless ``device="cpu"`` (``--device cpu``) is passed, and
+run with it. Each new script answers ``--help`` when run as ``python -m
+livelyspeaker_tpu_torch.scripts.<name>`` (or ``.experiments...``)."""
 
+# torch.optim's first step imports torch._dynamo, and with it cProfile and the
+# standard library's ``profile``; some tests put the JAX ``scripts/`` directory,
+# which holds a ``profile.py``, on sys.path for a while. Importing cProfile at
+# collection keeps ``profile`` the standard library's in every worker.
+import cProfile  # noqa: F401
 import contextlib
+import io
 import os
 import runpy
+import subprocess
 import sys
 import tempfile
 import warnings
@@ -35,6 +44,7 @@ from livelyspeaker_tpu_torch.models import (
 )
 from livelyspeaker_tpu_torch.models.embedding_net import TedEmbeddingEncoder
 from livelyspeaker_tpu_torch.pipeline import LivelySpeakerPipeline, RAGSampler
+from livelyspeaker_tpu_torch.experiments.distillation import distill_rag, measure_distill_quality
 from livelyspeaker_tpu_torch.scripts import (
     bench_serve,
     bench_train,
@@ -44,9 +54,16 @@ from livelyspeaker_tpu_torch.scripts import (
     eval_rag_beat,
     eval_rag_ted,
     generate,
+    measure_audio_bf16,
+    measure_ema_warmup,
+    measure_long_form_seams,
+    measure_semantic_payoff,
+    measure_semantic_payoff_beat,
     profile,
+    soak_flagship,
     train_gesture_autoencoder,
     train_multihost_demo,
+    train_rag,
 )
 from livelyspeaker_tpu_torch.scripts.serve import build_server
 from livelyspeaker_tpu_torch.serving import ServeConfig, build_rag_server
@@ -283,13 +300,106 @@ def _multihost_demo(model, device=None):
     return torch.device(device)
 
 
+def _train_rag_here(argv, *, device=None, cudnn_deterministic=False, capture=False):
+    """The studies' ``run_train_rag`` as ``train_rag.main`` in this process
+    (a process costs seconds of imports on the CPU); it must be handed the
+    study's ``--device``."""
+    assert device == "cpu", device
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        train_rag.main(list(argv) + ["--device", "cpu"])
+    return subprocess.CompletedProcess(argv, 0, out.getvalue(), err.getvalue())
+
+
+def _study(module, extra):
+    """A study's ``main`` at latent 32 on 3 clips, one or two epochs, its
+    train_rag runs in this process."""
+
+    def entry(model, device=None):
+        with tempfile.TemporaryDirectory() as d, _one_torch_thread(), \
+                pytest.MonkeyPatch.context() as mp:
+            mp.setattr(module, "run_train_rag", _train_rag_here)
+            out = module.main(["--latent_dim", "32", "--layers", "1", "--batch_size", "32",
+                               "--n_clips", "3", "--log_interval", "1000", "--out", d]
+                              + extra + (["--device", device] if device else []))
+        assert all(np.isfinite(v) for k, v in out.items() if k.startswith("fgd"))
+        return torch.device(device)
+
+    return entry
+
+
+def _long_form_seams(model, device=None):
+    """The seam report over 5 s of audio of tiny records, ddim2, fused."""
+    with tempfile.TemporaryDirectory() as d, _one_torch_thread():
+        build_synthetic_ted_records(os.path.join(d, "records"), n_clips=1, clip_seconds=5)
+        path = os.path.join(d, "rag.npz")
+        save_params_npz(path, model.state_dict(), model)
+        c = model.cfg
+        save_args(d, {"latent_dim": c.latent_dim, "layers": c.num_layers,
+                      "n_speakers": c.n_speakers})
+        out = measure_long_form_seams.main(
+            ["--model_path", path, "--data_dir", os.path.join(d, "records"), "--seconds", "5",
+             "--respacing", "ddim2", "--fused", "--no-with_random_baseline"]
+            + (["--device", device] if device else []))
+    assert np.isfinite(out["trained"]["ratio_p95"])
+    return torch.device(device)
+
+
+def _semantic(module):
+    def entry(model, device=None):
+        with _one_torch_thread():
+            out = module.main(["--modes", "2", "--train_clips", "2", "--test_clips", "4",
+                               "--rag_steps", "1", "--sag_steps", "1", "--latent_dim", "32",
+                               "--layers", "1", "--clip_layers", "1", "--sag_latent", "32",
+                               "--samples_per_window", "1", "--respacing", "ddim2",
+                               "--skip", "1", "--batch_size", "4"]
+                              + (["--device", device] if device else []))
+        assert len(out["rows"]) == 4
+        return torch.device(device)
+
+    return entry
+
+
+def _distill_rag(model, device=None):
+    """One round of 1 step from a checkpoint of ``model``."""
+    with tempfile.TemporaryDirectory() as d, _one_torch_thread():
+        build_synthetic_ted_records(os.path.join(d, "records"), n_clips=1, clip_seconds=4)
+        path = os.path.join(d, "rag.npz")
+        save_params_npz(path, model.state_dict(), model)
+        c = model.cfg
+        save_args(d, {"latent_dim": c.latent_dim, "layers": c.num_layers,
+                      "n_speakers": c.n_speakers})
+        out = distill_rag.main(["--model_path", path, "--data_dir", os.path.join(d, "records"),
+                                "--save_dir", os.path.join(d, "out"), "--start_grid", "4",
+                                "--rounds", "1", "--steps_per_round", "1", "--batch_size", "2"]
+                               + (["--device", device] if device else []))
+        assert out["timestep_respacing"] == "ddim2" and os.path.exists(out["students"][0])
+    return torch.device(device)
+
+
+def _distill_quality(model, device=None):
+    with _one_torch_thread():
+        out = measure_distill_quality.main(
+            ["--train_steps", "1", "--distill_steps", "1", "--rounds", "1", "--start_grid", "4",
+             "--latent_dim", "32", "--layers", "1", "--batch_size", "8", "--modes", "2",
+             "--n_clips", "2"] + (["--device", device] if device else []))
+    assert len(out["rows"]) == 4 and all(np.isfinite(r["fgd"]) for r in out["rows"])
+    return torch.device(device)
+
+
 @pytest.mark.parametrize("entry", [_sampler, _pipeline, _server, _train, _front_end,
                                    _eval_script(eval_rag_ted, beat=False),
                                    _eval_script(eval_rag_beat, beat=True),
                                    _eval_script(eval_livelyspeaker_ted, beat=False),
                                    _eval_script(eval_livelyspeaker_beat, beat=True),
                                    _evaluator, _beat_embedder, _bench_serve, _bench_train,
-                                   _profile, _generate, _train_gesture_ae, _multihost_demo],
+                                   _profile, _generate, _train_gesture_ae, _multihost_demo,
+                                   _study(soak_flagship, ["--epochs", "2"]),
+                                   _study(measure_ema_warmup, ["--epochs", "1"]),
+                                   _study(measure_audio_bf16, ["--epochs", "1"]),
+                                   _long_form_seams, _semantic(measure_semantic_payoff),
+                                   _semantic(measure_semantic_payoff_beat), _distill_rag,
+                                   _distill_quality],
                          ids=["RAGSampler", "LivelySpeakerPipeline", "build_rag_server",
                               "TrainLoop", "serve.build_server", "eval_rag_ted.main",
                               "eval_rag_beat.main", "eval_livelyspeaker_ted.main",
@@ -297,7 +407,11 @@ def _multihost_demo(model, device=None):
                               "load_beat_embedder", "bench_serve.main", "bench_train.main",
                               "profile.main", "generate.run",
                               "train_gesture_autoencoder.main",
-                              "train_multihost_demo.main"])
+                              "train_multihost_demo.main", "soak_flagship.main",
+                              "measure_ema_warmup.main", "measure_audio_bf16.main",
+                              "measure_long_form_seams.main", "measure_semantic_payoff.main",
+                              "measure_semantic_payoff_beat.main", "distill_rag.main",
+                              "measure_distill_quality.main"])
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(no_card, entry):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         entry(_model())
@@ -320,14 +434,21 @@ def test_place_model_rule(no_card):
                                     "eval_livelyspeaker_beat", "convert_checkpoint", "profile",
                                     "bench_data", "bench_train", "bench_serve", "soak_serve",
                                     "generate", "build_ted_records", "build_beat_records",
-                                    "train_gesture_autoencoder", "train_multihost_demo"])
+                                    "train_gesture_autoencoder", "train_multihost_demo",
+                                    "soak_flagship", "measure_ema_warmup", "measure_audio_bf16",
+                                    "measure_long_form_seams", "measure_semantic_payoff",
+                                    "measure_semantic_payoff_beat",
+                                    "experiments.distillation.distill_rag",
+                                    "experiments.distillation.measure_distill_quality"])
 def test_new_scripts_answer_help(script, monkeypatch, capsys):
-    """``python -m livelyspeaker_tpu_torch.scripts.<script> --help``, run
-    the way ``-m`` runs it, in this process."""
+    """``python -m livelyspeaker_tpu_torch.scripts.<script> --help`` (a
+    dotted name: ``livelyspeaker_tpu_torch.<script>``), run the way ``-m``
+    runs it, in this process."""
+    module = script if "." in script else f"scripts.{script}"
     monkeypatch.setattr(sys, "argv", [script, "--help"])
     with warnings.catch_warnings(), pytest.raises(SystemExit) as exit_:
         # runpy warns that the module was imported before: this file imports it
         warnings.filterwarnings("ignore", ".*found in sys.modules", RuntimeWarning)
-        runpy.run_module(f"livelyspeaker_tpu_torch.scripts.{script}", run_name="__main__")
+        runpy.run_module(f"livelyspeaker_tpu_torch.{module}", run_name="__main__")
     assert exit_.value.code == 0
     assert "usage:" in capsys.readouterr().out
