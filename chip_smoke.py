@@ -28,8 +28,10 @@ the fused WavEncoder stack (K3). Checks:
    BEAT, 2B in {16, 512}, LN2 folded and not, with and without the pose
    projection: max|kernel - plain| <= 2^-6 max|plain| (printed in bf16
    ulps of max|y|), both within rel 0.05 of the f32 kernel on the same
-   weights, the time of the three and the bound at the bf16 tensor-core
-   peak; then 20 calls of the bf16 stack through fused_transmlp at the
+   weights, a second call's bits equal to the first's, the geometry it
+   picked, the time of the three and the bound at the bf16 tensor-core
+   peak; at 2B in {16, 512} every (cluster, group) the geometry can pick
+   at D=512, timed in turns; then 20 calls of the bf16 stack through fused_transmlp at the
    serving shape, the counts set to 0 before: 20 bf16 launches, no f32
    launch and no plain call;
 4. serving: build_rag_server with the default ServeConfig (DPM-Solver++ over
@@ -455,6 +457,9 @@ def bf16_kernel_phase(card):
     g = torch.Generator().manual_seed(3)
     bf16 = torch.bfloat16
     worst_abs, main = 0.0, None
+    resident = fused_mlp.bf16_resident_clusters(512, dev)
+    print(f"[bf16] clusters of the bf16 kernel the card holds at once at D=512, by (cluster, "
+          f"group): {resident} ({card})")
     for name, seq, feats in (("TED", 35, 27), ("BEAT", 36, 282)):
         stack = random_normal_(TransMLP(seq, 8, 512, "silu"), g).to(dev)
         pose = random_normal_(torch.nn.Linear(512, feats), g).to(dev)
@@ -462,6 +467,7 @@ def bf16_kernel_phase(card):
             x = torch.randn(b2, seq, 512, generator=g).to(dev)
             emb = torch.randn(b2, 512, generator=g).to(dev)
             xb, eb = x.to(bf16), emb.to(bf16)
+            geo = fused_mlp.transmlp_bf16_geometry(b2, seq, 512, resident)
             for fold in (False, True):
                 p16 = fused_mlp.pack_transmlp_params(stack, fold_ln2=fold, dtype=bf16)
                 p32 = fused_mlp.pack_transmlp_params(stack, fold_ln2=fold)
@@ -469,10 +475,12 @@ def bf16_kernel_phase(card):
                     o16 = fused_mlp.pack_out_proj(proj, dtype=bf16) if proj is not None else None
                     o32 = fused_mlp.pack_out_proj(proj) if proj is not None else None
                     out = fused_mlp.fused_transmlp(xb, eb, p16, out_proj=o16)
+                    again = fused_mlp.fused_transmlp(xb, eb, p16, out_proj=o16)
                     ref = fused_mlp.fused_transmlp_reference(xb, eb, p16, out_proj=o16)
                     f32 = fused_mlp.fused_transmlp(x, emb, p32, out_proj=o32)
                     torch.cuda.synchronize()
                     check(out.dtype == bf16 and out.shape == ref.shape, "bf16 kernel: bad output")
+                    same = torch.equal(out, again)
                     err = (out.float() - ref.float()).abs().max().item()
                     top = ref.float().abs().max().item()
                     ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
@@ -495,15 +503,29 @@ def bf16_kernel_phase(card):
                           f"the f32 kernel: kernel rel {vs_f32:.3e}, plain rel {plain_vs_f32:.3e}; "
                           f"bf16 kernel {ms:.4f} ms, plain {plain:.4f} ms, f32 kernel {f32_ms:.4f} "
                           f"ms; bound {bound_ms:.4f} ms ({flop / 1e9:.3f} GFLOP at the bf16 peak, "
-                          f"{nbytes / 1e6:.2f} MB, {bound_by}) share {bound_ms / ms:.1%} ({card})")
+                          f"{nbytes / 1e6:.2f} MB, {bound_by}) share {bound_ms / ms:.1%}; cluster "
+                          f"{geo.cluster} x {geo.cols} columns, {geo.group} sequence(s) a "
+                          f"cluster, wgmma N={geo.wgmma_n}, {geo.clusters} clusters; a second "
+                          f"call's bits {'equal' if same else 'DIFFER'} ({card})")
                     check(np.isfinite(err) and err <= BF16_TOL * top,
                           f"bf16 kernel disagrees with its plain version at {tag}")
+                    check(same, f"bf16 kernel: two calls give other bits at {tag}")
                     check(vs_f32 <= BF16_F32_TOL and plain_vs_f32 <= BF16_F32_TOL,
                           f"a bf16 stack is off the f32 kernel at {tag}")
                     worst_abs = max(worst_abs, err)
                     if name == "TED" and b2 == 16 and fold and proj is not None:
                         main = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
                                 "bound_by": bound_by}  # the serving call
+            # every (cluster, group) the geometry can pick at D=512, serving layout
+            p16 = fused_mlp.pack_transmlp_params(stack, fold_ln2=True, dtype=bf16)
+            o16 = fused_mlp.pack_out_proj(pose, dtype=bf16)
+            runs = {(n, gr): (lambda n=n, gr=gr: fused_mlp.launch_stack(xb, eb, p16, 0, o16,
+                                                                      cluster=n, group=gr))
+                    for n in (8, 4) for gr in fused_mlp.BF16_GROUPS}
+            times = time_turns(runs, 20 if b2 <= 16 else 5, rounds=4)
+            print(f"[bf16] {name} 2B={b2} folded F={feats}, by (cluster, group) (in turns): "
+                  + ", ".join(f"{n} CTAs x {gr} seq {t:.4f} ms" for (n, gr), t in times.items())
+                  + f"; transmlp_bf16_geometry picks ({geo.cluster}, {geo.group}) ({card})")
 
     stack = random_normal_(TransMLP(35, 8, 512, "silu"), g).to(dev)
     packed = fused_mlp.pack_transmlp_params(stack, fold_ln2=True, dtype=bf16)

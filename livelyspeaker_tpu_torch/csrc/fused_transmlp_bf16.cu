@@ -1,4 +1,6 @@
-// Fused TransMLP stack for NVIDIA Hopper (sm_90a), bf16: one CTA a sequence.
+// Fused TransMLP stack for NVIDIA Hopper (sm_90a), bf16: a sequence (or two)
+// split across a thread-block cluster, the channel mix and the pose
+// projection on wgmma fed by a TMA weight ring.
 //
 // Replaces the bf16 option of livelyspeaker_tpu/ops/pallas/fused_mlp.py:
 // fused_transmlp (the Pallas `_kernel` with x.dtype == bfloat16, its weights
@@ -18,91 +20,141 @@
 // them, so the two differ only where the sums of the LayerNorms and the
 // products are taken in another order, which can move a bf16 rounding.
 //
-// What bounds it: the tensor cores. The products are 98% of the work; at
-// TED's serving call (2B = 16, S = 35, D = 512, L = 8, F = 27) that is 2.5
-// GFLOP, 2.5 us at the bf16 dense peak of 989 TFLOP/s (H100 SXM, 700 W),
-// against 4.4 MB moved, 1.3 us at 3.35 TB/s.
+// What bounds it: the tensor cores in principle, the weight stream in
+// practice. The products are 98% of the work; at TED's serving call (2B =
+// 16, S = 35, D = 512, L = 8, F = 27) that is 2.5 GFLOP, 2.5 us at the bf16
+// dense peak of 989 TFLOP/s (H100 SXM, 700 W), against 4.4 MB moved, 1.3 us
+// at 3.35 TB/s. But every cluster reads all of ch_w (4.19 MB for 8 layers)
+// from L2, and a sequence has only 35 rows to reuse each weight on: about
+// 35 FLOP a byte of L2 traffic, which L2 cannot feed at the tensor cores'
+// rate.
 //
-// The design (a first, simple one):
-// - One CTA of 8 warps a sequence. The bf16 residual x and the bf16
-//   normalised rows h stay in shared memory for all L blocks, S padded to
-//   whole 16-row tiles (at most 48 rows); padding rows of h are zero and
-//   padding rows of x are never written back.
-// - The products are mma.sync m16n8k16 bf16 with f32 accumulation. Warp w
-//   owns the 8-column tiles w, w + 8, ... of the output (up to 8 tiles, 512
-//   columns) over every row tile.
-// - Channel mix and pose projection: h @ W^T with W [N, K] (nn.Linear's
-//   layout). A lane reads 8 consecutive k of a row of W with one 16-byte
-//   load from global memory (ch_w, 4 MB for 8 layers, stays in L2) and
-//   8 consecutive k of its rows of h with one 16-byte shared load. The
-//   32 k of a chunk are assigned to the two m16n8k16 steps so that a
-//   lane's fragments of A and B hold the same k (the sum over k does not
-//   depend on which step takes which k). The next chunk's weights are
-//   loaded before the current chunk's products.
-// - Token mix: token_w @ h, with token_w staged in shared memory and h's
-//   fragments read by ldmatrix.trans (K = S padded, zero columns).
-// - LayerNorm: a warp a row, two passes in f32 (mean, then the centred sum
-//   of squares), a fixed order of sums, so every run gives the same bits.
-// One CTA a sequence puts the serving batch (2B = 16) on 16 of 132 SMs; the
-// cluster split, TMA ring and wgmma of the f32 kernel are not carried over.
+// The design, and what it does about that:
+// - Cluster split, as the f32 kernel (fused_transmlp.cu) does. A group of
+//   G (1 or 2) sequences is spread over a cluster of N CTAs; CTA r owns
+//   columns [r*Dc, (r+1)*Dc) of their bf16 residual, Dc = D/N, kept in its
+//   shared memory for all L blocks. The wrapper's transmlp_bf16_geometry
+//   picks (N, G) from the batch and the clusters the card holds at once.
+//   One CTA a sequence put the serving batch on 16 of 132 SMs.
+// - LayerNorm statistics: two-pass per CTA over its columns (f32 from the
+//   bf16 values), one exchange through distributed shared memory, Chan's
+//   combine (as transmlp_common.cuh's cluster_row_stats). The normalised
+//   LN2 rows (bf16) are pushed into every CTA's full-row copy. Three
+//   cluster barriers a layer.
+// - The token mix stays column-local, on mma.sync m16n8k16 (6% of the
+//   FLOPs): token_w staged, the LN1 rows read by ldmatrix.trans, S padded
+//   to 48.
+// - The channel mix and the pose projection run on wgmma, swap-AB: out^T
+//   [Dc, rows] = W_slice [Dc, K] . h^T [K, rows]. A is the CTA's slice of
+//   ch_w in the pack's [D_out, D_in] layout (K-major), 64 output columns a
+//   warpgroup; B is the LN2 rows [rows, K] (K-major too). The sequence
+//   sits in wgmma's N: 40 rows a sequence (S <= 36), not the 48 that
+//   16-row tiles padded to; two sequences make N = 80. A slice that is not
+//   a multiple of 64 (Dc = 68 at D = 272, F / N for the pose) pads M with
+//   rows TMA fills with zeros or that belong to the next CTA or layer; they
+//   only feed columns that are never written back.
+// - A TMA weight ring: up to 8 stages of [64 Mc rows, 64 k] (8 or 16 KB;
+//   Mc = ceil(Dc / 64)), as many as the shared memory holds, each one 2-D
+//   TMA box of the CTA's slice of ch_w (or of out_w) in the 128-byte
+//   swizzle the wgmma descriptors name. "Full" mbarriers take the copies'
+//   bytes; a shared counter a stage takes one count from every warp once
+//   its wgmma on the stage are done, and the warp that counts last refills
+//   the stage a ring ahead (no thread waits for the others), across
+//   layers: at D = 512 the next layer's tiles load during the epilogue,
+//   the LayerNorms and the token mix. The threads write the LN2 rows in
+//   the same swizzle, then fence.proxy.async before wgmma reads them.
+// - Weight reuse: with G = 2 every weight tile in shared memory feeds two
+//   sequences (one warpgroup each when Dc <= 64, else N = 80 in one
+//   wgmma), which halves the L2 reads of a large batch (TED 2B = 512: 2.15
+//   GB a call at G = 1, 1.07 GB at G = 2).
+//
+// Limits: S <= 36, 16 <= D <= 512 with D % 16 == 0, F <= 512; N in {1, 2,
+// 4, 8} with Dc = D/N a multiple of 4 and at most 128 (cluster_ok); G in
+// {1, 2}. Anything else returns cudaErrorInvalidValue, and a refused launch
+// returns its own error; the wrapper raises on either. The sums are taken
+// in a fixed order: every run gives the same bits.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "transmlp_common.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxSeq = 36;
-constexpr int kMaxRows = 48;         // S padded to whole 16-row tiles
-constexpr int kMaxRowTiles = kMaxRows / 16;
-constexpr int kMaxDim = 512;         // largest D and F
-constexpr int kTiles = kMaxDim / 8 / kWarps;  // 8-column tiles a warp owns
-constexpr int kTokStride = kMaxRows + 8;      // token_w's staged rows (bf16)
-constexpr float kEps = 1e-5f;
+constexpr int kR = 40;                    // rows of a sequence in wgmma's N (S <= 36)
+constexpr int kTokRows = 48;              // the token mix's rows and K: S in 16-row tiles
+constexpr int kTokStride = kTokRows + 8;  // token_w's staged rows (bf16)
+constexpr int kWarps = kT / 32;
+constexpr int kTokTiles = kMaxCols / 8 / kWarps;  // 8-column tiles of the token mix a warp owns
+constexpr int kChunk = 64;                // k of one 128-byte swizzled row
+constexpr int kRowBytes = 128;
+constexpr int kMaxStages = 8;             // the weight ring's stages, as many as fit
+constexpr int kMaxGroup = 2;              // sequences a cluster holds
+constexpr size_t kSmemLimit = 232448;     // dynamic shared memory a CTA may take (H100)
 
-// Activation codes, as ops/fused_mlp.py numbers them (KERNEL_ACT_CODES).
-enum Act { kSilu = 0, kRelu = 1, kGelu = 2, kLrelu = 3, kLrelu01 = 4, kLrelu02 = 5 };
+__host__ __device__ inline int round8(int v) { return (v + 7) / 8 * 8; }
 
-__device__ __forceinline__ float activate(float v, int act) {
-  if (act == kSilu) return __fdiv_rn(v, __fadd_rn(1.0f, expf(-v)));
-  if (act == kRelu) return fmaxf(v, 0.0f);
-  if (act == kGelu) {
-    // jax.nn.gelu's default: the tanh approximation
-    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-    return 0.5f * v * (1.0f + tanhf(c * (v + 0.044715f * v * v * v)));
+// Layout of the dynamic shared memory, in bytes from a 1024-aligned base:
+// the weight ring first, as many stages (up to kMaxStages) as the rest
+// leaves room for.
+struct Layout {
+  int dc, xst, hst, kc, G;  // Dc; row strides of x and of the LN1 rows (bf16); K-chunks of D
+  int srows, stages;        // rows of a ring stage (64 a warpgroup's M-tile), stages
+  __host__ __device__ Layout(int D, int N, int g)
+      : dc(D / N), xst(round8(D / N) + 8), hst(round8(D / N) + 8),
+        kc((D + kChunk - 1) / kChunk), G(g), srows(64 * ((D / N + 63) / 64)), stages(0) {
+    const size_t rest = bytes();  // everything but the ring
+    const size_t fit = rest < kSmemLimit ? (kSmemLimit - rest) / stage_bytes() : 0;
+    stages = fit < (size_t)kMaxStages ? (int)fit : kMaxStages;
   }
-  const float slope = act == kLrelu ? 0.01f : (act == kLrelu01 ? 0.1f : 0.2f);
-  return v > 0.0f ? v : __fmul_rn(slope, v);
-}
-
-struct Params {
-  const bf16* x;      // [B, S, D]
-  const bf16* emb;    // [B, D]
-  const float* ln1_s; // [L, D]
-  const float* ln1_b;
-  const bf16* tw;     // [L, S, S]
-  const float* tb;    // [L, S]
-  const float* ln2_s; // [L, D], or null: folded
-  const float* ln2_b;
-  const bf16* cw;     // [L, D_out, D_in]
-  const float* cb;    // [L, D]
-  const bf16* ow;     // [F, D], or null: no pose projection
-  const float* ob;    // [F]
-  bf16* out;          // [B, S, F] or [B, S, D]
-  int S, D, L, F, act;
+  __host__ __device__ size_t stage_bytes() const { return (size_t)srows * kRowBytes; }
+  // one K-chunk of the full rows: G * kR rows of 128 bytes
+  __host__ __device__ size_t chunk_bytes() const { return (size_t)G * kR * kRowBytes; }
+  __host__ __device__ size_t ring() const { return 0; }  // stages x stage_bytes()
+  // the full rows (LN2, or x for the pose projection), swizzled, in K-chunks;
+  // also the LN1 rows [G][kTokRows][hst] of the token mix
+  __host__ __device__ size_t h() const { return (size_t)stages * stage_bytes(); }
+  __host__ __device__ size_t h_bytes() const {
+    const size_t full = kc * chunk_bytes(), ln1 = (size_t)G * kTokRows * hst * 2;
+    return full > ln1 ? full : ln1;
+  }
+  __host__ __device__ size_t x() const { return h() + h_bytes(); }  // [G][kR][xst]
+  __host__ __device__ size_t tok() const { return x() + (size_t)G * kR * xst * 2; }
+  __host__ __device__ size_t st() const {  // [2][kMaxCluster][G * kR][2] f32
+    return tok() + (size_t)kTokRows * kTokStride * 2;
+  }
+  __host__ __device__ size_t rowstat() const {  // mean, 1/std [G * kR] each
+    return st() + (size_t)2 * kMaxCluster * G * kR * 2 * 4;
+  }
+  __host__ __device__ size_t emb() const {  // [G][Dc8] bf16, staged once
+    return rowstat() + (size_t)2 * G * kR * 4;
+  }
+  // two buffers of one layer's LN1 scale and bias, LN2 scale and bias and
+  // channel-mix bias on this CTA's columns, and the token-mix bias [40]
+  __host__ __device__ size_t prm() const { return emb() + (size_t)G * round8(dc) * 2; }
+  __host__ __device__ int prm_floats() const { return 5 * dc + kR; }
+  // the stages' "full" mbarriers [kMaxStages], then their release counters
+  __host__ __device__ size_t bars() const { return prm() + (size_t)2 * prm_floats() * 4; }
+  __host__ __device__ size_t bytes() const { return bars() + kMaxStages * 12 + 1024; }
 };
 
-__host__ __device__ inline int x_stride(int d) { return d + 8; }   // bf16 elements
-__host__ __device__ inline int h_stride(int d) { return d + 32; }
-
-__host__ inline size_t smem_bytes(int d) {
-  return sizeof(bf16) * ((size_t)kMaxRows * (x_stride(d) + h_stride(d)) +
-                         (size_t)kMaxRows * kTokStride + d);
-}
+struct Params {
+  CUtensorMap cw_map;  // ch_w as [L * D, D], boxes [64 * Mc, 64]
+  CUtensorMap ow_map;  // out_w [F, D], boxes [64 * min(2, Mp), 64]
+  const bf16* x;       // [B, S, D]
+  const bf16* emb;     // [B, D]
+  const float* ln1_s;  // [L, D]
+  const float* ln1_b;
+  const bf16* tw;      // [L, S, S]
+  const float* tb;     // [L, S]
+  const float* ln2_s;  // [L, D], or null: folded
+  const float* ln2_b;
+  const float* cb;     // [L, D]
+  const float* ob;     // [F], or null: no pose projection
+  bf16* out;           // [B, S, F] or [B, S, D]
+  int B, S, D, L, F, N, G;
+};
 
 __device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16_rn(v); }
@@ -110,12 +162,121 @@ __device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16_rn(v); }
 __device__ __forceinline__ bf16 bf_add(bf16 a, float b_rounded) {
   return f2bf(__fadd_rn(bf2f(a), b_rounded));
 }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-  return v;
+// four bf16 at p (8-byte aligned) as f32
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
+__device__ __forceinline__ uint2 pack4(bf16 a, bf16 b, bf16 c, bf16 d) {
+  return make_uint2(
+      (uint32_t)__bfloat16_as_ushort(a) | ((uint32_t)__bfloat16_as_ushort(b) << 16),
+      (uint32_t)__bfloat16_as_ushort(c) | ((uint32_t)__bfloat16_as_ushort(d) << 16));
+}
+
+// Byte offset of element k of row `row` in the full rows: K-chunk k / 64,
+// then the row's 128 bytes, whose 16-byte chunks the 128-byte swizzle
+// permutes by the row's index mod 8 (what TMA writes and wgmma reads).
+__host__ __device__ __forceinline__ uint32_t h_offset(int G, int row, int k) {
+  return (uint32_t)((k >> 6) * G * kR * kRowBytes + row * kRowBytes +
+                    ((((k & 63) >> 3) ^ (row & 7)) << 4) + ((k & 7) << 1));
+}
+
+// --- wgmma ------------------------------------------------------------------
+
+// The shared-memory descriptor of a K-major operand in the 128-byte swizzle:
+// 8-row groups 1024 bytes apart (SBO), the leading offset unused; the tile
+// starts 1024-byte aligned, and a step of 16 k adds 32 bytes to the start.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accesses of the accumulators across a wait
+template <int NA>
+__device__ __forceinline__ void fence_acc(float (&d)[NA]) {
+#pragma unroll
+  for (int i = 0; i < NA; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A[64, 16] . B[N, 16]^T, A and B K-major in shared memory, f32 sums;
+// scale_d = 0 starts from zero.
+__device__ __forceinline__ void wgmma_n40(float (&d)[20], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, "
+      "%20, %21, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n80(float (&d)[40], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <int NW>
+__device__ __forceinline__ void wgmma_step(float (&d)[NW / 2], uint64_t a, uint64_t b,
+                                           int scale_d) {
+  if constexpr (NW == 40) wgmma_n40(d, a, b, scale_d);
+  else wgmma_n80(d, a, b, scale_d);
+}
+
+// The four steps of 16 k of one K-chunk: A [64 rows] at a_addr, B [NW rows]
+// at b_addr, both 128-byte swizzled rows of 64 k. Straight-line code: a
+// branch around a wgmma makes ptxas wait for the accumulators there. Past
+// D, A's columns are TMA's zeros and B's were zeroed at the start (and are
+// only ever overwritten with finite values).
+template <int NW>
+__device__ __forceinline__ void chunk_mma(float (&d)[NW / 2], uint32_t a_addr, uint32_t b_addr,
+                                          int scale_d) {
+  wgmma_step<NW>(d, sw128_desc(a_addr), sw128_desc(b_addr), scale_d);
+#pragma unroll
+  for (int k = 1; k < 4; ++k)
+    wgmma_step<NW>(d, sw128_desc(a_addr + 32 * k), sw128_desc(b_addr + 32 * k), 1);
+}
+
+// f(m, n, value) for each accumulator of this thread: m the row of the
+// 64-row M-tile (an output column), n the row of B (a sequence row).
+template <int NW, class F>
+__device__ __forceinline__ void for_each_acc(const float (&d)[NW / 2], F f) {
+  const int t = threadIdx.x % 128, wq = t / 32, lane = t % 32;
+#pragma unroll
+  for (int j = 0; j < NW / 2; ++j) {
+    const int m = 16 * wq + lane / 4 + 8 * ((j >> 1) & 1);
+    const int n = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+    f(m, n, d[j]);
+  }
+}
+
+// --- mma.sync for the token mix ---------------------------------------------
 
 __device__ __forceinline__ void mma(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
                                     uint32_t a3, uint32_t b0, uint32_t b1) {
@@ -126,62 +287,195 @@ __device__ __forceinline__ void mma(float (&c)[4], uint32_t a0, uint32_t a1, uin
 }
 
 __device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1, const bf16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
-               : "=r"(r0), "=r"(r1) : "r"(a));
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ void zero_acc(float (&acc)[kMaxRowTiles][kTiles][4]) {
-#pragma unroll
-  for (int m = 0; m < kMaxRowTiles; ++m)
-#pragma unroll
-    for (int i = 0; i < kTiles; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][i][e] = 0.0f;
+__device__ __forceinline__ void tma_load_2d_bf16(uint32_t dst, const CUtensorMap* map, int x0,
+                                                 int y0, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x0), "r"(y0)
+      : "memory");
 }
 
-// x += emb (when emb is given), then h = bf16(LN(x)) for the S real rows; a
-// warp a row. sc/bi null: no affine (LN2 folded).
-__device__ void layer_norm(bf16* xs, bf16* hs, const bf16* es, const float* sc,
-                           const float* bi, int S, int D, int warp, int lane) {
-  const int xst = x_stride(D), hst = h_stride(D);
-  for (int r = warp; r < S; r += kWarps) {
-    bf16* xr = xs + r * xst;
-    bf16* hr = hs + r * hst;
-    float sum = 0.0f;
-    for (int c = lane; c < D; c += 32) {
-      bf16 v = xr[c];
-      if (es != nullptr) {
-        v = bf_add(v, bf2f(es[c]));
-        xr[c] = v;
-      }
-      sum += bf2f(v);
-    }
-    const float mean = __fdiv_rn(warp_sum(sum), (float)D);
-    float sq = 0.0f;
-    for (int c = lane; c < D; c += 32) {
-      const float d = __fsub_rn(bf2f(xr[c]), mean);
-      sq = __fadd_rn(sq, __fmul_rn(d, d));
-    }
-    const float rstd = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(sq), (float)D), kEps));
-    for (int c = lane; c < D; c += 32) {
-      float y = __fmul_rn(__fsub_rn(bf2f(xr[c]), mean), rstd);
-      if (sc != nullptr) y = __fadd_rn(__fmul_rn(y, sc[c]), bi[c]);
-      hr[c] = f2bf(y);
-    }
+// 8 bytes from global to shared memory, or 8 zero bytes when !in
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(in ? 8 : 0)
+               : "memory");
+}
+
+// Orders this thread's generic writes of shared memory anywhere in the
+// cluster before later async-proxy (wgmma, TMA) accesses of it.
+__device__ __forceinline__ void fence_proxy_async_cluster() {
+  asm volatile("fence.proxy.async.shared::cluster;" ::: "memory");
+}
+
+struct Ctx {
+  const Params& p;
+  Layout lay;
+  int rank, c0, dc, q4, seq0, kc;
+  int mc;        // M-tiles of the channel mix: ceil(Dc / 64), 1 or 2
+  int f0, nf;    // the pose columns [f0, f0 + nf) this CTA writes
+  int stages, srows;
+  int tiles_c;   // ring tiles of the channel mix, L * kc; the pose's follow
+  int tiles;     // every ring tile of this CTA
+  uint32_t ring_a, h_a;
+  unsigned char* h;
+  bf16 *x, *tok, *emb;
+  float *st, *mean, *inv, *prm;
+  uint64_t* full;  // a stage's TMA bytes
+  uint32_t* cnt;   // a stage's releases, a warp a tile, never reset
+};
+
+// One thread: ring tile u (numbered across layers, then the pose's
+// passes) into stage u % stages as one TMA box of [srows, 64].
+__device__ __forceinline__ void issue_tile(const Ctx& c, int u) {
+  const int s = u % c.stages;
+  uint64_t* full = &c.full[s];
+  const uint32_t dst = c.ring_a + s * c.srows * kRowBytes;
+  mbar_expect_tx(full, c.srows * kRowBytes);
+  if (u < c.tiles_c) {
+    const int l = u / c.kc, j = u % c.kc;
+    tma_load_2d_bf16(dst, &c.p.cw_map, j * kChunk, l * c.p.D + c.c0, full);
+  } else {
+    const int v = u - c.tiles_c, pass = v / c.kc, j = v % c.kc;
+    tma_load_2d_bf16(dst, &c.p.ow_map, j * kChunk, c.f0 + pass * c.srows, full);
   }
 }
 
-// acc = tok @ h over the row tiles: tok [rows, rows] staged (zero past S),
-// h [rows, D] in shared memory (zero rows past S).
-__device__ void token_product(float (&acc)[kMaxRowTiles][kTiles][4], const bf16* tok,
-                              const bf16* hs, int row_tiles, int D, int warp, int lane) {
-  const int g = lane >> 2, q = lane & 3, hst = h_stride(D), n_tiles = D / 8;
-  zero_acc(acc);
-  for (int ks = 0; ks < row_tiles; ++ks) {
-    uint32_t a[kMaxRowTiles][4];
+// This warp is done with ring tile u (its wgmma on it have completed): its
+// lane 0 counts it on the stage's counter, and the warp that counts last
+// refills the stage `stages` tiles ahead. Nobody waits for the others.
+__device__ __forceinline__ void release_tile(const Ctx& c, int u) {
+  if (threadIdx.x % 32 != 0) return;
+  const int s = u % c.stages;
+  uint32_t prev;
+  asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;"
+               : "=r"(prev)
+               : "r"(smem_addr(&c.cnt[s]))
+               : "memory");
+  if (prev == (uint32_t)(kWarps * (u / c.stages + 1) - 1) && u + c.stages < c.tiles)
+    issue_tile(c, u + c.stages);
+}
+
+// acc = A . B^T over D: A the rows [a_row, a_row + 64) of the ring tiles u0
+// .. u0 + kc - 1 (one K-chunk each), B the NW full rows at b_addr. Every
+// warp waits for each tile and releases it. One chunk's wgmma stays in
+// flight while the next is issued.
+template <int NW>
+__device__ __forceinline__ void ring_product(const Ctx& c, int u0, int a_row, uint32_t b_addr,
+                                             float (&acc)[NW / 2]) {
 #pragma unroll
-    for (int m = 0; m < kMaxRowTiles; ++m) {
+  for (int i = 0; i < NW / 2; ++i) acc[i] = 0.0f;
+  fence_acc(acc);
+  for (int j = 0; j < c.kc; ++j) {
+    const int u = u0 + j, s = u % c.stages;
+    mbar_wait(&c.full[s], (uint32_t)((u / c.stages) & 1));
+    __syncwarp();
+    wgmma_fence();
+    chunk_mma<NW>(acc, c.ring_a + s * c.srows * kRowBytes + a_row * kRowBytes,
+                  b_addr + j * (uint32_t)c.lay.chunk_bytes(), j == 0 ? 0 : 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous chunk's; this one's stays in flight
+    if (j > 0) release_tile(c, u - 1);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  release_tile(c, u0 + c.kc - 1);
+}
+
+// The (mean, 1/std) of every row of x ([G][kR][xst], this CTA's Dc
+// columns) over the cluster's D columns, into c.mean / c.inv, through
+// exchange buffer `which`: eight lanes a row take the local two-pass (mean,
+// M2) in f32, lane j of the eight pushes it to CTA j; after one cluster
+// barrier each CTA combines the N pairs (Chan).
+__device__ __forceinline__ void row_stats(const Ctx& c, int which) {
+  const int rows = c.lay.G * kR, sub = threadIdx.x % 8, dc = c.dc, N = c.p.N;
+  float* st = c.st + which * kMaxCluster * rows * 2;
+  const int span = (rows + kT / 8 - 1) / (kT / 8) * (kT / 8);
+  for (int i = threadIdx.x / 8; i < span; i += kT / 8) {
+    const bf16* row = c.x + min(i, rows - 1) * c.lay.xst;
+    float s = 0.0f;
+    for (int k = 4 * sub; k < dc; k += 32) {
+      const float4 v = load4(row + k);
+      s = __fadd_rn(__fadd_rn(s, __fadd_rn(v.x, v.y)), __fadd_rn(v.z, v.w));
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+    const float mean = __fdiv_rn(s, (float)dc);
+    float v = 0.0f;
+    for (int k = 4 * sub; k < dc; k += 32) {
+      const float4 x = load4(row + k);
+      const float d0 = __fsub_rn(x.x, mean), d1 = __fsub_rn(x.y, mean);
+      const float d2 = __fsub_rn(x.z, mean), d3 = __fsub_rn(x.w, mean);
+      v = __fadd_rn(v, __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)),
+                                 __fadd_rn(__fmul_rn(d2, d2), __fmul_rn(d3, d3))));
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+    if (i < rows && i % kR < c.p.S && sub < N) {
+      float* dst = cg::this_cluster().map_shared_rank(st, sub);
+      *reinterpret_cast<float2*>(dst + (c.rank * rows + i) * 2) = make_float2(mean, v);
+    }
+  }
+  cg::this_cluster().sync();
+  const int i = threadIdx.x;
+  if (i < rows && i % kR < c.p.S) {
+    const float* pr = st + i * 2;  // rank j: + j * rows * 2
+    float m = 0.0f;
+    for (int j = 0; j < N; ++j) m = __fadd_rn(m, pr[j * rows * 2]);
+    m = __fdiv_rn(m, (float)N);
+    float m2 = 0.0f, spread = 0.0f;
+    for (int j = 0; j < N; ++j) {
+      const float d = __fsub_rn(pr[j * rows * 2], m);
+      m2 = __fadd_rn(m2, pr[j * rows * 2 + 1]);
+      spread = __fadd_rn(spread, __fmul_rn(d, d));
+    }
+    m2 = __fadd_rn(m2, __fmul_rn((float)dc, spread));
+    c.mean[i] = m;
+    c.inv[i] = rsqrtf(__fadd_rn(__fdiv_rn(m2, (float)c.p.D), kEps));
+  }
+  __syncthreads();
+}
+
+// LN(x) of row i at this CTA's columns col .. col + 3, the f32 affine (sc,
+// bi in shared memory; null: none), as four bf16 in a uint2
+__device__ __forceinline__ uint2 norm4(const Ctx& c, const bf16* xr, int i, int col,
+                                       const float* sc, const float* bi) {
+  const float4 x = load4(xr);
+  const float m = c.mean[i], inv = c.inv[i];
+  float y[4] = {__fmul_rn(__fsub_rn(x.x, m), inv), __fmul_rn(__fsub_rn(x.y, m), inv),
+                __fmul_rn(__fsub_rn(x.z, m), inv), __fmul_rn(__fsub_rn(x.w, m), inv)};
+  if (sc != nullptr) {
+    const float4 g = *reinterpret_cast<const float4*>(sc + col);
+    const float4 b = *reinterpret_cast<const float4*>(bi + col);
+    y[0] = __fadd_rn(__fmul_rn(y[0], g.x), b.x);
+    y[1] = __fadd_rn(__fmul_rn(y[1], g.y), b.y);
+    y[2] = __fadd_rn(__fmul_rn(y[2], g.z), b.z);
+    y[3] = __fadd_rn(__fmul_rn(y[3], g.w), b.w);
+  }
+  return pack4(f2bf(y[0]), f2bf(y[1]), f2bf(y[2]), f2bf(y[3]));
+}
+
+// acc = tok @ h1 of one sequence over the row tiles: tok [48, 48] staged
+// (zero past S), h1 [48, Dc8] (zero rows past S, zero columns past Dc).
+__device__ void token_product(float (&acc)[kTokRows / 16][kTokTiles][4], const bf16* tok,
+                              const bf16* h1, int hst, int row_tiles, int n_tiles) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int m = 0; m < kTokRows / 16; ++m)
+#pragma unroll
+    for (int i = 0; i < kTokTiles; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][i][e] = 0.0f;
+  for (int ks = 0; ks < row_tiles; ++ks) {
+    uint32_t a[kTokRows / 16][4];
+#pragma unroll
+    for (int m = 0; m < kTokRows / 16; ++m) {
       if (m < row_tiles) {
         const bf16* t0 = tok + (m * 16 + g) * kTokStride + ks * 16 + 2 * q;
         const bf16* t1 = t0 + 8 * kTokStride;
@@ -192,232 +486,411 @@ __device__ void token_product(float (&acc)[kMaxRowTiles][kTiles][4], const bf16*
       }
     }
 #pragma unroll
-    for (int i = 0; i < kTiles; ++i) {
+    for (int i = 0; i < kTokTiles; ++i) {
       const int t = warp + kWarps * i;
       if (t < n_tiles) {
         uint32_t b0, b1;
-        ldsm_x2_trans(b0, b1, hs + (ks * 16 + (lane & 15)) * hst + t * 8);
+        ldsm_x2_trans(b0, b1, h1 + (ks * 16 + (lane & 15)) * hst + t * 8);
 #pragma unroll
-        for (int m = 0; m < kMaxRowTiles; ++m)
+        for (int m = 0; m < kTokRows / 16; ++m)
           if (m < row_tiles) mma(acc[m][i], a[m][0], a[m][1], a[m][2], a[m][3], b0, b1);
       }
     }
   }
 }
 
-// A lane's 16-byte slice of row n of W [N, K] at k0, or zeros past N.
-__device__ __forceinline__ uint4 load_w16(const bf16* w, int n, int N, int K, int k0) {
-  if (n >= N) return make_uint4(0u, 0u, 0u, 0u);
-  return __ldg(reinterpret_cast<const uint4*>(w + (size_t)n * K + k0));
-}
-
-__device__ __forceinline__ uint2 load_w8(const bf16* w, int n, int N, int K, int k0) {
-  if (n >= N) return make_uint2(0u, 0u);
-  return __ldg(reinterpret_cast<const uint2*>(w + (size_t)n * K + k0));
-}
-
-// acc = a @ W^T over the row tiles: a [rows, K] bf16 in shared memory (row
-// stride ast), W [N, K] bf16 in global memory; K a multiple of 16.
-__device__ void weight_product(float (&acc)[kMaxRowTiles][kTiles][4], const bf16* as, int ast,
-                               const bf16* w, int N, int K, int row_tiles, int warp,
-                               int lane) {
-  const int g = lane >> 2, q = lane & 3, n_tiles = (N + 7) / 8, k_full = K / 32 * 32;
-  zero_acc(acc);
-  uint4 cur[kTiles], nxt[kTiles];
-  if (k_full > 0) {
-#pragma unroll
-    for (int i = 0; i < kTiles; ++i) {
-      const int t = warp + kWarps * i;
-      cur[i] = t < n_tiles ? load_w16(w, t * 8 + g, N, K, 8 * q) : make_uint4(0u, 0u, 0u, 0u);
+// This CTA's columns of the G sequences' rows (LN2's, or x itself when ln
+// is false) into every CTA's full rows, four columns a store, then the
+// proxy fence the wgmma reads need.
+__device__ __forceinline__ void push_rows(const Ctx& c, bool ln, const float* sc,
+                                          const float* bi) {
+  const int S = c.p.S, q4 = c.q4, G = c.lay.G;
+  for (int idx = threadIdx.x; idx < G * S * q4; idx += kT) {
+    const int row = idx / q4, col = 4 * (idx - row * q4), g = row / S, i = g * kR + row - g * S;
+    const bf16* xr = c.x + i * c.lay.xst + col;
+    const uint2 packed = ln ? norm4(c, xr, i, col, sc, bi) : *reinterpret_cast<const uint2*>(xr);
+    const uint32_t off = h_offset(G, i, c.c0 + col);
+    for (int j = 0; j < c.p.N; ++j) {
+      unsigned char* dst = cg::this_cluster().map_shared_rank(c.h, j);
+      *reinterpret_cast<uint2*>(dst + off) = packed;
     }
   }
-  for (int kc = 0; kc < k_full; kc += 32) {
-    if (kc + 32 < k_full) {
-#pragma unroll
-      for (int i = 0; i < kTiles; ++i) {
-        const int t = warp + kWarps * i;
-        nxt[i] = t < n_tiles ? load_w16(w, t * 8 + g, N, K, kc + 32 + 8 * q)
-                             : make_uint4(0u, 0u, 0u, 0u);
-      }
+  fence_proxy_async_cluster();
+}
+
+template <int kAct, int NW>
+__device__ __forceinline__ void channel_epilogue(const Ctx& c, const float (&acc)[NW / 2],
+                                                 int a_row, int g0, const float* cb) {
+  const int S = c.p.S, dc = c.dc, xst = c.lay.xst;
+  bf16* x = c.x;
+  for_each_acc<NW>(acc, [&](int m, int n, float v) {
+    const int col = a_row + m, r = n % kR;
+    if (col < dc && r < S) {
+      bf16* px = x + ((g0 + n / kR) * kR + r) * xst + col;
+      const float y = bf2f(f2bf(activate(__fadd_rn(v, cb[col]), kAct)));
+      *px = bf_add(*px, y);
     }
-    uint4 a0[kMaxRowTiles], a1[kMaxRowTiles];
+  });
+}
+
+template <int NW>
+__device__ __forceinline__ void pose_epilogue(const Ctx& c, const float (&acc)[NW / 2], int m0,
+                                              int g0) {
+  const int S = c.p.S, F = c.p.F, nf = c.nf, f0 = c.f0;
+  const int seq0 = c.seq0, B = c.p.B;
+  bf16* out = c.p.out;
+  const float* ob = reinterpret_cast<const float*>(c.tok);  // staged: [nf]
+  for_each_acc<NW>(acc, [&](int m, int n, float v) {
+    const int f = m0 + m, r = n % kR, seq = seq0 + g0 + n / kR;
+    if (f < nf && r < S && seq < B)
+      out[((size_t)seq * S + r) * F + f0 + f] = f2bf(__fadd_rn(v, ob[f]));
+  });
+}
+
+// One pass of a ring product over the mt (1 or 2, at most srows / 64)
+// M-tiles of a stage: warpgroup w takes M-tile w and every
+// sequence (N = 40 G) when mt == 2; when mt == 1 it takes sequence w of a
+// group of two, or (G == 1, warpgroup 1) repeats warpgroup 0's product and
+// writes nothing.
+template <int kAct>
+__device__ __forceinline__ void product_pass(const Ctx& c, int u0, int mt, bool pose, int pass,
+                                             const float* cb) {
+  const int w = threadIdx.x / 128, G = c.lay.G;
+  if (G == 2 && mt == 2) {
+    float acc[40];
+    ring_product<80>(c, u0, 64 * w, c.h_a, acc);
+    if (pose) pose_epilogue<80>(c, acc, pass * c.srows + 64 * w, 0);
+    else channel_epilogue<kAct, 80>(c, acc, 64 * w, 0, cb);
+    return;
+  }
+  const int a_row = mt == 2 ? 64 * w : 0, g0 = (mt == 1 && G == 2) ? w : 0;
+  float acc[20];
+  ring_product<40>(c, u0, a_row, c.h_a + g0 * kR * kRowBytes, acc);
+  if (mt == 1 && G == 1 && w == 1) return;
+  if (pose) pose_epilogue<40>(c, acc, pass * c.srows + a_row, g0);
+  else channel_epilogue<kAct, 40>(c, acc, a_row, g0, cb);
+}
+
+// Queues layer l's small parameters on this CTA's columns into parameter
+// buffer l % 2 (every thread; cp.async, one commit group): the LN1 scale and
+// bias, the LN2 scale and bias (unless folded), the channel-mix bias, the
+// token-mix bias.
+__device__ __forceinline__ void issue_params(const Ctx& c, int l) {
+  if (l >= c.p.L) return;
+  const Params& p = c.p;
+  float* b = c.prm + (l % 2) * c.lay.prm_floats();
+  const int q4 = c.q4;
+  for (int idx = threadIdx.x; idx < 5 * q4; idx += kT) {
+    const int which = idx / q4, col = 4 * (idx - which * q4);
+    const float* src = which == 0 ? p.ln1_s : which == 1 ? p.ln1_b : which == 2 ? p.ln2_s
+                     : which == 3 ? p.ln2_b : p.cb;
+    if (src != nullptr) cp_async16(b + which * c.dc + col, src + (size_t)l * p.D + c.c0 + col, true);
+  }
+  if (threadIdx.x < p.S) cp_async4(b + 5 * c.dc + threadIdx.x, p.tb + (size_t)l * p.S + threadIdx.x, true);
+  cp_async_commit();
+}
+
+constexpr int kTokPer = (kTokRows * kTokRows + kT - 1) / kT;  // token_w values a thread stages
+
+template <int kAct>
+__global__ void __launch_bounds__(kT, 1) transmlp_bf16_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw_a = smem_addr(smem_raw);
+  unsigned char* base = smem_raw + ((1024 - raw_a % 1024) % 1024);
+  const Layout lay(p.D, p.N, p.G);
+  const int S = p.S, D = p.D, G = p.G, tid = threadIdx.x;
+  Ctx c{p, lay};
+  c.rank = (int)cg::this_cluster().block_rank();
+  c.dc = lay.dc;
+  c.q4 = c.dc / 4;
+  c.c0 = c.rank * c.dc;
+  c.seq0 = (int)(blockIdx.x / p.N) * G;
+  c.kc = lay.kc;
+  c.mc = (c.dc + 63) / 64;
+  const int fc = (p.F + p.N - 1) / p.N;
+  c.f0 = c.rank * fc;
+  c.nf = p.ob == nullptr ? 0 : max(0, min(p.F, c.f0 + fc) - c.f0);
+  c.stages = lay.stages;
+  c.srows = lay.srows;
+  const int mp = (c.nf + 63) / 64, per = c.srows / 64, passes = (mp + per - 1) / per;
+  c.tiles_c = p.L * c.kc;
+  c.tiles = c.tiles_c + passes * c.kc;
+  c.ring_a = smem_addr(base + lay.ring());
+  c.h = base + lay.h();
+  c.h_a = smem_addr(c.h);
+  c.x = reinterpret_cast<bf16*>(base + lay.x());
+  c.tok = reinterpret_cast<bf16*>(base + lay.tok());
+  c.st = reinterpret_cast<float*>(base + lay.st());
+  c.mean = reinterpret_cast<float*>(base + lay.rowstat());
+  c.inv = c.mean + G * kR;
+  c.emb = reinterpret_cast<bf16*>(base + lay.emb());
+  c.prm = reinterpret_cast<float*>(base + lay.prm());
+  c.full = reinterpret_cast<uint64_t*>(base + lay.bars());
+  c.cnt = reinterpret_cast<uint32_t*>(c.full + kMaxStages);
+
+  if (tid < kMaxStages) {
+    mbar_init(&c.full[tid], 1);  // the issuing thread's expect_tx
+    c.cnt[tid] = 0;
+  }
+  mbar_init_fence();
+  const int q4 = c.q4, dc8 = round8(c.dc);
+  for (int idx = tid; idx < G * S * q4; idx += kT) {  // this CTA's columns of x (zero:
+    const int row = idx / q4, col = 4 * (idx - row * q4), g = row / S, r = row - g * S;
+    const int seq = c.seq0 + g;                       // a group's missing sequence)
+    const bool in = seq < p.B;
+    cp_async8(c.x + (g * kR + r) * lay.xst + col,
+              p.x + (in ? ((size_t)seq * S + r) * D + c.c0 + col : 0), in);
+  }
+  for (int idx = tid; idx < G * q4; idx += kT) {  // and of emb
+    const int g = idx / q4, col = 4 * (idx - g * q4), seq = c.seq0 + g;
+    const bool in = seq < p.B;
+    cp_async8(c.emb + g * dc8 + col, p.emb + (in ? (size_t)seq * D + c.c0 + col : 0), in);
+  }
+  issue_params(c, 0);
+  for (int idx = tid; idx < (int)(lay.h_bytes() / 16); idx += kT)  // K past D reads zeros
+    reinterpret_cast<uint4*>(c.h)[idx] = make_uint4(0u, 0u, 0u, 0u);
+  cp_async_wait<0>();
+  __syncthreads();  // barriers initialised, x, emb and layer 0's parameters in
+  if (tid == 0)
+    for (int u = 0; u < min(c.stages, c.tiles); ++u) issue_tile(c, u);
+  // the first exchange writes into the other CTAs' shared memory: they
+  // must have started
+  cg::this_cluster().sync();
+
+  const bool affine = p.ln2_s != nullptr;
+  const int row_tiles = (S + 15) / 16, n_tiles = dc8 / 8, hq = dc8 / 4;
+  bf16* h1 = reinterpret_cast<bf16*>(c.h);
+  const bf16 zero = __ushort_as_bfloat16((unsigned short)0);
+  for (int l = 0; l < p.L; ++l) {
+    const float* prm = c.prm + (l % 2) * lay.prm_floats();
+    const float *g1 = prm, *b1 = g1 + c.dc, *g2 = b1 + c.dc, *b2 = g2 + c.dc, *cb = b2 + c.dc,
+                *tb = cb + c.dc;
+    // this layer's token_w into registers; staged after the LN1 statistics
+    const bf16* twl = p.tw + (size_t)l * S * S;
+    bf16 tw[kTokPer];
 #pragma unroll
-    for (int m = 0; m < kMaxRowTiles; ++m) {
-      if (m < row_tiles) {
-        const bf16* p = as + (m * 16 + g) * ast + kc + 8 * q;
-        a0[m] = *reinterpret_cast<const uint4*>(p);
-        a1[m] = *reinterpret_cast<const uint4*>(p + 8 * ast);
-      }
+    for (int i = 0; i < kTokPer; ++i) {
+      const int idx = tid + i * kT, r = idx / kTokRows, col = idx - r * kTokRows;
+      tw[i] = (r < S && col < S) ? twl[r * S + col] : zero;
+    }
+    // x += emb
+    for (int idx = tid; idx < G * S * q4; idx += kT) {
+      const int row = idx / q4, col = 4 * (idx - row * q4), g = row / S;
+      bf16* px = c.x + (g * kR + row - g * S) * lay.xst + col;
+      const float4 x = load4(px), e = load4(c.emb + g * dc8 + col);
+      *reinterpret_cast<uint2*>(px) = pack4(f2bf(__fadd_rn(x.x, e.x)), f2bf(__fadd_rn(x.y, e.y)),
+                                            f2bf(__fadd_rn(x.z, e.z)), f2bf(__fadd_rn(x.w, e.w)));
+    }
+    cp_async_wait<0>();  // this layer's parameters
+    __syncthreads();
+    row_stats(c, 0);
+    // LN1 rows of this CTA's columns (zero past S and past Dc), token_w staged
+    for (int idx = tid; idx < G * kTokRows * hq; idx += kT) {
+      const int row = idx / hq, col = 4 * (idx - row * hq), g = row / kTokRows;
+      const int r = row - g * kTokRows, i = g * kR + r;
+      uint2 v = make_uint2(0u, 0u);
+      if (r < S && col < c.dc) v = norm4(c, c.x + i * lay.xst + col, i, col, g1, b1);
+      *reinterpret_cast<uint2*>(h1 + row * lay.hst + col) = v;
     }
 #pragma unroll
-    for (int i = 0; i < kTiles; ++i) {
-      if (warp + kWarps * i < n_tiles) {
+    for (int i = 0; i < kTokPer; ++i) {
+      const int idx = tid + i * kT, r = idx / kTokRows;
+      if (idx < kTokRows * kTokRows) c.tok[r * kTokStride + idx - r * kTokRows] = tw[i];
+    }
+    __syncthreads();
+    issue_params(c, l + 1);  // its buffer was last read in layer l - 1
+    for (int g = 0; g < G; ++g) {
+      float acc[kTokRows / 16][kTokTiles][4];
+      token_product(acc, c.tok, h1 + g * kTokRows * lay.hst, lay.hst, row_tiles, n_tiles);
+      const int warp = tid / 32, lane = tid % 32, gq = lane >> 2, q = lane & 3;
 #pragma unroll
-        for (int m = 0; m < kMaxRowTiles; ++m) {
-          if (m < row_tiles) {
-            mma(acc[m][i], a0[m].x, a1[m].x, a0[m].y, a1[m].y, cur[i].x, cur[i].y);
-            mma(acc[m][i], a0[m].z, a1[m].z, a0[m].w, a1[m].w, cur[i].z, cur[i].w);
+      for (int m = 0; m < kTokRows / 16; ++m) {
+        if (m >= row_tiles) continue;
+#pragma unroll
+        for (int i = 0; i < kTokTiles; ++i) {
+          const int t = warp + kWarps * i;
+          if (t >= n_tiles) continue;
+          const int col = t * 8 + 2 * q;
+          if (col >= c.dc) continue;  // Dc % 4 == 0: a pair is in or out
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = m * 16 + gq + 8 * half;
+            if (r >= S) continue;
+            __nv_bfloat162* px =
+                reinterpret_cast<__nv_bfloat162*>(c.x + (g * kR + r) * lay.xst + col);
+            __nv_bfloat162 xv = *px;
+            const float b = tb[r];
+            xv.x = bf_add(xv.x, bf2f(f2bf(activate(__fadd_rn(acc[m][i][2 * half], b), kAct))));
+            xv.y = bf_add(xv.y, bf2f(f2bf(activate(__fadd_rn(acc[m][i][2 * half + 1], b), kAct))));
+            *px = xv;
           }
         }
       }
     }
-#pragma unroll
-    for (int i = 0; i < kTiles; ++i) cur[i] = nxt[i];
-  }
-  if (k_full < K) {  // the last 16 k when K % 32 == 16: 4 k a lane
-    uint2 a0[kMaxRowTiles], a1[kMaxRowTiles];
-#pragma unroll
-    for (int m = 0; m < kMaxRowTiles; ++m) {
-      if (m < row_tiles) {
-        const bf16* p = as + (m * 16 + g) * ast + k_full + 4 * q;
-        a0[m] = *reinterpret_cast<const uint2*>(p);
-        a1[m] = *reinterpret_cast<const uint2*>(p + 8 * ast);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kTiles; ++i) {
-      const int t = warp + kWarps * i;
-      if (t < n_tiles) {
-        const uint2 b = load_w8(w, t * 8 + g, N, K, k_full + 4 * q);
-#pragma unroll
-        for (int m = 0; m < kMaxRowTiles; ++m)
-          if (m < row_tiles) mma(acc[m][i], a0[m].x, a1[m].x, a0[m].y, a1[m].y, b.x, b.y);
-      }
-    }
-  }
-}
-
-// x[r, c] = bf16(x + bf16(act(acc + bias))) for the S real rows; the bias is
-// per row (token mix) or per column (channel mix).
-__device__ void residual_epilogue(const float (&acc)[kMaxRowTiles][kTiles][4], bf16* xs,
-                                  const float* bias, bool row_bias, int S, int D,
-                                  int row_tiles, int act, int warp, int lane) {
-  const int g = lane >> 2, q = lane & 3, xst = x_stride(D), n_tiles = D / 8;
-#pragma unroll
-  for (int m = 0; m < kMaxRowTiles; ++m) {
-    if (m >= row_tiles) continue;
-#pragma unroll
-    for (int i = 0; i < kTiles; ++i) {
-      const int t = warp + kWarps * i;
-      if (t >= n_tiles) continue;
-      const int c = t * 8 + 2 * q;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m * 16 + g + 8 * half;
-        if (r >= S) continue;
-        __nv_bfloat162* px = reinterpret_cast<__nv_bfloat162*>(xs + r * xst + c);
-        __nv_bfloat162 xv = *px;
-        const float b0 = row_bias ? bias[r] : bias[c];
-        const float b1 = row_bias ? bias[r] : bias[c + 1];
-        const float y0 = bf2f(f2bf(activate(__fadd_rn(acc[m][i][2 * half], b0), act)));
-        const float y1 = bf2f(f2bf(activate(__fadd_rn(acc[m][i][2 * half + 1], b1), act)));
-        xv.x = bf_add(xv.x, y0);
-        xv.y = bf_add(xv.y, y1);
-        *px = xv;
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 1) transmlp_bf16_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int S = p.S, D = p.D;
-  const int xst = x_stride(D), hst = h_stride(D);
-  const int row_tiles = (S + 15) / 16, rows = row_tiles * 16;
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* hs = xs + kMaxRows * xst;
-  bf16* tok = hs + kMaxRows * hst;
-  bf16* es = tok + kMaxRows * kTokStride;
-  const int b = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const bf16 zero = __ushort_as_bfloat16((unsigned short)0);
-
-  const int vecs = D / 8;  // 16-byte vectors a row
-  const bf16* xg = p.x + (size_t)b * S * D;
-  for (int i = tid; i < rows * vecs; i += kThreads) {
-    const int r = i / vecs, c = (i % vecs) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < S) v = *reinterpret_cast<const uint4*>(xg + (size_t)r * D + c);
-    *reinterpret_cast<uint4*>(xs + r * xst + c) = v;
-    *reinterpret_cast<uint4*>(hs + r * hst + c) = make_uint4(0u, 0u, 0u, 0u);
-  }
-  for (int i = tid; i < vecs; i += kThreads)
-    *reinterpret_cast<uint4*>(es + i * 8) =
-        *reinterpret_cast<const uint4*>(p.emb + (size_t)b * D + i * 8);
-  __syncthreads();
-
-  float acc[kMaxRowTiles][kTiles][4];
-  for (int l = 0; l < p.L; ++l) {
-    const bf16* twl = p.tw + (size_t)l * S * S;
-    for (int i = tid; i < rows * rows; i += kThreads) {
-      const int r = i / rows, c = i % rows;
-      tok[r * kTokStride + c] = (r < S && c < S) ? twl[r * S + c] : zero;
-    }
-    layer_norm(xs, hs, es, p.ln1_s + (size_t)l * D, p.ln1_b + (size_t)l * D, S, D, warp, lane);
     __syncthreads();
-    token_product(acc, tok, hs, row_tiles, D, warp, lane);
-    residual_epilogue(acc, xs, p.tb + (size_t)l * S, true, S, D, row_tiles, p.act, warp, lane);
-    __syncthreads();
-    const bool affine = p.ln2_s != nullptr;
-    layer_norm(xs, hs, nullptr, affine ? p.ln2_s + (size_t)l * D : nullptr,
-               affine ? p.ln2_b + (size_t)l * D : nullptr, S, D, warp, lane);
-    __syncthreads();
-    weight_product(acc, hs, hst, p.cw + (size_t)l * D * D, D, D, row_tiles, warp, lane);
-    residual_epilogue(acc, xs, p.cb + (size_t)l * D, false, S, D, row_tiles, p.act, warp,
-                      lane);
+    // LN2: statistics, then the normalised rows into every CTA's full rows
+    // (no CTA still reads its LN1 rows: all passed the barrier in row_stats)
+    row_stats(c, 1);
+    push_rows(c, true, affine ? g2 : nullptr, affine ? b2 : nullptr);
+    cg::this_cluster().sync();
+    fence_proxy_async();
+    product_pass<kAct>(c, l * c.kc, c.mc, false, 0, cb);
     __syncthreads();
   }
 
-  if (p.ow != nullptr) {
-    const int F = p.F, g = lane >> 2, q = lane & 3, n_tiles = (F + 7) / 8;
-    weight_product(acc, xs, xst, p.ow, F, D, row_tiles, warp, lane);
-    bf16* og = p.out + (size_t)b * S * F;
-#pragma unroll
-    for (int m = 0; m < kMaxRowTiles; ++m) {
-      if (m >= row_tiles) continue;
-#pragma unroll
-      for (int i = 0; i < kTiles; ++i) {
-        const int t = warp + kWarps * i;
-        if (t >= n_tiles) continue;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = m * 16 + g + 8 * (e >> 1), c = t * 8 + 2 * q + (e & 1);
-          if (r < S && c < F) og[(size_t)r * F + c] = f2bf(__fadd_rn(acc[m][i][e], p.ob[c]));
-        }
-      }
-    }
+  if (p.ob != nullptr) {
+    float* obs = reinterpret_cast<float*>(c.tok);  // this CTA's pose biases (token_w is done)
+    for (int j = tid; j < c.nf; j += kT) obs[j] = __ldg(p.ob + c.f0 + j);
+    cg::this_cluster().sync();  // every CTA is done reading its full rows
+    push_rows(c, false, nullptr, nullptr);
+    cg::this_cluster().sync();
+    fence_proxy_async();
+    for (int pass = 0; pass < passes; ++pass)
+      product_pass<kAct>(c, c.tiles_c + pass * c.kc, min(per, mp - per * pass), true, pass, nullptr);
   } else {
-    bf16* og = p.out + (size_t)b * S * D;
-    for (int i = tid; i < S * vecs; i += kThreads) {
-      const int r = i / vecs, c = (i % vecs) * 8;
-      *reinterpret_cast<uint4*>(og + (size_t)r * D + c) =
-          *reinterpret_cast<const uint4*>(xs + r * xst + c);
+    for (int idx = tid; idx < G * S * q4; idx += kT) {
+      const int row = idx / q4, col = 4 * (idx - row * q4), g = row / S, r = row - g * S;
+      const int seq = c.seq0 + g;
+      if (seq < p.B)
+        *reinterpret_cast<uint2*>(p.out + ((size_t)seq * S + r) * D + c.c0 + col) =
+            *reinterpret_cast<const uint2*>(c.x + (g * kR + r) * lay.xst + col);
     }
+  }
+}
+
+// One wgmma product through the kernel's own operand path, for the unit
+// check: A [64, 128] by TMA (weight_map_bf16, two boxes of 64 k), B [n, 128]
+// written by threads at h_offset; out [64, n] = A . B^T in f32.
+template <int NW>
+__global__ void __launch_bounds__(128, 1)
+wgmma_check_kernel(const __grid_constant__ CUtensorMap a_map, const bf16* b, float* out) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw_a = smem_addr(smem_raw);
+  unsigned char* base = smem_raw + ((1024 - raw_a % 1024) % 1024);
+  const uint32_t a_addr = smem_addr(base);
+  unsigned char* h = base + 2 * 64 * kRowBytes;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(h + 2 * NW * kRowBytes);
+  const int G = NW / kR;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar, 2 * 64 * kRowBytes);
+    tma_load_2d_bf16(a_addr, &a_map, 0, 0, bar);
+    tma_load_2d_bf16(a_addr + 64 * kRowBytes, &a_map, kChunk, 0, bar);
+  }
+  for (int idx = threadIdx.x; idx < NW * 32; idx += 128) {
+    const int row = idx / 32, k = 4 * (idx % 32);
+    *reinterpret_cast<uint2*>(h + h_offset(G, row, k)) =
+        *reinterpret_cast<const uint2*>(b + row * 128 + k);
+  }
+  fence_proxy_async();
+  __syncthreads();
+  mbar_wait(bar, 0);
+  float acc[NW / 2];
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) acc[i] = 0.0f;
+  fence_acc(acc);
+  wgmma_fence();
+  for (int j = 0; j < 2; ++j)
+    chunk_mma<NW>(acc, a_addr + j * 64 * kRowBytes, smem_addr(h) + j * NW * kRowBytes, j);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+  for_each_acc<NW>(acc, [&](int m, int n, float v) { out[m * NW + n] = v; });
+}
+
+bool shape_ok(int D, int cluster, int group) {
+  return cluster_ok(D, cluster) && (group == 1 || group == kMaxGroup) &&
+         Layout(D, cluster, group).stages >= 2;
+}
+
+using Kernel = void (*)(const Params);
+
+Kernel kernel_for(int act) {
+  switch (act) {
+    case kSilu: return transmlp_bf16_kernel<kSilu>;
+    case kRelu: return transmlp_bf16_kernel<kRelu>;
+    case kGelu: return transmlp_bf16_kernel<kGelu>;
+    case kLrelu: return transmlp_bf16_kernel<kLrelu>;
+    case kLrelu01: return transmlp_bf16_kernel<kLrelu01>;
+    default: return transmlp_bf16_kernel<kLrelu02>;
   }
 }
 
 }  // namespace
 
-// The bf16 stack. ln2_s/ln2_b null: LN2 folded. ow/ob null (F = 0): no pose
-// projection, out is [B, S, D]. Returns a cudaError_t (0: launched).
+// Dynamic shared memory of one CTA, or 0 for a geometry the kernel refuses.
+extern "C" long long fused_transmlp_bf16_smem_bytes(int D, int cluster, int group) {
+  return shape_ok(D, cluster, group) ? (long long)Layout(D, cluster, group).bytes() : 0;
+}
+
+// Clusters of `cluster` CTAs holding `group` sequences at width D the current
+// card holds at once (cudaOccupancyMaxActiveClusters), or minus the cudaError_t.
+extern "C" int fused_transmlp_bf16_max_clusters(int D, int cluster, int group) {
+  if (!shape_ok(D, cluster, group)) return -(int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cluster_launch_config(&cfg, attr, kT, cluster, cluster, Layout(D, cluster, group).bytes());
+  const Kernel kernel = kernel_for(kSilu);  // every instance has the same resources' shape
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)cfg.dynamicSmemBytes);
+  int n = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// The bf16 stack as ceil(B / group) clusters of `cluster` CTAs. ln2_s/ln2_b
+// null: LN2 folded. ow/ob null: no pose projection, out is [B, S, D].
+// Returns a cudaError_t (0: launched).
 extern "C" int fused_transmlp_bf16_launch(
     const void* x, const void* emb, const float* ln1_s, const float* ln1_b, const void* tw,
     const float* tb, const float* ln2_s, const float* ln2_b, const void* cw, const float* cb,
     const void* ow, const float* ob, void* out, int B, int S, int D, int L, int F, int act,
-    void* stream) {
+    int cluster, int group, void* stream) {
   const bool proj = ow != nullptr;
-  if (B < 0 || S < 1 || S > kMaxSeq || D < 16 || D > kMaxDim || D % 16 != 0 || L < 1 ||
-      act < kSilu || act > kLrelu02 || (proj && (F < 1 || F > kMaxDim || ob == nullptr)) ||
-      (ln2_s == nullptr) != (ln2_b == nullptr))
+  if (B < 0 || S < 1 || S > kSPad || !shape_ok(D, cluster, group) || L < 1 || act < kSilu ||
+      act > kLrelu02 || (proj && (F < 1 || F > kMaxN || ob == nullptr)) ||
+      (ln2_s == nullptr) != (ln2_b == nullptr) || !aligned16(x) || !aligned16(emb) ||
+      !aligned16(cw) || !aligned16(ow) || !aligned16(ln1_s) || !aligned16(ln1_b) ||
+      !aligned16(ln2_s) || !aligned16(ln2_b) || !aligned16(cb))
     return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  const Params p{static_cast<const bf16*>(x), static_cast<const bf16*>(emb), ln1_s, ln1_b,
-                 static_cast<const bf16*>(tw), tb, ln2_s, ln2_b,
-                 static_cast<const bf16*>(cw), cb, static_cast<const bf16*>(ow), ob,
-                 static_cast<bf16*>(out), S, D, L, proj ? F : 0, act};
-  const size_t smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(transmlp_bf16_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const Layout lay(D, cluster, group);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cluster_launch_config(&cfg, attr, kT, (B + group - 1) / group, cluster, lay.bytes());
+  const Kernel kernel = kernel_for(act);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)cfg.dynamicSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  transmlp_bf16_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  if (B == 0) return 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  Params p{{}, {}, static_cast<const bf16*>(x), static_cast<const bf16*>(emb), ln1_s, ln1_b,
+           static_cast<const bf16*>(tw), tb, ln2_s, ln2_b, cb, proj ? ob : nullptr,
+           static_cast<bf16*>(out), B, S, D, L, proj ? F : 0, cluster, group};
+  if (!weight_map_bf16(&p.cw_map, cw, (long long)L * D, D, lay.srows) ||
+      (proj && !weight_map_bf16(&p.ow_map, ow, F, D, lay.srows)))
+    return (int)cudaErrorInvalidValue;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The unit check of the wgmma operand path: out [64, n] = a [64, 128] .
+// b [n, 128]^T, n in {40, 80}, one warpgroup. Returns a cudaError_t.
+extern "C" int fused_transmlp_bf16_wgmma_check(const void* a, const void* b, float* out, int n,
+                                               void* stream) {
+  if ((n != 40 && n != 80) || !aligned16(a) || !aligned16(b)) return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  if (!weight_map_bf16(&map, a, 64, 128, 64)) return (int)cudaErrorInvalidValue;
+  const size_t smem = 2 * 64 * kRowBytes + 2 * (size_t)n * kRowBytes + 8 + 1024;
+  auto kernel = n == 40 ? wgmma_check_kernel<40> : wgmma_check_kernel<80>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(map, static_cast<const bf16*>(b),
+                                                             out);
   return (int)cudaGetLastError();
 }

@@ -342,6 +342,25 @@ inline bool weight_map(CUtensorMap* map, const float* w, long long rows, int D, 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A row-major bf16 [rows, cols] matrix (cols a multiple of 8) as the 2-D map
+// the bf16 kernel's ring reads for wgmma: boxes of [box_rows, 64], each row
+// of 64 k landing as 128 bytes whose 16-byte chunks are permuted by the
+// row's index mod 8 (the 128-byte swizzle; the destination is 1024-byte
+// aligned). Columns past cols and rows past rows read as zeros.
+inline bool weight_map_bf16(CUtensorMap* map, const void* w, long long rows, int cols,
+                            int box_rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // The cluster sizes a kernel takes at width D: N in {1, 2, 4, 8}, Dc = D/N
 // a whole number of 16-byte loads and at most kMaxCols.
 inline bool cluster_ok(int D, int N) {

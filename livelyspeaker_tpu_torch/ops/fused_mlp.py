@@ -46,6 +46,9 @@ __all__ = [
     "cluster_sizes",
     "transmlp_geometry",
     "resident_clusters",
+    "TransMLPBf16Geometry",
+    "transmlp_bf16_geometry",
+    "bf16_resident_clusters",
 ]
 
 # activation name -> the kernel's Act code (csrc/transmlp_common.cuh)
@@ -391,6 +394,7 @@ def launch_stack(
     act_code: int,
     out_proj: Optional[Dict[str, torch.Tensor]] = None,
     cluster: Optional[int] = None,
+    group: Optional[int] = None,
 ) -> torch.Tensor:
     """Launch the kernel on CUDA tensors with a ``KERNEL_ACT_CODES`` code
     (the training route's no-grad calls also use the leaky relus); checks
@@ -398,14 +402,15 @@ def launch_stack(
     overrides :func:`transmlp_geometry`'s choice (for measurement); the
     kernel refuses a cluster it cannot take, and the wrapper raises.
 
-    bf16 ``x`` goes to the bf16 kernel (:func:`launch_stack_bf16`), which
-    runs one CTA a sequence and takes no ``cluster``; any dtype but f32 and
-    bf16 raises."""
+    bf16 ``x`` goes to the bf16 kernel (:func:`launch_stack_bf16`), where
+    ``cluster`` and ``group`` override :func:`transmlp_bf16_geometry`'s
+    choice; the f32 kernel takes no ``group``. Any dtype but f32 and bf16
+    raises."""
     if x.dtype == torch.bfloat16:
-        if cluster is not None:
-            raise ValueError("fused_transmlp: the bf16 kernel runs one CTA a sequence; "
-                             f"cluster={cluster} is for the f32 kernel")
-        return launch_stack_bf16(x, emb, packed, act_code, out_proj)
+        return launch_stack_bf16(x, emb, packed, act_code, out_proj, cluster, group)
+    if group is not None:
+        raise ValueError(f"fused_transmlp: group={group} is for the bf16 kernel; the f32 "
+                         "kernel runs one sequence a cluster")
     if x.dtype != torch.float32:
         raise TypeError(f"fused_transmlp: x is {x.dtype}; {DTYPE_RULE}")
     b, s, d = x.shape
@@ -457,18 +462,114 @@ def launch_stack(
 fused_transmlp.launches = 0
 fused_transmlp.bf16_launches = 0  # the bf16 kernel's, counted by launch_stack_bf16
 
+# The bf16 kernel's shared-memory layout (csrc/fused_transmlp_bf16.cu: Layout)
+_BF16_ROWS, _BF16_TOK_ROWS, _BF16_MAX_STAGES = 40, 48, 8
+BF16_GROUPS = (1, 2)  # sequences a cluster of the bf16 kernel holds
+
+
+class TransMLPBf16Geometry(NamedTuple):
+    cluster: int  # CTAs a group of sequences is spread over
+    group: int  # sequences a cluster holds; each weight tile feeds all of them
+    cols: int  # columns of the residual each CTA owns, D / cluster
+    wgmma_n: int  # N of the channel mix's wgmma: 40 rows a sequence of a warpgroup
+    stages: int  # stages of the weight ring, as many as the shared memory holds
+    smem_bytes: int  # dynamic shared memory of one CTA
+    clusters: int  # clusters of the launch, ceil(B / group)
+
+
+def _bf16_layout(d: int, cluster: int, group: int) -> tuple:
+    """Mirror of ``Layout`` in the bf16 kernel: (ring stages, shared-memory
+    bytes)."""
+    dc = d // cluster
+    r8 = -(-dc // 8) * 8
+    xst = hst = r8 + 8
+    chunks = -(-d // 64)
+    rest = (max(chunks * group * _BF16_ROWS * 128, group * _BF16_TOK_ROWS * hst * 2)
+            + group * _BF16_ROWS * xst * 2  # x
+            + _BF16_TOK_ROWS * (_BF16_TOK_ROWS + 8) * 2  # token_w
+            + 2 * 8 * group * _BF16_ROWS * 2 * 4  # the statistics' exchange
+            + 2 * group * _BF16_ROWS * 4  # mean, 1/std
+            + group * r8 * 2  # emb
+            + 2 * (5 * dc + _BF16_ROWS) * 4  # two layers' small parameters
+            + _BF16_MAX_STAGES * 12 + 1024)  # the ring's mbarriers and counters, alignment
+    stage = 64 * -(-dc // 64) * 128
+    stages = min(_BF16_MAX_STAGES, max(0, SMEM_LIMIT - rest) // stage)
+    return stages, stages * stage + rest
+
+
+def _bf16_smem_bytes(d: int, cluster: int, group: int) -> int:
+    return _bf16_layout(d, cluster, group)[1]
+
+
+def _bf16_geometry(b: int, d: int, cluster: int, group: int) -> TransMLPBf16Geometry:
+    cols = d // cluster
+    n = 40 * group if cols > 64 else 40
+    stages, smem = _bf16_layout(d, cluster, group)
+    return TransMLPBf16Geometry(cluster, group, cols, n, stages, smem, -(-b // group))
+
+
+def transmlp_bf16_geometry(b: int, s: int, d: int,
+                           resident: Optional[Dict[tuple, int]] = None) -> TransMLPBf16Geometry:
+    """The bf16 kernel's launch geometry for B sequences of [S, D]; raises
+    ``ValueError`` on what the kernel does not take (:func:`check_limits`).
+    ``resident`` maps (cluster, group) to the clusters the card holds at
+    once (default: an H100 SXM's, ``H100_RESIDENT_CLUSTERS``, one CTA an SM).
+
+    The cluster sizes are :func:`transmlp_geometry`'s (Dc >= 64 unless D is
+    smaller); a group is one or two sequences. Of the (cluster, group) whose
+    ceil(B / group) clusters all run at once, it takes the one that spreads
+    the batch over the most SMs, then the fewest clusters (each cluster
+    reads all of ``ch_w``: two sequences a cluster halve the L2 reads),
+    then the smaller group. A batch too large for one wave of any takes the
+    smallest cluster with groups of two. At TED's and BEAT's D = 512 on an
+    H100 SXM that is 8 CTAs and one sequence up to 2B = 15, 8 CTAs and two
+    sequences from 16 (the serving batch) to 30, then 4 CTAs and two
+    sequences (``chip_smoke.py`` times every choice at 2B in {16, 512})."""
+    check_limits(b, s, d)
+    if resident is None:
+        resident = {(n, g): H100_RESIDENT_CLUSTERS[n] for n in (8, 4, 2, 1) for g in BF16_GROUPS}
+    sizes = [n for n in cluster_sizes(d) if d // n >= min(64, d)]
+    fits = [(n, g) for n in sizes for g in BF16_GROUPS if -(-b // g) <= resident.get((n, g), 0)]
+    if fits:
+        n, g = min(fits, key=lambda ng: (-(-(-b // ng[1])) * ng[0], -(-b // ng[1]), ng[1]))
+    else:
+        n, g = sizes[-1], BF16_GROUPS[-1]
+    return _bf16_geometry(b, d, n, g)
+
+
 _bf16_bound = None
+_bf16_resident: Dict[tuple, Dict[tuple, int]] = {}
 
 
 def _bf16_launcher():
     global _bf16_bound
     if _bf16_bound is None:
-        fn = load_library("fused_transmlp_bf16").fused_transmlp_bf16_launch
-        # x, emb, 10 weights, out; B, S, D, L, F, act; stream
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib = load_library("fused_transmlp_bf16")
+        fn = lib.fused_transmlp_bf16_launch
+        # x, emb, 10 weights, out; B, S, D, L, F, act, cluster, group; stream
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _bf16_bound = fn
+        query = lib.fused_transmlp_bf16_max_clusters
+        query.argtypes, query.restype = [ctypes.c_int] * 3, ctypes.c_int
+        _bf16_bound = fn, query
     return _bf16_bound
+
+
+def bf16_resident_clusters(d: int, device: torch.device) -> Dict[tuple, int]:
+    """Clusters of each (cluster, group) the card holds at once at width D,
+    as the CUDA runtime reports them for the bf16 kernel (asked once per
+    card and width)."""
+    key = (device.index, d)
+    if key not in _bf16_resident:
+        query = _bf16_launcher()[1]
+        with torch.cuda.device(device):
+            counts = {(n, g): query(d, n, g) for n in cluster_sizes(d) for g in BF16_GROUPS}
+        bad = {k: -v for k, v in counts.items() if v < 0}
+        if bad:
+            raise RuntimeError(f"fused_transmlp: cudaOccupancyMaxActiveClusters failed for the "
+                               f"bf16 kernel with cudaError {bad} (D={d})")
+        _bf16_resident[key] = counts
+    return _bf16_resident[key]
 
 
 def launch_stack_bf16(
@@ -477,16 +578,25 @@ def launch_stack_bf16(
     packed: Dict[str, torch.Tensor],
     act_code: int,
     out_proj: Optional[Dict[str, torch.Tensor]] = None,
+    cluster: Optional[int] = None,
+    group: Optional[int] = None,
 ) -> torch.Tensor:
     """Launch the bf16 kernel (``csrc/fused_transmlp_bf16.cu``) on CUDA
     tensors: bf16 ``x`` [B, S, D] and ``emb``, a bf16 pack; returns bf16
-    [B, S, F] with ``out_proj``, else [B, S, D]. Checks every tensor and
-    raises on what the kernel does not take."""
+    [B, S, F] with ``out_proj``, else [B, S, D]. ``cluster`` and ``group``
+    override :func:`transmlp_bf16_geometry`'s choice (for measurement).
+    Checks every tensor and raises on what the kernel does not take."""
     b, s, d = x.shape
     emb = emb.reshape(b, d)
     num_layers = packed["token_w"].shape[0]
     f = out_proj["out_w"].shape[0] if out_proj is not None else None
     check_limits(b, s, d, f)
+    if cluster is not None and cluster not in cluster_sizes(d):
+        raise ValueError(f"fused_transmlp: the bf16 kernel takes cluster in {cluster_sizes(d)} "
+                         f"at D={d}, not cluster={cluster}")
+    if group is not None and group not in BF16_GROUPS:
+        raise ValueError(f"fused_transmlp: the bf16 kernel takes group in {BF16_GROUPS}, "
+                         f"not group={group}")
     dev = x.device
     shapes = {
         "x": (b, s, d), "emb": (b, d),
@@ -502,21 +612,25 @@ def launch_stack_bf16(
     for k, shp in shapes.items():
         want = torch.bfloat16 if k in BF16_TENSORS else torch.float32
         _check(k, tensors[k], shp, dev, dtype=want, rule=DTYPE_RULE)
-        if k in ("x", "emb", "ch_w", "out_w") and tensors[k].data_ptr() % 16:
+        if k not in ("token_w", "token_b", "out_b") and tensors[k].data_ptr() % 16:
             raise ValueError(f"fused_transmlp: {k} is not 16-byte aligned")
+    if cluster is None or group is None:
+        geo = transmlp_bf16_geometry(b, s, d, bf16_resident_clusters(d, dev))
+        cluster = geo.cluster if cluster is None else cluster
+        group = geo.group if group is None else group
     out = torch.empty((b, s, f or d), dtype=torch.bfloat16, device=dev)
     ptr = lambda k: tensors[k].data_ptr() if k in tensors else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _bf16_launcher()(
+        err = _bf16_launcher()[0](
             ptr("x"), ptr("emb"), ptr("ln1_scale"), ptr("ln1_bias"), ptr("token_w"),
             ptr("token_b"), ptr("ln2_scale"), ptr("ln2_bias"), ptr("ch_w"), ptr("ch_b"),
             ptr("out_w"), ptr("out_b"), out.data_ptr(), b, s, d, num_layers, f or 0,
-            act_code, stream,
+            act_code, cluster, group, stream,
         )
     if err != 0:
         raise RuntimeError(
             f"fused_transmlp bf16 kernel launch failed with cudaError {err} "
-            f"(B={b}, S={s}, D={d}, L={num_layers}, F={f})")
+            f"(B={b}, S={s}, D={d}, L={num_layers}, F={f}, cluster={cluster}, group={group})")
     fused_transmlp.bf16_launches += 1
     return out

@@ -237,7 +237,14 @@ def test_bf16_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(TypeError, match="ch_b is torch.bfloat16"):
         fused_mlp.launch_stack(x, emb, {**packed, "ch_b": packed["ch_b"].bfloat16()}, 0)
     with pytest.raises(ValueError, match="cluster"):
-        fused_mlp.launch_stack(x, emb, packed, 0, cluster=4)
+        fused_mlp.launch_stack(x, emb, packed, 0, cluster=3)  # not in {1, 2, 4, 8}
+    with pytest.raises(ValueError, match="cluster"):
+        fused_mlp.launch_stack(x, emb, packed, 0, cluster=16)  # above the portable 8
+    with pytest.raises(ValueError, match="group"):
+        fused_mlp.launch_stack(x, emb, packed, 0, group=3)  # one or two sequences a cluster
+    wide16, xw16, ew16, _ = _k1_bf16_case(cuda_device, 2, 35, 512, 1)
+    with pytest.raises(ValueError, match="cluster"):
+        fused_mlp.launch_stack(xw16, ew16, wide16, 0, cluster=2)  # Dc = 256 > 128
     with pytest.raises(ValueError, match="contiguous"):
         fused_mlp.fused_transmlp(x.transpose(0, 1).contiguous().transpose(0, 1), emb, packed)
     shifted = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:]
@@ -254,6 +261,92 @@ def test_bf16_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
         fused_mlp.fused_transmlp(x, emb, packed, out_proj=too_many)
     assert fused_mlp.fused_transmlp_reference.calls == calls  # never the plain version
     assert fused_mlp.fused_transmlp.bf16_launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [40, 80])
+def test_bf16_wgmma_operand_path_matches_product(cuda_device, n):
+    """One warpgroup's wgmma m64nNk16 through the bf16 kernel's own operand
+    path (A [64, 128] by TMA in the 128-byte swizzle, B [n, 128] written by
+    threads at the kernel's swizzled offsets, the kernel's descriptors and
+    accumulator layout) against the f32 product of the same bf16 values:
+    f32 sums of exact bf16 products, 128 terms in another order."""
+    lib = fused_mlp.load_library("fused_transmlp_bf16")
+    fn = lib.fused_transmlp_bf16_wgmma_check
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    g = torch.Generator().manual_seed(23)
+    a = torch.randn(64, 128, generator=g).bfloat16().to(cuda_device)
+    b = torch.randn(n, 128, generator=g).bfloat16().to(cuda_device)
+    out = torch.full((64, n), float("nan"), device=cuda_device)
+    err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    ref = a.double() @ b.double().t()
+    assert _rel(out.double(), ref) <= 1e-5
+
+
+def _bf16_against_plain(device, b, seq, dim, layers, feats, cluster=None, group=None, fold=True):
+    packed, x, emb, op = _k1_bf16_case(device, b, seq, dim, layers, fold=fold, feats=feats)
+    for proj in (None, op):
+        out = fused_mlp.launch_stack(x, emb, packed, 0, proj, cluster=cluster, group=group)
+        ref = fused_mlp.fused_transmlp_reference(x, emb, packed, out_proj=proj)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+        assert _rel(out.float(), ref.float()) <= BF16_TOL, (cluster, group, proj is None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,cluster,group", [
+    (512, 8, 1), (512, 8, 2), (512, 4, 1), (512, 4, 2), (272, 4, 1), (272, 4, 2),
+    (128, 2, 1), (128, 2, 2), (128, 1, 2), (64, 1, 1), (64, 1, 2), (16, 1, 2)])
+def test_bf16_kernel_every_cluster_and_group(cuda_device, dim, cluster, group):
+    """Every (cluster, group) transmlp_bf16_geometry can pick, forced, on a
+    batch that leaves the last group partial (2B = 3), against the plain
+    version, with and without the pose projection (F = 282: several M-tiles
+    of the pose over the cluster)."""
+    _bf16_against_plain(cuda_device, 3, 35, dim, 2, 282, cluster, group)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b2", [1, 3, 17, 133])
+@pytest.mark.parametrize("seq,dim", [(35, 512), (36, 512), (10, 64), (17, 272)])
+def test_bf16_kernel_batches(cuda_device, b2, seq, dim):
+    """The geometry's own choice at batches that leave a partial cluster
+    wave or group."""
+    geo = fused_mlp.transmlp_bf16_geometry(
+        b2, seq, dim, fused_mlp.bf16_resident_clusters(dim, cuda_device))
+    assert geo.clusters * geo.group >= b2 > (geo.clusters - 1) * geo.group
+    _bf16_against_plain(cuda_device, b2, seq, dim, 2, 27, fold=False)
+
+
+@pytest.mark.cuda
+def test_bf16_resident_clusters_from_the_card(cuda_device):
+    """The bf16 wrapper asks the card how many clusters of each (cluster,
+    group) it holds at once, and the geometry picks from those counts."""
+    counts = fused_mlp.bf16_resident_clusters(512, cuda_device)
+    assert set(counts) == {(8, 1), (8, 2), (4, 1), (4, 2)} and all(v > 0 for v in counts.values())
+    geo = fused_mlp.transmlp_bf16_geometry(counts[(8, 1)], 35, 512, counts)
+    assert (geo.cluster, geo.group) == (8, 1)
+    big = fused_mlp.transmlp_bf16_geometry(10 ** 4, 35, 512, counts)
+    assert (big.cluster, big.group) == (4, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [16, 48, 64, 128, 272, 400, 512])
+def test_bf16_geometry_shared_memory_matches_kernel(cuda_device, dim):
+    """transmlp_bf16_geometry's shared-memory size is the bf16 kernel's
+    own (fused_transmlp_bf16_smem_bytes), for every cluster and group."""
+    lib = fused_mlp.load_library("fused_transmlp_bf16")
+    fn = lib.fused_transmlp_bf16_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    for cluster in fused_mlp.cluster_sizes(dim):
+        for group in fused_mlp.BF16_GROUPS:
+            geo = fused_mlp._bf16_geometry(16, dim, cluster, group)
+            assert fn(dim, cluster, group) == geo.smem_bytes
+            assert geo.smem_bytes <= fused_mlp.SMEM_LIMIT
+    assert fn(dim, 3, 1) == 0 and fn(dim, fused_mlp.cluster_sizes(dim)[0], 3) == 0
 
 
 @pytest.mark.cuda
