@@ -440,8 +440,10 @@ def bf16_kernel_phase(card):
     """K1's bf16 kernel against its plain bf16 version at TED (S=35, F=27)
     and BEAT (S=36, F=282), D=512, L=8, 2B in {16, 512}, LN2 folded and
     affine, with and without the pose projection; both against the f32
-    kernel on the same weights; the time of the three and the bound at the
-    bf16 tensor-core peak. Then the bf16 path: no path of the package uses
+    kernel on the same weights; a second call's bits against the first's;
+    the geometry transmlp_bf16_geometry picked; the time of the three and
+    the bound at the bf16 tensor-core peak; at each batch every (cluster,
+    group) the kernel takes at D=512, timed in turns. Then the bf16 path: no path of the package uses
     bf16 (f32 is the default, as in the JAX package), so the option is
     driven through its entry point, ``fused_transmlp``, as its user calls
     it: BF16_PATH_STEPS calls at the serving shape (TED, 2B = 16, LN2
@@ -521,7 +523,7 @@ def bf16_kernel_phase(card):
             o16 = fused_mlp.pack_out_proj(pose, dtype=bf16)
             runs = {(n, gr): (lambda n=n, gr=gr: fused_mlp.launch_stack(xb, eb, p16, 0, o16,
                                                                       cluster=n, group=gr))
-                    for n in (8, 4) for gr in fused_mlp.BF16_GROUPS}
+                    for n in fused_mlp.bf16_cluster_sizes(512) for gr in fused_mlp.BF16_GROUPS}
             times = time_turns(runs, 20 if b2 <= 16 else 5, rounds=4)
             print(f"[bf16] {name} 2B={b2} folded F={feats}, by (cluster, group) (in turns): "
                   + ", ".join(f"{n} CTAs x {gr} seq {t:.4f} ms" for (n, gr), t in times.items())

@@ -20,59 +20,67 @@
 // them, so the two differ only where the sums of the LayerNorms and the
 // products are taken in another order, which can move a bf16 rounding.
 //
-// What bounds it: the tensor cores in principle, the weight stream in
+// What bounds it: the tensor cores by the table, a chain of short steps in
 // practice. The products are 98% of the work; at TED's serving call (2B =
 // 16, S = 35, D = 512, L = 8, F = 27) that is 2.5 GFLOP, 2.5 us at the bf16
 // dense peak of 989 TFLOP/s (H100 SXM, 700 W), against 4.4 MB moved, 1.3 us
-// at 3.35 TB/s. But every cluster reads all of ch_w (4.19 MB for 8 layers)
-// from L2, and a sequence has only 35 rows to reuse each weight on: about
-// 35 FLOP a byte of L2 traffic, which L2 cannot feed at the tensor cores'
-// rate.
+// at 3.35 TB/s. But a layer is some fifteen dependent steps (three cluster
+// barriers, two LayerNorms, the token mix, the row exchange, the channel
+// mix and its epilogue), each latency-bound on 8 warps, and every cluster
+// reads all of ch_w (4.19 MB for 8 layers) from L2 for only 35 rows a
+// sequence: about 35 FLOP a byte of L2 traffic.
 //
 // The design, and what it does about that:
 // - Cluster split, as the f32 kernel (fused_transmlp.cu) does. A group of
 //   G (1 or 2) sequences is spread over a cluster of N CTAs; CTA r owns
-//   columns [r*Dc, (r+1)*Dc) of their bf16 residual, Dc = D/N, kept in its
-//   shared memory for all L blocks. The wrapper's transmlp_bf16_geometry
-//   picks (N, G) from the batch and the clusters the card holds at once.
-//   One CTA a sequence put the serving batch on 16 of 132 SMs.
+//   columns [r*Dc, (r+1)*Dc) of their bf16 residual, Dc = D/N <= 256, kept
+//   in its shared memory for all L blocks. The wrapper's
+//   transmlp_bf16_geometry picks (N, G) from the batch and the clusters the
+//   card holds at once: many small CTAs while the batch is one wave, wide
+//   slices and two sequences (more work a barrier) when it is many. One CTA
+//   a sequence put the serving batch on 16 of 132 SMs.
 // - LayerNorm statistics: two-pass per CTA over its columns (f32 from the
 //   bf16 values), one exchange through distributed shared memory, Chan's
 //   combine (as transmlp_common.cuh's cluster_row_stats). The normalised
 //   LN2 rows (bf16) are pushed into every CTA's full-row copy. Three
-//   cluster barriers a layer.
+//   cluster barriers a layer. A layer's LayerNorm parameters and biases
+//   are staged by cp.async a layer ahead, token_w through registers across
+//   the first barrier: no element waits on a global load.
 // - The token mix stays column-local, on mma.sync m16n8k16 (6% of the
 //   FLOPs): token_w staged, the LN1 rows read by ldmatrix.trans, S padded
 //   to 48.
 // - The channel mix and the pose projection run on wgmma, swap-AB: out^T
 //   [Dc, rows] = W_slice [Dc, K] . h^T [K, rows]. A is the CTA's slice of
 //   ch_w in the pack's [D_out, D_in] layout (K-major), 64 output columns a
-//   warpgroup; B is the LN2 rows [rows, K] (K-major too). The sequence
-//   sits in wgmma's N: 40 rows a sequence (S <= 36), not the 48 that
-//   16-row tiles padded to; two sequences make N = 80. A slice that is not
-//   a multiple of 64 (Dc = 68 at D = 272, F / N for the pose) pads M with
-//   rows TMA fills with zeros or that belong to the next CTA or layer; they
-//   only feed columns that are never written back.
-// - A TMA weight ring: up to 8 stages of [64 Mc rows, 64 k] (8 or 16 KB;
-//   Mc = ceil(Dc / 64)), as many as the shared memory holds, each one 2-D
-//   TMA box of the CTA's slice of ch_w (or of out_w) in the 128-byte
-//   swizzle the wgmma descriptors name. "Full" mbarriers take the copies'
-//   bytes; a shared counter a stage takes one count from every warp once
-//   its wgmma on the stage are done, and the warp that counts last refills
-//   the stage a ring ahead (no thread waits for the others), across
-//   layers: at D = 512 the next layer's tiles load during the epilogue,
-//   the LayerNorms and the token mix. The threads write the LN2 rows in
-//   the same swizzle, then fence.proxy.async before wgmma reads them.
+//   warpgroup, in passes of two M-tiles; B is the LN2 rows [rows, K]
+//   (K-major too). The sequence sits in wgmma's N: 40 rows a sequence (S <=
+//   36), not the 48 that 16-row tiles padded to; two sequences make N = 80.
+//   A slice that is not a multiple of 64 (Dc = 68 at D = 272, F / N for
+//   the pose) pads M with rows TMA fills with zeros or that belong to the
+//   next CTA or layer; they only feed columns that are never written back.
+//   K runs in whole chunks of 64 with no branch around a wgmma (one made
+//   ptxas wait for every chunk): past D, A reads TMA's zeros and B zeros
+//   written at the start.
+// - A TMA weight ring: up to 8 stages of [64 or 128 rows, 64 k], as many as
+//   the shared memory holds, each one 2-D TMA box of the CTA's slice of
+//   ch_w (or of out_w) in the 128-byte swizzle the wgmma descriptors name.
+//   "Full" mbarriers take the copies' bytes; a shared counter a stage takes
+//   one count from every warp once its wgmma on the stage are done, and the
+//   warp that counts last refills the stage a ring ahead (no thread waits
+//   for the others), across layers: the next layer's first tiles load
+//   during the epilogue, the LayerNorms and the token mix. The threads
+//   write the LN2 rows in the same swizzle, then fence.proxy.async before
+//   wgmma reads them.
 // - Weight reuse: with G = 2 every weight tile in shared memory feeds two
 //   sequences (one warpgroup each when Dc <= 64, else N = 80 in one
 //   wgmma), which halves the L2 reads of a large batch (TED 2B = 512: 2.15
 //   GB a call at G = 1, 1.07 GB at G = 2).
 //
 // Limits: S <= 36, 16 <= D <= 512 with D % 16 == 0, F <= 512; N in {1, 2,
-// 4, 8} with Dc = D/N a multiple of 4 and at most 128 (cluster_ok); G in
-// {1, 2}. Anything else returns cudaErrorInvalidValue, and a refused launch
-// returns its own error; the wrapper raises on either. The sums are taken
-// in a fixed order: every run gives the same bits.
+// 4, 8} with Dc = D/N a multiple of 4 and at most 256; G in {1, 2}.
+// Anything else returns cudaErrorInvalidValue, and a refused launch returns
+// its own error; the wrapper raises on either. The sums are taken in a
+// fixed order: every run gives the same bits.
 
 #include <cuda_bf16.h>
 
@@ -86,7 +94,8 @@ constexpr int kR = 40;                    // rows of a sequence in wgmma's N (S 
 constexpr int kTokRows = 48;              // the token mix's rows and K: S in 16-row tiles
 constexpr int kTokStride = kTokRows + 8;  // token_w's staged rows (bf16)
 constexpr int kWarps = kT / 32;
-constexpr int kTokTiles = kMaxCols / 8 / kWarps;  // 8-column tiles of the token mix a warp owns
+constexpr int kMaxSlice = 256;            // Dc: columns of the residual a CTA owns
+constexpr int kTokTiles = 2;  // 8-column tiles of the token mix a warp takes at a time
 constexpr int kChunk = 64;                // k of one 128-byte swizzled row
 constexpr int kRowBytes = 128;
 constexpr int kMaxStages = 8;             // the weight ring's stages, as many as fit
@@ -100,10 +109,10 @@ __host__ __device__ inline int round8(int v) { return (v + 7) / 8 * 8; }
 // leaves room for.
 struct Layout {
   int dc, xst, hst, kc, G;  // Dc; row strides of x and of the LN1 rows (bf16); K-chunks of D
-  int srows, stages;        // rows of a ring stage (64 a warpgroup's M-tile), stages
+  int srows, stages;        // rows of a ring stage (a warpgroup's M-tile of 64 each), stages
   __host__ __device__ Layout(int D, int N, int g)
       : dc(D / N), xst(round8(D / N) + 8), hst(round8(D / N) + 8),
-        kc((D + kChunk - 1) / kChunk), G(g), srows(64 * ((D / N + 63) / 64)), stages(0) {
+        kc((D + kChunk - 1) / kChunk), G(g), srows(D / N > 64 ? 128 : 64), stages(0) {
     const size_t rest = bytes();  // everything but the ring
     const size_t fit = rest < kSmemLimit ? (kSmemLimit - rest) / stage_bytes() : 0;
     stages = fit < (size_t)kMaxStages ? (int)fit : kMaxStages;
@@ -318,10 +327,11 @@ struct Ctx {
   const Params& p;
   Layout lay;
   int rank, c0, dc, q4, seq0, kc;
-  int mc;        // M-tiles of the channel mix: ceil(Dc / 64), 1 or 2
+  int mc;        // M-tiles of the channel mix: ceil(Dc / 64), 1 to 4
   int f0, nf;    // the pose columns [f0, f0 + nf) this CTA writes
-  int stages, srows;
-  int tiles_c;   // ring tiles of the channel mix, L * kc; the pose's follow
+  int stages, srows;  // the ring's stages and the rows of one
+  int passes_c;  // passes of the channel mix over its M-tiles, srows / 64 a pass
+  int tiles_c;   // ring tiles of the channel mix, L * passes_c * kc; the pose's follow
   int tiles;     // every ring tile of this CTA
   uint32_t ring_a, h_a;
   unsigned char* h;
@@ -339,8 +349,9 @@ __device__ __forceinline__ void issue_tile(const Ctx& c, int u) {
   const uint32_t dst = c.ring_a + s * c.srows * kRowBytes;
   mbar_expect_tx(full, c.srows * kRowBytes);
   if (u < c.tiles_c) {
-    const int l = u / c.kc, j = u % c.kc;
-    tma_load_2d_bf16(dst, &c.p.cw_map, j * kChunk, l * c.p.D + c.c0, full);
+    const int per_layer = c.passes_c * c.kc, l = u / per_layer, v = u - l * per_layer;
+    const int pass = v / c.kc, j = v - pass * c.kc;
+    tma_load_2d_bf16(dst, &c.p.cw_map, j * kChunk, l * c.p.D + c.c0 + pass * c.srows, full);
   } else {
     const int v = u - c.tiles_c, pass = v / c.kc, j = v % c.kc;
     tma_load_2d_bf16(dst, &c.p.ow_map, j * kChunk, c.f0 + pass * c.srows, full);
@@ -461,10 +472,11 @@ __device__ __forceinline__ uint2 norm4(const Ctx& c, const bf16* xr, int i, int 
   return pack4(f2bf(y[0]), f2bf(y[1]), f2bf(y[2]), f2bf(y[3]));
 }
 
-// acc = tok @ h1 of one sequence over the row tiles: tok [48, 48] staged
-// (zero past S), h1 [48, Dc8] (zero rows past S, zero columns past Dc).
+// acc = tok @ h1 of one sequence over the row tiles, on this warp's column
+// tiles warp + kWarps * (i0 + i): tok [48, 48] staged (zero past S), h1
+// [48, Dc8] (zero rows past S, zero columns past Dc).
 __device__ void token_product(float (&acc)[kTokRows / 16][kTokTiles][4], const bf16* tok,
-                              const bf16* h1, int hst, int row_tiles, int n_tiles) {
+                              const bf16* h1, int hst, int row_tiles, int n_tiles, int i0) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, q = lane & 3;
 #pragma unroll
   for (int m = 0; m < kTokRows / 16; ++m)
@@ -487,7 +499,7 @@ __device__ void token_product(float (&acc)[kTokRows / 16][kTokTiles][4], const b
     }
 #pragma unroll
     for (int i = 0; i < kTokTiles; ++i) {
-      const int t = warp + kWarps * i;
+      const int t = warp + kWarps * (i0 + i);
       if (t < n_tiles) {
         uint32_t b0, b1;
         ldsm_x2_trans(b0, b1, h1 + (ks * 16 + (lane & 15)) * hst + t * 8);
@@ -518,21 +530,28 @@ __device__ __forceinline__ void push_rows(const Ctx& c, bool ln, const float* sc
   fence_proxy_async_cluster();
 }
 
+// x = bf16(x + bf16(act(acc + cb))) on the columns [m0, m0 + 64) of this
+// CTA's slice, for the sequences g0 .. g0 + NW / 40 - 1 of the group; then,
+// before every layer but the first, the next layer's x = bf16(x + emb).
 template <int kAct, int NW>
 __device__ __forceinline__ void channel_epilogue(const Ctx& c, const float (&acc)[NW / 2],
-                                                 int a_row, int g0, const float* cb) {
-  const int S = c.p.S, dc = c.dc, xst = c.lay.xst;
+                                                 int m0, int g0, const float* cb, bool emb) {
+  const int S = c.p.S, dc = c.dc, xst = c.lay.xst, dc8 = round8(dc);
   bf16* x = c.x;
+  const bf16* es = c.emb;
   for_each_acc<NW>(acc, [&](int m, int n, float v) {
-    const int col = a_row + m, r = n % kR;
+    const int col = m0 + m, r = n % kR, g = g0 + n / kR;
     if (col < dc && r < S) {
-      bf16* px = x + ((g0 + n / kR) * kR + r) * xst + col;
+      bf16* px = x + (g * kR + r) * xst + col;
       const float y = bf2f(f2bf(activate(__fadd_rn(v, cb[col]), kAct)));
-      *px = bf_add(*px, y);
+      bf16 out = bf_add(*px, y);
+      if (emb) out = bf_add(out, bf2f(es[g * dc8 + col]));
+      *px = out;
     }
   });
 }
 
+// out = bf16(acc + ob) on this CTA's pose columns f0 + [m0, m0 + 64).
 template <int NW>
 __device__ __forceinline__ void pose_epilogue(const Ctx& c, const float (&acc)[NW / 2], int m0,
                                               int g0) {
@@ -548,19 +567,19 @@ __device__ __forceinline__ void pose_epilogue(const Ctx& c, const float (&acc)[N
 }
 
 // One pass of a ring product over the mt (1 or 2, at most srows / 64)
-// M-tiles of a stage: warpgroup w takes M-tile w and every
-// sequence (N = 40 G) when mt == 2; when mt == 1 it takes sequence w of a
-// group of two, or (G == 1, warpgroup 1) repeats warpgroup 0's product and
-// writes nothing.
+// M-tiles of a stage, the slice's columns from pass * srows: warpgroup w
+// takes M-tile w and every sequence (N = 40 G) when mt == 2; when mt == 1
+// it takes sequence w of a group of two, or (G == 1, warpgroup 1) repeats
+// warpgroup 0's product and writes nothing.
 template <int kAct>
 __device__ __forceinline__ void product_pass(const Ctx& c, int u0, int mt, bool pose, int pass,
-                                             const float* cb) {
+                                             const float* cb, bool emb) {
   const int w = threadIdx.x / 128, G = c.lay.G;
   if (G == 2 && mt == 2) {
     float acc[40];
     ring_product<80>(c, u0, 64 * w, c.h_a, acc);
     if (pose) pose_epilogue<80>(c, acc, pass * c.srows + 64 * w, 0);
-    else channel_epilogue<kAct, 80>(c, acc, 64 * w, 0, cb);
+    else channel_epilogue<kAct, 80>(c, acc, pass * c.srows + 64 * w, 0, cb, emb);
     return;
   }
   const int a_row = mt == 2 ? 64 * w : 0, g0 = (mt == 1 && G == 2) ? w : 0;
@@ -568,7 +587,7 @@ __device__ __forceinline__ void product_pass(const Ctx& c, int u0, int mt, bool 
   ring_product<40>(c, u0, a_row, c.h_a + g0 * kR * kRowBytes, acc);
   if (mt == 1 && G == 1 && w == 1) return;
   if (pose) pose_epilogue<40>(c, acc, pass * c.srows + a_row, g0);
-  else channel_epilogue<kAct, 40>(c, acc, a_row, g0, cb);
+  else channel_epilogue<kAct, 40>(c, acc, pass * c.srows + a_row, g0, cb, emb);
 }
 
 // Queues layer l's small parameters on this CTA's columns into parameter
@@ -613,7 +632,8 @@ __global__ void __launch_bounds__(kT, 1) transmlp_bf16_kernel(const __grid_const
   c.stages = lay.stages;
   c.srows = lay.srows;
   const int mp = (c.nf + 63) / 64, per = c.srows / 64, passes = (mp + per - 1) / per;
-  c.tiles_c = p.L * c.kc;
+  c.passes_c = (c.mc + per - 1) / per;
+  c.tiles_c = p.L * c.passes_c * c.kc;
   c.tiles = c.tiles_c + passes * c.kc;
   c.ring_a = smem_addr(base + lay.ring());
   c.h = base + lay.h();
@@ -659,6 +679,7 @@ __global__ void __launch_bounds__(kT, 1) transmlp_bf16_kernel(const __grid_const
 
   const bool affine = p.ln2_s != nullptr;
   const int row_tiles = (S + 15) / 16, n_tiles = dc8 / 8, hq = dc8 / 4;
+  const int tile_sets = (n_tiles + kWarps * kTokTiles - 1) / (kWarps * kTokTiles);
   bf16* h1 = reinterpret_cast<bf16*>(c.h);
   const bf16 zero = __ushort_as_bfloat16((unsigned short)0);
   for (int l = 0; l < p.L; ++l) {
@@ -673,13 +694,15 @@ __global__ void __launch_bounds__(kT, 1) transmlp_bf16_kernel(const __grid_const
       const int idx = tid + i * kT, r = idx / kTokRows, col = idx - r * kTokRows;
       tw[i] = (r < S && col < S) ? twl[r * S + col] : zero;
     }
-    // x += emb
-    for (int idx = tid; idx < G * S * q4; idx += kT) {
-      const int row = idx / q4, col = 4 * (idx - row * q4), g = row / S;
-      bf16* px = c.x + (g * kR + row - g * S) * lay.xst + col;
-      const float4 x = load4(px), e = load4(c.emb + g * dc8 + col);
-      *reinterpret_cast<uint2*>(px) = pack4(f2bf(__fadd_rn(x.x, e.x)), f2bf(__fadd_rn(x.y, e.y)),
-                                            f2bf(__fadd_rn(x.z, e.z)), f2bf(__fadd_rn(x.w, e.w)));
+    if (l == 0) {  // x += emb; later layers' comes with the channel mix before them
+      for (int idx = tid; idx < G * S * q4; idx += kT) {
+        const int row = idx / q4, col = 4 * (idx - row * q4), g = row / S;
+        bf16* px = c.x + (g * kR + row - g * S) * lay.xst + col;
+        const float4 x = load4(px), e = load4(c.emb + g * dc8 + col);
+        *reinterpret_cast<uint2*>(px) =
+            pack4(f2bf(__fadd_rn(x.x, e.x)), f2bf(__fadd_rn(x.y, e.y)), f2bf(__fadd_rn(x.z, e.z)),
+                  f2bf(__fadd_rn(x.w, e.w)));
+      }
     }
     cp_async_wait<0>();  // this layer's parameters
     __syncthreads();
@@ -699,16 +722,17 @@ __global__ void __launch_bounds__(kT, 1) transmlp_bf16_kernel(const __grid_const
     }
     __syncthreads();
     issue_params(c, l + 1);  // its buffer was last read in layer l - 1
-    for (int g = 0; g < G; ++g) {
+    for (int gi = 0; gi < G * tile_sets; ++gi) {  // a sequence, a set of column tiles
+      const int g = gi / tile_sets, i0 = kTokTiles * (gi - g * tile_sets);
       float acc[kTokRows / 16][kTokTiles][4];
-      token_product(acc, c.tok, h1 + g * kTokRows * lay.hst, lay.hst, row_tiles, n_tiles);
+      token_product(acc, c.tok, h1 + g * kTokRows * lay.hst, lay.hst, row_tiles, n_tiles, i0);
       const int warp = tid / 32, lane = tid % 32, gq = lane >> 2, q = lane & 3;
 #pragma unroll
       for (int m = 0; m < kTokRows / 16; ++m) {
         if (m >= row_tiles) continue;
 #pragma unroll
         for (int i = 0; i < kTokTiles; ++i) {
-          const int t = warp + kWarps * i;
+          const int t = warp + kWarps * (i0 + i);
           if (t >= n_tiles) continue;
           const int col = t * 8 + 2 * q;
           if (col >= c.dc) continue;  // Dc % 4 == 0: a pair is in or out
@@ -734,7 +758,9 @@ __global__ void __launch_bounds__(kT, 1) transmlp_bf16_kernel(const __grid_const
     push_rows(c, true, affine ? g2 : nullptr, affine ? b2 : nullptr);
     cg::this_cluster().sync();
     fence_proxy_async();
-    product_pass<kAct>(c, l * c.kc, c.mc, false, 0, cb);
+    for (int pass = 0; pass < c.passes_c; ++pass)
+      product_pass<kAct>(c, (l * c.passes_c + pass) * c.kc, min(per, c.mc - per * pass), false,
+                         pass, cb, l + 1 < p.L);
     __syncthreads();
   }
 
@@ -746,7 +772,8 @@ __global__ void __launch_bounds__(kT, 1) transmlp_bf16_kernel(const __grid_const
     cg::this_cluster().sync();
     fence_proxy_async();
     for (int pass = 0; pass < passes; ++pass)
-      product_pass<kAct>(c, c.tiles_c + pass * c.kc, min(per, mp - per * pass), true, pass, nullptr);
+      product_pass<kAct>(c, c.tiles_c + pass * c.kc, min(per, mp - per * pass), true, pass, nullptr,
+                         false);
   } else {
     for (int idx = tid; idx < G * S * q4; idx += kT) {
       const int row = idx / q4, col = 4 * (idx - row * q4), g = row / S, r = row - g * S;
@@ -802,9 +829,13 @@ wgmma_check_kernel(const __grid_constant__ CUtensorMap a_map, const bf16* b, flo
   for_each_acc<NW>(acc, [&](int m, int n, float v) { out[m * NW + n] = v; });
 }
 
+// The cluster sizes at width D: N in {1, 2, 4, 8}, Dc = D/N a whole number
+// of 8-byte loads and at most kMaxSlice columns.
 bool shape_ok(int D, int cluster, int group) {
-  return cluster_ok(D, cluster) && (group == 1 || group == kMaxGroup) &&
-         Layout(D, cluster, group).stages >= 2;
+  return D >= 16 && D <= kMaxN && D % 16 == 0 &&
+         (cluster == 1 || cluster == 2 || cluster == 4 || cluster == kMaxCluster) &&
+         D % (4 * cluster) == 0 && D / cluster <= kMaxSlice &&
+         (group == 1 || group == kMaxGroup) && Layout(D, cluster, group).stages >= 2;
 }
 
 using Kernel = void (*)(const Params);

@@ -7,7 +7,10 @@
 //   their derivatives;
 // - the 2-D TMA copy (shared-memory addresses, cp.async, the mbarriers,
 //   the 1-D bulk copy and the TF32 helpers are in tf32_mma.cuh), and the
-//   encoder of a 2-D tensor map over a row-major weight matrix;
+//   encoders of a 2-D tensor map over a row-major weight matrix, f32 and,
+//   for the bf16 stack (fused_transmlp_bf16.cu, which also takes the limits,
+//   the activations and the cluster helpers from here), bf16 in wgmma's
+//   128-byte swizzle;
 // - the [kSPad, K] x [K, ncols] product in 9 x 8 register tiles whose
 //   threads form K-slices (Tiling, SliceRows, mma_quads), the slices'
 //   warp-level arrival on an mbarrier, and the fixed-order sum of the

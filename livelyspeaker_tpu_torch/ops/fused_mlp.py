@@ -49,6 +49,7 @@ __all__ = [
     "TransMLPBf16Geometry",
     "transmlp_bf16_geometry",
     "bf16_resident_clusters",
+    "bf16_cluster_sizes",
 ]
 
 # activation name -> the kernel's Act code (csrc/transmlp_common.cuh)
@@ -465,6 +466,11 @@ fused_transmlp.bf16_launches = 0  # the bf16 kernel's, counted by launch_stack_b
 # The bf16 kernel's shared-memory layout (csrc/fused_transmlp_bf16.cu: Layout)
 _BF16_ROWS, _BF16_TOK_ROWS, _BF16_MAX_STAGES = 40, 48, 8
 BF16_GROUPS = (1, 2)  # sequences a cluster of the bf16 kernel holds
+# A wave's fixed time in columns a CTA carries: a wave of the bf16 kernel at
+# TED D = 512 took about 0.087 ms + 0.0007 ms a column of group x Dc
+# (chip_smoke.bf16_kernel_phase's times of every choice at 2B = 16, H100
+# 80GB HBM3 at 700 W).
+BF16_WAVE_COLS = 125
 
 
 class TransMLPBf16Geometry(NamedTuple):
@@ -475,6 +481,13 @@ class TransMLPBf16Geometry(NamedTuple):
     stages: int  # stages of the weight ring, as many as the shared memory holds
     smem_bytes: int  # dynamic shared memory of one CTA
     clusters: int  # clusters of the launch, ceil(B / group)
+
+
+def bf16_cluster_sizes(d: int) -> list:
+    """The cluster sizes the bf16 kernel takes at width D, largest first: N
+    in {8, 4, 2, 1} with Dc = D/N a whole number of 8-byte loads and at most
+    256 columns (two passes of the channel mix over its M-tiles)."""
+    return [n for n in (8, 4, 2, 1) if d % (4 * n) == 0 and d // n <= 256]
 
 
 def _bf16_layout(d: int, cluster: int, group: int) -> tuple:
@@ -492,7 +505,7 @@ def _bf16_layout(d: int, cluster: int, group: int) -> tuple:
             + group * r8 * 2  # emb
             + 2 * (5 * dc + _BF16_ROWS) * 4  # two layers' small parameters
             + _BF16_MAX_STAGES * 12 + 1024)  # the ring's mbarriers and counters, alignment
-    stage = 64 * -(-dc // 64) * 128
+    stage = (128 if dc > 64 else 64) * 128
     stages = min(_BF16_MAX_STAGES, max(0, SMEM_LIMIT - rest) // stage)
     return stages, stages * stage + rest
 
@@ -515,25 +528,29 @@ def transmlp_bf16_geometry(b: int, s: int, d: int,
     ``resident`` maps (cluster, group) to the clusters the card holds at
     once (default: an H100 SXM's, ``H100_RESIDENT_CLUSTERS``, one CTA an SM).
 
-    The cluster sizes are :func:`transmlp_geometry`'s (Dc >= 64 unless D is
-    smaller); a group is one or two sequences. Of the (cluster, group) whose
-    ceil(B / group) clusters all run at once, it takes the one that spreads
-    the batch over the most SMs, then the fewest clusters (each cluster
-    reads all of ``ch_w``: two sequences a cluster halve the L2 reads),
-    then the smaller group. A batch too large for one wave of any takes the
-    smallest cluster with groups of two. At TED's and BEAT's D = 512 on an
-    H100 SXM that is 8 CTAs and one sequence up to 2B = 15, 8 CTAs and two
-    sequences from 16 (the serving batch) to 30, then 4 CTAs and two
-    sequences (``chip_smoke.py`` times every choice at 2B in {16, 512})."""
+    The cluster sizes are :func:`bf16_cluster_sizes` with Dc >= 64 unless D
+    is smaller; a group is one or two sequences. It takes the (cluster,
+    group) of the least waves x (BF16_WAVE_COLS + group x Dc): a wave of
+    clusters takes a fixed time plus one growing with the columns a CTA
+    carries (the LayerNorms, the exchanges and the products' epilogues run
+    on them), and a group of two halves the clusters and so the L2 reads of
+    ``ch_w``. Ties go to the smaller group, then the larger cluster. At TED's
+    and BEAT's D = 512 on an H100 SXM that is 8 CTAs up to 2B = 15, 4 CTAs
+    from 16 (the serving batch) to 30, then 2 CTAs with one or two
+    sequences as the waves fall (two at 2B = 512 and 1,024; ``chip_smoke.py``
+    times every choice at 2B in {16, 512})."""
     check_limits(b, s, d)
     if resident is None:
         resident = {(n, g): H100_RESIDENT_CLUSTERS[n] for n in (8, 4, 2, 1) for g in BF16_GROUPS}
-    sizes = [n for n in cluster_sizes(d) if d // n >= min(64, d)]
-    fits = [(n, g) for n in sizes for g in BF16_GROUPS if -(-b // g) <= resident.get((n, g), 0)]
-    if fits:
-        n, g = min(fits, key=lambda ng: (-(-(-b // ng[1])) * ng[0], -(-b // ng[1]), ng[1]))
-    else:
-        n, g = sizes[-1], BF16_GROUPS[-1]
+    sizes = [n for n in bf16_cluster_sizes(d) if d // n >= min(64, d)]
+
+    def cost(ng):
+        n, g = ng
+        waves = -(-(-(-b // g)) // resident[ng])
+        return waves * (BF16_WAVE_COLS + g * d // n), g, -n
+
+    n, g = min(((n, g) for n in sizes for g in BF16_GROUPS if resident.get((n, g), 0) > 0),
+               key=cost)
     return _bf16_geometry(b, d, n, g)
 
 
@@ -563,7 +580,7 @@ def bf16_resident_clusters(d: int, device: torch.device) -> Dict[tuple, int]:
     if key not in _bf16_resident:
         query = _bf16_launcher()[1]
         with torch.cuda.device(device):
-            counts = {(n, g): query(d, n, g) for n in cluster_sizes(d) for g in BF16_GROUPS}
+            counts = {(n, g): query(d, n, g) for n in bf16_cluster_sizes(d) for g in BF16_GROUPS}
         bad = {k: -v for k, v in counts.items() if v < 0}
         if bad:
             raise RuntimeError(f"fused_transmlp: cudaOccupancyMaxActiveClusters failed for the "
@@ -591,9 +608,9 @@ def launch_stack_bf16(
     num_layers = packed["token_w"].shape[0]
     f = out_proj["out_w"].shape[0] if out_proj is not None else None
     check_limits(b, s, d, f)
-    if cluster is not None and cluster not in cluster_sizes(d):
-        raise ValueError(f"fused_transmlp: the bf16 kernel takes cluster in {cluster_sizes(d)} "
-                         f"at D={d}, not cluster={cluster}")
+    if cluster is not None and cluster not in bf16_cluster_sizes(d):
+        raise ValueError(f"fused_transmlp: the bf16 kernel takes cluster in "
+                         f"{bf16_cluster_sizes(d)} at D={d}, not cluster={cluster}")
     if group is not None and group not in BF16_GROUPS:
         raise ValueError(f"fused_transmlp: the bf16 kernel takes group in {BF16_GROUPS}, "
                          f"not group={group}")

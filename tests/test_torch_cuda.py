@@ -244,7 +244,7 @@ def test_bf16_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
         fused_mlp.launch_stack(x, emb, packed, 0, group=3)  # one or two sequences a cluster
     wide16, xw16, ew16, _ = _k1_bf16_case(cuda_device, 2, 35, 512, 1)
     with pytest.raises(ValueError, match="cluster"):
-        fused_mlp.launch_stack(xw16, ew16, wide16, 0, cluster=2)  # Dc = 256 > 128
+        fused_mlp.launch_stack(xw16, ew16, wide16, 0, cluster=1)  # Dc = 512 > 256
     with pytest.raises(ValueError, match="contiguous"):
         fused_mlp.fused_transmlp(x.transpose(0, 1).contiguous().transpose(0, 1), emb, packed)
     shifted = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:]
@@ -299,13 +299,15 @@ def _bf16_against_plain(device, b, seq, dim, layers, feats, cluster=None, group=
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim,cluster,group", [
-    (512, 8, 1), (512, 8, 2), (512, 4, 1), (512, 4, 2), (272, 4, 1), (272, 4, 2),
+    (512, 8, 1), (512, 8, 2), (512, 4, 1), (512, 4, 2), (512, 2, 1), (512, 2, 2),
+    (272, 4, 1), (272, 4, 2), (272, 2, 1), (272, 2, 2), (400, 2, 2), (256, 1, 1),
     (128, 2, 1), (128, 2, 2), (128, 1, 2), (64, 1, 1), (64, 1, 2), (16, 1, 2)])
 def test_bf16_kernel_every_cluster_and_group(cuda_device, dim, cluster, group):
     """Every (cluster, group) transmlp_bf16_geometry can pick, forced, on a
     batch that leaves the last group partial (2B = 3), against the plain
     version, with and without the pose projection (F = 282: several M-tiles
-    of the pose over the cluster)."""
+    of the pose over the cluster; D = 272 at 2 CTAs and D = 400: a channel
+    mix of three and four M-tiles, in two passes)."""
     _bf16_against_plain(cuda_device, 3, 35, dim, 2, 282, cluster, group)
 
 
@@ -326,11 +328,12 @@ def test_bf16_resident_clusters_from_the_card(cuda_device):
     """The bf16 wrapper asks the card how many clusters of each (cluster,
     group) it holds at once, and the geometry picks from those counts."""
     counts = fused_mlp.bf16_resident_clusters(512, cuda_device)
-    assert set(counts) == {(8, 1), (8, 2), (4, 1), (4, 2)} and all(v > 0 for v in counts.values())
+    assert set(counts) == {(n, g) for n in (8, 4, 2) for g in (1, 2)}
+    assert all(v > 0 for v in counts.values())
     geo = fused_mlp.transmlp_bf16_geometry(counts[(8, 1)], 35, 512, counts)
     assert (geo.cluster, geo.group) == (8, 1)
     big = fused_mlp.transmlp_bf16_geometry(10 ** 4, 35, 512, counts)
-    assert (big.cluster, big.group) == (4, 2)
+    assert (big.cluster, big.group) == (2, 2)
 
 
 @pytest.mark.cuda
@@ -341,12 +344,12 @@ def test_bf16_geometry_shared_memory_matches_kernel(cuda_device, dim):
     lib = fused_mlp.load_library("fused_transmlp_bf16")
     fn = lib.fused_transmlp_bf16_smem_bytes
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
-    for cluster in fused_mlp.cluster_sizes(dim):
+    for cluster in fused_mlp.bf16_cluster_sizes(dim):
         for group in fused_mlp.BF16_GROUPS:
             geo = fused_mlp._bf16_geometry(16, dim, cluster, group)
             assert fn(dim, cluster, group) == geo.smem_bytes
             assert geo.smem_bytes <= fused_mlp.SMEM_LIMIT
-    assert fn(dim, 3, 1) == 0 and fn(dim, fused_mlp.cluster_sizes(dim)[0], 3) == 0
+    assert fn(dim, 3, 1) == 0 and fn(dim, fused_mlp.bf16_cluster_sizes(dim)[0], 3) == 0
 
 
 @pytest.mark.cuda

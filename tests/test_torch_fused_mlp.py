@@ -230,18 +230,25 @@ def _sliced_ln_core(x, cluster, eps=1e-5):
     return (x - mean) * torch.rsqrt(m2 / d + eps)
 
 
-@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
-def test_sliced_ln_statistics_match_two_pass(cluster):
-    """The kernel's LayerNorm statistics: two-pass (mean, M2) per column
+@pytest.mark.parametrize("cluster,rows", [
+    *[pytest.param(n, "f64", id=str(n)) for n in (1, 2, 4, 8)],
+    *[pytest.param(n, "bf16", id=f"bf16-{n}") for n in (1, 2, 4, 8)]])
+def test_sliced_ln_statistics_match_two_pass(cluster, rows):
+    """The kernels' LayerNorm statistics: two-pass (mean, M2) per column
     slice, combined with Chan's formula, against the two-pass ``_ln_core``
-    on rows with a large mean and a small spread (f64: the comparison is of
-    the algebra, not of the rounding). E[x^2] - E[x]^2 on the same rows
-    loses the spread."""
+    on rows with a large mean and a small spread. f64 rows: the comparison
+    is of the algebra, not of the rounding. bf16 rows (the bf16 kernel's
+    residual), the statistics taken in f32 from the bf16 values as that
+    kernel takes them, against f64 on the same values. E[x^2] - E[x]^2 on
+    the same rows, in the same type, loses the spread."""
     rng = np.random.default_rng(6)
-    x = torch.from_numpy(1e4 + 1e-3 * rng.normal(size=(3, 35, 512)))
-    ref = tfused._ln_core(x)
+    if rows == "f64":
+        x = torch.from_numpy(1e4 + 1e-3 * rng.normal(size=(3, 35, 512)))
+    else:  # bf16's spacing at 1e3 is 4: a spread of a few steps
+        x = torch.from_numpy(1e3 + 4.0 * rng.normal(size=(3, 35, 512))).float().bfloat16().float()
+    ref = tfused._ln_core(x.double())
     out = _sliced_ln_core(x, cluster)
-    assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-6
+    assert ((out.double() - ref).abs().max() / ref.abs().max()).item() <= 1e-6
     mean = x.mean(-1, keepdim=True)
     naive = (x - mean) * torch.rsqrt((x * x).mean(-1, keepdim=True) - mean * mean + 1e-5)
-    assert ((naive - ref).abs().max() / ref.abs().max()).item() > 1e-3
+    assert ((naive.double() - ref).abs().max() / ref.abs().max()).item() > 1e-3

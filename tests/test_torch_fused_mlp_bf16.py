@@ -13,6 +13,9 @@ max|y| (2^(floor(log2 max|y|) - 7)). Both are held against the f32 stack
 within the JAX test's atol = rtol = 0.05 (``tests/test_pallas_kernels.py``).
 """
 
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -152,3 +155,70 @@ def test_wrapper_refuses_mixed_and_other_dtypes():
     with pytest.raises(TypeError, match="out_w is torch.float32"):
         tfused.fused_transmlp(x.bfloat16(), emb.bfloat16(), p16, out_proj=tfused.pack_out_proj(lin))
     assert tfused.fused_transmlp_reference.calls == calls
+
+
+# transmlp_bf16_geometry's choice on an H100 SXM's resident clusters, by 2B
+BF16_GEOMETRY = {1: (8, 1), 2: (8, 1), 15: (8, 1), 16: (4, 1), 64: (2, 1), 512: (2, 2),
+                 1024: (2, 2)}
+
+
+@pytest.mark.parametrize("seq", [35, 36], ids=["TED", "BEAT"])
+@pytest.mark.parametrize("b2", sorted(BF16_GEOMETRY))
+def test_bf16_geometry_choice(seq, b2):
+    """The bf16 kernel's (cluster, group) at TED's and BEAT's D = 512: the
+    batch covered by whole clusters, the channel mix's wgmma N of 40 rows a
+    sequence a warpgroup, the shared memory within an H100's."""
+    geo = tfused.transmlp_bf16_geometry(b2, seq, 512)
+    assert (geo.cluster, geo.group) == BF16_GEOMETRY[b2]
+    assert geo.cols == 512 // geo.cluster and geo.clusters == -(-b2 // geo.group)
+    assert geo.wgmma_n == (40 * geo.group if geo.cols > 64 else 40)
+    assert 2 <= geo.stages <= 8 and geo.smem_bytes <= tfused.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dim", [16, 48, 64, 128, 272, 400, 512])
+def test_bf16_geometry_shared_memory_fits(dim):
+    """Every (cluster, group) the bf16 kernel takes at width D fits an H100
+    block's shared memory with at least two ring stages; the cluster sizes
+    keep Dc a multiple of 4 and at most 256."""
+    sizes = tfused.bf16_cluster_sizes(dim)
+    assert sizes and all(dim % (4 * n) == 0 and dim // n <= 256 for n in sizes)
+    for n in sizes:
+        for g in tfused.BF16_GROUPS:
+            geo = tfused._bf16_geometry(16, dim, n, g)
+            assert geo.smem_bytes <= tfused.SMEM_LIMIT and geo.stages >= 2, (n, g, geo)
+    assert tfused.transmlp_bf16_geometry(16, 35, dim).cluster in sizes
+
+
+def test_bf16_cluster_sizes():
+    assert tfused.bf16_cluster_sizes(512) == [8, 4, 2]
+    assert tfused.bf16_cluster_sizes(272) == [4, 2]
+    assert tfused.bf16_cluster_sizes(64) == [8, 4, 2, 1]
+    assert tfused.bf16_cluster_sizes(48) == [4, 2, 1]
+
+
+@pytest.mark.parametrize("b,s,d,match", [
+    (-1, 35, 512, "batch"),
+    (2, 0, 512, "S=0"),
+    (2, 37, 512, "S=37"),
+    (2, 35, 8, "D=8"),
+    (2, 35, 520, "D=520"),
+    (2, 35, 200, "D=200"),
+])
+def test_bf16_geometry_refuses_what_the_kernel_refuses(b, s, d, match):
+    with pytest.raises(ValueError, match=match):
+        tfused.transmlp_bf16_geometry(b, s, d)
+
+
+def test_k1_bf16_counts_the_weight_reads_a_call():
+    """k1_bf16.py's L2 weight reads a call: every cluster reads all of
+    ``ch_w`` and ``out_w``. At TED 2B = 512 that is 2.16 GB with a CTA a
+    sequence (the PR 18 kernel) and half with two sequences a cluster."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import k1_bf16
+
+    packed = {"ch_w": torch.empty(8, 512, 512, dtype=torch.bfloat16)}
+    op = {"out_w": torch.empty(27, 512, dtype=torch.bfloat16)}
+    one = k1_bf16.weight_bytes(512, packed, op)
+    assert one == 512 * (8 * 512 * 512 + 27 * 512) * 2 and round(one / 1e9, 2) == 2.16
+    geo = tfused.transmlp_bf16_geometry(512, 35, 512)
+    assert geo.group == 2 and k1_bf16.weight_bytes(geo.clusters, packed, op) * 2 == one
