@@ -516,15 +516,20 @@ __device__ void token_product(float (&acc)[kTokRows / 16][kTokTiles][4], const b
 // proxy fence the wgmma reads need.
 __device__ __forceinline__ void push_rows(const Ctx& c, bool ln, const float* sc,
                                           const float* bi) {
-  const int S = c.p.S, q4 = c.q4, G = c.lay.G;
-  for (int idx = threadIdx.x; idx < G * S * q4; idx += kT) {
-    const int row = idx / q4, col = 4 * (idx - row * q4), g = row / S, i = g * kR + row - g * S;
-    const bf16* xr = c.x + i * c.lay.xst + col;
-    const uint2 packed = ln ? norm4(c, xr, i, col, sc, bi) : *reinterpret_cast<const uint2*>(xr);
-    const uint32_t off = h_offset(G, i, c.c0 + col);
-    for (int j = 0; j < c.p.N; ++j) {
-      unsigned char* dst = cg::this_cluster().map_shared_rank(c.h, j);
-      *reinterpret_cast<uint2*>(dst + off) = packed;
+  const int S = c.p.S, q4 = c.q4, G = c.lay.G, step = kT / q4, col = 4 * (threadIdx.x % q4);
+  if ((int)threadIdx.x < step * q4) {  // a thread a column of four, rows step apart
+    for (int g = 0; g < G; ++g) {
+      for (int r = threadIdx.x / q4; r < S; r += step) {
+        const int i = g * kR + r;
+        const bf16* xr = c.x + i * c.lay.xst + col;
+        const uint2 packed =
+            ln ? norm4(c, xr, i, col, sc, bi) : *reinterpret_cast<const uint2*>(xr);
+        const uint32_t off = h_offset(G, i, c.c0 + col);
+        for (int j = 0; j < c.p.N; ++j) {
+          unsigned char* dst = cg::this_cluster().map_shared_rank(c.h, j);
+          *reinterpret_cast<uint2*>(dst + off) = packed;
+        }
+      }
     }
   }
   fence_proxy_async_cluster();
@@ -678,7 +683,7 @@ __global__ void __launch_bounds__(kT, 1) transmlp_bf16_kernel(const __grid_const
   cg::this_cluster().sync();
 
   const bool affine = p.ln2_s != nullptr;
-  const int row_tiles = (S + 15) / 16, n_tiles = dc8 / 8, hq = dc8 / 4;
+  const int row_tiles = (S + 15) / 16, n_tiles = dc8 / 8, hq = dc8 / 4, hstep = kT / hq;
   const int tile_sets = (n_tiles + kWarps * kTokTiles - 1) / (kWarps * kTokTiles);
   bf16* h1 = reinterpret_cast<bf16*>(c.h);
   const bf16 zero = __ushort_as_bfloat16((unsigned short)0);
@@ -708,12 +713,16 @@ __global__ void __launch_bounds__(kT, 1) transmlp_bf16_kernel(const __grid_const
     __syncthreads();
     row_stats(c, 0);
     // LN1 rows of this CTA's columns (zero past S and past Dc), token_w staged
-    for (int idx = tid; idx < G * kTokRows * hq; idx += kT) {
-      const int row = idx / hq, col = 4 * (idx - row * hq), g = row / kTokRows;
-      const int r = row - g * kTokRows, i = g * kR + r;
-      uint2 v = make_uint2(0u, 0u);
-      if (r < S && col < c.dc) v = norm4(c, c.x + i * lay.xst + col, i, col, g1, b1);
-      *reinterpret_cast<uint2*>(h1 + row * lay.hst + col) = v;
+    if (tid < hstep * hq) {  // a thread a column of four, rows hstep apart
+      const int col = 4 * (tid % hq);
+      for (int g = 0; g < G; ++g) {
+        for (int r = tid / hq; r < kTokRows; r += hstep) {
+          const int i = g * kR + r;
+          uint2 v = make_uint2(0u, 0u);
+          if (r < S && col < c.dc) v = norm4(c, c.x + i * lay.xst + col, i, col, g1, b1);
+          *reinterpret_cast<uint2*>(h1 + (g * kTokRows + r) * lay.hst + col) = v;
+        }
+      }
     }
 #pragma unroll
     for (int i = 0; i < kTokPer; ++i) {

@@ -222,3 +222,16 @@ def test_k1_bf16_counts_the_weight_reads_a_call():
     assert one == 512 * (8 * 512 * 512 + 27 * 512) * 2 and round(one / 1e9, 2) == 2.16
     geo = tfused.transmlp_bf16_geometry(512, 35, 512)
     assert geo.group == 2 and k1_bf16.weight_bytes(geo.clusters, packed, op) * 2 == one
+
+
+def test_k1_bf16_phase_anchors_match_the_kernel():
+    """k1_bf16.py --phases patches the kernel's source by text: every
+    anchor is found once, and the patched source differs."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import k1_bf16
+
+    src = (k1_bf16.CSRC_DIR / "fused_transmlp_bf16.cu").read_text()
+    for anchor, _ in k1_bf16.PATCHES:
+        assert src.count(anchor) == 1, anchor
+    assert "k1_bf16_set_prof" in k1_bf16.instrumented_source()
+    assert len(k1_bf16.PHASES) == 16
