@@ -31,9 +31,9 @@ the fused WavEncoder stack (K3). Checks:
    weights, a second call's bits equal to the first's, the geometry it
    picked, the time of the three and the bound at the bf16 tensor-core
    peak; at 2B in {16, 512} every (cluster, group) the geometry can pick
-   at D=512, timed in turns; then 20 calls of the bf16 stack through fused_transmlp at the
-   serving shape, the counts set to 0 before: 20 bf16 launches, no f32
-   launch and no plain call;
+   at D=512, timed in turns; then 20 calls of the bf16 stack through
+   fused_transmlp at the serving shape, the counts set to 0 before: 20
+   bf16 launches, no f32 launch and no plain call;
 4. serving: build_rag_server with the default ServeConfig (DPM-Solver++ over
    ddim20, max_batch 8, guidance 1.5) answers 24 requests from 3 threads;
    every clip is finite [9, 3, 34], the kernel ran 20 times per batch served
@@ -443,8 +443,9 @@ def bf16_kernel_phase(card):
     kernel on the same weights; a second call's bits against the first's;
     the geometry transmlp_bf16_geometry picked; the time of the three and
     the bound at the bf16 tensor-core peak; at each batch every (cluster,
-    group) the kernel takes at D=512, timed in turns. Then the bf16 path: no path of the package uses
-    bf16 (f32 is the default, as in the JAX package), so the option is
+    group) the kernel takes at D=512, timed in turns. Then the bf16 path:
+    no path of the package uses bf16 (f32 is the default, as in the JAX
+    package), so the option is
     driven through its entry point, ``fused_transmlp``, as its user calls
     it: BF16_PATH_STEPS calls at the serving shape (TED, 2B = 16, LN2
     folded), each on the previous call's output with a step's embedding,

@@ -510,10 +510,6 @@ def _bf16_layout(d: int, cluster: int, group: int) -> tuple:
     return stages, stages * stage + rest
 
 
-def _bf16_smem_bytes(d: int, cluster: int, group: int) -> int:
-    return _bf16_layout(d, cluster, group)[1]
-
-
 def _bf16_geometry(b: int, d: int, cluster: int, group: int) -> TransMLPBf16Geometry:
     cols = d // cluster
     n = 40 * group if cols > 64 else 40
@@ -546,7 +542,8 @@ def transmlp_bf16_geometry(b: int, s: int, d: int,
 
     def cost(ng):
         n, g = ng
-        waves = -(-(-(-b // g)) // resident[ng])
+        clusters = -(-b // g)
+        waves = -(-clusters // resident[ng])
         return waves * (BF16_WAVE_COLS + g * d // n), g, -n
 
     n, g = min(((n, g) for n in sizes for g in BF16_GROUPS if resident.get((n, g), 0) > 0),
