@@ -211,8 +211,8 @@ def test_bf16_geometry_refuses_what_the_kernel_refuses(b, s, d, match):
 
 def test_k1_bf16_counts_the_weight_reads_a_call():
     """k1_bf16.py's L2 weight reads a call: every cluster reads all of
-    ``ch_w`` and ``out_w``. At TED 2B = 512 that is 2.16 GB with a CTA a
-    sequence (the PR 18 kernel) and half with two sequences a cluster."""
+    ``ch_w`` and ``out_w``. At TED 2B = 512 that is 2.16 GB with one CTA a
+    sequence, and half with two sequences a cluster."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import k1_bf16
 
