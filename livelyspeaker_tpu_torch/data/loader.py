@@ -41,6 +41,8 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
+
 __all__ = ["DataLoader", "DeviceDataLoader", "epoch_indices"]
 
 
@@ -154,11 +156,12 @@ class DeviceDataLoader:
         start, self._start_batch = self._start_batch, 0
         n = len(self._shard_devices)
         for chunk in _batches(idx, self.batch_size, self.drop_last, start):
-            shards = []
-            for (lo, hi), dev in zip(_split_rows(len(chunk), n), self._shard_devices):
-                ci = torch.from_numpy(chunk[lo:hi]).to(dev)
-                shards.append({k: torch.index_select(v, 0, ci)
-                               for k, v in self._dev[dev].items()})
+            with annotate("train.loader"):
+                shards = []
+                for (lo, hi), dev in zip(_split_rows(len(chunk), n), self._shard_devices):
+                    ci = torch.from_numpy(chunk[lo:hi]).to(dev)
+                    shards.append({k: torch.index_select(v, 0, ci)
+                                   for k, v in self._dev[dev].items()})
             yield shards if self.mesh is not None else shards[0]
 
 
@@ -345,20 +348,21 @@ class DataLoader:
         t.start()
         try:
             while True:
-                item = q.get()
-                if item is sentinel:
-                    if err:
-                        raise err[0]
-                    return
-                batch, events = item
-                for dev, event in events:
-                    torch.cuda.current_stream(dev).wait_event(event)
-                if events:
-                    for shard in (batch if self.mesh is not None else [batch]):
-                        for v in shard.values():
-                            if isinstance(v, torch.Tensor):
-                                # memory allocated on a copy stream, used on the current one
-                                v.record_stream(torch.cuda.current_stream(v.device))
+                with annotate("train.loader"):  # the wait on the producer
+                    item = q.get()
+                    if item is sentinel:
+                        if err:
+                            raise err[0]
+                        return
+                    batch, events = item
+                    for dev, event in events:
+                        torch.cuda.current_stream(dev).wait_event(event)
+                    if events:
+                        for shard in (batch if self.mesh is not None else [batch]):
+                            for v in shard.values():
+                                if isinstance(v, torch.Tensor):
+                                    # memory allocated on a copy stream, used on the current one
+                                    v.record_stream(torch.cuda.current_stream(v.device))
                 yield batch
         finally:
             # on break, exception or collection of the generator: stop the

@@ -23,6 +23,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import annotate
 from .schedule import DiffusionSchedule
 
 __all__ = [
@@ -361,13 +362,14 @@ def sample_loop(
     x = img
     if method in ("ddpm", "ddim"):
         for i in range(n_steps - 1, -1, -1):
-            out, t = step_out(x, i)
-            step_noise = draw(x.shape, const_noise)
-            if method == "ddpm":
-                x = _ddpm_update(sched, out, x, t, step_noise).to(dtype)
-            else:
-                x = _ddim_update(sched, out, x, t, step_noise, eta).to(dtype)
-            record(out, x)
+            with annotate("rag.step"):
+                out, t = step_out(x, i)
+                step_noise = draw(x.shape, const_noise)
+                if method == "ddpm":
+                    x = _ddpm_update(sched, out, x, t, step_noise).to(dtype)
+                else:
+                    x = _ddim_update(sched, out, x, t, step_noise, eta).to(dtype)
+                record(out, x)
         return finish(x)
 
     if method == "dpmpp":
@@ -386,22 +388,24 @@ def sample_loop(
         sigma_cur_t = torch.sqrt(1.0 - acp)
         d_prev = h_prev = None
         for i in range(n_steps - 1, 0, -1):
-            out, _ = step_out(x, i)
-            d = out["pred_xstart"]
-            h = log_lambda_prev[i] - log_lambda[i]
-            if d_prev is None:
-                d_tilde = d
-            else:  # 2M correction: (1 + 1/(2r)) D_i - 1/(2r) D_{i-1}
-                r = h_prev / torch.where(h == 0, torch.ones_like(h), h)
-                coef = 1.0 / torch.clamp(2.0 * r, min=1e-20)
-                d_tilde = (1.0 + coef) * d - coef * d_prev
-            x = ((sigma_next_t[i] / sigma_cur_t[i]) * x - alpha_next_t[i] * (
-                torch.exp(-h) - 1.0) * d_tilde).to(dtype)
+            with annotate("rag.step"):
+                out, _ = step_out(x, i)
+                d = out["pred_xstart"]
+                h = log_lambda_prev[i] - log_lambda[i]
+                if d_prev is None:
+                    d_tilde = d
+                else:  # 2M correction: (1 + 1/(2r)) D_i - 1/(2r) D_{i-1}
+                    r = h_prev / torch.where(h == 0, torch.ones_like(h), h)
+                    coef = 1.0 / torch.clamp(2.0 * r, min=1e-20)
+                    d_tilde = (1.0 + coef) * d - coef * d_prev
+                x = ((sigma_next_t[i] / sigma_cur_t[i]) * x - alpha_next_t[i] * (
+                    torch.exp(-h) - 1.0) * d_tilde).to(dtype)
+                record(out, x)
+                d_prev, h_prev = d, h
+        with annotate("rag.step"):
+            out, _ = step_out(x, 0)
+            x = out["pred_xstart"].to(dtype)  # the last step lands on x0
             record(out, x)
-            d_prev, h_prev = d, h
-        out, _ = step_out(x, 0)
-        x = out["pred_xstart"].to(dtype)  # the last step lands on x0
-        record(out, x)
         return finish(x)
 
     # PLMS (Adams-Bashforth multistep). The history holds the raw eps of the
@@ -410,37 +414,38 @@ def sample_loop(
     old_eps = [torch.zeros(shape, device=device, dtype=dtype)] * max(order - 1, 1)
     n_old = 0
     for step, i in enumerate(range(n_steps - 1, -1, -1)):
-        out, t = step_out(x, i)
-        eps = predict_eps_from_xstart(sched, x, t, out["pred_xstart"])
-        alpha_bar_prev = extract(sched.alphas_cumprod_prev, t, nd)
-        if order > 1 and step == 0:
-            # pseudo improved Euler: a second denoiser call at the next step
-            mean_pred = out["pred_xstart"] * torch.sqrt(alpha_bar_prev) + torch.sqrt(
-                1 - alpha_bar_prev) * eps
-            out2, t2 = step_out(mean_pred, max(i - 1, 0))
-            eps_prime = (eps + predict_eps_from_xstart(sched, mean_pred, t2,
-                                                       out2["pred_xstart"])) / 2
-        elif order > 1:
-            cur = min(n_old + 1, order)
-            e1, e2 = eps, old_eps[-1]
-            e3 = old_eps[-2] if order >= 3 else e2
-            e4 = old_eps[-3] if order >= 4 else e3
-            if cur == 2:
-                eps_prime = (3 * e1 - e2) / 2
-            elif cur == 3:
-                eps_prime = (23 * e1 - 16 * e2 + 5 * e3) / 12
+        with annotate("rag.step"):
+            out, t = step_out(x, i)
+            eps = predict_eps_from_xstart(sched, x, t, out["pred_xstart"])
+            alpha_bar_prev = extract(sched.alphas_cumprod_prev, t, nd)
+            if order > 1 and step == 0:
+                # pseudo improved Euler: a second denoiser call at the next step
+                mean_pred = out["pred_xstart"] * torch.sqrt(alpha_bar_prev) + torch.sqrt(
+                    1 - alpha_bar_prev) * eps
+                out2, t2 = step_out(mean_pred, max(i - 1, 0))
+                eps_prime = (eps + predict_eps_from_xstart(sched, mean_pred, t2,
+                                                           out2["pred_xstart"])) / 2
+            elif order > 1:
+                cur = min(n_old + 1, order)
+                e1, e2 = eps, old_eps[-1]
+                e3 = old_eps[-2] if order >= 3 else e2
+                e4 = old_eps[-3] if order >= 4 else e3
+                if cur == 2:
+                    eps_prime = (3 * e1 - e2) / 2
+                elif cur == 3:
+                    eps_prime = (23 * e1 - 16 * e2 + 5 * e3) / 12
+                else:
+                    eps_prime = (55 * e1 - 59 * e2 + 37 * e3 - 9 * e4) / 24
             else:
-                eps_prime = (55 * e1 - 59 * e2 + 37 * e3 - 9 * e4) / 24
-        else:
-            eps_prime = eps
-        pred_prime = predict_xstart_from_eps(sched, x, t, eps_prime)
-        mean_pred = pred_prime * torch.sqrt(alpha_bar_prev) + torch.sqrt(
-            1 - alpha_bar_prev) * eps_prime
-        nzm = _nonzero_mask(t, nd)
-        x = (mean_pred * nzm + out["pred_xstart"] * (1 - nzm)).to(dtype)
-        old_eps = old_eps[1:] + [eps]
-        n_old = min(n_old + 1, order)
-        record(out, x)
+                eps_prime = eps
+            pred_prime = predict_xstart_from_eps(sched, x, t, eps_prime)
+            mean_pred = pred_prime * torch.sqrt(alpha_bar_prev) + torch.sqrt(
+                1 - alpha_bar_prev) * eps_prime
+            nzm = _nonzero_mask(t, nd)
+            x = (mean_pred * nzm + out["pred_xstart"] * (1 - nzm)).to(dtype)
+            old_eps = old_eps[1:] + [eps]
+            n_old = min(n_old + 1, order)
+            record(out, x)
     return finish(x)
 
 

@@ -34,6 +34,7 @@ from .models.sag import SAG
 from .parallel.mesh import check_divisible, replicate_module, shard_params, sync_replicas
 from .parallel.sampling import shard_sample_fn
 from .utils.device import place_model
+from .utils.profiling import annotate
 
 __all__ = ["RAGSampler", "LivelySpeakerPipeline", "generate_long_form",
            "generate_long_form_stream", "long_form_window_grid"]
@@ -138,7 +139,8 @@ class RAGSampler:
                *, skip_timesteps, gsched):
         c = model.cfg
         make = make_fused_cfg_denoiser if self.use_fused else make_cfg_denoiser
-        denoise = make(model, cond, guidance, guidance_schedule=gsched)
+        with annotate("rag.prepare"):
+            denoise = make(model, cond, guidance, guidance_schedule=gsched)
         return sample_loop(
             denoise,
             sched,
@@ -151,6 +153,7 @@ class RAGSampler:
             noise=noise,
         )
 
+    @annotate("rag.sample")
     @torch.no_grad()
     def __call__(
         self,
@@ -240,20 +243,23 @@ class LivelySpeakerPipeline:
         if mesh is not None:
             stages = list(zip(replicate_module(self.clip_text, mesh),
                               replicate_module(self.sag, mesh)))
-            self._sharded_sketch = shard_sample_fn(
-                lambda m, tokens, seed: m[1].decode(m[0](tokens), seed), mesh, stages,
-                batched=(True, True))
+            self._sharded_sketch = shard_sample_fn(_shard_sketch, mesh, stages,
+                                                   batched=(True, True))
 
     @torch.no_grad()
     def semantic_sketch(self, sentences: Sequence[str],
                         seed_motion: torch.Tensor) -> torch.Tensor:
         """The SAG decode of the CLIP text features of ``sentences``, seeded
         by the first frames of ``seed_motion`` [B, J, F, T]."""
-        tokens = torch.from_numpy(self.tokenizer(list(sentences)))
+        with annotate("compose.clip"):
+            tokens = torch.from_numpy(self.tokenizer(list(sentences)))
+            if self.mesh is None:
+                z = self.clip_text(tokens.to(self.device))
         seed = seed_motion.to(self.device, torch.float32)
         if self.mesh is not None:
             return self._sharded_sketch(tokens, seed)
-        return self.sag.decode(self.clip_text(tokens.to(self.device)), seed)
+        with annotate("compose.sag"):
+            return self.sag.decode(z, seed)
 
     @torch.no_grad()
     def __call__(
@@ -270,6 +276,16 @@ class LivelySpeakerPipeline:
         sketch = self.semantic_sketch(sentences, cond["origin_x"])
         return self.rag_sampler(cond, generator, guidance=guidance,
                                 skip_timesteps=self.skip_timesteps, init_image=sketch)
+
+
+def _shard_sketch(stages, tokens, seed):
+    """One shard's sketch on its (CLIP text tower, SAG) replicas, under the
+    stage spans of the unsharded call."""
+    clip_text, sag = stages
+    with annotate("compose.clip"):
+        z = clip_text(tokens)
+    with annotate("compose.sag"):
+        return sag.decode(z, seed)
 
 
 def long_form_window_grid(n_audio_samples: int, nframes: int, n_pre_seq: int,

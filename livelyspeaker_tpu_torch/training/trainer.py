@@ -30,6 +30,7 @@ from ..diffusion import (
     uniform_sample_t,
 )
 from ..models.rag import RAG
+from ..utils.profiling import annotate
 
 __all__ = ["TrainState", "TrainConfig", "AdamW", "AdamWState", "make_optimizer",
            "make_loss_fn", "make_train_step", "make_step_parts", "StepParts", "ShardGrads",
@@ -254,7 +255,11 @@ class StepParts(NamedTuple):
     - ``apply(state, grads, host, sampler_state, clip_norm=None) ->
       TrainState``: AdamW (skipped when a gradient is not finite) and the
       EMA;
-    - ``metrics(sg, host) -> dict``."""
+    - ``metrics(sg, host) -> dict``.
+
+    ``shard_grads`` runs under the profiler span ``train.grads``,
+    ``read_host`` under ``train.sync``, ``apply`` and the loss-aware
+    history's update under ``train.apply`` (``utils/profiling.annotate``)."""
 
     shard_grads: Callable[..., ShardGrads]
     read_host: Callable[..., Dict]
@@ -284,6 +289,7 @@ def make_step_parts(
     num_t = sched.num_timesteps
     loss_fn = make_loss_fn(model, sched, cfg, backbone_factory)
 
+    @annotate("train.grads")
     def shard_grads(state: TrainState, batch, generator: Optional[torch.Generator] = None, *,
                     t=None, noise=None, style_eps=None, cond_drop=None) -> ShardGrads:
         batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()
@@ -311,6 +317,7 @@ def make_step_parts(
         return ShardGrads(loss.detach(), grads, t, terms["loss_per_sample"].detach(), means,
                           tuple(k for k in _TERMS if k in terms))
 
+    @annotate("train.sync")
     def read_host(state: TrainState, sg: ShardGrads,
                   norms: Optional[torch.Tensor] = None) -> Dict:
         # one host sync: a max-abs norm is finite iff every element is
@@ -336,9 +343,11 @@ def make_step_parts(
 
     def sampler_update(state: TrainState, sg: ShardGrads, host: Dict):
         if use_loss_aware and host["losses_finite"]:
-            return loss_aware_update(state.sampler_state, sg.t, sg.losses)
+            with annotate("train.apply"):
+                return loss_aware_update(state.sampler_state, sg.t, sg.losses)
         return state.sampler_state
 
+    @annotate("train.apply")
     def apply(state: TrainState, grads: List[torch.Tensor], host: Dict,
               sampler_state, clip_norm: Optional[torch.Tensor] = None) -> TrainState:
         names = list(state.params)

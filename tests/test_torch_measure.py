@@ -1,8 +1,8 @@
 """The port's measurement entry points and small utilities against the JAX
 package, on the CPU.
 
-- ``utils/profiling.py``: ``StepTimer`` gives the JAX timer's numbers on the
-  same clock; ``device_trace`` and ``annotate`` write a Chrome trace here.
+- ``utils/profiling.py``: ``device_trace`` and ``annotate`` write a Chrome
+  trace here.
 - ``utils/seeding.py``: ``fixseed`` leaves numpy's and Python's RNGs in the
   JAX function's state.
 - ``utils/plotting.py``: ``farthest_point_sample`` picks the JAX scan's
@@ -66,21 +66,6 @@ def _jax_row_keys(script, func):
 
 
 # --- utils -----------------------------------------------------------------
-
-def test_step_timer_matches_jax(monkeypatch):
-    """Both timers on one fake clock, warm-up 1 (tests/test_misc_components.py:153)."""
-    from livelyspeaker_tpu.utils.profiling import StepTimer as JStepTimer
-
-    def run(cls):
-        clock = iter([10.0, 10.25, 10.75, 11.0, 11.5])
-        monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
-        t = cls(batch_size=10, warmup_steps=1)
-        return [t.tick() for _ in range(5)]
-
-    ours, theirs = run(profiling.StepTimer), run(JStepTimer)
-    assert ours == theirs
-    assert ours[1]["clips_per_sec"] == 40.0 and ours[2]["avg_clips_per_sec"] > 0
-
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
     with profiling.device_trace(str(tmp_path)) as prof:
