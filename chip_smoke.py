@@ -18,12 +18,15 @@ the fused WavEncoder stack (K3). Checks:
 2. build: the three CUDA sources of csrc/ are compiled with nvcc, one
    process each, started together;
 3. kernel against plain version: TED (S=35, F=27) and BEAT (S=36, F=282),
-   D=512, L=8, 2B in {2, 16, 64, 512, 1024} (1,024: the eval scripts'
-   batch of 512 under CFG), LN2 folded and not, with and
+   D=512, L=8, 2B in {2, 16, 64, 128, 512, 1024} (128: the composition's
+   batch of 64 under CFG; 1,024: the eval scripts' batch of 512 under
+   CFG), LN2 folded and not, with and
    without the pose projection; rel = max|kernel - plain| / max|plain| <=
-   1e-5, the time per call of both, the bound (FLOPs at the f32 peak) and
-   the share of it; at 2B in {2, 16, 512} the kernel at clusters of 8 and 4
-   CTAs, timed in turns; then the bf16 kernel (``bf16_kernel_phase``,
+   1e-5, the time per call of both, the bound (the channel mix and the pose
+   projection as three TF32 passes at the TF32 peak, the token mix at the
+   f32 peak outside the tensor cores) and the share of it; at 2B in {2, 16,
+   512} the kernel at every cluster size the forward takes at D=512, timed
+   in turns; then the bf16 kernel (``bf16_kernel_phase``,
    csrc/fused_transmlp_bf16.cu) against its plain bf16 version at TED and
    BEAT, 2B in {16, 512}, LN2 folded and not, with and without the pose
    projection: max|kernel - plain| <= 2^-6 max|plain| (printed in bf16
@@ -344,19 +347,31 @@ def bound(flop, nbytes, peak=PEAK_FLOPS):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def peak_3xtf32(products, fma):
+    """The FLOP/s at which the card could do ``products`` FLOPs in 3xTF32
+    (three TF32 passes at the TF32 peak) and ``fma`` FLOPs on the FP32
+    pipe, one after the other."""
+    return (products + fma) / (3 * products / PEAK_TF32 + fma / PEAK_FLOPS)
+
+
 def k1_cost(x, emb, packed, op):
-    """(FLOP, bytes) of one K1 call, f32 or bf16: the token mix, channel mix
-    and pose products (the LayerNorms, activations and residuals, under 3%
-    at D=512, are left out); every input read once at its own element size,
-    the output (of x's type) written once."""
+    """(FLOP, bytes, peak) of one K1 call, f32 or bf16: the token mix,
+    channel mix and pose products (the LayerNorms, activations and
+    residuals, under 3% at D=512, are left out); every input read once at
+    its own element size, the output (of x's type) written once. The peak:
+    bf16's for the bf16 kernel; for f32, the channel mix and the pose
+    projection in 3xTF32 beside the token mix on the FP32 pipe
+    (``peak_3xtf32``). The FLOPs and bytes are what benchmark/arith.py's
+    frozen copy counts."""
     b, s, d = x.shape
     layers = packed["token_w"].shape[0]
     f = op["out_b"].shape[0] if op is not None else 0
-    flop = b * (layers * (2 * s * d * d + 2 * s * s * d) + 2 * s * d * f)
+    token, products = b * layers * 2 * s * s * d, b * (layers * 2 * s * d * d + 2 * s * d * f)
     tensors = [x, emb, *packed.values(), *(op.values() if op is not None else ())]
     nbytes = (sum(t.numel() * t.element_size() for t in tensors)
               + b * s * (f or d) * x.element_size())
-    return flop, nbytes
+    peak = PEAK_BF16 if x.dtype == torch.bfloat16 else peak_3xtf32(products, token)
+    return token + products, nbytes, peak
 
 
 def time_turns(fns, iters, rounds=2):
@@ -372,7 +387,7 @@ def time_turns(fns, iters, rounds=2):
 
 def kernel_phase(card):
     """K1 against its plain version at TED and BEAT, 2B in {2, 16, 64,
-    512, 1024}, LN2 folded and affine, with and without the pose
+    128, 512, 1024}, LN2 folded and affine, with and without the pose
     projection; then the cluster sizes the kernel takes at D=512, in
     turns."""
     from livelyspeaker_tpu_torch.models.initializers import random_normal_
@@ -393,7 +408,7 @@ def kernel_phase(card):
     for name, seq, feats in (("TED", 35, 27), ("BEAT", 36, 282)):
         stack = random_normal_(TransMLP(seq, 8, 512, "silu"), g).to(dev)
         pose = random_normal_(torch.nn.Linear(512, feats), g).to(dev)
-        for b2 in (2, 16, 64, 512, 1024):
+        for b2 in (2, 16, 64, 128, 512, 1024):
             x = torch.randn(b2, seq, 512, generator=g).to(dev)
             emb = torch.randn(b2, 512, generator=g).to(dev)
             geo = fused_mlp.transmlp_geometry(b2, seq, 512, resident)
@@ -409,26 +424,26 @@ def kernel_phase(card):
                     ms = time_ms(lambda: fused_mlp.fused_transmlp(x, emb, packed, out_proj=op), iters)
                     plain = time_ms(lambda: fused_mlp.fused_transmlp_reference(
                         x, emb, packed, out_proj=op), iters)
-                    flop, nbytes = k1_cost(x, emb, packed, op)
-                    bound_ms, bound_by = bound(flop, nbytes)
+                    flop, nbytes, peak = k1_cost(x, emb, packed, op)
+                    bound_ms, bound_by = bound(flop, nbytes, peak)
                     tag = (f"{name} 2B={b2} S={seq} D=512 L=8 ln2={'folded' if fold else 'affine'} "
                            f"out={'F=%d' % feats if op else 'D'}")
                     print(f"[kernel] {tag}: max_abs {err:.3e} max_rel {rel:.3e} kernel {ms:.4f} ms "
-                          f"plain {plain:.4f} ms bound {bound_ms:.4f} ms ({flop / 1e9:.3f} GFLOP, "
-                          f"{bound_by}) share {bound_ms / ms:.1%}; cluster {geo.cluster} x "
-                          f"{geo.cols} columns ({card})")
+                          f"plain {plain:.4f} ms bound {bound_ms:.4f} ms ({flop / 1e9:.3f} GFLOP at "
+                          f"{peak / 1e12:.0f} TFLOP/s, {bound_by}) share {bound_ms / ms:.1%}; "
+                          f"cluster {geo.cluster} x {geo.cols} columns ({card})")
                     check(np.isfinite(rel) and rel <= KERNEL_TOL,
                           f"kernel disagrees with plain version at {tag}: rel {rel:.3e}")
                     worst_abs = max(worst_abs, err)
                     if name == "TED" and b2 == 16 and fold and op is not None:
                         main = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
                                 "bound_by": bound_by}  # the serving call
-            # the cluster sizes D=512 allows (Dc <= 128), at the serving layout
+            # the cluster sizes D=512 allows (Dc <= 256), at the serving layout
             packed = fused_mlp.pack_transmlp_params(stack, fold_ln2=True)
             op = fused_mlp.pack_out_proj(pose)
             if b2 in (2, 16, 512):
                 runs = {n: (lambda n=n: fused_mlp.launch_stack(x, emb, packed, 0, op, cluster=n))
-                        for n in (8, 4)}
+                        for n in fused_mlp.forward_cluster_sizes(512)}
                 times = time_turns(runs, 20 if b2 <= 16 else 5, rounds=4)
                 print(f"[kernel] {name} 2B={b2} folded F={feats}, by cluster size (in turns): "
                       + ", ".join(f"{n} CTAs {t:.4f} ms" for n, t in times.items())
@@ -496,8 +511,8 @@ def bf16_kernel_phase(card):
                         xb, eb, p16, out_proj=o16), iters)
                     f32_ms = time_ms(lambda: fused_mlp.fused_transmlp(x, emb, p32, out_proj=o32),
                                      iters)
-                    flop, nbytes = k1_cost(xb, eb, p16, o16)
-                    bound_ms, bound_by = bound(flop, nbytes, PEAK_BF16)
+                    flop, nbytes, peak = k1_cost(xb, eb, p16, o16)
+                    bound_ms, bound_by = bound(flop, nbytes, peak)
                     tag = (f"{name} 2B={b2} S={seq} D=512 L=8 ln2={'folded' if fold else 'affine'} "
                            f"out={'F=%d' % feats if proj is not None else 'D'}")
                     print(f"[bf16] {tag}: max_abs {err:.4g} = {err / ulp:.2f} bf16 ulps of "
@@ -1256,8 +1271,10 @@ def k2_cost(b, s, d, layers):
     """(operations, bytes, peak) of each K2 kernel over one forward and one
     backward call (all its launches), from the shapes: the products' FLOPs
     (the LayerNorms and activations left out) at the f32 peak, except the
-    weight-gradient kernel's three TF32 products (3xTF32) at the TF32 peak;
-    each kernel's inputs read once, its outputs written once."""
+    3xTF32 products on the tensor cores: the weight-gradient kernel's three
+    TF32 products at the TF32 peak, and the forward's channel mix beside its
+    token mix at ``peak_3xtf32``, as k1_cost; each kernel's inputs read
+    once, its outputs written once."""
     act = b * s * d  # one [B, S, D] tensor, in floats
     weights = layers * (d * d + 5 * d + s * s + s)
     part = b * (5 * d + s + s * s)
@@ -1270,7 +1287,7 @@ def k2_cost(b, s, d, layers):
            4 * (5 * act + 2 * b * d + weights // layers + part))
     wgr = (3 * 2 * b * s * d * d, 4 * (2 * act + d * d))  # reads h2, g_m2; writes d ch_w
     red = (part, 4 * (part + 5 * d + s + s * s))  # reads part; writes 7 gradients
-    cost = {"fwd": fwd + (PEAK_FLOPS,)}
+    cost = {"fwd": fwd + (peak_3xtf32(b * layers * 2 * s * d * d, b * layers * 2 * s * s * d),)}
     for k, (f, n), peak in (("bwd_block", blk, PEAK_FLOPS), ("wgrad", wgr, PEAK_TF32),
                             ("reduce", red, PEAK_FLOPS)):
         cost[k] = (layers * f, layers * n, peak)
@@ -1994,8 +2011,8 @@ def train_kernel_phase(card):
                           "plain_fwd": plain_fwd, "plain_bwd": plain - plain_fwd,
                           "library": {k: v[1] for k, v in turns.items()},
                           "bound": {k: bound(*c) for k, c in k2_cost(b, seq, 512, LAYERS).items()}}
-                print("[train-kernel] " + tag + ": bound by kernel, ms per fwd+bwd call (wgrad: "
-                      "its three TF32 products at 495 TFLOP/s): " + ", ".join(
+                print("[train-kernel] " + tag + ": bound by kernel, ms per fwd+bwd call (fwd and "
+                      "wgrad: their 3xTF32 products as three TF32 passes at 495 TFLOP/s): " + ", ".join(
                           f"{k} {v[0]:.3f} ({v[1]}, share {v[0] / report['ms'][k]:.1%})"
                           for k, v in report["bound"].items()) + f" ({card})")
     return worst, report

@@ -6,26 +6,27 @@ of every CTA reads ``clock64`` at the phase boundaries of each layer and adds
 the cycles into a per-CTA record. Three builds, started together:
 
 - ``as-is``: the kernel as shipped;
-- ``no-product``: the channel mix's FMAs left out (the weight stream, its
-  waits and the K-slice sums alone);
-- ``no-copy``: the weight ring's TMA copies left out, each stage marked full
-  at once (the product on stale data: the FMAs alone).
+- ``no-product``: the channel mix's and the pose projection's wgmma left out
+  (the weight stream, the loads and splits of the fragments, the partial
+  sums' exchange and the epilogue alone);
+- ``no-wait``: the compute warps do not wait for the weight ring's copies
+  (the product on whatever the ring holds: the wgmma and the fragments'
+  loads without the stream's stalls; the producer still streams).
 
 It runs TED's serving layout (S=35, D=512, L=8, LN2 folded, pose F=27) at
-2B in {2, 16, 512} and clusters of 8 and 4, and prints the mean cycles per
-CTA by phase and the time per launch (CUDA events), with the card's name and
-power limit. The clock reads cost a few percent; compare variants with each
-other, not with ``chip_smoke.py``'s times. Run on the card:
-``python3 k1_phases.py``.
+2B in {2, 16, 512} on clusters of every size D=512 allows, and prints the
+mean cycles per CTA by phase and the time per launch (CUDA events), with the
+card's name and power limit. Thread 0 is in the first compute warpgroup; the
+clock reads and the record's global adds cost a few percent, so compare the
+variants with each other, not with ``chip_smoke.py``'s times. Run on the
+card: ``python3 k1_phases.py``.
 """
 
 import ctypes
-import os
 import subprocess
 import sys
 from pathlib import Path
 
-import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -38,68 +39,57 @@ from livelyspeaker_tpu_torch.ops._build import CSRC_DIR, NVCC_FLAGS, _nvcc  # no
 
 OUT_DIR = CSRC_DIR / "_build" / "k1_phases"
 PHASES = ["emb + parameters", "LN1 statistics", "LN1 + token mix", "LN2 statistics",
-          "LN2 rows exchange", "channel mix: ring waits", "channel mix: product",
-          "channel mix: arrive + refill", "channel mix: K-slice sums", "end of layer",
+          "LN2 rows", "channel mix: passes", "channel mix: own partials staged",
+          "channel mix: partials' barrier", "channel mix: epilogue", "end of layer",
           "pose projection / store"]
-RECORD = 16  # counters a CTA
-B2S, NS = (2, 16, 512), (8, 4)  # batches (2B) and cluster sizes
+RECORD = 16  # counters a CTA; the last holds thread 0's previous clock read
+B2S = (2, 16, 512)  # batches (2B)
 
-# (anchor in the source, text put in its place); every anchor must be found
+# (anchor in the source, text put in its place); every anchor must be found once
 PATCHES = [
     ("  int S, D, L, F, N;\n};", "  int S, D, L, F, N;\n  long long* prof;\n};\n"
      "long long* g_prof = nullptr;  // set through k1_phases_set before a launch\n"
-     "#define PROF(i) do { if (threadIdx.x == 0) { long long _t = clock64(); "
-     "p.prof[blockIdx.x * 16 + (i)] += _t - _tl; _tl = _t; } } while (0)"),
-    ("  if (tid < kStagesMax) {\n    mbar_init",
-     "  long long _tl = clock64();\n  if (tid < kStagesMax) {\n    mbar_init"),
-    ("    issue_params(c, l + 1);  // its buffer was last read in layer l - 1\n",
-     "    issue_params(c, l + 1);  // its buffer was last read in layer l - 1\n    PROF(0);\n"),
-    ("    row_stats(c, c.x_s, 0);\n", "    row_stats(c, c.x_s, 0);\n    PROF(1);\n"),
+     "__device__ __forceinline__ void prof_mark(const ClusterParams& p, int i) {\n"
+     "  if (threadIdx.x == 0) {\n    long long* r = p.prof + blockIdx.x * 16;\n"
+     "    const long long t = clock64();\n    r[i] += t - r[15];\n    r[15] = t;\n  }\n}"),
+    ("  if (tid < kMaxStages) {\n    mbar_init",
+     "  if (tid == 0) p.prof[blockIdx.x * 16 + 15] = clock64();\n"
+     "  if (tid < kMaxStages) {\n    mbar_init"),
+    ("    mbar_wait(&c.full[kMaxStages + l % 2], (uint32_t)((l / 2) & 1));\n    __syncthreads();\n",
+     "    mbar_wait(&c.full[kMaxStages + l % 2], (uint32_t)((l / 2) & 1));\n    __syncthreads();\n"
+     "    prof_mark(p, 0);\n"),
+    ("    row_stats(c, c.x_s, 0);\n", "    row_stats(c, c.x_s, 0);\n    prof_mark(p, 1);\n"),
     ("    token_mix_cols<kAct>(c, h_s, tw, tb);\n    __syncthreads();\n",
-     "    token_mix_cols<kAct>(c, h_s, tw, tb);\n    __syncthreads();\n    PROF(2);\n"),
-    ("    row_stats(c, c.x_s, 1);\n", "    row_stats(c, c.x_s, 1);\n    PROF(3);\n"),
-    ("    channel_mix<kAct>(c, l, cb);\n    __syncthreads();\n",
-     "    PROF(4);\n    channel_mix<kAct>(c, l, cb);\n    _tl = clock64();\n"
-     "    __syncthreads();\n    PROF(9);\n"),
-    ("og[(idx / dc) * D + idx % dc] = c.x_s[idx];\n  }\n}",
-     "og[(idx / dc) * D + idx % dc] = c.x_s[idx];\n  }\n  __syncthreads();\n  PROF(10);\n}"),
-    # inside the channel mix: thread 0 sums its own steps, written once a layer
-    ("  if (t.active) {\n    const SliceRows r(t, c.p.D, kKt);",
-     "  long long _q = clock64(), _w = 0, _m = 0, _a = 0;\n"
-     "  if (t.active) {\n    const SliceRows r(t, c.p.D, kKt);"),
-    ("      mbar_wait(&c.bars[stage], parity);\n      mma_quads(",
-     "      mbar_wait(&c.bars[stage], parity);\n"
-     "      { long long _t = clock64(); _w += _t - _q; _q = _t; }\n      MMA mma_quads("),
-    ("      arrive_slice(t, &c.bars[kStagesMax + stage]);",
-     "      { long long _t = clock64(); _m += _t - _q; _q = _t; }\n"
-     "      arrive_slice(t, &c.bars[kStagesMax + stage]);"),
-    ("        issue_tile(c, t, r, u + kRing);\n      }\n    }\n  }\n",
-     "        issue_tile(c, t, r, u + kRing);\n      }\n"
-     "      { long long _t = clock64(); _a += _t - _q; _q = _t; }\n    }\n  }\n"),
-    ("    x.w += activate(s.w + b.w, kAct);\n    *xr = x;\n  });\n",
-     "    x.w += activate(s.w + b.w, kAct);\n    *xr = x;\n  });\n"
-     "  if (threadIdx.x == 0) {\n    long long* pr = c.p.prof + blockIdx.x * 16;\n"
-     "    pr[5] += _w; pr[6] += _m; pr[7] += _a; pr[8] += clock64() - _q;\n  }\n"),
-    ("  mbar_expect_tx(full, kKt * c.ws * sizeof(float));\n  tma_load_2d(",
-     "  COPY mbar_expect_tx(full, kKt * c.ws * sizeof(float));\n  COPY tma_load_2d("),
+     "    token_mix_cols<kAct>(c, h_s, tw, tb);\n    __syncthreads();\n    prof_mark(p, 2);\n"),
+    ("    row_stats(c, c.x_s, 1);\n", "    row_stats(c, c.x_s, 1);\n    prof_mark(p, 3);\n"),
+    ("\n    channel_mix<kAct>(c, l, cb);\n    __syncthreads();\n",
+     "\n    prof_mark(p, 4);\n    channel_mix<kAct>(c, l, cb);\n    prof_mark(p, 8);\n"
+     "    __syncthreads();\n    prof_mark(p, 9);\n"),
+    ("  __syncthreads();  // every product is done with the B rows\n",
+     "  prof_mark(c.p, 5);\n  __syncthreads();  // every product is done with the B rows\n"),
+    ("  cg::this_cluster().sync();  // every CTA's partials of this CTA's columns are in\n",
+     "  prof_mark(c.p, 6);\n"
+     "  cg::this_cluster().sync();  // every CTA's partials of this CTA's columns are in\n"
+     "  prof_mark(c.p, 7);\n"),
+    ("    pose_projection(c, p.out + c.seq * S * p.F);\n",
+     "    pose_projection(c, p.out + c.seq * S * p.F);\n    prof_mark(p, 10);\n"),
+    ("    wgmma_tf32(d, f.lo + 4 * kk, bh, kk == 0 ? 0 : 1);\n"
+     "    wgmma_tf32(d, f.hi + 4 * kk, bl, 1);\n    wgmma_tf32(d, f.hi + 4 * kk, bh, 1);\n",
+     "#ifndef K1_NO_PRODUCT\n    wgmma_tf32(d, f.lo + 4 * kk, bh, kk == 0 ? 0 : 1);\n"
+     "    wgmma_tf32(d, f.hi + 4 * kk, bl, 1);\n    wgmma_tf32(d, f.hi + 4 * kk, bh, 1);\n#endif\n"),
+    ("    mbar_wait(&c.full[s], (uint32_t)((u / c.lay.stages) & 1));\n",
+     "#ifndef K1_NO_WAIT\n    mbar_wait(&c.full[s], (uint32_t)((u / c.lay.stages) & 1));\n#endif\n"),
     ("                  S, D, L, F, cluster};", "                  S, D, L, F, cluster, g_prof};"),
     ("// Dynamic shared memory of one CTA, or 0 for a geometry the kernel refuses.",
      'extern "C" void k1_phases_set(long long* prof) { g_prof = prof; }\n'
      "// Dynamic shared memory of one CTA, or 0 for a geometry the kernel refuses."),
-    ('#include "transmlp_common.cuh"', '#include "transmlp_common.cuh"\n'
-     "#ifdef K1_NO_PRODUCT\n#define MMA if (false)\n#else\n#define MMA\n#endif\n"
-     "#ifdef K1_NO_COPY\n#define COPY if (false)\n#else\n#define COPY\n#endif"),
 ]
-# the no-copy build marks each stage full with one plain arrival instead
-NO_COPY_ARRIVE = ("  COPY tma_load_2d(",
-                  '#ifdef K1_NO_COPY\n  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" '
-                  '::"r"(smem_addr(full)) : "memory");\n#endif\n  COPY tma_load_2d(')
-VARIANTS = {"as-is": [], "no-product": ["-DK1_NO_PRODUCT"], "no-copy": ["-DK1_NO_COPY"]}
+VARIANTS = {"as-is": [], "no-product": ["-DK1_NO_PRODUCT"], "no-wait": ["-DK1_NO_WAIT"]}
 
 
 def instrumented_source():
     src = (CSRC_DIR / "fused_transmlp.cu").read_text()
-    for anchor, text in PATCHES + [NO_COPY_ARRIVE]:
+    for anchor, text in PATCHES:
         if src.count(anchor) != 1:
             raise SystemExit(f"k1_phases: the kernel changed; anchor not found once: {anchor!r}")
         src = src.replace(anchor, text)
@@ -175,7 +165,7 @@ def main():
         x = torch.randn(b2, 35, 512, generator=g).to(dev)
         emb = torch.randn(b2, 512, generator=g).to(dev)
         ref = fused_mlp.fused_transmlp_reference(x, emb, packed, out_proj=op)
-        for n in NS:
+        for n in fused_mlp.forward_cluster_sizes(512):
             for name, lib in libs.items():
                 prof = torch.zeros(b2 * n * RECORD, dtype=torch.int64, device=dev)
                 out = launch(lib, x, emb, n, prof)

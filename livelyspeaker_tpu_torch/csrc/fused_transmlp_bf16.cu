@@ -85,6 +85,7 @@
 #include <cuda_bf16.h>
 
 #include "transmlp_common.cuh"
+#include "wgmma.cuh"  // descriptors, fences, commit and wait
 
 namespace {
 
@@ -193,30 +194,6 @@ __host__ __device__ __forceinline__ uint32_t h_offset(int G, int row, int k) {
 
 // --- wgmma ------------------------------------------------------------------
 
-// The shared-memory descriptor of a K-major operand in the 128-byte swizzle:
-// 8-row groups 1024 bytes apart (SBO), the leading offset unused; the tile
-// starts 1024-byte aligned, and a step of 16 k adds 32 bytes to the start.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accesses of the accumulators across a wait
-template <int NA>
-__device__ __forceinline__ void fence_acc(float (&d)[NA]) {
-#pragma unroll
-  for (int i = 0; i < NA; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // d (+)= A[64, 16] . B[N, 16]^T, A and B K-major in shared memory, f32 sums;
 // scale_d = 0 starts from zero.
 __device__ __forceinline__ void wgmma_n40(float (&d)[20], uint64_t a, uint64_t b, int scale_d) {
@@ -315,12 +292,6 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool in) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(smem_addr(dst)), "l"(src),
                "r"(in ? 8 : 0)
                : "memory");
-}
-
-// Orders this thread's generic writes of shared memory anywhere in the
-// cluster before later async-proxy (wgmma, TMA) accesses of it.
-__device__ __forceinline__ void fence_proxy_async_cluster() {
-  asm volatile("fence.proxy.async.shared::cluster;" ::: "memory");
 }
 
 struct Ctx {

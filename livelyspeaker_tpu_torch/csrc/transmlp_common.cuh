@@ -1,8 +1,8 @@
 // Device code shared by the fused TransMLP stack (fused_transmlp.cu: the
 // sampling forward and the training forward with its stash) and the
 // training backward (fused_transmlp_train.cu). Both spread one [S, D]
-// sequence over a thread-block cluster of N CTAs of kT threads, CTA r owning
-// the columns [r * D/N, (r + 1) * D/N). What is here:
+// sequence over a thread-block cluster of N CTAs of kT compute threads, CTA
+// r owning the columns [r * D/N, (r + 1) * D/N). What is here:
 // - the limits (S <= kSPad = 36, D <= kMaxN = 512), the activations and
 //   their derivatives;
 // - the 2-D TMA copy (shared-memory addresses, cp.async, the mbarriers,
@@ -11,10 +11,11 @@
 //   for the bf16 stack (fused_transmlp_bf16.cu, which also takes the limits,
 //   the activations and the cluster helpers from here), bf16 in wgmma's
 //   128-byte swizzle;
-// - the [kSPad, K] x [K, ncols] product in 9 x 8 register tiles whose
-//   threads form K-slices (Tiling, SliceRows, mma_quads), the slices'
-//   warp-level arrival on an mbarrier, and the fixed-order sum of the
-//   slices' partial tiles through shared memory (reduce_slices);
+// - for the training backward: the [kSPad, K] x [K, ncols] FMA product in
+//   9 x 8 register tiles whose threads form K-slices (Tiling, SliceRows,
+//   mma_quads), the slices' warp-level arrival on an mbarrier, the
+//   fixed-order sum of the slices' partial tiles through shared memory
+//   (reduce_slices), its ring's f32 tensor map and its cluster sizes;
 // - the LayerNorm row statistics across the cluster (two-pass per CTA, one
 //   exchange through distributed shared memory, Chan's combine); the
 //   cluster barrier's halves and the launch configuration are in

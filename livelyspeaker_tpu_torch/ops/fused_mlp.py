@@ -44,6 +44,8 @@ __all__ = [
     "launch_stack",
     "TransMLPGeometry",
     "cluster_sizes",
+    "forward_cluster_sizes",
+    "pick_cluster",
     "transmlp_geometry",
     "resident_clusters",
     "TransMLPBf16Geometry",
@@ -210,7 +212,13 @@ def fused_transmlp_bf16_reference(
 
 # The kernel's limits and its shared-memory layout (csrc/fused_transmlp.cu)
 MAX_SEQ, MAX_DIM, DIM_STEP = 36, 512, 16
-_THREADS, _RING_FLOATS, _BARS, _MAX_COLS, _MAX_SLICES, _TILE = 256, 24576, 51, 128, 8, (9, 8)
+_MAX_COLS = 128  # Dc of the training backward's block kernel
+_MAX_SLICE = 256  # Dc of the forward
+# rows of a sequence in wgmma's N, bytes of a row's K-chunk of 32 k, k of a
+# ring stage, the ring's most stages, columns of an M-tile
+_ROWS, _ROW_BYTES, _STAGE_K, _MAX_STAGES, _TILE = 40, 128, 32, 8, 64
+_POSE_BUF = (MAX_DIM // _TILE) * MAX_SEQ * _TILE * 4  # every pose tile's partials
+_POSE_SLOTS = 3 * 16 * 256 * 4  # three stages of every thread's pose fragment
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on an H100
 SM_SHARED = 233_472  # bytes of shared memory an SM gives its blocks
 # Clusters of N CTAs an H100 SXM (132 SMs) holds at once at the kernel's
@@ -224,33 +232,54 @@ H100_RESIDENT_CLUSTERS = {8: 15, 4: 30, 2: 66, 1: 132}
 class TransMLPGeometry(NamedTuple):
     cluster: int  # CTAs a sequence is spread over
     cols: int  # columns of the activation each CTA owns, D / cluster
-    k_slices: int  # K-slices of the channel mix's 9 x 8 register tiles
+    m_tiles: int  # 64-column tiles of wgmma's M a pass, one a warpgroup
+    stages: int  # stages of the weight ring, as many as the shared memory holds
     smem_bytes: int  # dynamic shared memory of one CTA
     ctas_per_sm: int  # as the shared memory allows
 
 
-def _smem_bytes(d: int, cluster: int) -> int:
-    """Mirror of ``Smem::bytes`` in the kernel."""
-    dp, dc, spad = d + 4, d // cluster, MAX_SEQ
-    params = spad * spad + spad + 5 * dc  # one layer's token mix, biases, affines
-    floats = (_RING_FLOATS + max(spad * dp, _THREADS * (_TILE[0] * _TILE[1] + 4)) + spad * dc
-              + 2 * params + dc + 2 * 8 * spad * 2 + 2 * spad)
-    return -(-_BARS * 8 // 128) * 128 + 4 * floats
+def _up(v: int, a: int) -> int:
+    return -(-v // a) * a
+
+
+def _layout(d: int, cluster: int) -> tuple:
+    """Mirror of ``Layout`` in the kernel: (M-tiles a pass, ring stages,
+    shared-memory bytes)."""
+    dc, spad = d // cluster, MAX_SEQ
+    m_tiles = 2 if dc > _TILE else 1
+    x_bytes = spad * dc * 4
+    prm_bytes = (spad * spad + spad + 6 * dc) * 4  # a layer's small parameters, two biases
+    partials = (cluster - 1) * spad * dc * 4  # the other CTAs' partial sums
+    recv = _up(max(partials, _POSE_BUF - x_bytes - prm_bytes), 16)
+    ring_at = _up(2 * -(-dc // 32) * _ROWS * _ROW_BYTES + recv + x_bytes + prm_bytes, 128)
+    used = (ring_at + dc * 4  # emb
+            + 2 * 8 * spad * 2 * 4 + 2 * spad * 4  # the statistics' exchange; mean, 1/std
+            + (_MAX_STAGES + 2) * 8 + _MAX_STAGES * 4 + 1024)  # mbarriers, counters, alignment
+    stage = _STAGE_K * (_TILE * m_tiles + 8) * 4
+    stages = min(_MAX_STAGES, max(0, SMEM_LIMIT - used) // stage)
+    return m_tiles, stages, used + stages * stage
 
 
 def cluster_sizes(d: int) -> list:
-    """The cluster sizes the kernel takes at width D, largest first: N in
-    {8, 4, 2, 1} with Dc = D/N a whole number of 16-byte loads and at most
-    128 columns (the shared memory)."""
+    """The cluster sizes the training backward's block kernel takes at width
+    D, largest first: N in {8, 4, 2, 1} with Dc = D/N a whole number of
+    16-byte loads and at most 128 columns (its shared memory)."""
     return [n for n in (8, 4, 2, 1) if d % (4 * n) == 0 and d // n <= _MAX_COLS]
 
 
-def _geometry(d: int, cluster: int, smem_bytes=_smem_bytes) -> TransMLPGeometry:
-    dc = d // cluster
-    per_slice = 4 * -(-dc // _TILE[1])  # 4 row groups x the column groups of a tile
-    smem = smem_bytes(d, cluster)
-    k_slices = min(_MAX_SLICES, _THREADS // per_slice)
-    return TransMLPGeometry(cluster, dc, k_slices, smem, SM_SHARED // (smem + 1024))
+def forward_cluster_sizes(d: int) -> list:
+    """The cluster sizes the forward kernel takes at width D, largest first:
+    N in {8, 4, 2, 1} with Dc = D/N a whole number of 16-byte loads, at
+    most 256 columns, and a layout that leaves the weight ring two stages
+    and the pose projection's slots (``Layout::ok`` in the kernel)."""
+    out = []
+    for n in (8, 4, 2, 1):
+        if d % (4 * n) or d // n > _MAX_SLICE:
+            continue
+        m_tiles, stages, _ = _layout(d, n)
+        if stages >= 2 and stages * _STAGE_K * (_TILE * m_tiles + 8) * 4 >= _POSE_SLOTS:
+            out.append(n)
+    return out
 
 
 def check_limits(b: int, s: int, d: int, f: Optional[int] = None) -> None:
@@ -267,31 +296,38 @@ def check_limits(b: int, s: int, d: int, f: Optional[int] = None) -> None:
         raise ValueError(f"fused_transmlp: F={f}; the kernel takes 1 <= F <= {MAX_DIM}")
 
 
-def transmlp_geometry(b: int, s: int, d: int,
-                      resident: Optional[Dict[int, int]] = None,
-                      smem_bytes=_smem_bytes) -> TransMLPGeometry:
-    """The kernel's launch geometry for B sequences of [S, D]; raises
-    ``ValueError`` on what the kernel does not take. ``resident`` maps a
-    cluster size to the clusters the card holds at once (default: an H100
-    SXM's, ``H100_RESIDENT_CLUSTERS``). ``smem_bytes(d, cluster)`` is the
-    kernel's shared memory (default: the forward's; the training backward
-    block kernel, which splits a sequence the same way, passes its own).
-
-    Of the sizes :func:`cluster_sizes` allows with Dc >= 64 (a K-slice of the
-    channel mix is then whole warps; below D = 64 one CTA takes the row),
-    it is the largest whose B clusters all run at once: the batch is spread
-    over the most SMs in one wave. A batch too large for one wave of any
-    takes the smallest, whose wide column slices pay the fewest cluster
-    barriers and LayerNorm exchanges per FLOP. At TED's and BEAT's D = 512
-    on an H100 SXM that is 8 CTAs up to 2B = 15 and 4 from 2B = 16, the
-    serving batch, on (``chip_smoke.py`` times 8 against 4)."""
-    check_limits(b, s, d)
+def pick_cluster(b: int, d: int, resident: Optional[Dict[int, int]] = None,
+                 sizes: Optional[list] = None) -> int:
+    """The cluster a stack kernel spreads a sequence over, for B sequences
+    at width D: of ``sizes`` (default :func:`forward_cluster_sizes`) with
+    Dc >= 64 (below D = 64 one CTA takes the row), the largest whose B
+    clusters all run at once, so the batch is spread over the most SMs in
+    one wave; a batch too large for one wave of any takes the smallest,
+    whose wide column slices pay the fewest cluster barriers and LayerNorm
+    exchanges per FLOP (each CTA pays them once a layer in every wave).
+    ``resident`` maps a cluster size to the clusters the card holds at once
+    (default: an H100 SXM's, ``H100_RESIDENT_CLUSTERS``). At TED's and
+    BEAT's D = 512 on an H100 SXM the forward takes 8 CTAs up to 2B = 15, 4
+    from 16 (the serving batch) to 30, and 2 from 31 on."""
     resident = H100_RESIDENT_CLUSTERS if resident is None else resident
-    sizes = [n for n in cluster_sizes(d) if d // n >= min(64, d)]
+    sizes = forward_cluster_sizes(d) if sizes is None else sizes
+    sizes = [n for n in sizes if d // n >= min(64, d)]
     for n in sizes:
         if b <= resident.get(n, 0):
-            return _geometry(d, n, smem_bytes)
-    return _geometry(d, sizes[-1], smem_bytes)
+            return n
+    return sizes[-1]
+
+
+def transmlp_geometry(b: int, s: int, d: int,
+                      resident: Optional[Dict[int, int]] = None) -> TransMLPGeometry:
+    """The kernel's launch geometry for B sequences of [S, D]; raises
+    ``ValueError`` on what the kernel does not take. The cluster is
+    :func:`pick_cluster`'s; the weight ring takes the shared memory the
+    rest leaves (:func:`_layout`)."""
+    check_limits(b, s, d)
+    n = pick_cluster(b, d, resident)
+    m_tiles, stages, smem = _layout(d, n)
+    return TransMLPGeometry(n, d // n, m_tiles, stages, smem, SM_SHARED // (smem + 1024))
 
 
 def _check(name: str, t: torch.Tensor, shape, device, who: str = "fused_transmlp",
@@ -334,7 +370,7 @@ def resident_clusters(d: int, device: torch.device) -> Dict[int, int]:
     if key not in _resident:
         query = _launcher()[1]
         with torch.cuda.device(device):
-            counts = {n: query(d, n) for n in cluster_sizes(d)}
+            counts = {n: query(d, n) for n in forward_cluster_sizes(d)}
         bad = {n: -v for n, v in counts.items() if v < 0}
         if bad:
             raise RuntimeError(f"fused_transmlp: cudaOccupancyMaxActiveClusters failed "

@@ -44,6 +44,7 @@ __all__ = [
     "fused_transmlp_train_forward",
     "fused_transmlp_train_backward",
     "fused_transmlp_train",
+    "BackwardGeometry",
     "backward_geometry",
     "backward_resident_clusters",
     "WgradGeometry",
@@ -212,14 +213,22 @@ def _bwd_smem_bytes(d: int, cluster: int) -> int:
     return _BWD_BAR_BYTES + 4 * floats
 
 
+class BackwardGeometry(NamedTuple):
+    cluster: int  # CTAs a sequence is spread over
+    cols: int  # columns each CTA owns, D / cluster
+    smem_bytes: int  # dynamic shared memory of one CTA
+
+
 def backward_geometry(b: int, s: int, d: int,
-                      resident: Optional[Dict[int, int]] = None) -> fused_mlp.TransMLPGeometry:
+                      resident: Optional[Dict[int, int]] = None) -> BackwardGeometry:
     """The backward block kernel's launch geometry for B sequences of
-    [S, D]: the forward's rule (``fused_mlp.transmlp_geometry``: the largest
+    [S, D]: the forward's rule (``fused_mlp.pick_cluster``: the largest
     cluster whose batch runs in one wave, else the widest column slices) on
-    the block kernel's own shared memory; raises ``ValueError`` on what the
-    kernel does not take."""
-    return fused_mlp.transmlp_geometry(b, s, d, resident, _bwd_smem_bytes)
+    the block kernel's resident counts and its own shared memory; raises
+    ``ValueError`` on what the kernel does not take."""
+    fused_mlp.check_limits(b, s, d)
+    n = fused_mlp.pick_cluster(b, d, resident, fused_mlp.cluster_sizes(d))
+    return BackwardGeometry(n, d // n, _bwd_smem_bytes(d, n))
 
 
 def _launcher(kernel: str):

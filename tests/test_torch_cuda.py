@@ -85,7 +85,7 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
         big = fused_mlp.pack_transmlp_params(_stack(cuda_device, 40, 64, 1))
         fused_mlp.fused_transmlp(torch.zeros(2, 40, 64, device=cuda_device), emb, big)
     x = torch.zeros(2, 35, 64, device=cuda_device)
-    # clusters the kernel refuses: not 1, 2, 4 or 8; D % 4N != 0; Dc > 128
+    # clusters the kernel refuses: not 1, 2, 4 or 8; D % 4N != 0; Dc > 256
     for cluster in (3, 16):
         with pytest.raises(RuntimeError, match="cudaError"):
             fused_mlp.launch_stack(x, emb, packed, 0, cluster=cluster)
@@ -93,7 +93,7 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(RuntimeError, match="cudaError"):  # 272 % 32 != 0
         fused_mlp.launch_stack(torch.zeros(2, 35, 272, device=cuda_device),
                                torch.zeros(2, 272, device=cuda_device), wide, 0, cluster=8)
-    with pytest.raises(RuntimeError, match="cudaError"):  # Dc = 272 > 128
+    with pytest.raises(RuntimeError, match="cudaError"):  # Dc = 272 > 256
         fused_mlp.launch_stack(torch.zeros(2, 35, 272, device=cuda_device),
                                torch.zeros(2, 272, device=cuda_device), wide, 0, cluster=1)
     assert fused_mlp.fused_transmlp_reference.calls == calls  # never the plain version
@@ -109,16 +109,26 @@ def _k1_case(device, b, seq, dim, layers, act="silu", fold=True, feats=27, seed=
     return packed, x, emb, fused_mlp.pack_out_proj(lin)
 
 
+# (2B, S, D, L, F, LN2 folded): ragged batches at two layers, LN2 folded at
+# odd batches; then the main paths' shapes, TED and BEAT at 2B in {16, 128,
+# 512} (clusters of four, then two), eight layers, LN2 folded and affine
+CLUSTER_BATCH_CASES = (
+    [pytest.param(b2, seq, dim, 2, 27, b2 % 2 == 1, id=f"{b2}-{seq}-{dim}")
+     for dim in (64, 128, 512) for seq in (10, 35, 36) for b2 in (1, 2, 3, 16, 17, 133, 512)]
+    + [pytest.param(b2, seq, 512, 8, feats, fold,
+                    id=f"{name}-L8-{'folded' if fold else 'affine'}-{b2}")
+       for name, seq, feats in (("ted", 35, 27), ("beat", 36, 282))
+       for fold in (True, False) for b2 in (16, 128, 512)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dim", [64, 128, 512])
-@pytest.mark.parametrize("seq", [10, 35, 36])
-@pytest.mark.parametrize("b2", [1, 2, 3, 16, 17, 133, 512])
-def test_kernel_cluster_batches(cuda_device, b2, seq, dim):
+@pytest.mark.parametrize("b2,seq,dim,layers,feats,fold", CLUSTER_BATCH_CASES)
+def test_kernel_cluster_batches(cuda_device, b2, seq, dim, layers, feats, fold):
     """Ragged batches, clusters that do not fill the grid, every geometry
-    transmlp_geometry picks at D in {64, 128, 512}; LN2 folded at odd
-    batches and affine at even ones; with and without the pose
-    projection. rel <= 1e-5 of max|plain|."""
-    packed, x, emb, op = _k1_case(cuda_device, b2, seq, dim, 2, fold=b2 % 2 == 1)
+    transmlp_geometry picks at D in {64, 128, 512}, and the main paths'
+    TED and BEAT shapes; with and without the pose projection. rel <= 1e-5
+    of max|plain|, one launch each."""
+    packed, x, emb, op = _k1_case(cuda_device, b2, seq, dim, layers, fold=fold, feats=feats)
     for proj in (None, op):
         launches = fused_mlp.fused_transmlp.launches
         out = fused_mlp.fused_transmlp(x, emb, packed, out_proj=proj)
@@ -130,18 +140,18 @@ def test_kernel_cluster_batches(cuda_device, b2, seq, dim):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim,cluster", [
-    (64, 8), (128, 8), (64, 2),                # Dc = 8, 16, 32: K-slices inside a warp
-    (512, 1), (512, 2), (512, 4), (512, 8),    # Dc = 512, 256 refused below; 128, 64
-    (48, 1), (208, 2),                         # Dc = 48, 104: K-slices with no rows
-    (400, 4), (272, 4),                        # Dc = 100, 68: ring rows padded to 8s
+    (64, 8), (128, 8), (64, 2),                # Dc = 8, 16, 32: one M-tile, mostly padding
+    (512, 1), (512, 2), (512, 4), (512, 8),    # Dc = 512 refused below; 256, 128, 64
+    (48, 1), (208, 2),                         # Dc = 48, 104: K-chunks past the slice
+    (400, 4), (272, 4),                        # Dc = 100, 68: M-tiles past the slice
 ])
 def test_kernel_every_cluster_size(cuda_device, dim, cluster):
     """The kernel at clusters the geometry does not pick, as launch_stack
     takes them: each result within rel 1e-5 of the plain version, or a
-    raise where the column slice exceeds the kernel's 128."""
+    raise where the column slice exceeds the kernel's 256."""
     packed, x, emb, op = _k1_case(cuda_device, 5, 35, dim, 2, fold=False, feats=282)
     for proj in (None, op):
-        if dim // cluster > 128:
+        if dim // cluster > 256:
             with pytest.raises(RuntimeError, match="cudaError"):
                 fused_mlp.launch_stack(x, emb, packed, 0, proj, cluster=cluster)
             continue
@@ -175,6 +185,38 @@ def test_kernel_repeat_gives_same_bits(cuda_device):
         b = fused_mlp.fused_transmlp(x, emb, packed, out_proj=proj)
         torch.cuda.synchronize()
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [16, 128, 512])
+def test_stash_forward_main_shapes(cuda_device, b):
+    """The training forward (the kernel with a stash) at the geometries the
+    main paths take: out and stash within rel 1e-5 of the plain version."""
+    packed, x, emb, _ = _train_case(cuda_device, 35, 512, 8, b)
+    out, stash = fused_mlp_train.fused_transmlp_train_forward(x, emb, packed)
+    ref, ref_stash = fused_mlp_train.fused_transmlp_train_forward_reference(x, emb, packed)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= 1e-5
+    assert _rel(stash, ref_stash) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b2,cluster", [(512, 2), (128, 4), (16, 8)])
+def test_kernel_repeat_gives_same_bits_every_cluster(cuda_device, b2, cluster):
+    """Each partial sum is added in rank order and each K-chunk in a fixed
+    order at every cluster size: repeated launches, with and without the
+    pose projection and with a stash, give the same bits."""
+    packed, x, emb, op = _k1_case(cuda_device, b2, 36, 512, 8, feats=282)
+    for proj in (None, op):
+        a = fused_mlp.launch_stack(x, emb, packed, 0, proj, cluster=cluster)
+        b = fused_mlp.launch_stack(x, emb, packed, 0, proj, cluster=cluster)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+    tp, tx, temb, _ = _train_case(cuda_device, 36, 512, 2, b2)
+    runs = [fused_mlp_train.fused_transmlp_train_forward(tx, temb, tp, cluster=cluster)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
 
 
 BF16_TOL = 2.0 ** -6  # bf16 kernel against its plain version, relative to max|plain|
@@ -366,8 +408,8 @@ def test_resident_clusters_from_the_card(cuda_device):
     """The wrapper asks the card how many clusters of each size it holds
     at once, and the geometry picks from those counts."""
     counts = fused_mlp.resident_clusters(512, cuda_device)
-    assert set(counts) == {8, 4} and all(n > 0 for n in counts.values())
-    assert counts[4] >= counts[8]
+    assert set(counts) == {8, 4, 2} and all(n > 0 for n in counts.values())
+    assert counts[2] >= counts[4] >= counts[8]
     geo = fused_mlp.transmlp_geometry(counts[8], 35, 512, counts)
     assert geo.cluster == 8
     assert fused_mlp.transmlp_geometry(counts[8] + 1, 35, 512, counts).cluster == 4
@@ -376,13 +418,19 @@ def test_resident_clusters_from_the_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim", [16, 48, 64, 128, 272, 400, 512])
 def test_geometry_shared_memory_matches_kernel(cuda_device, dim):
-    """transmlp_geometry's shared-memory size is the kernel's own."""
+    """The wrapper's mirror of the kernel's layout is the kernel's own: the
+    cluster sizes it allows are those the kernel takes (a shared-memory
+    size of 0 is a refusal), and at each of them transmlp_geometry's
+    shared-memory size is the kernel's."""
     lib = fused_mlp.load_library("fused_transmlp")
     fn = lib.fused_transmlp_smem_bytes
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
+    sizes = fused_mlp.forward_cluster_sizes(dim)
+    assert sizes == [n for n in (8, 4, 2, 1) if fn(dim, n) > 0]
+    for cluster in sizes:
+        assert fn(dim, cluster) == fused_mlp._layout(dim, cluster)[2] <= fused_mlp.SMEM_LIMIT
     geo = fused_mlp.transmlp_geometry(16, 35, dim)
     assert fn(dim, geo.cluster) == geo.smem_bytes
-    assert geo.smem_bytes <= fused_mlp.SMEM_LIMIT
 
 
 def _clear_of_kinks(packed, x, emb, act, margin=1e-6):

@@ -15,7 +15,8 @@ from jax.experimental.pallas import tpu as pltpu
 
 from livelyspeaker_tpu.models.mlp_backbone import TransMLP as JTransMLP
 from livelyspeaker_tpu.ops.pallas import fused_mlp as jfused
-from livelyspeaker_tpu_torch.models.mlp_backbone import TransMLP, sinusoidal_table
+from livelyspeaker_tpu_torch.models.initializers import random_normal_
+from livelyspeaker_tpu_torch.models.mlp_backbone import TransMLP, get_activation, sinusoidal_table
 from livelyspeaker_tpu_torch.ops import fused_mlp as tfused
 from livelyspeaker_tpu_torch.utils.convert import (
     jax_params_to_state_dict,
@@ -155,15 +156,17 @@ H100 = tfused.H100_RESIDENT_CLUSTERS
 @pytest.mark.parametrize("dim", list(range(16, 513, 16)))
 def test_geometry_column_slices(dim):
     """At every width the kernel takes, each batch size gets a cluster that
-    divides D into column slices of whole 16-byte loads, at most 128 wide,
-    in the shared memory one block may use."""
+    divides D into column slices of whole 16-byte loads, at most 256 wide,
+    in the shared memory one block may use, with a weight ring of two to
+    eight stages."""
     for b in (0, 1, 2, 15, 16, 17, 30, 31, 133, 512):
         geo = tfused.transmlp_geometry(b, 35, dim)
         assert geo.cluster in (1, 2, 4, 8)
         assert geo.cluster * geo.cols == dim
-        assert (geo.cols * 4) % 16 == 0 and geo.cols <= 128
-        assert geo.cluster in tfused.cluster_sizes(dim)
-        assert 1 <= geo.k_slices <= 8
+        assert (geo.cols * 4) % 16 == 0 and geo.cols <= 256
+        assert geo.cluster in tfused.forward_cluster_sizes(dim)
+        assert geo.m_tiles == (2 if geo.cols > 64 else 1)
+        assert 2 <= geo.stages <= 8
         assert geo.smem_bytes <= tfused.SMEM_LIMIT and geo.ctas_per_sm >= 1
 
 
@@ -171,10 +174,10 @@ def test_geometry_column_slices(dim):
     (16, 35, 512, None, 4),     # the serving call: 16 clusters of 8 do not fit at once
     (15, 35, 512, None, 8),     # 15 do: the batch on 120 SMs
     (2, 35, 512, None, 8),
-    (512, 35, 512, None, 4),    # DDPM-1000 at batch 256: many waves, the widest slices
-    (64, 36, 512, None, 4),
+    (512, 35, 512, None, 2),    # DDPM-1000 at batch 256: many waves, the widest slices
+    (64, 36, 512, None, 2),     # 64 clusters of 2 fit at once, of 4 not
     (16, 35, 512, {8: 16, 4: 33}, 8),  # a card that holds 16 clusters of 8
-    (16, 35, 512, {8: 0, 4: 0}, 4),    # none at once: the widest slices
+    (16, 35, 512, {8: 0, 4: 0}, 2),    # none at once: the widest slices
     (3, 10, 64, None, 1),       # below 2 x 64 columns one CTA takes the row
     (8, 35, 128, None, 2),
     (16, 35, 272, None, 4),     # 272 / 8 is not whole loads: 4 CTAs of 68
@@ -188,12 +191,13 @@ def test_geometry_choices(b, s, d, resident, cluster):
 def test_geometry_at_the_serving_and_ddpm_shapes():
     """The choices the H100 gets at TED's and BEAT's D = 512."""
     serve = tfused.transmlp_geometry(16, 35, 512)
-    assert (serve.cluster, serve.cols, serve.k_slices) == (4, 128, 4)
+    assert (serve.cluster, serve.cols, serve.m_tiles, serve.stages) == (4, 128, 2, 5)
     ddpm = tfused.transmlp_geometry(512, 35, 512)
-    assert (ddpm.cluster, ddpm.cols, ddpm.k_slices) == (4, 128, 4)
+    assert (ddpm.cluster, ddpm.cols, ddpm.m_tiles, ddpm.stages) == (2, 256, 2, 3)
     small = tfused.transmlp_geometry(2, 36, 512)
-    assert (small.cluster, small.cols, small.k_slices) == (8, 64, 8)
+    assert (small.cluster, small.cols, small.m_tiles, small.stages) == (8, 64, 1, 8)
     assert H100[8] < 16 <= H100[4]  # why 2B = 16 takes clusters of 4
+    assert H100[4] < 31 <= H100[2]  # and 2B = 31 clusters of 2
 
 
 @pytest.mark.parametrize("b,s,d,match", [
@@ -210,10 +214,17 @@ def test_geometry_refuses_what_the_kernel_refuses(b, s, d, match):
 
 
 def test_cluster_sizes_are_the_kernels():
+    """The training backward's block kernel takes column slices of at most
+    128, the forward of at most 256 (one sequence's K split over the
+    cluster)."""
     assert tfused.cluster_sizes(512) == [8, 4]
     assert tfused.cluster_sizes(272) == [4]
     assert tfused.cluster_sizes(64) == [8, 4, 2, 1]
     assert tfused.cluster_sizes(48) == [4, 2, 1]
+    assert tfused.forward_cluster_sizes(512) == [8, 4, 2]
+    assert tfused.forward_cluster_sizes(272) == [4, 2]
+    assert tfused.forward_cluster_sizes(64) == [8, 4, 2, 1]
+    assert tfused.forward_cluster_sizes(48) == [4, 2, 1]
 
 
 def _sliced_ln_core(x, cluster, eps=1e-5):
@@ -252,3 +263,69 @@ def test_sliced_ln_statistics_match_two_pass(cluster, rows):
     mean = x.mean(-1, keepdim=True)
     naive = (x - mean) * torch.rsqrt((x * x).mean(-1, keepdim=True) - mean * mean + 1e-5)
     assert ((naive.double() - ref).abs().max() / ref.abs().max()).item() > 1e-3
+
+
+# --- the kernel's arithmetic (csrc/fused_transmlp.cu), emulated on the CPU
+
+def _tf32(x):
+    """x rounded to TF32 as csrc/tf32_mma.cuh's to_tf32 rounds it: half a
+    TF32 ulp added to the bits, the low 13 bits cleared (to nearest, ties
+    away from zero)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _emulated_product(h, w, terms):
+    """h @ w as the kernel's wgmma take it: with three terms each operand is
+    split, x = hi + lo, hi = tf32(x), lo = tf32(x - hi), and each K-chunk of
+    32 sums lo.hi, hi.lo and hi.hi (lo.lo left out) in f32, added into the
+    running f32 sum as hi.hi + (lo.hi + hi.lo); with one, each chunk of
+    tf32(h) @ tf32(w) is added."""
+    hh, wh = _tf32(h), _tf32(w)
+    hl, wl = _tf32(h - hh), _tf32(w - wh)
+    run = torch.zeros(*h.shape[:-1], w.shape[1])
+    for k0 in range(0, h.shape[-1], 32):
+        k = slice(k0, k0 + 32)
+        chunk = hh[..., k] @ wh[k]
+        if terms == 3:
+            chunk = chunk + (hh[..., k] @ wl[k] + hl[..., k] @ wh[k])
+        run = run + chunk
+    return run
+
+
+def _emulated_stack(x, emb, packed, out_proj, terms):
+    """fused_transmlp_reference with the channel mix and the pose
+    projection taken as :func:`_emulated_product`."""
+    act = get_activation("silu")
+    emb = emb[:, None]
+    for l in range(packed["token_w"].shape[0]):
+        x = x + emb
+        h = tfused._ln_core(x) * packed["ln1_scale"][l] + packed["ln1_bias"][l]
+        h = torch.einsum("ij,bjd->bid", packed["token_w"][l], h)
+        x = x + act(h + packed["token_b"][l][None, :, None])
+        h = tfused._ln_core(x)
+        x = x + act(_emulated_product(h, packed["ch_w"][l], terms) + packed["ch_b"][l])
+    return _emulated_product(x, out_proj["out_w"], terms) + out_proj["out_b"]
+
+
+@pytest.mark.parametrize("seq,feats", [pytest.param(35, 27, id="ted"),
+                                       pytest.param(36, 282, id="beat")])
+def test_3xtf32_products_hold_f32_and_one_pass_does_not(seq, feats):
+    """The kernel's 3xTF32 channel mix and pose projection, emulated on
+    seeded TED and BEAT stacks (D = 512, 8 blocks, LN2 folded; the order of
+    the tensor cores' sums inside a K-chunk is the emulation's), stay within
+    rel 1e-5 of max|plain f32|, the kernel's tolerance on the card; one pass
+    of TF32 does not, so the comparison tells the two apart."""
+    g = torch.Generator().manual_seed(11)
+    with torch.no_grad():
+        tm = random_normal_(TransMLP(seq, 8, 512, "silu"), g)
+        packed = tfused.pack_transmlp_params(tm, fold_ln2=True)
+        lin = random_normal_(torch.nn.Linear(512, feats), g)
+        op = tfused.pack_out_proj(lin)
+        x = torch.randn(2, seq, 512, generator=g)
+        emb = torch.randn(2, 512, generator=g)
+        ref = tfused.fused_transmlp_reference(x, emb, packed, out_proj=op)
+        rel = lambda out: ((out - ref).abs().max() / ref.abs().max()).item()
+        three = rel(_emulated_stack(x, emb, packed, op, terms=3))
+        one = rel(_emulated_stack(x, emb, packed, op, terms=1))
+    assert three <= 1e-5, three
+    assert one > 1e-5, one
