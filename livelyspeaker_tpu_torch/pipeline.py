@@ -5,8 +5,9 @@ Port of ``RAGSampler`` and ``LivelySpeakerPipeline`` from
 speaker-conditioned gesture sampling with classifier-free guidance; the
 weights live in the model and :meth:`RAGSampler.update_params` swaps them.
 ``LivelySpeakerPipeline`` is the two-stage composition: the SAG decodes a
-motion sketch from a CLIP text embedding, and the RAG refines it, q-sampled
-to step T - ``skip_timesteps`` of the respaced chain, under CFG.
+motion sketch from a text feature (CLIP's text tower, or a language model's,
+``models/moe_text.py``), and the RAG refines it, q-sampled to step T -
+``skip_timesteps`` of the respaced chain, under CFG.
 :func:`generate_long_form` and :func:`generate_long_form_stream` chain
 windows over audio of any length through either.
 
@@ -29,6 +30,7 @@ from .diffusion.schedule import DiffusionSchedule
 from .models.cfg import make_cfg_denoiser, make_guidance_schedule
 from .models.clip_text import CLIPTextEncoder
 from .models.fast_rag import make_fused_cfg_denoiser
+from .models.moe_text import MoETextEncoder
 from .models.rag import RAG
 from .models.sag import SAG
 from .parallel.mesh import check_divisible, replicate_module, shard_params, sync_replicas
@@ -197,12 +199,16 @@ class LivelySpeakerPipeline:
     the modules; both stages run in ``eval()`` under ``torch.no_grad()``.
     ``use_fused=True`` runs each refinement step through the fused TransMLP
     kernel. ``tokenizer`` maps a list of sentences to int ids [B, 77]
-    (``data.clip_tokenizer``). ``mesh`` splits the batch over its shards
+    (``data.clip_tokenizer``). ``clip_text`` may instead be a language
+    model's tower (:class:`models.moe_text.MoETextEncoder`); ``tokenizer``
+    then maps the sentences to (ids padded to the batch's longest [B, L],
+    lengths [B]), on the host. ``mesh`` splits the batch over its shards
     for every stage: the CLIP encode and the SAG decode on each shard's
     whole replicas (on its row's first device, as the JAX class keeps them
     replicated), and the refinement through the sharded
     :class:`RAGSampler`, tensor-parallel on a model axis above 1 (``device``
-    must then be None)."""
+    must then be None). A language model's tower is too large to
+    replicate: with a mesh it is refused."""
 
     def __init__(
         self,
@@ -223,6 +229,10 @@ class LivelySpeakerPipeline:
         if mesh is not None:
             if device is not None:
                 raise ValueError("LivelySpeakerPipeline takes a mesh or a device, not both")
+            if isinstance(clip_text, MoETextEncoder):
+                raise ValueError("a sharded sketch holds the text tower on every shard, and a "
+                                 "language model's tower is not replicated: run "
+                                 "MoETextEncoder's composition without a mesh")
             device = mesh.devices[0]
         self.device = place_model(sag, device, "LivelySpeakerPipeline")
         self.mesh = mesh
@@ -237,6 +247,7 @@ class LivelySpeakerPipeline:
             mesh=mesh,
         )
         self.sag = sag.eval()
+        self.lm = isinstance(clip_text, MoETextEncoder)
         self.clip_text = clip_text.to(self.device).eval()
         self.tokenizer = tokenizer
         self.skip_timesteps = skip_timesteps
@@ -249,12 +260,17 @@ class LivelySpeakerPipeline:
     @torch.no_grad()
     def semantic_sketch(self, sentences: Sequence[str],
                         seed_motion: torch.Tensor) -> torch.Tensor:
-        """The SAG decode of the CLIP text features of ``sentences``, seeded
-        by the first frames of ``seed_motion`` [B, J, F, T]."""
-        with annotate("compose.clip"):
-            tokens = torch.from_numpy(self.tokenizer(list(sentences)))
-            if self.mesh is None:
-                z = self.clip_text(tokens.to(self.device))
+        """The SAG decode of the text features of ``sentences``, seeded by
+        the first frames of ``seed_motion`` [B, J, F, T]."""
+        if self.lm:
+            with annotate("compose.lm"):
+                ids, lengths = self.tokenizer(list(sentences))
+                z = self.clip_text(torch.as_tensor(ids), lengths)
+        else:
+            with annotate("compose.clip"):
+                tokens = torch.from_numpy(self.tokenizer(list(sentences)))
+                if self.mesh is None:
+                    z = self.clip_text(tokens.to(self.device))
         seed = seed_motion.to(self.device, torch.float32)
         if self.mesh is not None:
             return self._sharded_sketch(tokens, seed)

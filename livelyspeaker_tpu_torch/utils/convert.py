@@ -37,7 +37,9 @@ The released PyTorch checkpoints map onto the port's modules by name alone
 (the layouts are torch's on both sides, but for the RAG's token mix and
 LayerNorm vectors): :func:`rag_state_dict_from_reference` for the RAG,
 :func:`sag_state_dict_from_reference` for the SAG (MotionCLIP),
-:func:`clip_text_state_dict_from_openai` for OpenAI CLIP's text tower and
+:func:`clip_text_state_dict_from_openai` for OpenAI CLIP's text tower,
+:func:`moe_text_state_dict_from_hf` for a DeepSeek-V3 checkpoint such as
+Moonlight-16B-A3B's (the experts stacked, the output head dropped) and
 :func:`pose_embedding_state_dict_from_torch` for the FGD evaluator's pose
 encoder. The JAX package's evaluator parameters carry over through
 :func:`jax_params_to_state_dict`, like every other tree.
@@ -55,7 +57,7 @@ from torch import nn
 __all__ = ["jax_params_to_state_dict", "state_dict_to_jax_params", "random_normal_params",
            "jax_leaf_layout",
            "rag_state_dict_from_reference", "sag_state_dict_from_reference",
-           "clip_text_state_dict_from_openai",
+           "clip_text_state_dict_from_openai", "moe_text_state_dict_from_hf",
            "pose_embedding_state_dict_from_torch", "flax_variables_to_state_dict",
            "state_dict_to_flax_variables", "flatten_tree"]
 
@@ -346,6 +348,35 @@ def clip_text_state_dict_from_openai(sd: Mapping, layers: int = 12) -> Dict[str,
                        ("mlp_c_fc", "mlp.c_fc"), ("mlp_c_proj", "mlp.c_proj")):
             names.update(_with_leaves(f"{ours}.{m}", f"{theirs}.{ref}", _WB))
     return _renamed(sd, names)
+
+
+_HF_EXPERT = re.compile(r"layers\.(\d+)\.mlp\.experts\.(\d+)\.(gate|up|down)_proj\.weight$")
+
+
+def moe_text_state_dict_from_hf(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``models.moe_text.MoETextEncoder`` state_dict, but for its
+    adapter (the port's own), from a DeepSeek-V3 checkpoint's
+    (``model.layers.{i}.self_attn.q_proj.weight``, ...): the ``model.``
+    prefix dropped, each layer's experts ``mlp.experts.{e}.{gate,up,down}
+    _proj.weight`` stacked in order into ``mlp.experts.{gate,up,down}_proj``
+    [E, ...], ``lm_head`` left out."""
+    out: Dict[str, torch.Tensor] = {}
+    experts: Dict[str, Dict[int, torch.Tensor]] = {}
+    for name, value in sd.items():
+        if name.startswith("lm_head."):
+            continue
+        name = name[len("model."):] if name.startswith("model.") else name
+        m = _HF_EXPERT.match(name)
+        if m:
+            key = f"layers.{m[1]}.mlp.experts.{m[3]}_proj"
+            experts.setdefault(key, {})[int(m[2])] = value
+        else:
+            out[name] = _f32(value)
+    for key, by_index in experts.items():
+        if sorted(by_index) != list(range(len(by_index))):
+            raise ValueError(f"{key}: experts {sorted(by_index)} are not 0..{len(by_index) - 1}")
+        out[key] = torch.stack([_f32(by_index[e]) for e in range(len(by_index))])
+    return out
 
 
 def pose_embedding_state_dict_from_torch(sd: Mapping, prefix: str = "pose_encoder."

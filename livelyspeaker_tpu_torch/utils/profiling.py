@@ -8,24 +8,36 @@ of that timeline, on the clock of the kernels and copies it launches.
 
 The port's hot path carries a fixed set of spans: ``rag.sample``,
 ``rag.prepare`` and ``rag.step`` (``pipeline.py``,
-``diffusion/sampling.py``), ``compose.clip`` and ``compose.sag``
-(``pipeline.py``), ``train.loader`` (``data/loader.py``), ``train.grads``,
-``train.sync`` and ``train.apply`` (``training/trainer.py``). With no
-profiler running a span tests one flag: 1.2-1.6 us an enter and exit on an
-H100 machine's host, against 8.6-10.6 us for a bare ``record_function``.
+``diffusion/sampling.py``), ``compose.clip``, ``compose.lm`` and
+``compose.sag`` (``pipeline.py``), ``lm.attn``, ``lm.route`` and ``lm.ffn``
+in every layer of the MoE text tower (``models/moe_text.py``),
+``train.loader`` (``data/loader.py``), ``train.grads``, ``train.sync`` and
+``train.apply`` (``training/trainer.py``). With no profiler running a span
+tests one flag: 1.2-1.6 us an enter and exit on an H100 machine's host,
+against 8.6-10.6 us for a bare ``record_function``.
+
+``counters()`` copies the counters of the objects registered with
+:func:`register_counters` to the host: the MoE text tower's routed token
+count by layer and expert (``moe_text``), which the tower adds on the
+device at every call. Reading them is a synchronise; keeping them is not.
 """
 
 from __future__ import annotations
 
 import os
+import weakref
 from contextlib import contextmanager
+from typing import Dict
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["device_trace", "annotate", "TRACE_FILE"]
+__all__ = ["device_trace", "annotate", "TRACE_FILE", "counters", "register_counters"]
 
 TRACE_FILE = "trace.json"
+
+# name -> the live object whose ``counters()`` is read under that name
+_SOURCES: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
 
 
 @contextmanager
@@ -55,3 +67,14 @@ def annotate(name: str):
         return
     with torch.profiler.record_function(name):
         yield
+
+
+def register_counters(name: str, source) -> None:
+    """Read ``source.counters()`` under ``name`` in :func:`counters` while
+    ``source`` lives; a later source of the same name takes its place."""
+    _SOURCES[name] = source
+
+
+def counters() -> Dict[str, Dict]:
+    """The registered counters, by name, copied to the host."""
+    return {name: src.counters() for name, src in list(_SOURCES.items())}
