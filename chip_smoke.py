@@ -63,7 +63,18 @@ the fused WavEncoder stack (K3). Checks:
    the ms to the first NDJSON line and clips/s; then a PLMS batcher (K1 21
    times a batch), and PLMS, inpainting (the held frames equal to the
    constraint) and generate_long_form, fused against eager within rel
-   1e-4;
+   1e-4; then the grouped SwiGLU (``grouped_swiglu_phase``,
+   csrc/grouped_swiglu.cu) at the Moonlight tower's shapes: a routed layer
+   of 41,400 rows over 64 experts of width 1,408 (skew 1.7, an empty and a
+   one-row expert), the shared group (6,900 rows, 2,816) and the dense group
+   (6,900, 11,264) at hidden 2,048, each within rel 2e-5 of its plain
+   version with a second call's bits equal, and the time of the kernels,
+   the plain version and the per-expert cuBLAS loop, in turns, beside the
+   bound at three TF32 passes; then one call of the whole tower at its
+   widths (``tower_phase``, 62.5 GB of seeded weights, 64 sentences) with
+   the kernels' launches counted from 0: 106 (two for the dense layer, two
+   for each of 26 routed layers' experts and shared experts), and its
+   ``ffn_tile_rows`` against its ``expert_load``;
 7. the training kernels (the cluster kernel with a stash as the forward; per
    layer of the backward a cluster block kernel, a 3xTF32 tensor-core
    weight-gradient kernel and a reduce kernel) against their plain versions
@@ -282,6 +293,8 @@ BF16_TOL = 2.0 ** -6  # bf16 kernel vs plain, of max|plain|: a few bf16 ulps of 
 BF16_F32_TOL = 0.05  # either bf16 stack vs the f32 kernel, of max|f32| (the JAX test's 0.05)
 BF16_PATH_STEPS = 20  # the bf16 path: calls of the stack, one a solver step
 WAV_SOURCE = "livelyspeaker_tpu_torch/csrc/fused_wav.cu"
+GROUPED_SOURCE = "livelyspeaker_tpu_torch/csrc/grouped_swiglu.cu"
+GROUPED_TOL = 2e-5  # 3xTF32 against cuBLAS f32: sums of 2,048 then 1,408-11,264 products
 WAV_REPLACES = "livelyspeaker_tpu/ops/pallas/fused_wav.py:468"
 ZERO_GRAD = tuple(f"audio_encoder.conv{i}.bias" for i in range(3))
 
@@ -309,7 +322,8 @@ def device_phase():
 def build_phase():
     from livelyspeaker_tpu_torch.ops._build import build_log, load_libraries
 
-    names = ("fused_transmlp", "fused_transmlp_train", "fused_wav", "fused_transmlp_bf16")
+    names = ("fused_transmlp", "fused_transmlp_train", "fused_wav", "fused_transmlp_bf16",
+             "grouped_swiglu")
     t0 = time.perf_counter()
     load_libraries(names)  # one nvcc per source, started together
     secs = time.perf_counter() - t0
@@ -449,6 +463,157 @@ def kernel_phase(card):
                       + ", ".join(f"{n} CTAs {t:.4f} ms" for n, t in times.items())
                       + f"; transmlp_geometry picks {geo.cluster} ({card})")
     return worst_abs, main
+
+
+def skewed_counts(total, groups, skew, seed, first=()):
+    """Rows a group, ``total`` in all: the first groups' counts ``first``,
+    then the other groups' share of the rest, the busiest ``skew`` times
+    their mean (shares spread evenly from 2 - skew to skew), in a seeded
+    order, the last of them taking the rounding. Every count is at least
+    0. The grouped SwiGLU's routed cases here and in
+    ``tests/test_torch_cuda.py``."""
+    rest = total - sum(first)
+    share = torch.linspace(2.0 - skew, skew, groups - len(first))
+    counts = (share / share.sum() * rest).long()
+    counts = counts[torch.randperm(counts.numel(), generator=torch.Generator().manual_seed(seed))]
+    counts[-1] += rest - counts.sum()
+    return torch.cat([torch.tensor(first, dtype=torch.long), counts])
+
+
+def grouped_swiglu_phase(card, tokens=6_900, pairs=41_400, experts=64, hidden=2048,
+                         width=1408, shared=2816, dense=11264):
+    """The grouped SwiGLU (csrc/grouped_swiglu.cu) at the Moonlight cell's
+    shapes: a routed layer (``pairs`` rows over ``experts`` groups, the
+    busiest 1.7 times the mean, an empty and a one-row expert among them),
+    the shared group and the dense group (``tokens`` rows). Each against
+    its plain version (rel <= GROUPED_TOL), a second call's bits, the time
+    of the kernels (gate-up and down, two launches), the plain version and
+    the library yardstick (the per-expert cuBLAS loop the tower ran before:
+    the sizes read back, three F.linear an expert; for one group the plain
+    version's three products), in turns; the bound: the products as three
+    TF32 passes at the TF32 peak, or the rows, weights and output once at
+    3.35 TB/s."""
+    import torch.nn.functional as F
+
+    from livelyspeaker_tpu_torch.ops import grouped_swiglu as gs
+    from livelyspeaker_tpu_torch.ops._build import build_log
+
+    for line in build_log("grouped_swiglu").splitlines():
+        if "serialized" in line or "Potential Performance Loss" in line:
+            print(f"[grouped] ptxas: {line.strip()}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    counts = skewed_counts(pairs, experts, 1.7, seed=32, first=(0, 1))
+    out, worst = {}, 0.0
+    for name, n, cnt in (("routed", width, counts), ("shared", shared, None),
+                         ("dense", dense, None)):
+        rows = pairs if cnt is not None else tokens
+        groups = experts if cnt is not None else 1
+        x = torch.randn(rows, hidden, device=dev, generator=g)
+        wg = torch.randn(groups, n, hidden, device=dev, generator=g) * hidden ** -0.5
+        wu = torch.randn(groups, n, hidden, device=dev, generator=g) * hidden ** -0.5
+        wd = torch.randn(groups, hidden, n, device=dev, generator=g) * n ** -0.5
+        kw = {}
+        if cnt is not None:
+            kw["offsets"] = F.pad(cnt.to(dev).cumsum(0), (1, 0))
+            kw["dest"] = torch.randperm(rows, device=dev, generator=g)
+            kw["scale"] = torch.rand(rows, device=dev, generator=g) + 0.5
+        got = gs.grouped_swiglu(x, wg, wu, wd, **kw)
+        again = gs.grouped_swiglu(x, wg, wu, wd, **kw)
+        ref = gs.grouped_swiglu_reference(x, wg, wu, wd, **kw)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        check(np.isfinite(rel) and rel <= GROUPED_TOL,
+              f"grouped_swiglu disagrees with its plain version ({name}): rel {rel:.3e}")
+        check(torch.equal(got, again), f"grouped_swiglu: a second call's bits differ ({name})")
+        worst = max(worst, err)
+        del again, ref
+
+        def library():  # the per-expert loop: sizes on the host, cuBLAS an expert
+            sizes = cnt.tolist() if cnt is not None else [rows]
+            y = torch.cat([F.linear(F.silu(F.linear(r, wg[e])) * F.linear(r, wu[e]), wd[e])
+                           for e, r in enumerate(x.split(sizes)) if r.shape[0]])
+            if cnt is not None:
+                dest = kw["dest"]
+                y = torch.empty_like(y).index_copy_(0, dest, y * kw["scale"][dest, None])
+            return y
+
+        iters = 5 if name != "dense" else 3
+        times = time_turns({"kernel": lambda: gs.grouped_swiglu(x, wg, wu, wd, **kw),
+                            "plain": lambda: gs.grouped_swiglu_reference(x, wg, wu, wd, **kw),
+                            "library": library}, iters)
+        flop = 2.0 * rows * 3 * hidden * n
+        nbytes = 4.0 * (2 * x.numel() + wg.numel() + wu.numel() + wd.numel())
+        bound_ms, bound_by = bound(3 * flop, nbytes, PEAK_TF32)
+        ms = times["kernel"]
+        print(f"[grouped] {name}: {rows} rows, {groups} group(s), K={hidden}, N={n}: max_abs "
+              f"{err:.3e} max_rel {rel:.3e}; kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s "
+              f"of f32 work), plain {times['plain']:.4f} ms, library {times['library']:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({3 * flop / 1e12:.3f} TFLOP of TF32 passes, {bound_by}) "
+              f"share {bound_ms / ms:.1%}; rows computed "
+              f"{int(gs.padded_rows(cnt)) if cnt is not None else rows} ({card})")
+        out[name] = {"ms": ms, "plain_ms": times["plain"], "library_ms": times["library"],
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+        del x, wg, wu, wd, got, kw
+        torch.cuda.empty_cache()
+    return worst, out
+
+
+def tower_phase(card, sentences=64, seed=41):
+    """One call of the language-model text tower (``models/moe_text.py``,
+    Moonlight-16B-A3B's widths and 27 layers, 62.5 GB of seeded f32
+    weights) on ``sentences`` sentences of 32-256 seeded ids, log-uniform
+    as the Moonlight cell's, after a first call. The grouped SwiGLU's
+    ``launches`` is set to 0 before the second call and read after it: two
+    for the dense layer and two for each routed layer's experts and its
+    shared experts, none on cuBLAS. ``ffn_tile_rows`` must gain each
+    expert's pairs rounded up to whole row tiles."""
+    from livelyspeaker_tpu_torch.models import MoETextEncoder
+    from livelyspeaker_tpu_torch.ops import grouped_swiglu as gs
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    with torch.device("meta"):
+        tower = MoETextEncoder()
+    tower.to_empty(device=dev).eval()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for name, w in tower.named_parameters():  # fan-in scaled, as benchmark/weights_lm.py
+            if w.dim() > 1:
+                w.normal_(0.0, w.shape[-1] ** -0.5, generator=g)
+            else:
+                w.normal_(0.0, 0.02, generator=g).add_(0.0 if "bias" in name else 1.0)
+    rng = np.random.default_rng(seed)
+    lengths = np.exp(rng.uniform(np.log(32), np.log(257), sentences)).astype(int).tolist()
+    ids = torch.randint(0, tower.cfg.vocab_size, (sentences, max(lengths)),
+                        generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        tower(ids, lengths)  # RoPE's table, the counters
+        torch.cuda.synchronize()
+        load0, rows0 = tower.load.clone(), tower.tile_rows.clone()
+        gs.grouped_swiglu.launches = 0
+        t0 = time.perf_counter()
+        z = tower(ids, lengths)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    launches, want = gs.grouped_swiglu.launches, 2 * (1 + 2 * tower.cfg.n_moe_layers)
+    check(launches == want, f"tower: {launches} grouped SwiGLU launches a call, expected {want}")
+    check(bool(torch.isfinite(z).all()), "tower: features not finite")
+    load, rows = tower.load - load0, tower.tile_rows - rows0
+    padded = [int(gs.padded_rows(layer)) for layer in load]
+    check(rows.tolist() == padded, f"tower: ffn_tile_rows {rows.tolist()} is not each "
+                                   f"expert's pairs in whole row tiles {padded}")
+    pad = 100.0 * (1.0 - float(load.sum()) / float(rows.sum()))
+    skew = float((load.max(1).values * load.shape[1] / load.sum(1)).max())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[tower] one call of the Moonlight tower, {sum(lengths)} real tokens in "
+          f"{sentences} sentences: {launches} grouped SwiGLU launches (2 x (1 dense + 2 x "
+          f"{tower.cfg.n_moe_layers} routed layers)); {ms:.1f} ms; padding of the routed rows "
+          f"{pad:.2f}%; worst layer's skew {skew:.2f}; peak {peak:.1f} GB ({card})")
+    del tower, z
+    torch.cuda.empty_cache()
+    return {"launches": launches, "tokens": sum(lengths), "ms": ms, "pad_pct": pad}
 
 
 def bf16_kernel_phase(card):
@@ -4443,6 +4608,8 @@ def main():
     beat_phase()
     launches += composition_phase(card, args.profile)
     launches += front_end_phase(card)
+    grouped_worst, grouped = grouped_swiglu_phase(card)
+    tower = tower_phase(card)
     train_worst, train_times = train_kernel_phase(card)
     train_launches, _, model, loop, train_stats = train_phase(card)
     dp_k1, dp_k2 = data_parallel_phase(card)
@@ -4475,7 +4642,9 @@ def main():
         wgrad_library_probe(card, args.profile)
         profile_phase(model, loop, args.profile, card)
         profile_phase(wav_model, wav_loop, args.profile, card, name="train_step_k3")
-    # library_ms: one torch.matmul computes the K2 weight-gradient kernel's
+    # library_ms: the grouped SwiGLU's is the per-expert cuBLAS loop the
+    # tower ran before it (three F.linear an expert); one torch.matmul
+    # computes the K2 weight-gradient kernel's
     # product, one torch.sum each reduce kernel's sums, and torch.var_mean
     # (then an rsqrt of B*C values) K3's statistics kernel's; no single
     # PyTorch call computes any other of these functions (8-block mixer
@@ -4495,6 +4664,12 @@ def main():
         "replaces": BF16_REPLACES, "launches": bf16_launches,
         "max_abs_err": bf16_worst, **bf16, "library_ms": None,
     }]
+    kernels.append({
+        "name": "grouped_swiglu", "route": "cuda", "source": GROUPED_SOURCE,
+        "replaces": None, "launches": tower["launches"],
+        "launches_of": "one Moonlight tower call", "tower": tower,
+        "max_abs_err": grouped_worst, **grouped["routed"], "by_group": grouped,
+    })
     for k in ("fwd", "bwd_block", "wgrad", "reduce"):
         kernels.append({
             "name": f"fused_transmlp_train_{k}", "route": "cuda",

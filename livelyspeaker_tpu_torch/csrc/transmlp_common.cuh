@@ -5,9 +5,10 @@
 // r owning the columns [r * D/N, (r + 1) * D/N). What is here:
 // - the limits (S <= kSPad = 36, D <= kMaxN = 512), the activations and
 //   their derivatives;
-// - the 2-D TMA copy (shared-memory addresses, cp.async, the mbarriers,
-//   the 1-D bulk copy and the TF32 helpers are in tf32_mma.cuh), and the
-//   encoders of a 2-D tensor map over a row-major weight matrix, f32 and,
+// - the encoders of a 2-D tensor map over a row-major weight matrix
+//   (shared-memory addresses, cp.async, the mbarriers, the 1-D bulk copy
+//   and the TF32 helpers are in tf32_mma.cuh; the encoder itself and the
+//   2-D TMA copy in tma.cuh), f32 and,
 //   for the bf16 stack (fused_transmlp_bf16.cu, which also takes the limits,
 //   the activations and the cluster helpers from here), bf16 in wgmma's
 //   128-byte swizzle;
@@ -33,6 +34,7 @@
 #include <stdint.h>
 
 #include "cluster.cuh"  // the cluster barrier halves, cluster_launch_config
+#include "tma.cuh"      // the tensor-map encoder, the 2-D TMA copy
 #include "tf32_mma.cuh"  // smem_addr, cp.async, the 3xTF32 mma.sync
 
 namespace {
@@ -91,19 +93,6 @@ __device__ __forceinline__ float dactivate(float v, int act) {
 __host__ __device__ inline int ring_stride(int dc) {
   return (dc + kTileCols - 1) / kTileCols * kTileCols;
 }
-
-// A TMA copy of the box of `map` at (column x0, row y0) into this CTA's
-// shared memory (128-byte aligned), completing on `bar`.
-__device__ __forceinline__ void tma_load_2d(float* dst, const CUtensorMap* map, int x0, int y0,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];"
-      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
-        "r"(x0), "r"(y0)
-      : "memory");
-}
-
 
 // A product [kSPad, K] x [K, ncols] over the CTA's threads, ncols a multiple
 // of 8, at most kMaxCols. Thread p of a K-slice's 4 * ncols / 8 owns rows
@@ -315,20 +304,6 @@ __device__ __forceinline__ void cluster_row_stats(const float* src, int S, int N
 
 // the 16-byte copies read these at 16-byte offsets (null: unused)
 inline bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
-
-// cuTensorMapEncodeTiled, reached through the runtime (nothing links libcuda)
-inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* sym = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(sym);
-  }
-  return fn;
-}
 
 // A row-major f32 [rows, D] weight matrix as the 2-D map a ring's TMA
 // copies read, in boxes of [box_rows, ring_stride(dc)].

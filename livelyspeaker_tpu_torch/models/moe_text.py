@@ -37,15 +37,23 @@ Only the real tokens are computed: the host knows the lengths, so it lays
 out where they lie once (one copy, no wait on the card) and every layer
 works on the packed [tokens, hidden] rows; attention alone scatters them
 back into [B, L] for its products. A routed layer sorts its (token,
-expert) pairs by expert, reads the experts' sizes back to the host (the
-one wait a layer) and runs each expert's products on its slice of the
-rows, from stacked expert weights ([E, width, hidden]) used in place.
+expert) pairs by expert and counts them on the card; the experts' row
+offsets are the counts' exclusive cumulative sum, and the grouped SwiGLU
+(``ops/grouped_swiglu.py``) runs every expert's products from those
+offsets and the stacked expert weights ([E, width, hidden]) in place,
+writing each pair's output, scaled by its weight, to its (token, slot)
+place, and a token's k outputs are added in a fixed order. The shared
+experts and the dense layer's SwiGLU are the same kernels on one group of
+every row. Nothing in a layer waits on the card.
 
 Spans (``utils/profiling.annotate``): ``lm.attn`` (the norm and MLA),
-``lm.route`` (the norm, the router, the sort and gather for dispatch),
-``lm.ffn`` (layer 0's SwiGLU; the routed experts' products and weighted
-combine, the shared experts). ``counters()`` gives the routed (token,
-expert) pairs by layer and expert, added on the card at every call.
+``lm.route`` (the norm, the router, the sort, counts and gather for
+dispatch), ``lm.ffn`` (layer 0's SwiGLU; the offsets, the routed experts'
+products and combine, the shared experts). ``counters()`` gives the
+routed (token, expert) pairs by layer and expert and the rows the grouped
+SwiGLU's kernels computed for them by layer (each expert's rounded up to
+whole row tiles; none on the CPU, where no kernel runs), added on the card
+at every call.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.grouped_swiglu import grouped_swiglu
 from ..utils.profiling import annotate, register_counters
 
 __all__ = ["MoETextConfig", "MoETextEncoder"]
@@ -139,7 +148,8 @@ class _SwiGLU(nn.Module):
         self.down_proj = _linear(width, d)
 
     def forward(self, y):
-        return self.down_proj(F.silu(self.gate_proj(y)) * self.up_proj(y))
+        return grouped_swiglu(y, self.gate_proj.weight[None], self.up_proj.weight[None],
+                              self.down_proj.weight[None])
 
 
 class _Packing:
@@ -239,9 +249,10 @@ class _MoE(nn.Module):
         self.shared_experts = _SwiGLU(d, width * cfg.n_shared_experts)
 
     def route(self, y: torch.Tensor, load: torch.Tensor):
-        """The top experts [T, k] of each row and their weights, the rows
-        sorted by expert for dispatch, and each expert's row count (on the
-        host). Adds the counts to ``load`` on the card."""
+        """The top experts [T, k] of each row and their weights, the order
+        that sorts the (token, slot) pairs by expert, the rows sorted by
+        expert for dispatch and each expert's row count, all on the card.
+        Adds the counts to ``load`` on the card."""
         c, k = self.cfg, self.cfg.num_experts_per_tok
         s = torch.sigmoid(F.linear(y, self.gate.weight))
         top = torch.topk(s + self.gate.e_score_correction_bias, k, dim=-1).indices
@@ -252,19 +263,22 @@ class _MoE(nn.Module):
         # counted by a scatter: bincount reads its input's range back to the host
         counts = torch.zeros_like(load).index_add_(0, pairs, torch.ones_like(pairs))
         load += counts
-        return top, w, order, y.index_select(0, order // k), counts.tolist()
+        return top, w, order, y.index_select(0, order // k), counts
 
-    def compute(self, y, w, order, rows, sizes) -> torch.Tensor:
+    def compute(self, y, w, order, rows, counts, tile_rows=None) -> torch.Tensor:
+        """Each pair's expert output, scaled by its weight, at its (token,
+        slot) place; a token's k of them summed (no atomics: a fixed
+        order), then the shared experts' output. The experts' offsets are
+        the exclusive cumulative sum of ``counts`` (a tensor or a list),
+        taken where the rows are; the grouped SwiGLU adds the rows it
+        computes to ``tile_rows``."""
         ex = self.experts
-        outs = []
-        for e, x in enumerate(rows.split(sizes)):
-            if x.shape[0]:
-                h = F.silu(F.linear(x, ex.gate_proj[e])) * F.linear(x, ex.up_proj[e])
-                outs.append(F.linear(h, ex.down_proj[e]))
-        routed = torch.empty_like(rows).index_copy_(0, order, torch.cat(outs))
+        counts = torch.as_tensor(counts, device=rows.device)
+        offsets = F.pad(counts.cumsum(0), (1, 0))
+        routed = grouped_swiglu(rows, ex.gate_proj, ex.up_proj, ex.down_proj, offsets,
+                                dest=order, scale=w.reshape(-1), tile_rows=tile_rows)
         t, k = w.shape
-        mixed = torch.bmm(w[:, None, :], routed.view(t, k, -1)).squeeze(1)
-        return mixed + self.shared_experts(y)
+        return routed.view(t, k, -1).sum(1) + self.shared_experts(y)
 
 
 class _Layer(nn.Module):
@@ -276,17 +290,23 @@ class _Layer(nn.Module):
         self.mlp = _SwiGLU(cfg.hidden_size, cfg.intermediate_size) if dense else _MoE(cfg)
         self.dense = dense
 
-    def forward(self, x, pack, cos, sin, causal, load):
+    def forward(self, x, pack, cos, sin, causal, load=None, tile_rows=None):
         with annotate("lm.attn"):
             x = x + self.self_attn(self.input_layernorm(x), pack, cos, sin, causal)
+        return self.feed_forward(x, load, tile_rows)
+
+    def feed_forward(self, x, load=None, tile_rows=None):
+        """x plus the layer's SwiGLU (dense) or experts (routed, counting
+        into ``load`` and ``tile_rows``), and the experts chosen (None when
+        dense)."""
         if self.dense:
             with annotate("lm.ffn"):
                 return x + self.mlp(self.post_attention_layernorm(x)), None
         with annotate("lm.route"):
             y = self.post_attention_layernorm(x)
-            top, w, order, rows, sizes = self.mlp.route(y, load)
+            top, w, order, rows, counts = self.mlp.route(y, load)
         with annotate("lm.ffn"):
-            return x + self.mlp.compute(y, w, order, rows, sizes), top
+            return x + self.mlp.compute(y, w, order, rows, counts, tile_rows), top
 
 
 class MoETextEncoder(nn.Module):
@@ -297,7 +317,10 @@ class MoETextEncoder(nn.Module):
     ``forward(..., return_routing=True)`` also gives the experts chosen,
     uint8 [routed layers, real tokens, k], tokens in sentence order.
     ``counters()`` gives ``expert_load``, the (token, expert) pairs routed
-    by layer and expert since construction."""
+    by layer and expert since construction, and ``ffn_tile_rows``, the
+    rows the grouped SwiGLU's kernels computed for them by layer
+    (``expert_load`` plus the padding of each expert's last row tile; it
+    stays 0 on the CPU, where no kernel runs)."""
 
     def __init__(self, cfg: Optional[MoETextConfig] = None):
         super().__init__()
@@ -308,12 +331,15 @@ class MoETextEncoder(nn.Module):
         self.norm = _RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.adapter = nn.Linear(cfg.hidden_size, cfg.out_dim)
         # made at the first call on the weights' device: RoPE's frequencies,
-        # and the counts [routed layers, E] int64
-        self.inv_freq = self.load = None
+        # the counts [routed layers, E] and the computed rows [routed layers],
+        # int64
+        self.inv_freq = self.load = self.tile_rows = None
         register_counters("moe_text", self)
 
     def counters(self):
-        return {} if self.load is None else {"expert_load": self.load.tolist()}
+        if self.load is None:
+            return {}
+        return {"expert_load": self.load.tolist(), "ffn_tile_rows": self.tile_rows.tolist()}
 
     def forward(self, ids: torch.Tensor, lengths, return_routing: bool = False):
         c = self.cfg
@@ -326,6 +352,7 @@ class MoETextEncoder(nn.Module):
         if self.load is None or self.load.device != dev:
             self.load = torch.zeros(c.n_moe_layers, c.n_routed_experts, dtype=torch.long,
                                     device=dev)
+            self.tile_rows = torch.zeros(c.n_moe_layers, dtype=torch.long, device=dev)
             self.inv_freq = rope_inv_freq(c.qk_rope_head_dim, c.rope_theta).to(dev)
         pack = _Packing(ids, lengths, dev)
         x = self.embed_tokens(pack.ids)
@@ -335,8 +362,9 @@ class MoETextEncoder(nn.Module):
         causal = torch.full((n, n), float("-inf"), device=dev).triu(1)
         routes = []
         for i, layer in enumerate(self.layers):
-            x, top = layer(x, pack, cos, sin, causal,
-                           None if layer.dense else self.load[i - c.first_k_dense_replace])
+            j = i - c.first_k_dense_replace
+            counts = () if layer.dense else (self.load[j], self.tile_rows[j])
+            x, top = layer(x, pack, cos, sin, causal, *counts)
             if return_routing and top is not None:
                 routes.append(top.to(torch.uint8))
         z = self.adapter(self.norm(x.index_select(0, pack.last)))

@@ -1471,3 +1471,191 @@ def test_two_shard_loader_delivers_the_cpu_bits(cuda_device, resident):
                 assert shards[0]["sentence"] + shards[1]["sentence"] == b["sentence"]
             n += 1
     torch.cuda.synchronize()
+
+
+# --- the grouped SwiGLU (ops/grouped_swiglu.py, csrc/grouped_swiglu.cu) at
+# the Moonlight cell's shapes: a routed layer of ~41.4k (token, expert) rows
+# over 64 experts of width 1,408 at hidden 2,048, the shared group (2,816)
+# and the dense group (11,264) over ~6.9k tokens.
+#
+# Tolerance 2e-5 of max|plain| (TF32 off on the plain side): the kernels sum
+# K = 2,048 and then 1,408 to 11,264 products in 32-k stages in another
+# order than cuBLAS, and 3xTF32 leaves out lo.lo, below 2^-21 of each
+# product.
+GROUPED_TOL = 2e-5
+
+
+def _expert_counts(case, total=41_400, groups=64, seed=21):
+    """Rows a routed expert: skewed (the busiest 1.7x the mean, as the
+    cell's routing, ``chip_smoke.skewed_counts``); the same with an empty,
+    a one-row and a 3-tiles-and-one-row expert first; with experts at the
+    edges of the kernels' bands of 8 row tiles (8 tiles, 8 and a row, 16
+    and 127 rows: the walk's second and third bands); or every row in one
+    expert."""
+    from chip_smoke import skewed_counts
+
+    if case == "one_expert":
+        counts = torch.zeros(groups, dtype=torch.long)
+        counts[17] = total
+        return counts
+    first = {"skewed": (), "ragged_edges": (0, 1, 3 * 128 + 1),
+             "band_edges": (8 * 128, 8 * 128 + 1, 16 * 128 + 127)}[case]
+    return skewed_counts(total, groups, 1.7, seed, first=first)
+
+
+def _grouped_case(device, counts, width, hidden=2048, seed=22):
+    g = torch.Generator(device=device).manual_seed(seed)
+    groups, rows = counts.numel(), int(counts.sum())
+    x = torch.randn(rows, hidden, device=device, generator=g)
+    wg = torch.randn(groups, width, hidden, device=device, generator=g) * hidden ** -0.5
+    wu = torch.randn(groups, width, hidden, device=device, generator=g) * hidden ** -0.5
+    wd = torch.randn(groups, hidden, width, device=device, generator=g) * width ** -0.5
+    return x, wg, wu, wd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["skewed", "ragged_edges", "band_edges", "one_expert"])
+def test_grouped_swiglu_matches_plain_at_the_cell_shapes(cuda_device, case):
+    """A routed layer: every expert's rows, each written scaled to its
+    destination, against the plain version; the cases walk the kernels'
+    tiles over ragged groups and across their bands. ``tile_rows`` gains
+    each expert's rows in whole row tiles."""
+    from livelyspeaker_tpu_torch.ops import grouped_swiglu as gs
+
+    counts = _expert_counts(case).to(cuda_device)
+    x, wg, wu, wd = _grouped_case(cuda_device, counts, 1408)
+    offsets = torch.nn.functional.pad(counts.cumsum(0), (1, 0))
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    dest = torch.randperm(x.shape[0], device=cuda_device, generator=g)
+    scale = torch.rand(x.shape[0], device=cuda_device, generator=g) + 0.5
+    launches = gs.grouped_swiglu.launches
+    tile_rows = torch.zeros((), dtype=torch.long, device=cuda_device)
+    out = gs.grouped_swiglu(x, wg, wu, wd, offsets, dest=dest, scale=scale, tile_rows=tile_rows)
+    ref = gs.grouped_swiglu_reference(x, wg, wu, wd, offsets, dest=dest, scale=scale)
+    torch.cuda.synchronize()
+    assert gs.grouped_swiglu.launches == launches + 2
+    bm = gs.tiling().rows
+    assert int(tile_rows) == sum(-(-n // bm) * bm for n in counts.tolist())
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= GROUPED_TOL, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2816, 11264], ids=["shared", "dense"])
+def test_grouped_swiglu_one_group_matches_plain(cuda_device, width):
+    from livelyspeaker_tpu_torch.ops import grouped_swiglu as gs
+
+    x, wg, wu, wd = _grouped_case(cuda_device, torch.tensor([6_900]), width)
+    out = gs.grouped_swiglu(x, wg, wu, wd)
+    ref = gs.grouped_swiglu_reference(x, wg, wu, wd)
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= GROUPED_TOL, rel
+
+
+@pytest.mark.cuda
+def test_grouped_swiglu_repeat_gives_same_bits(cuda_device):
+    from livelyspeaker_tpu_torch.ops import grouped_swiglu as gs
+
+    counts = _expert_counts("ragged_edges").to(cuda_device)
+    x, wg, wu, wd = _grouped_case(cuda_device, counts, 1408)
+    offsets = torch.nn.functional.pad(counts.cumsum(0), (1, 0))
+    dest = torch.arange(x.shape[0], device=cuda_device).flip(0)
+    scale = torch.linspace(0.5, 2.0, x.shape[0], device=cuda_device)
+    first = gs.grouped_swiglu(x, wg, wu, wd, offsets, dest=dest, scale=scale)
+    again = gs.grouped_swiglu(x, wg, wu, wd, offsets, dest=dest, scale=scale)
+    assert torch.equal(first, again)
+
+
+def _small_tower(device):
+    """Moonlight's layer at kernel-legal small widths: hidden 256, 8
+    experts of 128, 2 chosen, 1 shared, the first of 3 layers dense."""
+    from livelyspeaker_tpu_torch.models import MoETextConfig, MoETextEncoder
+
+    cfg = MoETextConfig(vocab_size=1000, hidden_size=256, num_hidden_layers=3,
+                        num_attention_heads=4, kv_lora_rank=64, qk_nope_head_dim=32,
+                        qk_rope_head_dim=16, v_head_dim=32, intermediate_size=512,
+                        moe_intermediate_size=128, n_routed_experts=8, num_experts_per_tok=2,
+                        n_shared_experts=1, out_dim=32)
+    torch.manual_seed(24)
+    tower = MoETextEncoder(cfg).eval()
+    lengths = [37, 5, 120, 64]
+    ids = torch.randint(0, cfg.vocab_size, (len(lengths), max(lengths)),
+                        generator=torch.Generator().manual_seed(25))
+    return tower, ids, lengths
+
+
+@pytest.mark.cuda
+def test_tower_launches_every_swiglu_on_the_card(cuda_device):
+    """One tower call: the dense SwiGLU, each routed layer's experts and
+    its shared experts, two launches each; the features as the same tower's
+    plain version on the CPU gives them (2e-5 of max|z|: the kernels' sums
+    in another order, through three layers)."""
+    from livelyspeaker_tpu_torch.ops import grouped_swiglu as gs
+
+    tower, ids, lengths = _small_tower(cuda_device)
+    with torch.no_grad():
+        want = tower(ids, lengths)
+        tower.to(cuda_device)
+        launches = gs.grouped_swiglu.launches
+        z = tower(ids, lengths)
+    torch.cuda.synchronize()
+    assert gs.grouped_swiglu.launches - launches == 2 * (1 + 2 * 2)
+    rel = ((z.cpu() - want).abs().max() / want.abs().max()).item()
+    assert rel <= GROUPED_TOL, rel
+    # the routed rows the kernels computed: each expert's pairs in whole row tiles
+    bm = gs.tiling().rows
+    assert tower.tile_rows.tolist() == ((tower.load + bm - 1) // bm * bm).sum(1).tolist()
+    assert tower.tile_rows.sum() > tower.load.sum()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 4])
+def test_grouped_swiglu_launches_nothing_for_no_rows(cuda_device, groups):
+    """No rows: an empty result, no launch and nothing added to
+    ``tile_rows``."""
+    from livelyspeaker_tpu_torch.ops import grouped_swiglu as gs
+
+    _, wg, wu, wd = _grouped_case(cuda_device, torch.zeros(groups, dtype=torch.long), 128,
+                                  hidden=256)
+    x = torch.empty(0, 256, device=cuda_device)
+    offsets = torch.zeros(groups + 1, dtype=torch.long, device=cuda_device) if groups > 1 else None
+    tile_rows = torch.zeros((), dtype=torch.long, device=cuda_device)
+    launches = gs.grouped_swiglu.launches
+    out = gs.grouped_swiglu(x, wg, wu, wd, offsets, tile_rows=tile_rows)
+    assert out.shape == (0, 256) and gs.grouped_swiglu.launches == launches
+    assert int(tile_rows) == 0
+
+
+@pytest.mark.cuda
+def test_routed_layer_waits_on_nothing(cuda_device):
+    """A routed layer's ``lm.route`` and ``lm.ffn`` under
+    ``set_sync_debug_mode("error")``: no call waits on the card."""
+    tower, ids, lengths = _small_tower(cuda_device)
+    tower.to(cuda_device)
+    with torch.no_grad():
+        tower(ids, lengths)  # makes the counters and RoPE's table
+        x = torch.randn(sum(lengths), 256, device=cuda_device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, top = tower.layers[1].feed_forward(x, tower.load[0], tower.tile_rows[0])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert out.shape == x.shape and top.shape == (sum(lengths), 2)
+
+
+@pytest.mark.cuda
+def test_grouped_swiglu_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    from livelyspeaker_tpu_torch.ops import grouped_swiglu as gs
+
+    x, wg, wu, wd = _grouped_case(cuda_device, torch.tensor([10, 20]), 128, hidden=256)
+    offsets = torch.tensor([0, 10, 30], device=cuda_device)
+    with pytest.raises(ValueError, match="offsets"):
+        gs.grouped_swiglu(x, wg, wu, wd)
+    with pytest.raises(TypeError, match="int64"):
+        gs.grouped_swiglu(x, wg, wu, wd, offsets.int())
+    with pytest.raises(ValueError, match="contiguous"):
+        gs.grouped_swiglu(x, wg.transpose(1, 2).contiguous().transpose(1, 2), wu, wd, offsets)
+    narrow = _grouped_case(cuda_device, torch.tensor([30]), 96, hidden=256)
+    with pytest.raises(ValueError, match="multiple"):
+        gs.grouped_swiglu(*narrow)

@@ -7,10 +7,14 @@ benchmark's own rule (``benchmark/weights_lm.py``) and taken in place by a
 module built on the meta device, as the benchmark's cell does.
 
 Features with the reference's own routing and with the port's routing
-forced on it; a sentence alone and in a padded batch; the routing weights;
-the expert-load counters; the pipeline's sketch from this tower against
-``reference.text.sag_decode``; its spans; the refusal on a mesh; the
-checkpoint name map.
+forced on it; a sentence alone and in a padded batch; the routing weights
+and the experts' counts; the expert-load and tile-row counters; the
+experts' products from counts as a tensor or a list; the grouped SwiGLU's
+plain version (``ops/grouped_swiglu.py``) against the per-expert loop it
+replaced, with an empty expert, one expert holding every row, single-row
+groups, ragged groups, no rows, and the shared and dense groups; the
+pipeline's sketch from this tower against ``reference.text.sag_decode``;
+its spans; the refusal on a mesh; the checkpoint name map.
 """
 
 import dataclasses
@@ -25,6 +29,7 @@ from benchmark.reference import text as ref_text
 from benchmark.weights import seeded_tensors, shapes_of
 from benchmark.weights_lm import seeded_tensors as seeded_lm
 from livelyspeaker_tpu_torch.models import SAG, RAG, MoETextConfig, MoETextEncoder, RAGConfig
+from livelyspeaker_tpu_torch.ops import grouped_swiglu as grouped
 from livelyspeaker_tpu_torch.parallel import create_mesh
 from livelyspeaker_tpu_torch.pipeline import LivelySpeakerPipeline
 from livelyspeaker_tpu_torch.utils import profiling
@@ -131,11 +136,13 @@ def test_chosen_weights_sum_to_the_scaling_factor():
     moe = tower.layers[1].mlp
     y = torch.randn(40, CFG.hidden_size, generator=torch.Generator().manual_seed(3))
     load = torch.zeros(CFG.n_routed_experts, dtype=torch.long)
-    top, w, order, rows, sizes = moe.route(y, load)
+    top, w, order, rows, counts = moe.route(y, load)
     assert torch.allclose(w.sum(-1), torch.full((40,), CFG.routed_scaling_factor),
                           rtol=1e-6, atol=0)
     assert (w > 0).all() and top.shape == (40, CFG.num_experts_per_tok)
-    assert sizes == load.tolist() and sum(sizes) == 40 * CFG.num_experts_per_tok
+    # the experts' sizes stay a tensor where the rows are: no read to the host
+    assert isinstance(counts, torch.Tensor) and counts.device == y.device
+    assert counts.tolist() == load.tolist() and int(counts.sum()) == 40 * CFG.num_experts_per_tok
     # the rows are y's, sorted by expert
     expert = top.reshape(-1)[order]
     assert (expert[1:] >= expert[:-1]).all()
@@ -151,6 +158,166 @@ def test_counters_count_each_real_token_k_times_a_layer():
     load = np.array(profiling.counters()["moe_text"]["expert_load"]) - before
     assert load.shape == (CFG.n_moe_layers, CFG.n_routed_experts)
     assert (load.sum(1) == sum(LENGTHS) * CFG.num_experts_per_tok).all()
+
+
+def test_ffn_tile_rows_counts_each_experts_padded_rows():
+    """A fresh tower's ``ffn_tile_rows`` after one call, one entry a routed
+    layer: the rows the grouped SwiGLU's kernels computed. On the CPU the
+    plain version runs and no kernel computes a padded row, so every entry
+    stays 0 beside the pairs routed (``benchmark/metrics/ffn_pad.py`` then
+    reads nothing); on the card ``tests/test_torch_cuda.py`` holds it to
+    ``expert_load`` rounded up to whole row tiles."""
+    tower, _ = _tower()
+    tower(_ids(), LENGTHS)
+    got = profiling.counters()["moe_text"]
+    assert len(got["ffn_tile_rows"]) == len(got["expert_load"]) == CFG.n_moe_layers
+    assert got["ffn_tile_rows"] == [0] * CFG.n_moe_layers
+    assert all(sum(layer) > 0 for layer in got["expert_load"])
+
+
+@pytest.mark.parametrize("as_list", [False, True], ids=["tensor", "list"])
+def test_compute_takes_the_counts_as_a_tensor_or_a_list(as_list):
+    """``_MoE.compute`` from ``route``'s output, the counts as ``route``
+    leaves them (a tensor) or read to the host, against the per-expert loop
+    plus the shared experts."""
+    tower, _ = _tower()
+    moe = tower.layers[1].mlp
+    y = torch.randn(30, CFG.hidden_size, generator=torch.Generator().manual_seed(4))
+    load = torch.zeros(CFG.n_routed_experts, dtype=torch.long)
+    with torch.no_grad():
+        top, w, order, rows, counts = moe.route(y, load)
+        got = moe.compute(y, w, order, rows, counts.tolist() if as_list else counts)
+        ex = moe.experts
+        want = (_per_expert_loop(y, top, w, ex.gate_proj, ex.up_proj, ex.down_proj)
+                + moe.shared_experts(y))
+    assert _rel(got, want) < 1e-6
+
+
+# --- the grouped SwiGLU's plain version (ops/grouped_swiglu.py) against the
+# per-expert loop it replaces, and the kernels' arithmetic emulated
+
+def _routing(case):
+    """(tokens, top [T, k]) of a routing over 8 experts that gives the case's
+    groups."""
+    g = torch.Generator().manual_seed(11)
+    if case == "an_empty_expert":  # expert 3 is never chosen
+        top = torch.stack([torch.randperm(7, generator=g)[:2] for _ in range(50)])
+        return top + (top >= 3).long()
+    if case == "one_expert_holds_every_row":
+        return torch.full((40, 1), 5)
+    if case == "single_row_groups":
+        return torch.randperm(8, generator=g)[:, None]
+    # ragged: 1, 129, 255, 0, 300, 2, 127, 0 rows, none a whole number of tiles
+    sizes = [1, 129, 255, 0, 300, 2, 127, 0]
+    pairs = torch.cat([torch.full((n,), e) for e, n in enumerate(sizes)])
+    return pairs[torch.randperm(pairs.numel(), generator=g)].view(-1, 2)
+
+
+def _per_expert_loop(x, top, w, wg, wu, wd):
+    """The tower's dispatch before the grouped kernels: the sizes on the
+    host, three products an expert, the weighted combine by bmm."""
+    t, k = top.shape
+    order = torch.argsort(top.reshape(-1), stable=True)
+    rows = x.index_select(0, order // k)
+    sizes = torch.bincount(top.reshape(-1), minlength=wg.shape[0]).tolist()
+    outs = []
+    for e, r in enumerate(rows.split(sizes)):
+        if r.shape[0]:
+            h = torch.nn.functional.silu(r @ wg[e].T) * (r @ wu[e].T)
+            outs.append(h @ wd[e].T)
+    routed = torch.empty_like(rows).index_copy_(0, order, torch.cat(outs))
+    return torch.bmm(w[:, None, :], routed.view(t, k, -1)).squeeze(1)
+
+
+def _swiglu_weights(groups, n, k=16, seed=12):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(groups, n, k, generator=g) * k ** -0.5,
+            torch.randn(groups, n, k, generator=g) * k ** -0.5,
+            torch.randn(groups, k, n, generator=g) * n ** -0.5)
+
+
+@pytest.mark.parametrize("case", ["an_empty_expert", "one_expert_holds_every_row",
+                                  "single_row_groups", "ragged"])
+def test_grouped_plain_matches_the_per_expert_loop(case):
+    top = _routing(case)
+    t, k = top.shape
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(t, 16, generator=g)
+    w = torch.rand(t, k, generator=g) + 0.1
+    wg, wu, wd = _swiglu_weights(8, 24)
+    want = _per_expert_loop(x, top, w, wg, wu, wd)
+    order = torch.argsort(top.reshape(-1), stable=True)
+    counts = torch.bincount(top.reshape(-1), minlength=8)
+    offsets = torch.nn.functional.pad(counts.cumsum(0), (1, 0))
+    got = grouped.grouped_swiglu(x.index_select(0, order // k), wg, wu, wd, offsets,
+                                 dest=order, scale=w.reshape(-1))
+    assert got.shape == (t * k, 16)
+    assert _rel(got.view(t, k, -1).sum(1), want) < 1e-6
+
+
+@pytest.mark.parametrize("width", [24, 88], ids=["shared_group", "dense_group"])
+def test_grouped_plain_one_group_matches_the_swiglu(width):
+    g = torch.Generator().manual_seed(14)
+    x = torch.randn(37, 16, generator=g)
+    wg, wu, wd = _swiglu_weights(1, width)
+    want = (torch.nn.functional.silu(x @ wg[0].T) * (x @ wu[0].T)) @ wd[0].T
+    assert _rel(grouped.grouped_swiglu(x, wg, wu, wd), want) < 1e-6
+
+
+def test_grouped_plain_refuses_offsets_that_do_not_split_the_rows():
+    wg, wu, wd = _swiglu_weights(2, 24)
+    x = torch.zeros(10, 16)
+    for ends in ([0, 4, 9], [1, 4, 10], [0, 11, 10]):
+        with pytest.raises(ValueError, match="do not split"):
+            grouped.grouped_swiglu(x, wg, wu, wd, torch.tensor(ends))
+
+
+def _tf32(x):
+    """x rounded to TF32 as csrc/tf32_mma.cuh's to_tf32 rounds it (to
+    nearest, ties away from zero)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _emulated_product(x, w, passes):
+    """x @ w^T as the grouped kernels' wgmma take it: with three passes each
+    operand is split, v = hi + lo, hi = tf32(v), lo = tf32(v - hi), and each
+    stage of 32 k sums lo.hi + hi.lo + hi.hi (lo.lo left out), added into
+    the running f32 sum; with one, each stage of tf32(x) tf32(w)^T."""
+    xh, wh = _tf32(x), _tf32(w)
+    xl, wl = _tf32(x - xh), _tf32(w - wh)
+    run = torch.zeros(x.shape[0], w.shape[0])
+    for k0 in range(0, x.shape[1], 32):
+        k = slice(k0, k0 + 32)
+        stage = xh[:, k] @ wh[:, k].T
+        if passes == 3:
+            stage = stage + (xl[:, k] @ wh[:, k].T + xh[:, k] @ wl[:, k].T)
+        run = run + stage
+    return run
+
+
+@pytest.mark.parametrize("passes,within", [(3, 1e-6), (1, None)])
+def test_grouped_kernels_arithmetic_holds_f32_accuracy(passes, within):
+    """The kernels' 3xTF32 SwiGLU, emulated, at the routed experts' widths
+    (hidden 2,048, width 1,408): within 1e-6 of the f64 SwiGLU, as f32 is;
+    one TF32 pass is not (some 3e-4 off)."""
+    g = torch.Generator().manual_seed(15)
+    x = torch.randn(48, 2048, generator=g)
+    wg, wu, wd = (t[0] for t in _swiglu_weights(1, 1408, k=2048, seed=16))
+    h = torch.nn.functional.silu(_emulated_product(x, wg, passes)) * _emulated_product(x, wu, passes)
+    got = _emulated_product(h, wd, passes)
+    xd = x.double()
+    want = (torch.nn.functional.silu(xd @ wg.double().T) * (xd @ wu.double().T)) @ wd.double().T
+    rel = _rel(got.double(), want)
+    assert rel < within if within else rel > 1e-4
+
+
+@pytest.mark.parametrize("groups", [1, 8])
+def test_grouped_plain_takes_no_rows(groups):
+    """No rows (every group empty): an empty result of the rows' width."""
+    wg, wu, wd = _swiglu_weights(groups, 24)
+    offsets = torch.zeros(groups + 1, dtype=torch.long) if groups > 1 else None
+    got = grouped.grouped_swiglu(torch.zeros(0, 16), wg, wu, wd, offsets)
+    assert got.shape == (0, 16)
 
 
 class _Tokens:
